@@ -1,0 +1,104 @@
+"""Single-image inference (the port of `gedepth_tpu.apis.inference`).
+
+  handle = init_depther("gedepth_adaptive_kitti_tpu", device="cuda",
+                        pe_raw=pe)
+  depth = inference_depther(handle, rgb)   # (352, 1216) metres, numpy
+
+A raw image goes through the KITTI test pipeline (KB crop, normalisation),
+then the eval step: forward, clamp to [min_depth, max_depth], resize to the
+input size with align_corners=True, and with flip-TTA the mean of the
+prediction and the un-flipped prediction of the mirrored image
+(`gedepth_tpu.train.steps.make_eval_step` at ratio 1.0).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Union
+
+import numpy as np
+import torch
+
+from gedepth_tpu_torch.configs import get_config
+from gedepth_tpu_torch.data.transforms import build_test_pipeline
+from gedepth_tpu_torch.geometry.plane import clip_pe_for_input
+from gedepth_tpu_torch.ops.resize import resize_bilinear
+
+
+def make_eval_step(model, flip_tta: bool = True):
+    """eval_step(img (B, H, W, 5), cam_height (B,)) -> (B, H, W) depth."""
+
+    @torch.inference_mode()
+    def eval_step(img, cam_height=None):
+        base_hw = img.shape[1:3]
+
+        def run(im):
+            d = model(im, cam_height)["depth"].float()
+            d = d.clamp(model.min_depth, model.max_depth)
+            return resize_bilinear(d, base_hw, align_corners=True)
+
+        pred = run(img)
+        if flip_tta:
+            pred = 0.5 * (pred + run(img.flip(2)).flip(2))
+        return pred[..., 0]
+
+    return eval_step
+
+
+@dataclasses.dataclass
+class DeptherHandle:
+    cfg: object
+    model: object
+    eval_step: object
+    pipeline: object
+    device: torch.device
+    pe_raw: Optional[np.ndarray] = None
+
+
+def init_depther(config: Union[str, object], device="cuda",
+                 flip_tta: Optional[bool] = None,
+                 pe_raw: Optional[np.ndarray] = None, seed: int = 0,
+                 state_dict: Optional[dict] = None) -> DeptherHandle:
+    """Build a model and its eval step for single-image inference.
+
+    The weights are the port's seeded random initialisation, or
+    `state_dict` (e.g. `convert.state_dict_from_flax`) loaded strictly.
+    pe_raw: the camera's raw plane embedding at the raw image size, needed
+    when feeding 3-channel images.
+    """
+    cfg = get_config(config) if isinstance(config, str) else config
+    device = torch.device(device)
+    model = cfg.model.build(generator=torch.Generator().manual_seed(seed))
+    if state_dict is not None:
+        model.load_state_dict(state_dict, strict=True)
+    model.to(device)
+    flip = cfg.data.eval_flip_tta if flip_tta is None else flip_tta
+    if pe_raw is not None:
+        pe_raw = np.asarray(pe_raw, dtype=np.float32)
+    return DeptherHandle(cfg, model, make_eval_step(model, flip_tta=flip),
+                         build_test_pipeline(cfg.data), device, pe_raw)
+
+
+def inference_depther(handle: DeptherHandle, image: np.ndarray,
+                      cam_height: Optional[float] = None) -> np.ndarray:
+    """Depth of one image, (H, W, 3) RGB in 0..255 or an (H, W, 5) sample
+    image; returns an (H', W') depth map at the eval resolution."""
+    image = np.asarray(image, dtype=np.float32)
+    cfg = handle.cfg
+    sample = {"img": image,
+              "cam_height": np.float32(cam_height if cam_height is not None
+                                       else cfg.model.default_cam_height)}
+    if image.shape[-1] != 5:
+        if handle.pe_raw is None:
+            raise ValueError("PE variant needs a plane embedding: pass "
+                             "pe_raw to init_depther or a 5-channel image")
+        if handle.pe_raw.shape != image.shape[:2]:
+            raise ValueError(f"pe shape {handle.pe_raw.shape} != image "
+                             f"{image.shape[:2]}")
+        pe_in = clip_pe_for_input(handle.pe_raw, cfg.model.depth_scale)
+        sample["img"] = np.concatenate(
+            [image, pe_in[..., None], handle.pe_raw[..., None]], axis=-1)
+    sample = handle.pipeline(sample)
+    img = torch.from_numpy(np.ascontiguousarray(sample["img"][None])).to(
+        handle.device)
+    ch = torch.tensor([sample["cam_height"]], device=handle.device)
+    return handle.eval_step(img, ch)[0].cpu().numpy()

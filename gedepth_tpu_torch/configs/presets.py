@@ -1,0 +1,39 @@
+"""Named presets of the serving slice (values as in `gedepth_tpu.configs`)."""
+from __future__ import annotations
+
+import dataclasses
+
+from gedepth_tpu_torch.configs.base import (
+    DataConfig, ExperimentConfig, ModelConfig)
+
+_PRESETS = {
+    # GEDepth-Adaptive Swin-L with the windowed deformable-attention neck
+    # and HI self-attention queries from transformer level 1 on
+    "gedepth_adaptive_kitti_tpu": lambda: ExperimentConfig(
+        name="gedepth_adaptive_kitti_tpu",
+        model=ModelConfig(pe_variant="adaptive", neck_sampling="windowed",
+                          neck_hi_min_level=1),
+        data=DataConfig()),
+    # Swin-T-sized smoke config on synthetic data (tests)
+    "smoke_synthetic": lambda: ExperimentConfig(
+        name="smoke_synthetic",
+        model=ModelConfig(
+            embed_dims=48, depths=(1, 1, 2, 1), num_heads=(2, 4, 8, 16),
+            neck_channels=(64, 48, 96, 192, 384), neck_embed_dim=128,
+            neck_num_points=4, drop_path_rate=0.1, pe_variant="adaptive"),
+        data=DataConfig(dataset="synthetic", eval_size=(96, 192))),
+}
+
+
+def list_configs():
+    return sorted(_PRESETS)
+
+
+def get_config(name: str, **overrides) -> ExperimentConfig:
+    if name not in _PRESETS:
+        raise KeyError(
+            f"unknown config {name!r}; available: {', '.join(list_configs())}")
+    cfg = _PRESETS[name]()
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+    return cfg

@@ -1,0 +1,106 @@
+"""Build and bind the port's CUDA kernels.
+
+Every `gedepth_tpu_torch/csrc/*.cu` is compiled by `nvcc` on first use into
+one shared library with a plain C interface, loaded through `ctypes`. The
+library lands in `gedepth_tpu_torch/_build/` (git-ignored) under a name that
+carries a hash of the sources and flags, so an edited source rebuilds and an
+unchanged one loads as it is. Nothing here runs at import time: the CPU
+tests import every module of the port on machines without `nvcc`.
+
+Each C entry point launches on the stream it is given, allocates nothing,
+and returns `cudaGetLastError()` after the launch; `call` raises when it is
+not 0.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C signatures: pointers and the stream as void*, sizes as int
+_SIGNATURES = {
+    "window_attention_fwd": [_P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _P],
+    "msda_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "pe_fusion_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P],
+}
+
+_lib = None
+build_seconds = None  # wall time of the build (or load) done by `load()`
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (set CUDA_HOME or put nvcc on PATH)")
+    return path
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libgedepth_kernels_{h.hexdigest()[:16]}.so"
+
+
+def load():
+    """Build (if needed) and load the kernel library; idempotent."""
+    global _lib, build_seconds
+    if _lib is not None:
+        return _lib
+    t0 = time.perf_counter()
+    path = library_path()
+    if not path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        cu = [str(s) for s in sorted(CSRC.glob("*.cu"))]
+        # build to a private name, then rename: concurrent builders never
+        # see a half-written library
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        try:
+            proc = subprocess.run(
+                [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
+                capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+            os.replace(tmp, path)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    _lib = lib
+    build_seconds = time.perf_counter() - t0
+    return lib
+
+
+def call(name: str, *args) -> None:
+    """Launch C entry point `name` on torch's current CUDA stream."""
+    import torch
+
+    stream = torch.cuda.current_stream().cuda_stream
+    err = getattr(load(), name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
