@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path once on one NVIDIA GPU.
+"""Drive the PyTorch port's serving and training paths once on one NVIDIA
+GPU.
 
     python3 chip_smoke.py
 
@@ -16,8 +17,27 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      every depth map (352, 1216), finite and inside [min_depth, max_depth],
      and every kernel's launch count above 0 for this phase;
   5. whole forward: `GEDepth` on one request with the kernels and with the
-     plain versions, depth held to rtol 1e-3, atol 1e-3 m.
-Then the kernels as one JSON line, and last the device as one JSON line.
+     plain versions, depth held to rtol 1e-3, atol 1e-3 m;
+  6. kernel C: the deformable-sampling backward against its plain twin at
+     the train crop's full width (352x704, batch 2), self-attention (5,082
+     queries per sample) and cross-attention (61,952): d_pos and d_weights
+     rtol 2e-4, atol 2e-5; d_value, summed by atomics in any order, rtol
+     2e-4 plus atol 1e-5·max|d_value|; CUDA-event medians of both;
+  7. train main path: `train("gedepth_adaptive_kitti_tpu")` for 5 steps at
+     352x704, batch 2, on synthetic KITTI-shaped frames from the seeded
+     initialisation; every metric finite, every parameter's gradient present
+     and finite after the run, a few named ones non-zero, and kernels A, B,
+     C and E launched by it;
+  8. whole step: one train step with the kernels and one with the plain
+     versions on the same weights, batch and generator seed (full Swin-L,
+     crop 176x352, batch 2): loss rtol 1e-4, each parameter's gradient
+     ‖g − g_plain‖ <= 1e-3·‖g_plain‖ + 1e-7. The absolute term covers the
+     gradients that are zero but for rounding: a LayerNorm bias that feeds
+     only a conv and a train-mode BatchNorm (backbone.norm{i}.bias) shifts
+     each channel by a constant the BatchNorm takes out again, so both
+     sides hold noise of ~1e-8 there.
+Then the kernels as one JSON line (launches from phase 7), and last the
+device as one JSON line.
 Imports nothing of JAX. Exits non-zero without a CUDA device.
 """
 from __future__ import annotations
@@ -263,6 +283,175 @@ def phase_whole_forward(handle, requests):
     compare("depth (1,176,608,1)", got, want, 1e-3, 1e-3)
 
 
+TRAIN_LEVELS = ((88, 176), (44, 88), (22, 44), (11, 22))
+
+
+def phase_kernel_c():
+    from gedepth_tpu_torch.ops import msda as msda_ops
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+
+    print("[kernel C] deformable-sampling backward, value (2,20570,8,64) "
+          "(d_pos, d_w: rtol 2e-4, atol 2e-5; d_value: rtol 2e-4, "
+          "atol 1e-5*max|d_value|)")
+    value = randn(2, sum(a * b for a, b in TRAIN_LEVELS), 8, 64)
+    result = None
+    for label, grids in (("self_attn", TRAIN_LEVELS[1:]),
+                         ("cross_attn", ((176, 352),))):
+        Nq = sum(a * b for a, b in grids)
+        pos = msda_ops.windowed_positions(2.0 * randn(2, Nq, 8, 4, 8, 2),
+                                          grids, TRAIN_LEVELS, 4)
+        w = randn(2, Nq, 8, 32).softmax(-1).view(2, Nq, 8, 4, 8)
+        gout = randn(2, Nq, 512)
+        args = (value, TRAIN_LEVELS, pos, w, gout)
+        got = msda_ops.msda_backward(*args)
+        want = msda_ops.msda_backward_plain(*args)
+        dv_atol = 1e-5 * want[0].abs().max().item()
+        err = max(compare(f"C {label} Nq={Nq} d_value", got[0], want[0],
+                          2e-4, dv_atol),
+                  compare(f"C {label} Nq={Nq} d_pos", got[1], want[1],
+                          2e-4, 2e-5),
+                  compare(f"C {label} Nq={Nq} d_weights", got[2], want[2],
+                          2e-4, 2e-5))
+        del got, want
+        ms = cuda_ms(lambda: msda_ops.msda_backward(*args))
+        plain_ms = cuda_ms(lambda: msda_ops.msda_backward_plain(*args),
+                           reps=3, warmup=1)
+        print(f"    ms={ms:.4f} plain_ms={plain_ms:.4f}", flush=True)
+        result = (err, ms, plain_ms)    # cross_attn is kept
+        del pos, w, gout, args
+    torch.cuda.empty_cache()
+    return result
+
+
+def _kernel_counters():
+    from gedepth_tpu_torch.ops import msda as msda_ops
+    from gedepth_tpu_torch.ops import pe_fusion as pe_ops
+    from gedepth_tpu_torch.ops import window_attention as wa
+
+    return {"window_attention": wa.window_attention, "msda": msda_ops.msda,
+            "msda_backward": msda_ops.msda_backward,
+            "pe_fusion": pe_ops.pe_fusion}
+
+
+def phase_train():
+    from gedepth_tpu_torch.configs import get_config
+    from gedepth_tpu_torch.train.loop import train
+
+    import dataclasses
+
+    # the reference's per-GPU batch of 2 (its global batch spans 8 GPUs)
+    cfg = get_config(PRESET)
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, global_batch=2))
+    counters = _kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    state, history = train(cfg, max_iters=5, device="cuda")
+    wall = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+
+    print(f"[train] train({PRESET!r}, max_iters=5), global_batch 2, crop "
+          f"{cfg.data.crop_size}, synthetic frames {cfg.data.eval_size}: "
+          f"{wall:.2f} s including init")
+    for r in history:
+        print(f"[train] iter {r['iter']} loss={r['loss']:.6f} "
+              f"loss_depth={r['loss_depth']:.6f} "
+              f"loss_slope={r['loss_slope']:.6f} "
+              f"grad_norm={r['grad_norm']:.6f} lr={r['lr']:.6e} "
+              f"step_ms={r['time'] * 1e3:.3f} "
+              f"step_peak_mem_mib={r['peak_mem_mib']:.1f}", flush=True)
+    print(f"[train] peak device memory: step 1 (cuDNN's autotuner trying "
+          f"algorithms) {history[0]['peak_mem_mib']:.1f} MiB, later steps "
+          f"{max(r['peak_mem_mib'] for r in history[1:]):.1f} MiB; "
+          f"launches {launches}", flush=True)
+    for r in history:
+        if not all(np.isfinite(v) for v in r.values()):
+            fail(f"non-finite train metrics at iter {r['iter']}: {r}")
+    missing, bad = [], []
+    for name, p in state.model.named_parameters():
+        if p.grad is None:
+            missing.append(name)
+        elif not bool(torch.isfinite(p.grad).all()):
+            bad.append(name)
+    if missing or bad:
+        fail(f"parameters without a gradient {missing[:8]} "
+             f"({len(missing)}), with a non-finite one {bad[:8]}")
+    grads = dict(state.model.named_parameters())
+    for name in ("backbone.stages.0.blocks.0.attn.w_msa.qkv.weight",
+                 "neck.self_attn.sampling_offsets.weight",
+                 "neck.multi_att.value_proj.weight",
+                 "dynamic_pe_neck.conv0.weight"):
+        norm = grads[name].grad.norm().item()
+        print(f"[train] |grad {name}| = {norm:.6e}")
+        if not norm > 0:
+            fail(f"zero gradient for {name}")
+    print(f"[train] all {len(grads)} parameters have finite gradients after "
+          "the last step", flush=True)
+    for name, n in launches.items():
+        if n <= 0:
+            fail(f"kernel {name} was not launched on the train path")
+    del state
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_whole_step():
+    import dataclasses
+
+    from gedepth_tpu_torch.configs import get_config
+    from gedepth_tpu_torch.data.loader import TrainLoader
+    from gedepth_tpu_torch.data.synthetic import SyntheticGroundDataset
+    from gedepth_tpu_torch.data.transforms import build_train_pipeline
+    from gedepth_tpu_torch.train.steps import (
+        batch_to_device, create_train_state, make_train_step)
+
+    cfg = get_config(PRESET)
+    data = dataclasses.replace(cfg.data, crop_size=(176, 352))
+    loader = TrainLoader(SyntheticGroundDataset(size=4, height=176,
+                                                width=352),
+                         build_train_pipeline(data), 2, seed=SEED)
+    batch = batch_to_device(loader.make_batch(0), "cuda")
+    step = make_train_step(cfg.optim.sig_loss_weight,
+                           cfg.optim.slope_ce_weight)
+    results = []
+    for use_kernels in (True, False):
+        model = cfg.model.build(
+            device="cuda", generator=torch.Generator().manual_seed(SEED))
+        state = create_train_state(model, cfg.optim, cfg.train.max_iters,
+                                   seed=SEED + 1)
+        with (contextlib.nullcontext() if use_kernels else plain_ops()):
+            metrics = step(state, batch)
+        torch.cuda.synchronize()
+        results.append((metrics["loss"].item(),
+                        {n: p.grad.detach().clone()
+                         for n, p in model.named_parameters()}))
+        del model, state
+        torch.cuda.empty_cache()
+    (loss_k, grads_k), (loss_p, grads_p) = results
+    print(f"[step] one train step, kernels vs plain, crop 176x352 batch 2: "
+          f"loss {loss_k:.8f} vs {loss_p:.8f}")
+    if not abs(loss_k - loss_p) <= 1e-4 * abs(loss_p):
+        fail("train-step loss disagrees with the plain versions")
+    worst, worst_rel = (0.0, ""), (0.0, "")
+    for name, gp in grads_p.items():
+        diff, norm = (grads_k[name] - gp).norm().item(), gp.norm().item()
+        bound = 1e-3 * norm + 1e-7
+        if not diff <= bound:
+            fail(f"gradient of {name} disagrees: |g - g_plain| {diff:.3e} > "
+                 f"{bound:.3e}")
+        worst = max(worst, (diff / bound, name))
+        if norm > 1e-4:
+            worst_rel = max(worst_rel, (diff / norm, name))
+    print(f"[step] all {len(grads_p)} gradients within their bound; the "
+          f"closest: {worst[1]} at {worst[0]:.3f} of it; the largest "
+          f"relative error where |g_plain| > 1e-4: {worst_rel[0]:.3e} "
+          f"({worst_rel[1]})", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -270,14 +459,21 @@ def main():
     smi = phase_device()
     phase_build()
     results = phase_kernels()
-    handle, requests, launches = phase_main_path()
+    handle, requests, _ = phase_main_path()
     phase_whole_forward(handle, requests)
+    del handle
+    torch.cuda.empty_cache()
+    results["msda_backward"] = phase_kernel_c()
+    launches = phase_train()
+    phase_whole_step()
 
     sources = {
         "window_attention": ("gedepth_tpu_torch/csrc/window_attention.cu",
                              "gedepth_tpu/ops/pallas/window_attn.py:49"),
         "msda": ("gedepth_tpu_torch/csrc/msda.cu",
                  "gedepth_tpu/ops/pallas/msda_windowed.py:112"),
+        "msda_backward": ("gedepth_tpu_torch/csrc/msda_bwd.cu",
+                          "gedepth_tpu/ops/pallas/msda_windowed.py:898"),
         "pe_fusion": ("gedepth_tpu_torch/csrc/pe_fusion.cu",
                       "gedepth_tpu/ops/pallas/pe_fusion.py:57"),
     }

@@ -1,3 +1,3 @@
 from gedepth_tpu_torch.configs.base import (  # noqa: F401
-    DataConfig, ExperimentConfig, ModelConfig)
+    DataConfig, ExperimentConfig, ModelConfig, OptimConfig, TrainConfig)
 from gedepth_tpu_torch.configs.presets import get_config, list_configs  # noqa: F401

@@ -1,7 +1,7 @@
 """Typed experiment configuration for the PyTorch port.
 
 The same frozen dataclasses as `gedepth_tpu.configs.base`, cut to the fields
-the serving slice reads. Field names and defaults are identical, so a preset
+the serving and training slices read. Field names and defaults are identical, so a preset
 compares equal field by field with its JAX counterpart. `swin_scan` is not
 among them: it changes only the JAX parameter layout, which
 `convert.from_jax` unstacks.
@@ -62,8 +62,33 @@ class ModelConfig:
 @dataclass(frozen=True)
 class DataConfig:
     dataset: str = "kitti"                # 'kitti' | 'synthetic'
+    crop_size: Tuple[int, int] = (352, 704)
     eval_size: Tuple[int, int] = (352, 1216)
+    flip_prob: float = 0.5
     eval_flip_tta: bool = True
+    # samples of the synthetic train set (and the stand-in for KITTI)
+    synthetic_size: int = 64
+
+
+@dataclass(frozen=True)
+class OptimConfig:
+    max_lr: float = 1e-4
+    betas: Tuple[float, float] = (0.9, 0.999)
+    weight_decay: float = 0.01
+    warmup_iters: int = 16 * 1600
+    warmup_ratio: float = 1.0 / 1000
+    min_lr_ratio: float = 1e-8
+    grad_clip_norm: float = 35.0
+    sig_loss_weight: float = 1.0
+    slope_ce_weight: float = 0.08
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    max_iters: int = 1600 * 48
+    global_batch: int = 16                # 8 GPUs x 2 in the reference
+    log_interval: int = 10
+    seed: int = 0
 
 
 @dataclass(frozen=True)
@@ -71,6 +96,8 @@ class ExperimentConfig:
     name: str = "gedepth_adaptive_kitti"
     model: ModelConfig = field(default_factory=ModelConfig)
     data: DataConfig = field(default_factory=DataConfig)
+    optim: OptimConfig = field(default_factory=OptimConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
 
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)

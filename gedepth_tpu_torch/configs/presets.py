@@ -1,10 +1,10 @@
-"""Named presets of the serving slice (values as in `gedepth_tpu.configs`)."""
+"""Named presets of the port (values as in `gedepth_tpu.configs`)."""
 from __future__ import annotations
 
 import dataclasses
 
 from gedepth_tpu_torch.configs.base import (
-    DataConfig, ExperimentConfig, ModelConfig)
+    DataConfig, ExperimentConfig, ModelConfig, OptimConfig, TrainConfig)
 
 _PRESETS = {
     # GEDepth-Adaptive Swin-L with the windowed deformable-attention neck
@@ -21,7 +21,10 @@ _PRESETS = {
             embed_dims=48, depths=(1, 1, 2, 1), num_heads=(2, 4, 8, 16),
             neck_channels=(64, 48, 96, 192, 384), neck_embed_dim=128,
             neck_num_points=4, drop_path_rate=0.1, pe_variant="adaptive"),
-        data=DataConfig(dataset="synthetic", eval_size=(96, 192))),
+        data=DataConfig(dataset="synthetic", crop_size=(96, 192),
+                        eval_size=(96, 192), synthetic_size=16),
+        optim=OptimConfig(warmup_iters=10),
+        train=TrainConfig(max_iters=50, global_batch=2)),
 }
 
 

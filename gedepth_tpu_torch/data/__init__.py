@@ -1,2 +1,3 @@
 from gedepth_tpu_torch.data.transforms import (  # noqa: F401
-    Compose, KBCrop, Normalize, build_test_pipeline)
+    ColorAug, Compose, KBCrop, Normalize, RandomCrop, RandomFlip,
+    build_test_pipeline, build_train_pipeline)

@@ -1,4 +1,4 @@
-"""Ground-plane ("plane embedding", PE) geometry used by the serving path.
+"""Ground-plane ("plane embedding", PE) geometry used by the port.
 
 The numpy pieces are the same functions as `gedepth_tpu.geometry.plane`;
 `slope_to_pe_offset` takes torch tensors.
@@ -8,6 +8,7 @@ from __future__ import annotations
 import numpy as np
 
 NUM_SLOPE_BINS = 11
+SLOPE_IGNORE_INDEX = 255
 # Bin centers in degrees: -5, -4, ..., +5.
 SLOPE_BIN_CENTERS_DEG = np.linspace(
     -5.0, 5.0, NUM_SLOPE_BINS).astype(np.float32)
@@ -27,6 +28,28 @@ def plane_embedding_from_projection(A: np.ndarray, height: int, width: int,
     u, v = np.meshgrid(np.arange(width), np.arange(height), indexing="xy")
     denom = R_inv[2, 0] * u + R_inv[2, 1] * v + R_inv[2, 2]
     return (RT[2] - camera_height) / denom
+
+
+def slope_bin_gt(gt_depth: np.ndarray, pe: np.ndarray,
+                 camera_height: float = 1.65) -> np.ndarray:
+    """Per-pixel ground-slope GT in signed degrees, KITTI's rule: tan(k) =
+    h/gt − h/pe, rounded, clipped to [−5, 5], SLOPE_IGNORE_INDEX where
+    gt_depth == 0. Returns (H, W) float32."""
+    gt = np.asarray(gt_depth, dtype=np.float64)
+    pe = np.asarray(pe, dtype=np.float64)
+    invalid = gt == 0
+    with np.errstate(divide="ignore", invalid="ignore"):
+        k = camera_height / gt - camera_height / pe
+    k = np.clip(np.around(np.rad2deg(np.arctan(k))), -5, 5)
+    return np.where(invalid, float(SLOPE_IGNORE_INDEX), k).astype(np.float32)
+
+
+def slope_gt_to_class(k_img: np.ndarray) -> np.ndarray:
+    """Slope GT in degrees (−5..5, 255 = ignore) to class ids 0..10: +5,
+    and the shifted ignore value 260 back to 255."""
+    k = np.asarray(k_img, dtype=np.float32) + 5.0
+    return np.where(k == float(SLOPE_IGNORE_INDEX) + 5.0,
+                    float(SLOPE_IGNORE_INDEX), k)
 
 
 def slope_to_pe_offset(pe_comput, slope_tan, camera_height, depth_scale):

@@ -18,7 +18,7 @@ import torch.nn as nn
 
 from gedepth_tpu_torch.models.hahi import HAHINeck
 from gedepth_tpu_torch.models.heads import DenseDepthHead
-from gedepth_tpu_torch.models.layers import init_weights
+from gedepth_tpu_torch.models.layers import Stochastic, init_weights
 from gedepth_tpu_torch.models.necks import DynamicPENeckSoft, LightPEMaskNeck
 from gedepth_tpu_torch.models.swin import DepthFormerSwin
 from gedepth_tpu_torch.ops import pe_fusion as pe_ops
@@ -29,7 +29,13 @@ class GEDepth(nn.Module):
     """GEDepth-Adaptive. The modules are built without storage, then
     allocated on the CPU and initialised from `generator` (seed 0 when
     None), so the same seed gives the same weights on every device; then
-    moved to `device`."""
+    moved to `device`.
+
+    `.train()` turns on what the JAX package's `train=True` does: batch
+    statistics in every BatchNorm (updating the running ones as flax does),
+    DropPath at rates linspace(0, drop_path_rate, Σdepths) in Swin and
+    dropout 0.1 after both deformable attentions' output projections. The
+    random layers draw from the generator given to `set_generator`."""
 
     def __init__(self, embed_dims: int = 192,
                  depths: Sequence[int] = (2, 2, 18, 2),
@@ -71,6 +77,14 @@ class GEDepth(nn.Module):
                      else torch.Generator().manual_seed(0))
         if device is not None:
             self.to(device)
+
+    def set_generator(self, generator):
+        """Hand `generator` (a `torch.Generator` on the model's device, or
+        None) to every DropPath and Dropout; in training they draw from it
+        and raise without one."""
+        for m in self.modules():
+            if isinstance(m, Stochastic):
+                m.generator = generator
 
     def forward(self, img, cam_height=None):
         B, H, W, _ = img.shape

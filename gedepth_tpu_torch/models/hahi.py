@@ -18,7 +18,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from gedepth_tpu_torch.models.layers import (
-    ConvModule, linear, sine_positional_encoding)
+    ConvModule, Dropout, linear, sine_positional_encoding)
 from gedepth_tpu_torch.ops import msda as msda_ops
 
 
@@ -35,10 +35,12 @@ def msda_offset_bias(num_heads, num_levels, num_points, scale=1.0):
 
 
 class MSDeformAttention(nn.Module):
-    """Deformable attention, windowed sampling; mmcv parameter names."""
+    """Deformable attention, windowed sampling; mmcv parameter names. In
+    training, dropout (p = 0.1) follows the output projection, as in the JAX
+    package and mmcv."""
 
     def __init__(self, embed_dims=512, num_heads=8, num_levels=4,
-                 num_points=8, window_radius=4):
+                 num_points=8, window_radius=4, dropout=0.1):
         super().__init__()
         self.num_heads, self.num_levels = num_heads, num_levels
         self.num_points, self.window_radius = num_points, window_radius
@@ -47,6 +49,7 @@ class MSDeformAttention(nn.Module):
         self.attention_weights = linear(embed_dims, n, init="zeros")
         self.value_proj = linear(embed_dims, embed_dims, init="xavier")
         self.output_proj = linear(embed_dims, embed_dims, init="xavier")
+        self.dropout = Dropout(dropout)
 
     def init_params(self, gen):
         bias = msda_offset_bias(self.num_heads, self.num_levels,
@@ -69,7 +72,7 @@ class MSDeformAttention(nn.Module):
         pos = msda_ops.windowed_positions(offsets, query_shapes,
                                           spatial_shapes, self.window_radius)
         out = msda_ops.msda(value, spatial_shapes, pos, weights)
-        return identity + self.output_proj(out)
+        return identity + self.dropout(self.output_proj(out))
 
 
 class HAHINeck(nn.Module):

@@ -74,6 +74,31 @@ def init_weights(module: nn.Module, generator: torch.Generator):
             m.init_params(generator)
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm as the JAX package trains it (flax `nn.BatchNorm`,
+    momentum 0.9, eps 1e-5), under torch's keys (`weight`, `bias`,
+    `running_mean`, `running_var`, `num_batches_tracked`).
+
+    In training it normalises with the biased batch variance, as torch does,
+    but updates `running_var` with that same biased variance, as flax does;
+    torch's own BatchNorm would store the unbiased one, n/(n−1) larger. This
+    follows the JAX package, not torch's BatchNorm. Eval mode is torch's."""
+
+    def __init__(self, num_features):
+        super().__init__(num_features, eps=1e-5, momentum=0.1)
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked += 1
+        return F.batch_norm(x, None, None, self.weight, self.bias,
+                            training=True, eps=self.eps)
+
+
 class ConvModule(nn.Module):
     """conv -> (BN) -> (act), the mmcv ConvModule shape; children `conv`
     and `bn` carry the reference parameter names. BN eps 1e-5; the flax
@@ -86,8 +111,7 @@ class ConvModule(nn.Module):
         use_bias = (not use_norm) if use_bias is None else use_bias
         self.conv = conv2d(in_ch, out_ch, kernel_size, stride, pad,
                            bias=use_bias, init=init)
-        self.bn = (nn.BatchNorm2d(out_ch, eps=1e-5, momentum=0.1)
-                   if use_norm else None)
+        self.bn = BatchNorm2d(out_ch) if use_norm else None
         self.act = act
 
     def forward(self, x):
@@ -99,33 +123,61 @@ class ConvModule(nn.Module):
         return x
 
 
-class DropPath(nn.Module):
-    """Stochastic depth: drops the residual branch per sample in training;
-    identity in eval mode. Divides in f32 and returns x's dtype."""
+class Stochastic(nn.Module):
+    """A layer that draws random numbers in training, from the
+    `torch.Generator` in `self.generator` (set by `GEDepth.set_generator`);
+    it raises rather than touch the global generator."""
 
-    def __init__(self, rate: float = 0.0):
+    def __init__(self, rate: float):
         super().__init__()
         self.rate = float(rate)
+        self.generator = None
+
+    def _uniform(self, shape, device):
+        if self.generator is None:
+            raise RuntimeError(
+                f"{type(self).__name__}(rate={self.rate}) in training needs "
+                "an explicit torch.Generator (GEDepth.set_generator)")
+        return torch.rand(shape, generator=self.generator, device=device)
+
+    def _keep(self, x, shape):
+        """x / keep where a uniform draw of `shape` falls under keep, else
+        0; divides in f32 and returns x's dtype."""
+        keep = 1.0 - self.rate
+        mask = self._uniform(shape, x.device) < keep
+        return torch.where(mask, x.float() / keep, 0.0).to(x.dtype)
+
+
+class DropPath(Stochastic):
+    """Stochastic depth: drops the residual branch per sample in training;
+    identity in eval mode."""
 
     def forward(self, x):
         if not self.training or self.rate == 0.0:
             return x
-        keep = 1.0 - self.rate
-        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-        mask = torch.rand(shape, device=x.device) < keep
-        return torch.where(mask, x.float() / keep, 0.0).to(x.dtype)
+        return self._keep(x, (x.shape[0],) + (1,) * (x.dim() - 1))
+
+
+class Dropout(Stochastic):
+    """Element-wise dropout in training (flax `nn.Dropout`: x / keep where
+    kept); identity in eval mode."""
+
+    def forward(self, x):
+        if not self.training or self.rate == 0.0:
+            return x
+        return self._keep(x, x.shape)
 
 
 class FFN(nn.Module):
     """Transformer FFN Linear -> GELU (exact) -> Linear, laid out as mmcv's
-    FFN so the keys read `ffn.layers.0.0` and `ffn.layers.1`."""
+    FFN so the keys read `ffn.layers.0.0` and `ffn.layers.1` (the JAX
+    package's `Mlp` at drop_rate 0, which has no dropout)."""
 
-    def __init__(self, dim, hidden, drop_rate=0.0):
+    def __init__(self, dim, hidden):
         super().__init__()
         self.layers = nn.Sequential(
-            nn.Sequential(linear(dim, hidden), nn.GELU(approximate="none"),
-                          nn.Dropout(drop_rate)),
-            linear(hidden, dim), nn.Dropout(drop_rate))
+            nn.Sequential(linear(dim, hidden), nn.GELU(approximate="none")),
+            linear(hidden, dim))
 
     def forward(self, x):
         return self.layers(x)

@@ -17,7 +17,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from gedepth_tpu_torch.models.layers import DropPath, FFN, conv2d, linear
+from gedepth_tpu_torch.models.layers import (
+    BatchNorm2d, DropPath, FFN, conv2d, linear)
 from gedepth_tpu_torch.ops import window_attention as wa
 
 
@@ -52,7 +53,10 @@ def shifted_window_mask(h_pad: int, w_pad: int, window: int,
 
 @functools.lru_cache(maxsize=64)
 def _device_array(fn, args, device):
-    return torch.as_tensor(fn(*args), device=device)
+    # a normal tensor even when first built under inference_mode: the
+    # cache outlives the call, and autograd refuses inference tensors
+    with torch.inference_mode(False):
+        return torch.as_tensor(fn(*args), device=device)
 
 
 def window_partition(x, window: int):
@@ -211,7 +215,7 @@ class DepthFormerSwin(nn.Module):
         super().__init__()
         self.conv1 = conv2d(3, stem_channels, 7, stride=2, padding=3,
                             bias=False)
-        self.bn1 = nn.BatchNorm2d(stem_channels, eps=1e-5, momentum=0.1)
+        self.bn1 = BatchNorm2d(stem_channels)
         self.patch_embed = PatchEmbed(4, embed_dims, patch_size)
         dpr = np.linspace(0, drop_path_rate, sum(depths)).tolist()
         stages, start, ch = [], 0, embed_dims

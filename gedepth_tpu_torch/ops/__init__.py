@@ -1,4 +1,4 @@
 """Tensor ops of the port. The three kernel-holding modules
-(`window_attention`, `msda`, `pe_fusion`) each pair a hand-written CUDA
-kernel with its plain PyTorch version; `_lib` builds and binds the kernels
-on first use."""
+(`window_attention`, `msda`, `pe_fusion`) each pair hand-written CUDA
+kernels with their plain PyTorch versions behind a `torch.autograd.Function`;
+`_lib` builds and binds the kernels on first use."""

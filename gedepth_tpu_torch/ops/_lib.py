@@ -34,6 +34,8 @@ _SIGNATURES = {
     "window_attention_fwd": [_P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _P],
     "msda_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "msda_bwd": [_P, _P, _P, _P, _P, _P, _P, _P,
+                 _I, _I, _I, _I, _I, _I, _I, _P],
     "pe_fusion_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P],
 }
 
@@ -104,3 +106,21 @@ def call(name: str, *args) -> None:
     err = getattr(load(), name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+def plain_vjp(plain_fn, inputs, needs_grad, grad_out, *static):
+    """Gradients of `plain_fn(*inputs, *static)` for the inputs flagged in
+    `needs_grad` (None for the others), by autograd through the plain
+    version on detached copies: the backward of a kernel whose TPU
+    counterpart also differentiated its XLA reference."""
+    import torch
+
+    leaves = [t.detach().requires_grad_(bool(n))
+              for t, n in zip(inputs, needs_grad)]
+    wanted = [t for t, n in zip(leaves, needs_grad) if n]
+    if not wanted:
+        return [None] * len(inputs)
+    with torch.enable_grad():
+        out = plain_fn(*leaves, *static)
+        grads = iter(torch.autograd.grad(out, wanted, grad_out))
+    return [next(grads) if n else None for n in needs_grad]

@@ -9,8 +9,11 @@ in level pixels and sums the weighted samples:
   weights  (B, Nq, heads, L, P)
   returns  (B, Nq, heads·d)
 
-On a CUDA tensor the wrapper launches the hand-written kernel of
-`csrc/msda.cu`; on a CPU tensor it runs the plain per-level gather.
+On a CUDA tensor the wrapper runs `MSDAFunction`: the hand-written
+forward kernel of `csrc/msda.cu` (B) and, under autograd, the backward
+kernel of `csrc/msda_bwd.cu` (C), which emits d_value, d_pos and d_weights.
+On a CPU tensor it runs the plain per-level gather, which autograd
+differentiates; `msda_backward_plain` is kernel C's plain twin.
 
 The sampling modes of `gedepth_tpu.ops.msda` differ only in how positions
 are formed. `windowed_positions` is the windowed rule: each query's anchor
@@ -29,6 +32,8 @@ from gedepth_tpu_torch.ops import _lib
 
 # queries per step of the plain gather (bounds its temporaries)
 PLAIN_QUERY_CHUNK = 4096
+# channels per head the backward kernel takes (4 per lane of a warp)
+MAX_BWD_HEAD_DIM = 128
 
 
 def axis_anchor_residual(nq: int, nv: int):
@@ -56,7 +61,9 @@ def _anchor_tables(query_shapes, spatial_shapes, device):
         anchors.append(anc.reshape(Hq * Wq, -1, 2))
         residuals.append(res.reshape(Hq * Wq, -1, 2))
     to = functools.partial(torch.as_tensor, device=device)
-    return (to(np.concatenate(anchors)), to(np.concatenate(residuals)))
+    # normal tensors even under inference_mode (see `_level_table`)
+    with torch.inference_mode(False):
+        return (to(np.concatenate(anchors)), to(np.concatenate(residuals)))
 
 
 def windowed_positions(offsets, query_shapes, spatial_shapes, radius):
@@ -117,7 +124,10 @@ def _level_table(spatial_shapes, device):
     for (H_, W_) in spatial_shapes:
         rows.append((H_, W_, start))
         start += H_ * W_
-    return torch.tensor(rows, dtype=torch.int32, device=device)
+    # a normal tensor even when first built under inference_mode: the cache
+    # outlives the call, and autograd refuses inference tensors
+    with torch.inference_mode(False):
+        return torch.tensor(rows, dtype=torch.int32, device=device)
 
 
 def _check(value, spatial_shapes, pos, weights):
@@ -137,19 +147,18 @@ def _check(value, spatial_shapes, pos, weights):
             raise ValueError("msda: all inputs on one device")
 
 
-def msda(value, spatial_shapes, pos, weights):
-    """Deformable sampling over all levels; the kernel for CUDA tensors."""
-    spatial_shapes = tuple((int(H_), int(W_)) for (H_, W_) in spatial_shapes)
-    _check(value, spatial_shapes, pos, weights)
-    if value.device.type == "cpu":
-        return msda_plain(value, spatial_shapes, pos, weights)
-    if value.device.type != "cuda":
-        raise ValueError(f"msda: no kernel for {value.device}")
-    for t in (value, pos, weights):
+def _check_kernel_inputs(*tensors):
+    for t in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(f"msda: no kernel for {t.device}")
         if t.dtype != torch.float32:
             raise TypeError(f"msda kernel is f32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError("msda kernel needs contiguous inputs")
+
+
+def _launch_forward(value, spatial_shapes, pos, weights):
+    """Kernel B on CUDA tensors already checked."""
     B, S, h, d = value.shape
     Nq, L, P = pos.shape[1], pos.shape[3], pos.shape[4]
     levels = _level_table(spatial_shapes, value.device)
@@ -161,4 +170,86 @@ def msda(value, spatial_shapes, pos, weights):
     return out
 
 
+def msda_backward(value, spatial_shapes, pos, weights, grad_out):
+    """Kernel C: (d_value, d_pos, d_weights) of `msda` for the cotangent
+    grad_out (B, Nq, heads·d), CUDA tensors only. dV is summed with
+    atomics, so its low bits vary from run to run."""
+    spatial_shapes = tuple((int(H_), int(W_)) for (H_, W_) in spatial_shapes)
+    _check(value, spatial_shapes, pos, weights)
+    B, S, h, d = value.shape
+    Nq, L, P = pos.shape[1], pos.shape[3], pos.shape[4]
+    if tuple(grad_out.shape) != (B, Nq, h * d):
+        raise ValueError(f"grad_out shape {tuple(grad_out.shape)} != "
+                         f"{(B, Nq, h * d)}")
+    _check_kernel_inputs(value, pos, weights, grad_out)
+    if d > MAX_BWD_HEAD_DIM:
+        raise ValueError(f"msda backward kernel takes d <= "
+                         f"{MAX_BWD_HEAD_DIM}, got {d}")
+    levels = _level_table(spatial_shapes, value.device)
+    d_value = torch.empty_like(value)      # zeroed by the C entry point
+    d_pos = torch.empty_like(pos)
+    d_weights = torch.empty_like(weights)
+    _lib.call("msda_bwd", value.data_ptr(), levels.data_ptr(),
+              pos.data_ptr(), weights.data_ptr(), grad_out.data_ptr(),
+              d_value.data_ptr(), d_pos.data_ptr(), d_weights.data_ptr(),
+              B, S, Nq, h, d, L, P)
+    msda_backward.launches += 1
+    return d_value, d_pos, d_weights
+
+
+def msda_backward_plain(value, spatial_shapes, pos, weights, grad_out):
+    """Plain twin of `msda_backward`: autograd through `msda_plain`, one
+    query chunk at a time. Queries are independent, so d_pos and d_weights
+    come per chunk while d_value is summed over the chunks; autograd through
+    the whole `msda_plain` would keep every chunk's gathered corners alive
+    at once (~34 GB at the train crop's cross-attention)."""
+    spatial_shapes = tuple((int(H_), int(W_)) for (H_, W_) in spatial_shapes)
+    d_value = torch.zeros_like(value)
+    d_pos = torch.empty_like(pos)
+    d_weights = torch.empty_like(weights)
+    v = value.detach().requires_grad_()
+    for q0 in range(0, pos.shape[1], PLAIN_QUERY_CHUNK):
+        q1 = q0 + PLAIN_QUERY_CHUNK
+        p = pos[:, q0:q1].detach().requires_grad_()
+        w = weights[:, q0:q1].detach().requires_grad_()
+        with torch.enable_grad():
+            out = msda_plain(v, spatial_shapes, p, w)
+            gv, gp, gw = torch.autograd.grad(out, (v, p, w),
+                                             grad_out[:, q0:q1])
+        d_value += gv
+        d_pos[:, q0:q1] = gp
+        d_weights[:, q0:q1] = gw
+    return d_value, d_pos, d_weights
+
+
+class MSDAFunction(torch.autograd.Function):
+    """Kernel B forward, kernel C backward. The tanh of the windowed rule,
+    the anchor add and the weight softmax stay upstream in autograd."""
+
+    @staticmethod
+    def forward(ctx, value, spatial_shapes, pos, weights):
+        ctx.spatial_shapes = spatial_shapes
+        ctx.save_for_backward(value, pos, weights)
+        return _launch_forward(value, spatial_shapes, pos, weights)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        value, pos, weights = ctx.saved_tensors
+        d_value, d_pos, d_weights = msda_backward(
+            value, ctx.spatial_shapes, pos, weights, grad_out.contiguous())
+        return d_value, None, d_pos, d_weights
+
+
+def msda(value, spatial_shapes, pos, weights):
+    """Deformable sampling over all levels; kernels B (forward) and C
+    (backward) for CUDA tensors, the plain version for CPU tensors."""
+    spatial_shapes = tuple((int(H_), int(W_)) for (H_, W_) in spatial_shapes)
+    _check(value, spatial_shapes, pos, weights)
+    if value.device.type == "cpu":
+        return msda_plain(value, spatial_shapes, pos, weights)
+    _check_kernel_inputs(value, pos, weights)
+    return MSDAFunction.apply(value, spatial_shapes, pos, weights)
+
+
 msda.launches = 0
+msda_backward.launches = 0

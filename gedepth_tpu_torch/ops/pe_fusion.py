@@ -6,8 +6,9 @@
 Shapes (the JAX package's layout): logits (B, H, W, 11); pe, y (B, H, W);
 cam_height (B,); returns (B, H, W).
 
-On a CUDA tensor the wrapper launches the hand-written kernel of
-`csrc/pe_fusion.cu`; on a CPU tensor it runs the plain version.
+On a CUDA tensor the wrapper runs `PEFusionFunction`: the hand-written
+forward kernel of `csrc/pe_fusion.cu` (E) and the VJP of the plain version
+as its backward. On a CPU tensor it runs the plain version.
 """
 from __future__ import annotations
 
@@ -48,8 +49,38 @@ def _check(slope_logits, pe_comput, y, cam_height):
             raise ValueError("pe_fusion: all inputs on one device")
 
 
+def _launch_forward(slope_logits, pe_comput, y, cam_height, depth_scale):
+    """Kernel E on CUDA tensors already checked."""
+    B, H, W, K = slope_logits.shape
+    out = torch.empty_like(pe_comput)
+    _lib.call("pe_fusion_fwd", slope_logits.data_ptr(), pe_comput.data_ptr(),
+              y.data_ptr(), cam_height.data_ptr(), out.data_ptr(),
+              B, H * W, K, float(depth_scale))
+    pe_fusion.launches += 1
+    return out
+
+
+class PEFusionFunction(torch.autograd.Function):
+    """Kernel E forward; the backward is the VJP of the plain version, as
+    the JAX package's custom VJP differentiates `pe_fusion_xla`."""
+
+    @staticmethod
+    def forward(ctx, slope_logits, pe_comput, y, cam_height, depth_scale):
+        ctx.depth_scale = depth_scale
+        ctx.save_for_backward(slope_logits, pe_comput, y, cam_height)
+        return _launch_forward(slope_logits, pe_comput, y, cam_height,
+                               depth_scale)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        grads = _lib.plain_vjp(pe_fusion_plain, ctx.saved_tensors,
+                               ctx.needs_input_grad[:4], grad_out,
+                               ctx.depth_scale)
+        return (*grads, None)
+
+
 def pe_fusion(slope_logits, pe_comput, y, cam_height, depth_scale):
-    """Fused slope-bin softmax → prior; the kernel for CUDA tensors."""
+    """Fused slope-bin softmax → prior; kernel E for CUDA tensors."""
     _check(slope_logits, pe_comput, y, cam_height)
     if slope_logits.device.type == "cpu":
         return pe_fusion_plain(slope_logits, pe_comput, y, cam_height,
@@ -61,13 +92,8 @@ def pe_fusion(slope_logits, pe_comput, y, cam_height, depth_scale):
             raise TypeError(f"pe_fusion kernel is f32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError("pe_fusion kernel needs contiguous inputs")
-    B, H, W, K = slope_logits.shape
-    out = torch.empty_like(pe_comput)
-    _lib.call("pe_fusion_fwd", slope_logits.data_ptr(), pe_comput.data_ptr(),
-              y.data_ptr(), cam_height.data_ptr(), out.data_ptr(),
-              B, H * W, K, float(depth_scale))
-    pe_fusion.launches += 1
-    return out
+    return PEFusionFunction.apply(slope_logits, pe_comput, y, cam_height,
+                                  depth_scale)
 
 
 pe_fusion.launches = 0

@@ -11,8 +11,10 @@ Shapes (the JAX package's layout):
            so row r uses mask[r % nW]
   returns  (nWB, N, heads, D)
 
-On a CUDA tensor the wrapper launches the hand-written kernel of
-`csrc/window_attention.cu`; on a CPU tensor it runs the plain version.
+On a CUDA tensor the wrapper runs `WindowAttentionFunction`: the
+hand-written forward kernel of `csrc/window_attention.cu` (A) and the VJP of
+the plain version as its backward. On a CPU tensor it runs the plain
+version.
 """
 from __future__ import annotations
 
@@ -58,8 +60,40 @@ def _check(q, k, v, bias, mask):
             raise ValueError("window_attention: all inputs on one device")
 
 
+def _launch_forward(q, k, v, bias, mask):
+    """Kernel A on CUDA tensors already checked."""
+    nWB, N, H, D = q.shape
+    out = torch.empty_like(q)
+    nW = 0 if mask is None else mask.shape[0]
+    _lib.call("window_attention_fwd", q.data_ptr(), k.data_ptr(),
+              v.data_ptr(), bias.data_ptr(),
+              None if mask is None else mask.data_ptr(), out.data_ptr(),
+              nWB, N, H, D, nW)
+    window_attention.launches += 1
+    return out
+
+
+class WindowAttentionFunction(torch.autograd.Function):
+    """Kernel A forward; the backward is the VJP of the plain version on
+    the saved inputs, as the JAX package's custom VJP differentiates
+    `window_attention_xla` (no TPU backward kernel exists). The mask is a
+    constant and gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, mask):
+        ctx.save_for_backward(q, k, v, bias, mask)
+        return _launch_forward(q, k, v, bias, mask)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v, bias, mask = ctx.saved_tensors
+        grads = _lib.plain_vjp(window_attention_plain, (q, k, v, bias),
+                               ctx.needs_input_grad[:4], grad_out, mask)
+        return (*grads, None)
+
+
 def window_attention(q, k, v, bias, mask=None):
-    """softmax(q kᵀ + bias + mask) v; the kernel for CUDA tensors."""
+    """softmax(q kᵀ + bias + mask) v; kernel A for CUDA tensors."""
     _check(q, k, v, bias, mask)
     if q.device.type == "cpu":
         return window_attention_plain(q, k, v, bias, mask)
@@ -76,14 +110,7 @@ def window_attention(q, k, v, bias, mask=None):
         if not t.is_contiguous():
             raise ValueError("window_attention kernel needs contiguous "
                              "inputs")
-    out = torch.empty_like(q)
-    nW = 0 if mask is None else mask.shape[0]
-    _lib.call("window_attention_fwd", q.data_ptr(), k.data_ptr(),
-              v.data_ptr(), bias.data_ptr(),
-              None if mask is None else mask.data_ptr(), out.data_ptr(),
-              nWB, N, H, D, nW)
-    window_attention.launches += 1
-    return out
+    return WindowAttentionFunction.apply(q, k, v, bias, mask)
 
 
 window_attention.launches = 0

@@ -186,7 +186,7 @@ def test_presets_match_jax():
     """Every field the port keeps has the JAX preset's value."""
     for name in ("gedepth_adaptive_kitti_tpu", "smoke_synthetic"):
         jcfg, tcfg = jax_get_config(name), get_config(name)
-        for part in ("model", "data"):
+        for part in ("model", "data", "optim", "train"):
             tpart, jpart = getattr(tcfg, part), getattr(jcfg, part)
             for f in dataclasses.fields(tpart):
                 assert getattr(tpart, f.name) == getattr(jpart, f.name), \

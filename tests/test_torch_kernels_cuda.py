@@ -8,7 +8,9 @@ so on a machine without JAX run it with:
 
 Tolerances (f32, TF32 off): window attention and deformable sampling rtol
 2e-4, atol 2e-5 (sums in another order, the kernel's exp against torch's);
-PE fusion 1e-4, as on the CPU.
+PE fusion 1e-4, as on the CPU. The deformable-sampling backward (kernel C)
+holds d_pos and d_weights to rtol 2e-4, atol 2e-5, and d_value, which its
+atomics sum in any order, to rtol 2e-4 plus atol 1e-5·max|d_value|.
 """
 import numpy as np
 import pytest
@@ -120,6 +122,10 @@ def test_pe_fusion_kernel(B, H, W):
 
 
 def test_wrappers_raise_instead_of_falling_back():
+    z = torch.zeros(1, 6, 1, 1)
+    with pytest.raises(ValueError):   # kernel C has no CPU mode
+        msda_ops.msda_backward(z, [(2, 3)], torch.zeros(1, 2, 1, 1, 1, 2),
+                               torch.zeros(1, 2, 1, 1, 1), torch.zeros(1, 2, 1))
     q = torch.zeros(2, 49, 1, 8, device="cuda", dtype=torch.float64)
     with pytest.raises(TypeError):
         wa.window_attention(q, q, q, torch.zeros(1, 49, 49, device="cuda",
@@ -129,3 +135,86 @@ def test_wrappers_raise_instead_of_falling_back():
         pe_ops.pe_fusion(x, torch.zeros(1, 4, 4, device="cuda"),
                          torch.zeros(1, 4, 4, device="cuda"),
                          torch.ones(1, device="cuda"), 200.0)
+
+
+def _assert_msda_grads(got, want):
+    (dv, dp, dw), (dv_ref, dp_ref, dw_ref) = got, want
+    torch.testing.assert_close(dp, dp_ref, rtol=2e-4, atol=2e-5)
+    torch.testing.assert_close(dw, dw_ref, rtol=2e-4, atol=2e-5)
+    torch.testing.assert_close(
+        dv, dv_ref, rtol=2e-4, atol=1e-5 * dv_ref.abs().max().item())
+
+
+@pytest.mark.parametrize("query_shapes,levels,B,h,d,spread", [
+    # small shapes, odd head width (lanes past d idle)
+    (((5, 13),), ((10, 26), (5, 13)), 2, 2, 24, 2.0),
+    # a coarse query grid over a much finer level
+    (((3, 5),), ((12, 20), (6, 10), (3, 5)), 1, 8, 64, 2.0),
+    # raw offsets far past R: many corners fall outside the levels
+    (((8, 16), (4, 8)), ((8, 16), (4, 8), (2, 4)), 2, 8, 64, 40.0),
+    # the train crop's self-attention (hi_min_level 1), batch 2
+    (((44, 88), (22, 44), (11, 22)),
+     ((88, 176), (44, 88), (22, 44), (11, 22)), 2, 8, 64, 2.0)])
+def test_msda_backward_kernel(query_shapes, levels, B, h, d, spread):
+    g = torch.Generator(device="cuda").manual_seed(4)
+    P, L = 4 if d < 64 else 8, len(levels)
+    Nq = sum(a * b for a, b in query_shapes)
+    S = sum(a * b for a, b in levels)
+    value = _randn(g, B, S, h, d)
+    raw = spread * _randn(g, B, Nq, h, L, P, 2)
+    pos = msda_ops.windowed_positions(raw, query_shapes, levels, 4)
+    w = _randn(g, B, Nq, h, L * P).softmax(-1).view(B, Nq, h, L, P)
+    gout = _randn(g, B, Nq, h * d)
+    before = msda_ops.msda_backward.launches
+    got = msda_ops.msda_backward(value, levels, pos, w, gout)
+    torch.cuda.synchronize()
+    assert msda_ops.msda_backward.launches == before + 1
+    _assert_msda_grads(got, msda_ops.msda_backward_plain(
+        value, levels, pos, w, gout))
+
+
+def test_msda_backward_kernel_zero_padding():
+    """Corners outside the level give no gradient and receive no dV."""
+    value = torch.arange(1.0, 7.0, device="cuda").view(1, 6, 1, 1)
+    pos = torch.tensor([[-1.0, -1.0], [-0.5, 0.0], [1.0, 0.5], [2.5, 1.0],
+                        [1e9, -1e9], [0.25, -0.75]],
+                       device="cuda").view(1, 6, 1, 1, 1, 2)
+    w = torch.full((1, 6, 1, 1, 1), 0.5, device="cuda")
+    gout = torch.ones(1, 6, 1, device="cuda")
+    got = msda_ops.msda_backward(value, [(2, 3)], pos, w, gout)
+    want = msda_ops.msda_backward_plain(value, [(2, 3)], pos, w, gout)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+    assert got[1][0, 0].abs().max().item() == 0.0   # fully outside
+    assert got[1][0, 4].abs().max().item() == 0.0
+
+
+def test_msda_autograd_uses_kernels():
+    """Autograd through `msda` on the card launches B forward and C
+    backward, and its gradients equal autograd through the plain version."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    levels = ((8, 16), (4, 8))
+    query_shapes = ((4, 8),)
+    B, h, d, P = 2, 8, 64, 8
+    value = _randn(g, B, 160, h, d)
+    raw = 2.0 * _randn(g, B, 32, h, 2, P, 2)
+    wl = _randn(g, B, 32, h, 2 * P)
+    gout = _randn(g, B, 32, h * d)
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_() for t in (value, raw, wl)]
+        pos = msda_ops.windowed_positions(leaves[1], query_shapes, levels, 4)
+        w = leaves[2].softmax(-1).view(B, 32, h, 2, P)
+        (fn(leaves[0], levels, pos, w) * gout).sum().backward()
+        return [t.grad for t in leaves]
+
+    fwd0 = msda_ops.msda.launches
+    bwd0 = msda_ops.msda_backward.launches
+    got = grads(msda_ops.msda)
+    torch.cuda.synchronize()
+    assert msda_ops.msda.launches == fwd0 + 1
+    assert msda_ops.msda_backward.launches == bwd0 + 1
+    want = grads(msda_ops.msda_plain)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=2e-4,
+                                   atol=1e-5 * b.abs().max().item())

@@ -171,3 +171,124 @@ def test_hahi_neck_matches_flax(hi_min_level):
     for g, w_ in zip(got, want):
         np.testing.assert_allclose(g.permute(0, 2, 3, 1).numpy(),
                                    np.asarray(w_), rtol=1e-4, atol=1e-5)
+
+
+def _msda_inputs(case, seed=0, spread=3.0):
+    query_hw, levels = CASES[case]
+    rng = np.random.default_rng(seed)
+    B, h, d, P, L = 2, 2, 8, 3, len(levels)
+    Nq = query_hw[0] * query_hw[1]
+    values = [rng.standard_normal((B, H_, W_, h, d)).astype(np.float32)
+              for (H_, W_) in levels]
+    raw = rng.normal(0, spread, (B, Nq, h, L, P, 2)).astype(np.float32)
+    w = rng.uniform(0, 1, (B, Nq, h, L, P)).astype(np.float32)
+    cot = rng.standard_normal((B, Nq, h * d)).astype(np.float32)
+    return query_hw, levels, values, raw, w, cot
+
+
+def _port_grads(sample, query_hw, levels, values, raw, w, cot):
+    """Gradients of sum(sample(...) · cot) with respect to the value (levels
+    stacked), the raw offsets and the weights, through the windowed rule."""
+    B, h, d = values[0].shape[0], values[0].shape[3], values[0].shape[4]
+    value = torch.from_numpy(np.concatenate(
+        [v.reshape(B, -1, h, d) for v in values], axis=1)).requires_grad_()
+    raw_t = torch.from_numpy(raw).requires_grad_()
+    w_t = torch.from_numpy(w).requires_grad_()
+    pos = msda_ops.windowed_positions(raw_t, [query_hw], levels, R)
+    (sample(value, levels, pos, w_t) * torch.from_numpy(cot)).sum().backward()
+    return [t.grad.numpy() for t in (value, raw_t, w_t)]
+
+
+def _jax_grads(sample_fn, values, raw, w, cot):
+    """jax.grad of sum(sample_fn(levels, R·tanh(raw/R), w) · cot)."""
+    def loss(vs, r, w_):
+        out = sample_fn(list(vs), R * jnp.tanh(r / R), w_)
+        return jnp.sum(out.reshape(cot.shape) * cot)
+
+    gv, gr, gw = jax.grad(loss, argnums=(0, 1, 2))(
+        tuple(jnp.asarray(v) for v in values), jnp.asarray(raw),
+        jnp.asarray(w))
+    B, h, d = values[0].shape[0], values[0].shape[3], values[0].shape[4]
+    gv = np.concatenate([np.asarray(g).reshape(B, -1, h, d) for g in gv],
+                        axis=1)
+    return [gv, np.asarray(gr), np.asarray(gw)]
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_windowed_sampler_grads_match_jax(case):
+    """d_value, d_raw_offsets and d_weights of the port (autograd through
+    `windowed_positions` and the plain sampler, and kernel C's plain twin)
+    against jax.grad through R·tanh and the XLA tiled sampler."""
+    query_hw, levels, values, raw, w, cot = _msda_inputs(case)
+    want = _jax_grads(
+        lambda vs, off, w_: msda_sample_windowed(
+            vs, off, w_, query_hw, radius=R, remat=False, impl="tiled",
+            precision=jax.lax.Precision.HIGHEST), values, raw, w, cot)
+    got = _port_grads(msda_ops.msda, query_hw, levels, values, raw, w, cot)
+    for g, w_, name in zip(got, want, ("value", "offsets", "weights")):
+        np.testing.assert_allclose(g, w_, rtol=1e-4, atol=1e-5, err_msg=name)
+
+    # the plain twin of kernel C, on the positions the rule forms
+    B, h, d = values[0].shape[0], values[0].shape[3], values[0].shape[4]
+    value = torch.from_numpy(np.concatenate(
+        [v.reshape(B, -1, h, d) for v in values], axis=1))
+    pos = msda_ops.windowed_positions(torch.from_numpy(raw), [query_hw],
+                                      levels, R)
+    d_value, d_pos, d_w = msda_ops.msda_backward_plain(
+        value, levels, pos, torch.from_numpy(w), torch.from_numpy(cot))
+    np.testing.assert_allclose(d_value.numpy(), want[0], rtol=1e-4,
+                               atol=1e-5)
+    np.testing.assert_allclose(d_w.numpy(), want[2], rtol=1e-4, atol=1e-5)
+    dtanh = 1 - np.tanh(raw / R) ** 2       # d pos / d raw
+    np.testing.assert_allclose(d_pos.numpy() * dtanh, want[1], rtol=1e-4,
+                               atol=1e-5)
+
+
+def test_windowed_sampler_grads_match_pallas_backward_interpret():
+    """Against `msda_windowed_levels`, whose custom VJP runs the Pallas
+    backward kernel `_kernel_bwd` (d_offsets, d_weights) in the TPU
+    interpreter, at the shapes of tests/test_pallas_kernels.py (query grid
+    16x40, levels 16x40 and 8x20, R = 4)."""
+    from jax.experimental.pallas import tpu as pltpu
+    from gedepth_tpu.ops.pallas.msda_windowed import msda_windowed_levels
+
+    rng = np.random.default_rng(11)
+    B, h, d, P = 1, 2, 8, 4
+    query_hw, levels = (16, 40), ((16, 40), (8, 20))
+    Nq = query_hw[0] * query_hw[1]
+    values = [rng.standard_normal((B, H_, W_, h, d)).astype(np.float32)
+              for (H_, W_) in levels]
+    raw = rng.normal(0, 3.0, (B, Nq, h, len(levels), P, 2)).astype(
+        np.float32)
+    w = rng.uniform(0, 1, (B, Nq, h, len(levels), P)).astype(np.float32)
+    cot = rng.standard_normal((B, Nq, h * d)).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        want = _jax_grads(
+            lambda vs, off, w_: msda_windowed_levels(
+                tuple(vs), off, w_, query_hw, R, None, True),
+            values, raw, w, cot)
+    got = _port_grads(msda_ops.msda, query_hw, levels, values, raw, w, cot)
+    for g, w_, name in zip(got, want, ("value", "offsets", "weights")):
+        np.testing.assert_allclose(g, w_, rtol=1e-4, atol=1e-5, err_msg=name)
+
+
+def test_msda_function_wiring(monkeypatch):
+    """`MSDAFunction` (kernel B forward, kernel C backward) with both
+    launches swapped for their plain versions: its gradients equal autograd
+    through `msda_plain` (saved tensors, argument order, the None slot of
+    the level shapes)."""
+    query_hw, levels, values, raw, w, cot = _msda_inputs(
+        "coarse_grid_fine_level", seed=5)
+    monkeypatch.setattr(msda_ops, "_launch_forward", msda_ops.msda_plain)
+    monkeypatch.setattr(msda_ops, "msda_backward",
+                        msda_ops.msda_backward_plain)
+
+    def through_function(value, shapes, pos, weights):
+        return msda_ops.MSDAFunction.apply(value, shapes, pos, weights)
+
+    got = _port_grads(through_function, query_hw, levels, values, raw, w,
+                      cot)
+    want = _port_grads(msda_ops.msda_plain, query_hw, levels, values, raw, w,
+                       cot)
+    for g, w_ in zip(got, want):
+        np.testing.assert_allclose(g, w_, rtol=1e-6, atol=1e-7)

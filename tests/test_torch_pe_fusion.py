@@ -101,3 +101,49 @@ def test_pe_necks_match_flax(name):
     for g, w_ in pairs:
         np.testing.assert_allclose(g.permute(0, 2, 3, 1).numpy(),
                                    np.asarray(w_), rtol=1e-4, atol=1e-5)
+
+
+def _fusion_inputs(seed=4):
+    rng = np.random.default_rng(seed)
+    B, H, W = 2, 16, 32
+    logits = rng.standard_normal((B, H, W, 11)).astype(np.float32)
+    pe = (np.abs(rng.standard_normal((B, H, W))) * 50 + 0.5).astype(
+        np.float32)
+    y = rng.uniform(0, 1, (B, H, W)).astype(np.float32)
+    h = np.asarray([1.65, 1.55], np.float32)
+    cot = rng.standard_normal((B, H, W)).astype(np.float32)
+    return logits, pe, y, h, cot
+
+
+def _torch_fusion_grads(fn, logits, pe, y, h, cot):
+    lg = torch.from_numpy(logits).requires_grad_()
+    yt = torch.from_numpy(y).requires_grad_()
+    out = fn(lg, torch.from_numpy(pe), yt, torch.from_numpy(h), 200.0)
+    (out * torch.from_numpy(cot)).sum().backward()
+    return lg.grad.numpy(), yt.grad.numpy()
+
+
+def test_pe_fusion_grads_match_xla():
+    """d_logits and d_y of the port against jax.grad of `pe_fusion_xla`,
+    the function the JAX package's custom VJP differentiates."""
+    logits, pe, y, h, cot = _fusion_inputs()
+    want = jax.grad(
+        lambda l, y_: jnp.sum(pe_fusion_xla(l, jnp.asarray(pe), y_,
+                                            jnp.asarray(h), 200.0) * cot),
+        argnums=(0, 1))(jnp.asarray(logits), jnp.asarray(y))
+    got = _torch_fusion_grads(pe_ops.pe_fusion, logits, pe, y, h, cot)
+    for g, w_, name in zip(got, want, ("logits", "y")):
+        np.testing.assert_allclose(g, np.asarray(w_), rtol=1e-4, atol=1e-4,
+                                   err_msg=name)
+
+
+def test_pe_fusion_function_wiring(monkeypatch):
+    """`PEFusionFunction` with kernel E's launch swapped for the plain
+    forward: its gradients equal autograd through the plain version."""
+    logits, pe, y, h, cot = _fusion_inputs(seed=5)
+    monkeypatch.setattr(pe_ops, "_launch_forward", pe_ops.pe_fusion_plain)
+    got = _torch_fusion_grads(pe_ops.PEFusionFunction.apply, logits, pe, y,
+                              h, cot)
+    want = _torch_fusion_grads(pe_ops.pe_fusion_plain, logits, pe, y, h, cot)
+    for g, w_ in zip(got, want):
+        np.testing.assert_allclose(g, w_, rtol=1e-6, atol=1e-7)

@@ -128,3 +128,55 @@ def test_masks_and_index_match_jax():
                                       jswin.shifted_window_mask(*args))
     np.testing.assert_array_equal(tswin.relative_position_index(7, 7),
                                   jswin.relative_position_index(7, 7))
+
+
+def _attention_inputs(nW, seed=5):
+    rng = np.random.default_rng(seed)
+    nWB, N, H, D = 12, 49, 3, 32
+    q, k, v = (rng.standard_normal((nWB, N, H, D)).astype(np.float32)
+               for _ in range(3))
+    q = (q * D ** -0.5).astype(np.float32)      # pre-scaled, as WindowMSA
+    bias = rng.standard_normal((H, N, N)).astype(np.float32)
+    mask = None
+    if nW is not None:
+        mask = np.where(rng.random((nW, N, N)) > 0.5, 0.0,
+                        -100.0).astype(np.float32)
+    cot = rng.standard_normal((nWB, N, H, D)).astype(np.float32)
+    return (q, k, v, bias), mask, cot
+
+
+def _torch_grads(fn, arrays, mask, cot):
+    leaves = [torch.from_numpy(a).requires_grad_() for a in arrays]
+    m = None if mask is None else torch.from_numpy(mask)
+    (fn(*leaves, m) * torch.from_numpy(cot)).sum().backward()
+    return [t.grad.numpy() for t in leaves]
+
+
+@pytest.mark.parametrize("nW", [None, 6])
+def test_window_attention_grads_match_xla(nW):
+    """d_q, d_k, d_v and d_bias of the port against jax.grad of
+    `window_attention_xla`, the function the JAX package's custom VJP
+    differentiates."""
+    arrays, mask, cot = _attention_inputs(nW)
+    jmask = None if mask is None else jnp.asarray(mask)
+    want = jax.grad(
+        lambda q, k, v, b: jnp.sum(window_attention_xla(q, k, v, b, jmask)
+                                   * cot), argnums=(0, 1, 2, 3))(
+        *(jnp.asarray(a) for a in arrays))
+    got = _torch_grads(wa.window_attention, arrays, mask, cot)
+    for g, w_, name in zip(got, want, ("q", "k", "v", "bias")):
+        np.testing.assert_allclose(g, np.asarray(w_), rtol=1e-4, atol=1e-5,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("nW", [None, 6])
+def test_window_attention_function_wiring(monkeypatch, nW):
+    """`WindowAttentionFunction` with kernel A's launch swapped for the
+    plain forward: its gradients equal autograd through the plain
+    version."""
+    arrays, mask, cot = _attention_inputs(nW, seed=6)
+    monkeypatch.setattr(wa, "_launch_forward", wa.window_attention_plain)
+    got = _torch_grads(wa.WindowAttentionFunction.apply, arrays, mask, cot)
+    want = _torch_grads(wa.window_attention_plain, arrays, mask, cot)
+    for g, w_ in zip(got, want):
+        np.testing.assert_allclose(g, w_, rtol=1e-6, atol=1e-7)
