@@ -10,7 +10,10 @@ Phases, each printing its lines; any failure raises and exits non-zero:
   2. build: the CUDA kernels of gedepth_tpu_torch/csrc with nvcc;
   3. kernels: each kernel against its plain PyTorch version at the
      full-width shapes of the serving slice, with the stated tolerance, and
-     the median CUDA-event time of both;
+     the median CUDA-event time of both (which holds the wrapper's host
+     time too); kernel A also at the train crop's stage 1 (batch 2), with k
+     and v as views into a packed qkv as the model passes them, and with
+     the device time per call of both versions beside the event times;
   4. main path: `init_depther("gedepth_adaptive_kitti_tpu")` with a seeded
      random initialisation, then `inference_depther` on 3 synthetic
      375x1242 KITTI-shaped requests (KB crop, normalisation, flip-TTA);
@@ -35,7 +38,10 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      gradients that are zero but for rounding: a LayerNorm bias that feeds
      only a conv and a train-mode BatchNorm (backbone.norm{i}.bias) shifts
      each channel by a constant the BatchNorm takes out again, so both
-     sides hold noise of ~1e-8 there.
+     sides hold noise of ~1e-8 there. The decode head's conv weights are
+     the most sensitive: a relative change of 1e-7 in the window
+     attention's output moves them by ~4.5e-4 relative, ~0.45 of the
+     bound. Kernel A therefore rounds as its plain version does.
 Then the kernels as one JSON line (launches from phase 7), and last the
 device as one JSON line.
 Imports nothing of JAX. Exits non-zero without a CUDA device.
@@ -76,6 +82,42 @@ def cuda_ms(fn, reps=10, warmup=2):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, reps=10, warmup=2):
+    """Median over `reps` calls of fn() of the device time per call in
+    milliseconds: the summed durations of the kernels, copies and fills
+    that `torch.profiler` saw on the card during the call. Each call runs
+    in its own named range that ends in a synchronise; a device activity
+    belongs to the last range that started before it. Returns (median,
+    activities per call), or (None, 0) when the profiler saw none."""
+    import bisect
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(reps):
+            with record_function(f"chip_smoke_call_{i}"):
+                fn()
+                torch.cuda.synchronize()
+    events = prof.events()
+    starts = sorted(e.time_range.start for e in events
+                    if e.name.startswith("chip_smoke_call_")
+                    and e.device_type == DeviceType.CPU)
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and not e.name.startswith("chip_smoke_call_")]
+    if len(starts) != reps or not device:
+        return None, 0
+    per_call = [0.0] * reps
+    for e in device:
+        i = max(bisect.bisect_right(starts, e.time_range.start) - 1, 0)
+        per_call[i] += e.time_range.elapsed_us()
+    return statistics.median(per_call) / 1e3, len(device) / reps
 
 
 def compare(name, got, want, rtol, atol):
@@ -130,26 +172,44 @@ def phase_kernels():
 
     results = {}
     # A: Swin-L stage 1 (88x304 padded to 91x308: 572 windows, 6 heads)
-    # unmasked and masked, and stage 3 (22x76 -> 28x77: 44 windows, 24 heads)
+    # unmasked and masked, stage 3 (22x76 -> 28x77: 44 windows, 24 heads),
+    # and the train crop's stage 1 at batch 2 (88x176 -> 91x182: 2 x 338
+    # windows, mask period 338); k and v are views into a packed qkv
     print("[kernels] A window attention (rtol 2e-4, atol 2e-5)")
     for label, nWB, H, grid in (("stage1", 572, 6, None),
                                 ("stage1_shifted", 572, 6, (91, 308)),
-                                ("stage3_shifted", 44, 24, (28, 77))):
-        q, k, v = (randn(nWB, 49, H, 32) for _ in range(3))
-        q = q * 32 ** -0.5
+                                ("stage3_shifted", 44, 24, (28, 77)),
+                                ("train_stage1_shifted", 676, 6, (91, 182))):
+        qkv = randn(nWB, 49, 3, H, 32)
+        q, k, v = qkv[:, :, 0] * 32 ** -0.5, qkv[:, :, 1], qkv[:, :, 2]
         bias = randn(H, 49, 49)
         mask = None if grid is None else torch.as_tensor(
             shifted_window_mask(*grid, 7, 3), device="cuda")
-        err = compare(f"A {label} ({nWB},49,{H},32)",
+        shape = f"({nWB},49,{H},32)" + (
+            "" if mask is None else f" mask {tuple(mask.shape)}")
+        err = compare(f"A {label} {shape}",
                       wa.window_attention(q, k, v, bias, mask),
                       wa.window_attention_plain(q, k, v, bias, mask),
                       2e-4, 2e-5)
-        ms = cuda_ms(lambda: wa.window_attention(q, k, v, bias, mask))
-        plain_ms = cuda_ms(
-            lambda: wa.window_attention_plain(q, k, v, bias, mask))
-        print(f"    ms={ms:.4f} plain_ms={plain_ms:.4f}", flush=True)
+
+        def kernel():
+            return wa.window_attention(q, k, v, bias, mask)
+
+        def plain():
+            return wa.window_attention_plain(q, k, v, bias, mask)
+
+        ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
+        (dev, n_dev), (plain_dev, n_plain) = device_ms(kernel), \
+            device_ms(plain)
+        dev, plain_dev = ("not measured" if x is None else f"{x:.4f}"
+                          for x in (dev, plain_dev))
+        print(f"    ms={ms:.4f} plain_ms={plain_ms:.4f} (CUDA events) "
+              f"device_ms={dev} plain_device_ms={plain_dev} "
+              f"(profiler; {n_dev:g} and {n_plain:g} device activities a "
+              f"call)", flush=True)
         if label == "stage1_shifted":   # the JSON line keeps this shape
             results["window_attention"] = (err, ms, plain_ms)
+        del qkv, q, k, v
 
     # B: HAHI, value 35,530 tokens x 8 heads x 64 over 4 levels
     print("[kernels] B deformable sampling (rtol 2e-4, atol 2e-5)")

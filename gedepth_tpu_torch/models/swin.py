@@ -93,9 +93,8 @@ class WindowMSA(nn.Module):
         nWB, N, C = x.shape
         h = self.num_heads
         qkv = self.qkv(x).view(nWB, N, 3, h, C // h)
-        q = (qkv[:, :, 0] * (C // h) ** -0.5).contiguous()
-        k = qkv[:, :, 1].contiguous()
-        v = qkv[:, :, 2].contiguous()
+        q = qkv[:, :, 0] * (C // h) ** -0.5
+        k, v = qkv[:, :, 1], qkv[:, :, 2]   # views: the kernel takes strides
         idx = _device_array(relative_position_index,
                             (self.window, self.window), x.device)
         bias = self.relative_position_bias_table[idx.view(-1)].view(

@@ -28,11 +28,12 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# C signatures: pointers and the stream as void*, sizes as int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# C signatures: pointers and the stream as void*, sizes as int, strides as
+# long long
 _SIGNATURES = {
-    "window_attention_fwd": [_P, _P, _P, _P, _P, _P,
-                             _I, _I, _I, _I, _I, _P],
+    "window_attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _L, _L, _L, _L, _L, _L, _P],
     "msda_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "msda_bwd": [_P, _P, _P, _P, _P, _P, _P, _P,
                  _I, _I, _I, _I, _I, _I, _I, _P],

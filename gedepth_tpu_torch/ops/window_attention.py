@@ -14,7 +14,9 @@ Shapes (the JAX package's layout):
 On a CUDA tensor the wrapper runs `WindowAttentionFunction`: the
 hand-written forward kernel of `csrc/window_attention.cu` (A) and the VJP of
 the plain version as its backward. On a CPU tensor it runs the plain
-version.
+version. The kernel reads q, k and v through their window and row strides,
+so k and v may be views into a packed (nWB, N, 3, heads, D) qkv; what it
+does not take (see `check_kernel_inputs`) raises.
 """
 from __future__ import annotations
 
@@ -22,9 +24,10 @@ import torch
 
 from gedepth_tpu_torch.ops import _lib
 
-# the kernel's shared-memory tiles hold at most this many tokens / channels
+# the kernel pads windows to 64 tokens; head widths are its template
+# instances, multiples of 8 up to 64
 MAX_TOKENS = 64
-MAX_HEAD_DIM = 64
+HEAD_DIMS = tuple(range(8, 65, 8))
 
 
 def window_attention_plain(q, k, v, bias, mask=None):
@@ -60,15 +63,42 @@ def _check(q, k, v, bias, mask):
             raise ValueError("window_attention: all inputs on one device")
 
 
+def check_kernel_inputs(q, k, v, bias, mask):
+    """Raise unless kernel A takes these (shape-checked) inputs as they are:
+    f32; N <= 64; D in HEAD_DIMS; q, k, v with unit stride over D, head
+    stride D, window and row strides in multiples of 4 floats and 16-byte
+    aligned data (16-byte copies); bias and mask contiguous."""
+    nWB, N, H, D = q.shape
+    if N > MAX_TOKENS or D not in HEAD_DIMS:
+        raise ValueError(f"window_attention kernel takes N <= {MAX_TOKENS} "
+                         f"and D in {HEAD_DIMS}, got N={N} D={D}")
+    tensors = [q, k, v, bias] + ([] if mask is None else [mask])
+    for t in tensors:
+        if t.dtype != torch.float32:
+            raise TypeError(f"window_attention kernel is f32, got {t.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        sw, sn, sh, sd = t.stride()
+        if sd != 1 or sh != D or sw % 4 or sn % 4 or t.data_ptr() % 16:
+            raise ValueError(
+                f"window_attention kernel needs {name} with strides "
+                f"(4a, 4b, {D}, 1) and 16-byte aligned data, got strides "
+                f"{t.stride()} at offset {t.data_ptr() % 16} mod 16")
+    for name, t in (("bias", bias), ("mask", mask)):
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"window_attention kernel needs a contiguous "
+                             f"{name}")
+
+
 def _launch_forward(q, k, v, bias, mask):
     """Kernel A on CUDA tensors already checked."""
     nWB, N, H, D = q.shape
-    out = torch.empty_like(q)
+    out = torch.empty((nWB, N, H, D), dtype=q.dtype, device=q.device)
     nW = 0 if mask is None else mask.shape[0]
     _lib.call("window_attention_fwd", q.data_ptr(), k.data_ptr(),
               v.data_ptr(), bias.data_ptr(),
               None if mask is None else mask.data_ptr(), out.data_ptr(),
-              nWB, N, H, D, nW)
+              nWB, N, H, D, nW, *q.stride()[:2], *k.stride()[:2],
+              *v.stride()[:2])
     window_attention.launches += 1
     return out
 
@@ -99,17 +129,7 @@ def window_attention(q, k, v, bias, mask=None):
         return window_attention_plain(q, k, v, bias, mask)
     if q.device.type != "cuda":
         raise ValueError(f"window_attention: no kernel for {q.device}")
-    nWB, N, H, D = q.shape
-    if N > MAX_TOKENS or D > MAX_HEAD_DIM:
-        raise ValueError(f"window_attention kernel takes N <= {MAX_TOKENS} "
-                         f"and D <= {MAX_HEAD_DIM}, got N={N} D={D}")
-    tensors = [q, k, v, bias] + ([] if mask is None else [mask])
-    for t in tensors:
-        if t.dtype != torch.float32:
-            raise TypeError(f"window_attention kernel is f32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError("window_attention kernel needs contiguous "
-                             "inputs")
+    check_kernel_inputs(q, k, v, bias, mask)
     return WindowAttentionFunction.apply(q, k, v, bias, mask)
 
 

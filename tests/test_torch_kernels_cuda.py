@@ -7,7 +7,10 @@ so on a machine without JAX run it with:
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
 
 Tolerances (f32, TF32 off): window attention and deformable sampling rtol
-2e-4, atol 2e-5 (sums in another order, the kernel's exp against torch's);
+2e-4, atol 2e-5 (sums in another order, the kernel's exp against torch's;
+window attention with logits of ~1e3, where one rounding of a logit moves
+its weight by ~1e-4, is held to a float64 reference instead; at N = 49
+kernel A rounds as the plain version and is held to it exactly);
 PE fusion 1e-4, as on the CPU. The deformable-sampling backward (kernel C)
 holds d_pos and d_weights to rtol 2e-4, atol 2e-5, and d_value, which its
 atomics sum in any order, to rtol 2e-4 plus atol 1e-5·max|d_value|.
@@ -95,6 +98,116 @@ def test_window_attention_kernel_against_float64():
                  - ref).abs().max().item()
     err = (got - ref).abs().max().item()
     assert err < 1e-5 and err <= 4 * plain_err + 1e-7, (err, plain_err)
+
+
+def _packed_qkv(g, nWB, N, H, D, scale=1.0):
+    """q a scaled copy, k and v views into a packed (nWB, N, 3, H, D) qkv,
+    as `WindowMSA` passes them."""
+    qkv = _randn(g, nWB, N, 3, H, D) * scale
+    return qkv[:, :, 0] * D ** -0.5, qkv[:, :, 1], qkv[:, :, 2]
+
+
+@pytest.mark.parametrize("nWB,N,H,D,grid", [
+    # stage 1 shifted at the train crop 352x704, batch 2: 2 x 338 windows
+    (676, 49, 6, 32, (91, 182)),
+    # a small batch-2 mask period (nWB = 2 nW), head width 24
+    (16, 49, 2, 24, (14, 28)),
+    # windows of 6x6 and 3x3 tokens (N < 49), with and without a mask
+    (12, 36, 4, 32, (12, 18)), (10, 9, 3, 64, None)])
+def test_window_attention_kernel_packed_qkv(nWB, N, H, D, grid):
+    g = torch.Generator(device="cuda").manual_seed(6)
+    q, k, v = _packed_qkv(g, nWB, N, H, D)
+    assert not k.is_contiguous() and k.stride(1) == 3 * H * D
+    bias = _randn(g, H, N, N)
+    mask = None
+    if grid is not None:
+        win = int(round(N ** 0.5))
+        mask = torch.as_tensor(shifted_window_mask(*grid, win, win // 2),
+                               device="cuda")
+        assert nWB == 2 * mask.shape[0]
+    before = wa.window_attention.launches
+    got = wa.window_attention(q, k, v, bias, mask)
+    torch.cuda.synchronize()
+    assert wa.window_attention.launches == before + 1
+    want = wa.window_attention_plain(q, k, v, bias, mask)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
+
+
+def test_window_attention_kernel_large_logits():
+    """|q·k| ~ 1e3: the row max is taken out before exp. Held, as the
+    float64 test, to a float64 reference at no worse than 4x the plain
+    f32 version's own error."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v = _packed_qkv(g, 44, 49, 24, 32, scale=16.0)
+    v = v / 16.0
+    bias = _randn(g, 24, 49, 49)
+    mask = torch.as_tensor(shifted_window_mask(28, 77, 7, 3), device="cuda")
+    logits = torch.einsum("bnhd,bmhd->bhnm", q, k)
+    assert logits.abs().max().item() > 1e3
+    got = wa.window_attention(q, k, v, bias, mask)
+    assert bool(torch.isfinite(got).all())
+    ref = wa.window_attention_plain(
+        *(t.double() for t in (q, k, v, bias, mask)))
+    plain_err = (wa.window_attention_plain(q, k, v, bias, mask).double()
+                 - ref).abs().max().item()
+    err = (got.double() - ref).abs().max().item()
+    assert err <= 4 * plain_err + 1e-6, (err, plain_err)
+
+
+@pytest.mark.parametrize("nWB,H,grid", [
+    (572, 6, None), (44, 24, (28, 77)), (676, 6, (91, 182))])
+def test_window_attention_kernel_equals_plain(nWB, H, grid):
+    """At N = 49 kernel A sums, exponentiates and divides in the plain
+    version's order, so the two agree bit for bit: a train step's gradients
+    are sensitive to ~1e-7 relative changes in this op's output."""
+    g = torch.Generator(device="cuda").manual_seed(9)
+    q, k, v = _packed_qkv(g, nWB, 49, H, 32)
+    bias = _randn(g, H, 49, 49)
+    mask = None if grid is None else torch.as_tensor(
+        shifted_window_mask(*grid, 7, 3), device="cuda")
+    got = wa.window_attention(q, k, v, bias, mask)
+    assert torch.equal(got, wa.window_attention_plain(q, k, v, bias, mask))
+
+
+def _as_strided(shape, strides, offset=0):
+    return torch.zeros(offset + 4096 * 64, device="cuda").as_strided(
+        shape, strides, offset)
+
+
+@pytest.mark.parametrize("case", [
+    "float16", "float64", "N81", "D20", "last_stride", "head_stride",
+    "row_stride", "misaligned", "bias_strided"])
+def test_window_attention_kernel_refuses(case):
+    """On a CUDA tensor the wrapper raises on what kernel A does not take,
+    and launches nothing: no fallback to the plain version."""
+    nWB, N, H, D = 4, 49, 2, 32
+    g = torch.Generator(device="cuda").manual_seed(8)
+    q, k, v = _packed_qkv(g, nWB, N, H, D)
+    bias = _randn(g, H, N, N)
+    mask = None
+    row = H * D
+    if case in ("float16", "float64"):
+        dt = torch.float16 if case == "float16" else torch.float64
+        q, k, v, bias = (t.to(dt) for t in (q, k, v, bias))
+    elif case == "N81":
+        q, k, v = (_randn(g, nWB, 81, H, D) for _ in range(3))
+        bias = _randn(g, H, 81, 81)
+    elif case == "D20":
+        q, k, v = (_randn(g, nWB, N, H, 20) for _ in range(3))
+    elif case == "last_stride":
+        k = _randn(g, nWB, N, D, H).transpose(2, 3)
+    elif case == "head_stride":
+        k = _as_strided((nWB, N, H, D), (N * 2 * row, 2 * row, 2 * D, 1))
+    elif case == "row_stride":
+        v = _as_strided((nWB, N, H, D), (N * (row + 1), row + 1, D, 1))
+    elif case == "misaligned":
+        q = _as_strided((nWB, N, H, D), (N * row, row, D, 1), offset=1)
+    elif case == "bias_strided":
+        bias = bias.transpose(1, 2)
+    before = wa.window_attention.launches
+    with pytest.raises(TypeError if case.startswith("float") else ValueError):
+        wa.window_attention(q, k, v, bias, mask)
+    assert wa.window_attention.launches == before
 
 
 def test_msda_kernel_zero_padding():

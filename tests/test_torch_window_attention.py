@@ -169,14 +169,72 @@ def test_window_attention_grads_match_xla(nW):
                                    err_msg=name)
 
 
-@pytest.mark.parametrize("nW", [None, 6])
-def test_window_attention_function_wiring(monkeypatch, nW):
+def _packed(fn):
+    """fn over (qkv, bias): k and v as views into a packed (nWB, N, 3, H, D)
+    qkv, q a scaled copy of its first slot, as `WindowMSA` passes them."""
+    def run(qkv, bias, mask):
+        return fn(qkv[:, :, 0] * 0.5, qkv[:, :, 1], qkv[:, :, 2], bias, mask)
+    return run
+
+
+@pytest.mark.parametrize("nW,packed", [
+    pytest.param(None, False, id="None"), pytest.param(6, False, id="6"),
+    pytest.param(None, True, id="None-packed"),
+    pytest.param(6, True, id="6-packed")])
+def test_window_attention_function_wiring(monkeypatch, nW, packed):
     """`WindowAttentionFunction` with kernel A's launch swapped for the
-    plain forward: its gradients equal autograd through the plain
-    version."""
+    plain forward: its gradients equal autograd through the plain version,
+    also through k and v that are views into a packed qkv."""
     arrays, mask, cot = _attention_inputs(nW, seed=6)
     monkeypatch.setattr(wa, "_launch_forward", wa.window_attention_plain)
-    got = _torch_grads(wa.WindowAttentionFunction.apply, arrays, mask, cot)
-    want = _torch_grads(wa.window_attention_plain, arrays, mask, cot)
+    fn, ref = wa.WindowAttentionFunction.apply, wa.window_attention_plain
+    if packed:
+        arrays = (np.stack(arrays[:3], axis=2), arrays[3])
+        fn, ref = _packed(fn), _packed(ref)
+    got = _torch_grads(fn, arrays, mask, cot)
+    want = _torch_grads(ref, arrays, mask, cot)
     for g, w_ in zip(got, want):
         np.testing.assert_allclose(g, w_, rtol=1e-6, atol=1e-7)
+
+
+def _strided(shape, strides, offset=0):
+    return torch.zeros(offset + 4096 * 64).as_strided(shape, strides, offset)
+
+
+@pytest.mark.parametrize("case", [
+    "packed", "float64", "N65", "D20", "D72", "last_stride", "head_stride",
+    "row_stride", "window_stride", "misaligned", "bias_strided"])
+def test_kernel_input_check(case):
+    """What kernel A takes, decided on tensor metadata alone: k and v as
+    views into a packed qkv pass; each layout or type it cannot read
+    raises (the wrapper runs this check before every launch)."""
+    nWB, N, H, D = 4, 49, 2, 32
+    qkv = torch.zeros(nWB, N, 3, H, D)
+    q, k, v = qkv[:, :, 0] * 1.0, qkv[:, :, 1], qkv[:, :, 2]
+    bias, mask = torch.zeros(H, N, N), torch.zeros(2, N, N)
+    row = H * D
+    bad = {
+        "float64": lambda: dict(q=q.double()),
+        "N65": lambda: dict(q=torch.zeros(nWB, 65, H, D)),
+        "D20": lambda: dict(q=torch.zeros(nWB, N, H, 20)),
+        "D72": lambda: dict(q=torch.zeros(nWB, N, H, 72)),
+        "last_stride": lambda: dict(
+            k=torch.zeros(nWB, N, D, H).transpose(2, 3)),
+        "head_stride": lambda: dict(
+            k=_strided((nWB, N, H, D), (N * 2 * row, 2 * row, 2 * D, 1))),
+        "row_stride": lambda: dict(
+            v=_strided((nWB, N, H, D), (N * (row + 1), row + 1, D, 1))),
+        "window_stride": lambda: dict(
+            v=_strided((nWB, N, H, D), (N * row + 2, row, D, 1))),
+        "misaligned": lambda: dict(
+            q=_strided((nWB, N, H, D), (N * row, row, D, 1), offset=1)),
+        "bias_strided": lambda: dict(
+            bias=torch.zeros(H, N, N).transpose(1, 2)),
+    }
+    args = dict(q=q, k=k, v=v, bias=bias, mask=mask)
+    if case == "packed":
+        wa.check_kernel_inputs(**args)
+        return
+    args.update(bad[case]())
+    with pytest.raises(TypeError if case == "float64" else ValueError):
+        wa.check_kernel_inputs(**args)
