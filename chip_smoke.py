@@ -9,11 +9,15 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      capability; TF32 off for matmuls and convolutions;
   2. build: the CUDA kernels of gedepth_tpu_torch/csrc with nvcc;
   3. kernels: each kernel against its plain PyTorch version at the
-     full-width shapes of the serving slice, with the stated tolerance, and
-     the median CUDA-event time of both (which holds the wrapper's host
-     time too); kernel A also at the train crop's stage 1 (batch 2), with k
-     and v as views into a packed qkv as the model passes them, and with
-     the device time per call of both versions beside the event times;
+     full-width shapes of the serving slice, with the stated tolerance, the
+     median CUDA-event time of both (which holds the wrapper's host time
+     too) and the device time per call of both from `torch.profiler`;
+     kernel A also at the train crop's stage 1 (batch 2), with k and v as
+     views into a packed qkv as the model passes them, and beside one
+     `F.scaled_dot_product_attention` call on the same inputs (a yardstick
+     the port never calls); kernel B also at the train crop's shapes
+     (batch 2), without the window hint, and with a share of its samples
+     thrown out of their windows and levels;
   4. main path: `init_depther("gedepth_adaptive_kitti_tpu")` with a seeded
      random initialisation, then `inference_depther` on 3 synthetic
      375x1242 KITTI-shaped requests (KB crop, normalisation, flip-TTA);
@@ -25,7 +29,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      the train crop's full width (352x704, batch 2), self-attention (5,082
      queries per sample) and cross-attention (61,952): d_pos and d_weights
      rtol 2e-4, atol 2e-5; d_value, summed by atomics in any order, rtol
-     2e-4 plus atol 1e-5·max|d_value|; CUDA-event medians of both;
+     2e-4 plus atol 1e-5·max|d_value|; CUDA-event medians and device times
+     of both; once more with a share of the samples thrown out of their
+     windows and levels;
   7. train main path: `train("gedepth_adaptive_kitti_tpu")` for 5 steps at
      352x704, batch 2, on synthetic KITTI-shaped frames from the seeded
      initialisation; every metric finite, every parameter's gradient present
@@ -42,8 +48,10 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      the most sensitive: a relative change of 1e-7 in the window
      attention's output moves them by ~4.5e-4 relative, ~0.45 of the
      bound. Kernel A therefore rounds as its plain version does.
-Then the kernels as one JSON line (launches from phase 7), and last the
-device as one JSON line.
+Then the kernels as one JSON line (launches from phase 7, those of phase 4
+beside them; `bound_ms` the larger of the call's bytes over 3.35 TB/s and
+its f32 operations over 67 TFLOP/s, the H100 SXM's published peaks), and
+last the device as one JSON line.
 Imports nothing of JAX. Exits non-zero without a CUDA device.
 """
 from __future__ import annotations
@@ -89,8 +97,9 @@ def device_ms(fn, reps=10, warmup=2):
     milliseconds: the summed durations of the kernels, copies and fills
     that `torch.profiler` saw on the card during the call. Each call runs
     in its own named range that ends in a synchronise; a device activity
-    belongs to the last range that started before it. Returns (median,
-    activities per call), or (None, 0) when the profiler saw none."""
+    belongs to the last range that started before it. Returns (median over
+    the calls that were seen, activities per call), or (None, 0) when the
+    profiler saw none."""
     import bisect
 
     from torch.autograd import DeviceType
@@ -117,7 +126,10 @@ def device_ms(fn, reps=10, warmup=2):
     for e in device:
         i = max(bisect.bisect_right(starts, e.time_range.start) - 1, 0)
         per_call[i] += e.time_range.elapsed_us()
-    return statistics.median(per_call) / 1e3, len(device) / reps
+    # a call whose activities were stamped into a neighbour's range, or
+    # dropped by the profiler, counts as not seen
+    seen = [t for t in per_call if t > 0.0]
+    return statistics.median(seen) / 1e3, len(device) / reps
 
 
 def compare(name, got, want, rtol, atol):
@@ -133,6 +145,82 @@ def compare(name, got, want, rtol, atol):
     if not ok:
         fail(f"{name} disagrees with its plain version")
     return max_abs
+
+
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM, published
+F32_FLOP_PER_S = 67e12        # H100 SXM, f32 outside the tensor cores
+
+
+def bound(n_bytes, n_flop):
+    """(bound_ms, bound_by): the least time the card could take to move the
+    call's bytes (each input read once, each output written once) or to do
+    its f32 operations, whichever is larger."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_flop / F32_FLOP_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def n_bytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def timed(kernel, plain, *, reps=10, plain_reps=3, library=None):
+    """Event medians and device times of a kernel call and its plain
+    version (and of a library call, where one computes the function)."""
+    t = {"ms": cuda_ms(kernel, reps=reps),
+         "plain_ms": cuda_ms(plain, reps=plain_reps, warmup=1),
+         "device_ms": device_ms(kernel, reps=reps)[0],
+         "plain_device_ms": device_ms(plain, reps=plain_reps, warmup=1)[0],
+         "library_ms": None}
+    if library is not None:
+        t["library_ms"] = cuda_ms(library, reps=reps)
+        t["library_device_ms"] = device_ms(library, reps=reps)[0]
+    return t
+
+
+def show(t, **more):
+    def f(x):
+        return "not measured" if x is None else f"{x:.4f}"
+    line = (f"    ms={f(t['ms'])} plain_ms={f(t['plain_ms'])} (CUDA events) "
+            f"device_ms={f(t['device_ms'])} "
+            f"plain_device_ms={f(t['plain_device_ms'])} (profiler)")
+    if t["library_ms"] is not None:
+        line += (f" library_ms={f(t['library_ms'])} "
+                 f"library_device_ms={f(t['library_device_ms'])}")
+    if "bound_ms" in t:
+        line += f" bound_ms={t['bound_ms']:.4f} ({t['bound_by']})"
+        if t["device_ms"]:
+            line += f" device/bound={t['device_ms'] / t['bound_ms']:.1f}"
+    for k, v in more.items():
+        line += f" {k}={v}"
+    print(line, flush=True)
+
+
+def scatter(pos, g, share=0.1):
+    """`share` of the samples thrown tens of pixels away, a tenth of those
+    a million: out of their windows and mostly out of their levels."""
+    shape = pos.shape[:-1]
+    far = torch.rand(shape, generator=g, device="cuda") < share
+    very = torch.rand(shape, generator=g, device="cuda") < 0.1
+    kick = torch.randn(pos.shape, generator=g, device="cuda")
+    kick = kick * torch.where(very, 1e6, 60.0)[..., None]
+    return pos + kick * far[..., None]
+
+
+SERVE_LEVELS = ((88, 304), (44, 152), (22, 76), (11, 38))
+TRAIN_LEVELS = ((88, 176), (44, 88), (22, 44), (11, 22))
+RADIUS = 4
+
+
+def msda_inputs(randn, B, levels, grids):
+    from gedepth_tpu_torch.ops import msda as msda_ops
+
+    Nq = sum(a * b for a, b in grids)
+    pos = msda_ops.windowed_positions(2.0 * randn(B, Nq, 8, 4, 8, 2),
+                                      grids, levels, RADIUS)
+    w = randn(B, Nq, 8, 32).softmax(-1).view(B, Nq, 8, 4, 8)
+    return pos, w
 
 
 def phase_device():
@@ -160,6 +248,8 @@ def phase_build():
 
 
 def phase_kernels():
+    import torch.nn.functional as F
+
     from gedepth_tpu_torch.models.swin import shifted_window_mask
     from gedepth_tpu_torch.ops import msda as msda_ops
     from gedepth_tpu_torch.ops import pe_fusion as pe_ops
@@ -174,7 +264,9 @@ def phase_kernels():
     # A: Swin-L stage 1 (88x304 padded to 91x308: 572 windows, 6 heads)
     # unmasked and masked, stage 3 (22x76 -> 28x77: 44 windows, 24 heads),
     # and the train crop's stage 1 at batch 2 (88x176 -> 91x182: 2 x 338
-    # windows, mask period 338); k and v are views into a packed qkv
+    # windows, mask period 338); k and v are views into a packed qkv. The
+    # library yardstick is one scaled_dot_product_attention call with
+    # bias[h] + mask[window] as its attn_mask, formed before the call.
     print("[kernels] A window attention (rtol 2e-4, atol 2e-5)")
     for label, nWB, H, grid in (("stage1", 572, 6, None),
                                 ("stage1_shifted", 572, 6, (91, 308)),
@@ -187,65 +279,79 @@ def phase_kernels():
             shifted_window_mask(*grid, 7, 3), device="cuda")
         shape = f"({nWB},49,{H},32)" + (
             "" if mask is None else f" mask {tuple(mask.shape)}")
+        want = wa.window_attention_plain(q, k, v, bias, mask)
         err = compare(f"A {label} {shape}",
-                      wa.window_attention(q, k, v, bias, mask),
-                      wa.window_attention_plain(q, k, v, bias, mask),
+                      wa.window_attention(q, k, v, bias, mask), want,
                       2e-4, 2e-5)
+        attn_mask = bias[None] if mask is None else (
+            bias[None] + mask.repeat(nWB // mask.shape[0], 1, 1)[:, None])
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
 
-        def kernel():
-            return wa.window_attention(q, k, v, bias, mask)
+        def library():
+            return F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=attn_mask, scale=1.0).transpose(1, 2)
 
-        def plain():
-            return wa.window_attention_plain(q, k, v, bias, mask)
-
-        ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
-        (dev, n_dev), (plain_dev, n_plain) = device_ms(kernel), \
-            device_ms(plain)
-        dev, plain_dev = ("not measured" if x is None else f"{x:.4f}"
-                          for x in (dev, plain_dev))
-        print(f"    ms={ms:.4f} plain_ms={plain_ms:.4f} (CUDA events) "
-              f"device_ms={dev} plain_device_ms={plain_dev} "
-              f"(profiler; {n_dev:g} and {n_plain:g} device activities a "
-              f"call)", flush=True)
+        compare(f"A {label} library call", library(), want, 2e-4, 2e-5)
+        t = timed(lambda: wa.window_attention(q, k, v, bias, mask),
+                  lambda: wa.window_attention_plain(q, k, v, bias, mask),
+                  plain_reps=10, library=library)
+        t["bound_ms"], t["bound_by"] = bound(
+            n_bytes(q, k, v, bias, want) + (0 if mask is None
+                                            else n_bytes(mask)),
+            nWB * H * 49 * 49 * (4 * 32 + 5))
+        show(t)
         if label == "stage1_shifted":   # the JSON line keeps this shape
-            results["window_attention"] = (err, ms, plain_ms)
-        del qkv, q, k, v
+            results["window_attention"] = dict(t, max_abs_err=err)
+        del qkv, q, k, v, want, attn_mask
 
-    # B: HAHI, value 35,530 tokens x 8 heads x 64 over 4 levels
+    # B: HAHI, value 35,530 tokens x 8 heads x 64 over 4 levels (serving)
+    # and 2 x 20,570 (the train crop); 9 f32 operations per sample and
+    # channel (the corner blend and the weighted sum)
     print("[kernels] B deformable sampling (rtol 2e-4, atol 2e-5)")
-    levels = ((88, 304), (44, 152), (22, 76), (11, 38))
-    value = randn(1, sum(a * b for a, b in levels), 8, 64)
-    for label, grids in (("self_attn", levels[1:]),
-                         ("cross_attn", ((176, 608),))):
-        Nq = sum(a * b for a, b in grids)
-        pos = msda_ops.windowed_positions(2.0 * randn(1, Nq, 8, 4, 8, 2),
-                                          grids, levels, 4)
-        w = randn(1, Nq, 8, 32).softmax(-1).view(1, Nq, 8, 4, 8)
-        err = compare(f"B {label} Nq={Nq}",
-                      msda_ops.msda(value, levels, pos, w),
-                      msda_ops.msda_plain(value, levels, pos, w), 2e-4, 2e-5)
-        ms = cuda_ms(lambda: msda_ops.msda(value, levels, pos, w))
-        plain_ms = cuda_ms(
-            lambda: msda_ops.msda_plain(value, levels, pos, w), reps=3)
-        print(f"    ms={ms:.4f} plain_ms={plain_ms:.4f}", flush=True)
-        results["msda"] = (err, ms, plain_ms)   # cross_attn is kept
-        del pos, w
+    for label, B, levels, grids, far in (
+            ("self_attn", 1, SERVE_LEVELS, SERVE_LEVELS[1:], False),
+            ("train_self_attn", 2, TRAIN_LEVELS, TRAIN_LEVELS[1:], False),
+            ("train_cross_attn", 2, TRAIN_LEVELS, ((176, 352),), False),
+            ("cross_attn_scattered", 1, SERVE_LEVELS, ((176, 608),), True),
+            ("cross_attn", 1, SERVE_LEVELS, ((176, 608),), False)):
+        value = randn(B, sum(a * b for a, b in levels), 8, 64)
+        pos, w = msda_inputs(randn, B, levels, grids)
+        if far:
+            pos = scatter(pos, g)
+        Nq = pos.shape[1]
+        want = msda_ops.msda_plain(value, levels, pos, w)
+        err = compare(f"B {label} {B}x{Nq} queries",
+                      msda_ops.msda(value, levels, pos, w, grids, RADIUS),
+                      want, 2e-4, 2e-5)
+        compare(f"B {label} without the window hint",
+                msda_ops.msda(value, levels, pos, w), want, 2e-4, 2e-5)
+        t = timed(lambda: msda_ops.msda(value, levels, pos, w, grids, RADIUS),
+                  lambda: msda_ops.msda_plain(value, levels, pos, w))
+        t["bound_ms"], t["bound_by"] = bound(
+            n_bytes(value, pos, w, want), 9 * w.numel() * 64)
+        hintless = device_ms(lambda: msda_ops.msda(value, levels, pos, w))[0]
+        show(t, device_ms_without_hint=f"{hintless:.4f}")
+        results["msda"] = dict(t, max_abs_err=err)   # cross_attn is kept
+        del value, pos, w, want
 
-    # E: PE fusion over the full 352x1216 crop
+    # E: PE fusion over the full 352x1216 crop; ~100 f32 operations a pixel
+    # (an 11-way softmax and the plane's depth)
     print("[kernels] E PE fusion (rtol 1e-4, atol 1e-4)")
     logits = randn(1, 352, 1216, 11)
     pe = torch.rand(1, 352, 1216, generator=g, device="cuda") * 78 + 2
     y = torch.rand(1, 352, 1216, generator=g, device="cuda")
     cam = torch.full((1,), 1.65, device="cuda")
+    want = pe_ops.pe_fusion_plain(logits, pe, y, cam, 200.0)
     err = compare("E (1,352,1216,11)",
-                  pe_ops.pe_fusion(logits, pe, y, cam, 200.0),
-                  pe_ops.pe_fusion_plain(logits, pe, y, cam, 200.0),
+                  pe_ops.pe_fusion(logits, pe, y, cam, 200.0), want,
                   1e-4, 1e-4)
-    ms = cuda_ms(lambda: pe_ops.pe_fusion(logits, pe, y, cam, 200.0))
-    plain_ms = cuda_ms(
-        lambda: pe_ops.pe_fusion_plain(logits, pe, y, cam, 200.0))
-    print(f"    ms={ms:.4f} plain_ms={plain_ms:.4f}", flush=True)
-    results["pe_fusion"] = (err, ms, plain_ms)
+    t = timed(lambda: pe_ops.pe_fusion(logits, pe, y, cam, 200.0),
+              lambda: pe_ops.pe_fusion_plain(logits, pe, y, cam, 200.0),
+              plain_reps=10)
+    t["bound_ms"], t["bound_by"] = bound(n_bytes(logits, pe, y, cam, want),
+                                         100 * pe.numel())
+    show(t)
+    results["pe_fusion"] = dict(t, max_abs_err=err)
     return results
 
 
@@ -279,7 +385,8 @@ def phase_main_path():
         t = time.perf_counter()
         depths.append(inference_depther(handle, rgb))
         latencies.append((time.perf_counter() - t) * 1e3)
-    launches = {c.__name__: c.launches for c in counters}
+    launches = dict(zip(("window_attention", "msda", "pe_fusion"),
+                        (c.launches for c in counters)))
     peak = torch.cuda.max_memory_allocated()
 
     print(f"[main] flip-TTA request latency ms: "
@@ -321,7 +428,10 @@ def plain_ops():
 
     with mock.patch.object(wa, "window_attention",
                            wa.window_attention_plain), \
-            mock.patch.object(msda_ops, "msda", msda_ops.msda_plain), \
+            mock.patch.object(
+                msda_ops, "msda",
+                lambda value, shapes, pos, weights, *window:
+                msda_ops.msda_plain(value, shapes, pos, weights)), \
             mock.patch.object(pe_ops, "pe_fusion", pe_ops.pe_fusion_plain):
         yield
 
@@ -343,9 +453,6 @@ def phase_whole_forward(handle, requests):
     compare("depth (1,176,608,1)", got, want, 1e-3, 1e-3)
 
 
-TRAIN_LEVELS = ((88, 176), (44, 88), (22, 44), (11, 22))
-
-
 def phase_kernel_c():
     from gedepth_tpu_torch.ops import msda as msda_ops
 
@@ -354,34 +461,46 @@ def phase_kernel_c():
     def randn(*shape):
         return torch.randn(*shape, generator=g, device="cuda")
 
+    # 17 f32 operations per sample and channel: four corner dots, w·g, and
+    # a multiply and an add into each corner of d_value
     print("[kernel C] deformable-sampling backward, value (2,20570,8,64) "
           "(d_pos, d_w: rtol 2e-4, atol 2e-5; d_value: rtol 2e-4, "
           "atol 1e-5*max|d_value|)")
     value = randn(2, sum(a * b for a, b in TRAIN_LEVELS), 8, 64)
     result = None
-    for label, grids in (("self_attn", TRAIN_LEVELS[1:]),
-                         ("cross_attn", ((176, 352),))):
-        Nq = sum(a * b for a, b in grids)
-        pos = msda_ops.windowed_positions(2.0 * randn(2, Nq, 8, 4, 8, 2),
-                                          grids, TRAIN_LEVELS, 4)
-        w = randn(2, Nq, 8, 32).softmax(-1).view(2, Nq, 8, 4, 8)
+    for label, grids, far in (("self_attn", TRAIN_LEVELS[1:], False),
+                              ("cross_attn_scattered", ((176, 352),), True),
+                              ("cross_attn", ((176, 352),), False)):
+        pos, w = msda_inputs(randn, 2, TRAIN_LEVELS, grids)
+        if far:
+            pos = scatter(pos, g)
+        Nq = pos.shape[1]
         gout = randn(2, Nq, 512)
         args = (value, TRAIN_LEVELS, pos, w, gout)
-        got = msda_ops.msda_backward(*args)
+        got = msda_ops.msda_backward(*args, grids, RADIUS)
         want = msda_ops.msda_backward_plain(*args)
         dv_atol = 1e-5 * want[0].abs().max().item()
-        err = max(compare(f"C {label} Nq={Nq} d_value", got[0], want[0],
-                          2e-4, dv_atol),
-                  compare(f"C {label} Nq={Nq} d_pos", got[1], want[1],
-                          2e-4, 2e-5),
-                  compare(f"C {label} Nq={Nq} d_weights", got[2], want[2],
+        err = max(compare(f"C {label} 2x{Nq} queries d_value", got[0],
+                          want[0], 2e-4, dv_atol),
+                  compare(f"C {label} d_pos", got[1], want[1], 2e-4, 2e-5),
+                  compare(f"C {label} d_weights", got[2], want[2],
                           2e-4, 2e-5))
-        del got, want
-        ms = cuda_ms(lambda: msda_ops.msda_backward(*args))
-        plain_ms = cuda_ms(lambda: msda_ops.msda_backward_plain(*args),
-                           reps=3, warmup=1)
-        print(f"    ms={ms:.4f} plain_ms={plain_ms:.4f}", flush=True)
-        result = (err, ms, plain_ms)    # cross_attn is kept
+        again = msda_ops.msda_backward(*args, grids, RADIUS)
+        if not (torch.equal(got[1], again[1])
+                and torch.equal(got[2], again[2])):
+            fail(f"C {label}: d_pos or d_weights differ between two runs")
+        hintless = msda_ops.msda_backward(*args)
+        compare(f"C {label} d_value without the window hint", hintless[0],
+                want[0], 2e-4, dv_atol)
+        n_out = n_bytes(*want)
+        del got, want, again, hintless
+        t = timed(lambda: msda_ops.msda_backward(*args, grids, RADIUS),
+                  lambda: msda_ops.msda_backward_plain(*args))
+        t["bound_ms"], t["bound_by"] = bound(
+            n_bytes(value, pos, w, gout) + n_out, 17 * w.numel() * 64)
+        hintless = device_ms(lambda: msda_ops.msda_backward(*args))[0]
+        show(t, device_ms_without_hint=f"{hintless:.4f}")
+        result = dict(t, max_abs_err=err)    # cross_attn is kept
         del pos, w, gout, args
     torch.cuda.empty_cache()
     return result
@@ -519,7 +638,7 @@ def main():
     smi = phase_device()
     phase_build()
     results = phase_kernels()
-    handle, requests, _ = phase_main_path()
+    handle, requests, serving_launches = phase_main_path()
     phase_whole_forward(handle, requests)
     del handle
     torch.cuda.empty_cache()
@@ -539,10 +658,16 @@ def main():
     }
     kernels = []
     for name, (source, replaces) in sources.items():
-        err, ms, plain_ms = results[name]
-        kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+        t = results[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "launches_serving": serving_launches.get(name, 0),
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "device_ms": t["device_ms"],
+            "plain_device_ms": t["plain_device_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
     print(f"[power] {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

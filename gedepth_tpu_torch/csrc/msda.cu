@@ -1,4 +1,4 @@
-// Multi-level deformable sampling, forward, f32.
+// Multi-level deformable sampling, forward, f32 (kernel B).
 //
 // Replaces the Pallas TPU kernel `_kernel` of
 // gedepth_tpu/ops/pallas/msda_windowed.py:112, launched by
@@ -17,90 +17,234 @@
 // Where the TPU had no gather, its kernel built a dense bilinear operator
 // over a value window per 128-query tile and contracted it on the MXU; a
 // (query grid, level) pair whose window did not fit VMEM (`_plan` None, e.g.
-// the 11x38 grid sampling 88x304) went to an XLA fallback. Hopper gathers
-// well, so this kernel gathers the four corners directly and takes every
-// pair the same way.
+// the 11x38 grid sampling 88x304) went to an XLA fallback. Hopper gathers,
+// so this kernel reads the four corners of every sample, from a staged
+// window in shared memory where the plan has one and from device memory
+// otherwise, in the same launch.
 //
 // Shapes at the serving slice's full width (352x1216, batch 1): value
 // (1, 35530, 8, 64) over levels 88x304, 44x152, 22x76, 11x38; L = 4, P = 8;
-// self-attention 8,778 queries, cross-attention 107,008 queries.
+// self-attention 8,778 queries, cross-attention 107,008 queries (176x608).
 //
-// Bound on the H100: each output channel reads L·P·4 = 128 value floats
-// and does ~3 FLOP per read, so value reads bound it (the value, 73 MB,
-// barely exceeds L2, and neighbouring queries hit the same rows). One
-// thread per (b, q, h, c) with c innermost makes the 4 corner reads of a
-// warp 128-byte coalesced rows of one value pixel; the (q, h) sample
-// positions and weights are broadcast reads within the warp. No atomics and
-// no shared state between threads: the result is deterministic.
-#include <cuda_runtime.h>
-#include <math.h>
+// What bounds it on the H100, and the design: see the note above the kernel.
+#include "msda_tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+using namespace msda_tile;
 
-__global__ void __launch_bounds__(kThreads)
+// acc += a · bilinear(corners at p, p + sx, p + sy, p + sx + sy) for this
+// lane's channels: the corner blend, then one fma of the attention weight
+// into the sum. The blend rounds c01·v01 and fuses the other three products,
+// which is what the compiler made of the first version's expression: this
+// kernel equals that one bit for bit. The order matters downstream: with
+// c00·v00 rounded instead (2.4e-7 away at most), a train step's gradient
+// for the cross-attention's output bias moved from 4e-6 to 3e-4 of its
+// norm against the plain versions (PERF.md).
+template <int V, int G, int K, bool kGlobal>
+__device__ __forceinline__ void blend_add(float (&acc)[K * V], const float* p,
+                                          int sx, int sy, int lane_g, int d,
+                                          const Record& r) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int c = (lane_g + k * G) * V;
+    if (c < d) {
+      float v00[V], v01[V], v10[V], v11[V];
+      load_vec<V, kGlobal>(v00, p + c);
+      load_vec<V, kGlobal>(v01, p + c + sx);
+      load_vec<V, kGlobal>(v10, p + c + sy);
+      load_vec<V, kGlobal>(v11, p + c + sx + sy);
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        float s = r.c01 * v01[v];
+        s = fmaf(r.c00, v00[v], s);
+        s = fmaf(r.c10, v10[v], s);
+        s = fmaf(r.c11, v11[v], s);
+        acc[k * V + v] = fmaf(r.a, s, acc[k * V + v]);
+      }
+    }
+  }
+}
+
+// What bounds it, and the design. The first version ran one thread per
+// (b, q, h, c): every channel of a query redid the sample's floor, bounds
+// tests and corner weights and read 4 bytes a thread. Measured on the H100
+// (PERF.md), that instruction stream, not the memory, held it: with every
+// corner read pointed at four rows it still took 6.6 of its 8.4 ms. Here
+//   - a query's channels lie over G lanes of 16 bytes; one lane sets up each
+//     sample of a (query, level) once and the group reads it back from
+//     shared memory, so a sample costs a lane two record reads, four corner
+//     reads and 20 FMAs;
+//   - a block owns a tile of one query grid and one head (msda_tile.cuh) and
+//     walks the levels; for each it stages the value window its queries can
+//     reach in shared memory (cp.async, 16 bytes), so a corner read is a
+//     shared-memory read and device memory sees each window once per tile;
+//   - the tile's running sums wait in shared memory between levels, so the
+//     query loop needs no registers per query and is not unrolled: an
+//     unrolled one ran slower the more it was unrolled (its code outgrew the
+//     instruction cache), and 64 registers a thread let two blocks of 16
+//     warps share an SM, one sampling while the other stages;
+//   - a level whose window does not fit (a coarse query grid over a fine
+//     level), a call without a radius, and any sample that leaves its
+//     window read device memory in the same loop.
+// Fetching a query's samples one iteration ahead made it 5% slower: the 32
+// warps of an SM already hide that latency. Deterministic: no atomics; per
+// channel the samples are summed over l, p ascending with the first
+// version's arithmetic.
+template <int V, int G, int K>
+__global__ void __launch_bounds__(kThreads, 2)
 msda_fwd_kernel(const float* __restrict__ value,
                 const int* __restrict__ levels,
+                const int* __restrict__ tiles,
                 const float* __restrict__ pos,
                 const float* __restrict__ weight,
                 float* __restrict__ out,
-                int S, int Nq, int h, int d, int L, int P, long long total) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const int c = (int)(idx % d);
-  const long long qh = idx / d;  // ((b·Nq + q)·h + head)
-  const int head = (int)(qh % h);
-  const long long b = qh / ((long long)h * Nq);
+                int S, int Nq, int h, int d, int L, int P, int n_tiles,
+                int stage_floats) {
+  extern __shared__ __align__(16) float stage[];
+  constexpr int kGroups = kThreads / G;
+  constexpr int kChunk = records_per_group(G);
 
-  const float* pp = pos + qh * L * P * 2;
-  const float* wp = weight + qh * L * P;
-  const long long vstride = (long long)h * d;  // one value pixel
-  const float* vb = value + b * S * vstride + (long long)head * d + c;
+  const int head = blockIdx.x % h;
+  const int bt = blockIdx.x / h;
+  const int b = bt / n_tiles;
+  const Tile tile(tiles, bt - b * n_tiles, L);
+  const int n_q = tile.th * tile.tw;
+  const int n_iter = (n_q + kGroups - 1) / kGroups;
+  const int group = threadIdx.x / G, lane_g = threadIdx.x % G;
+  const int hd = h * d;
+  // after the stage: the tile's running sums, d floats a query, then kChunk
+  // records for each lane group
+  float* sums = stage + stage_floats;
+  Record* records =
+      reinterpret_cast<Record*>(sums + round_up4(kMaxTileQueries * d)) +
+      group * kChunk;
 
-  float acc = 0.f;
   for (int l = 0; l < L; ++l) {
     const int Hl = levels[3 * l], Wl = levels[3 * l + 1];
-    const float* vl = vb + (long long)levels[3 * l + 2] * vstride;
-    for (int p = 0; p < P; ++p) {
-      const int s = l * P + p;
-      const float x = pp[2 * s], y = pp[2 * s + 1];
-      const float a = wp[s];
-      const float x0f = floorf(x), y0f = floorf(y);
-      const float fx = x - x0f, fy = y - y0f;
-      // bounds in float first: positions far outside never reach an int
-      const bool x0in = x0f >= 0.f && x0f < (float)Wl;
-      const bool x1in = x0f >= -1.f && x0f < (float)(Wl - 1);
-      const bool y0in = y0f >= 0.f && y0f < (float)Hl;
-      const bool y1in = y0f >= -1.f && y0f < (float)(Hl - 1);
-      const int x0 = x0in || x1in ? (int)x0f : 0;
-      const int y0 = y0in || y1in ? (int)y0f : 0;
-      float v00 = 0.f, v01 = 0.f, v10 = 0.f, v11 = 0.f;
-      if (y0in && x0in) v00 = vl[((long long)y0 * Wl + x0) * vstride];
-      if (y0in && x1in) v01 = vl[((long long)y0 * Wl + x0 + 1) * vstride];
-      if (y1in && x0in) v10 = vl[((long long)(y0 + 1) * Wl + x0) * vstride];
-      if (y1in && x1in) v11 = vl[((long long)(y0 + 1) * Wl + x0 + 1) * vstride];
-      const float s_ = (1.f - fx) * (1.f - fy) * v00 + fx * (1.f - fy) * v01 +
-                       (1.f - fx) * fy * v10 + fx * fy * v11;
-      acc = fmaf(a, s_, acc);
+    const float* vl =
+        value + ((long long)b * S + levels[3 * l + 2]) * hd + head * d;
+    const Rect r = tile.rect(l);
+    if (r.rh > 0) {
+      __syncthreads();  // the previous window has been sampled
+      stage_window<V>(stage, vl, r, Wl, hd, d);
+      __syncthreads();
+    }
+    for (int it = 0; it < n_iter; ++it) {
+      // a group past the tile's last query runs on zeros and stores nothing:
+      // the warp stays whole for __syncwarp
+      const int qi = group + it * kGroups;
+      const bool active = qi < n_q;
+      const long long qh =
+          ((long long)b * Nq + (active ? tile.query(qi) : 0)) * h + head;
+      float* mine = sums + qi * d;
+      float acc[K * V];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int c = (lane_g + k * G) * V;
+        float t[V];
+#pragma unroll
+        for (int v = 0; v < V; ++v) t[v] = 0.f;
+        if (l > 0 && active && c < d) load_vec<V, false>(t, mine + c);
+#pragma unroll
+        for (int v = 0; v < V; ++v) acc[k * V + v] = t[v];
+      }
+      const float* pp = pos + (qh * L + l) * P * 2;
+      const float* wp = weight + (qh * L + l) * P;
+      for (int s0 = 0; s0 < P; s0 += kChunk) {
+        float x = 0.f, y = 0.f, a = 0.f;
+        if (active && lane_g < kChunk && s0 + lane_g < P) {
+          const float2 xy =
+              __ldg(reinterpret_cast<const float2*>(pp) + s0 + lane_g);
+          x = xy.x, y = xy.y;
+          a = __ldg(wp + s0 + lane_g);
+        }
+        __syncwarp();  // the group has read its previous records
+        if (lane_g < kChunk)
+          store_record(records + lane_g,
+                       setup_sample(x, y, a, Hl, Wl, r, d, hd).rec);
+        __syncwarp();
+        const int n = min(kChunk, P - s0);
+#pragma unroll 2
+        for (int j = 0; j < n; ++j) {
+          const Record s = load_record(records + j);
+          if (s.sy >= 0) {
+            blend_add<V, G, K, false>(acc, stage + s.off, s.sx, s.sy, lane_g,
+                                      d, s);
+          } else {
+            blend_add<V, G, K, true>(acc, vl + s.off, s.sx, -1 - s.sy, lane_g,
+                                     d, s);
+          }
+        }
+      }
+      if (active) {
+        float* dst = l == L - 1 ? out + qh * d : mine;
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const int c = (lane_g + k * G) * V;
+          if (c < d) {
+            float t[V];
+#pragma unroll
+            for (int v = 0; v < V; ++v) t[v] = acc[k * V + v];
+            store_vec<V>(dst + c, t);
+          }
+        }
+      }
     }
   }
-  out[idx] = acc;
+}
+
+template <int V, int G, int K>
+int launch(const float* value, const int* levels, const int* tiles,
+           const float* pos, const float* weight, float* out, int B, int S,
+           int Nq, int h, int d, int L, int P, int n_tiles, int stage_floats,
+           cudaStream_t stream) {
+  // the staged window, the tile's running sums, the groups' records
+  const int smem =
+      (stage_floats + round_up4(kMaxTileQueries * d)) * (int)sizeof(float) +
+      kThreads / G * records_per_group(G) * kRecordBytes;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        msda_fwd_kernel<V, G, K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return (int)e;
+    e = cudaFuncSetAttribute(msda_fwd_kernel<V, G, K>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const long long blocks = (long long)B * n_tiles * h;
+  msda_fwd_kernel<V, G, K><<<(unsigned)blocks, kThreads, smem, stream>>>(
+      value, levels, tiles, pos, weight, out, S, Nq, h, d, L, P, n_tiles,
+      stage_floats);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// value (B, S, h, d); levels (L, 3) int32 rows (H, W, start); pos
-// (B, Nq, h, L, P, 2); weight (B, Nq, h, L, P); out (B, Nq, h·d); all f32
-// contiguous. Returns cudaGetLastError() after the launch.
+// value (B, S, h, d); levels (L, 3) int32 rows (H, W, start); tiles
+// (n_tiles, 6 + 4·L) int32, the plan of ops/msda.py `tile_plan` for lane
+// groups of `lanes`; pos (B, Nq, h, L, P, 2), 8-byte aligned; weight
+// (B, Nq, h, L, P); out (B, Nq, h·d); all f32 contiguous, d <= 128, a level
+// below 2^31 floats. `vec` = 4 (d a multiple of 4 and value, out 16-byte
+// aligned; lanes = 4, 8, 16 or 32 with 4·lanes >= d) or 1 (lanes = 32).
+// `stage_floats`: the plan's largest staged window. Returns the CUDA error
+// of the launch, or cudaErrorInvalidValue for another instance.
 extern "C" int msda_fwd(const float* value, const int* levels,
-                        const float* pos, const float* weight, float* out,
-                        int B, int S, int Nq, int h, int d, int L, int P,
-                        void* stream) {
-  const long long total = (long long)B * Nq * h * d;
-  if (total == 0) return (int)cudaGetLastError();
-  const long long blocks = (total + kThreads - 1) / kThreads;
-  msda_fwd_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      value, levels, pos, weight, out, S, Nq, h, d, L, P, total);
-  return (int)cudaGetLastError();
+                        const int* tiles, const float* pos,
+                        const float* weight, float* out, int B, int S, int Nq,
+                        int h, int d, int L, int P, int n_tiles,
+                        int stage_floats, int vec, int lanes, void* stream) {
+  if ((long long)B * n_tiles * h == 0 || d == 0) return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+#define MSDA_FWD(V, G, K)                                                     \
+  return launch<V, G, K>(value, levels, tiles, pos, weight, out, B, S, Nq, h, \
+                         d, L, P, n_tiles, stage_floats, st)
+  if (vec == 4 && lanes == 4) MSDA_FWD(4, 4, 1);
+  if (vec == 4 && lanes == 8) MSDA_FWD(4, 8, 1);
+  if (vec == 4 && lanes == 16) MSDA_FWD(4, 16, 1);
+  if (vec == 4 && lanes == 32) MSDA_FWD(4, 32, 1);
+  if (vec == 1 && lanes == 32) MSDA_FWD(1, 32, 4);
+#undef MSDA_FWD
+  return (int)cudaErrorInvalidValue;
 }

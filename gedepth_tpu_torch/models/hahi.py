@@ -71,7 +71,8 @@ class MSDeformAttention(nn.Module):
         weights = weights.softmax(-1).view(B, Nq, h, L, P)
         pos = msda_ops.windowed_positions(offsets, query_shapes,
                                           spatial_shapes, self.window_radius)
-        out = msda_ops.msda(value, spatial_shapes, pos, weights)
+        out = msda_ops.msda(value, spatial_shapes, pos, weights,
+                            query_shapes, self.window_radius)
         return identity + self.dropout(self.output_proj(out))
 
 

@@ -1,7 +1,8 @@
 """Build and bind the port's CUDA kernels.
 
-Every `gedepth_tpu_torch/csrc/*.cu` is compiled by `nvcc` on first use into
-one shared library with a plain C interface, loaded through `ctypes`. The
+Every `gedepth_tpu_torch/csrc/*.cu` is compiled by `nvcc` on first use (one
+process per source, side by side) and linked into one shared library with a
+plain C interface, loaded through `ctypes`. The
 library lands in `gedepth_tpu_torch/_build/` (git-ignored) under a name that
 carries a hash of the sources and flags, so an edited source rebuilds and an
 unchanged one loads as it is. Nothing here runs at import time: the CPU
@@ -26,7 +27,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signatures: pointers and the stream as void*, sizes as int, strides as
@@ -34,9 +35,10 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "window_attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _L, _L, _L, _L, _L, _L, _P],
-    "msda_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "msda_bwd": [_P, _P, _P, _P, _P, _P, _P, _P,
-                 _I, _I, _I, _I, _I, _I, _I, _P],
+    "msda_fwd": [_P, _P, _P, _P, _P, _P,
+                 _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "msda_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                 _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "pe_fusion_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P],
 }
 
@@ -58,7 +60,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cu")):
+    for src in sorted(CSRC.glob("*.cu*")):     # sources and headers
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libgedepth_kernels_{h.hexdigest()[:16]}.so"
@@ -73,22 +75,29 @@ def load():
     path = library_path()
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        cu = [str(s) for s in sorted(CSRC.glob("*.cu"))]
-        # build to a private name, then rename: concurrent builders never
-        # see a half-written library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
+        # one nvcc per source, all at once, into a private directory; then
+        # link and rename: concurrent processes never see a half-written
+        # library
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            objects = [os.path.join(tmp, src.stem + ".o")
+                       for src in sorted(CSRC.glob("*.cu"))]
+            procs = [subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                for obj, src in zip(objects, sorted(CSRC.glob("*.cu")))]
+            outputs = [p.communicate() for p in procs]
+            for p, (_, err) in zip(procs, outputs):
+                if p.returncode != 0:
+                    raise RuntimeError(
+                        f"nvcc failed ({p.returncode}):\n{err}")
+            lib_tmp = os.path.join(tmp, "lib.so")
+            link = subprocess.run(
+                [_nvcc(), *NVCC_FLAGS, "-shared", "-o", lib_tmp, *objects],
                 capture_output=True, text=True)
-            if proc.returncode != 0:
+            if link.returncode != 0:
                 raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-            os.replace(tmp, path)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
+                    f"nvcc link failed ({link.returncode}):\n{link.stderr}")
+            os.replace(lib_tmp, path)
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

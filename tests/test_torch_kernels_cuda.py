@@ -12,8 +12,12 @@ window attention with logits of ~1e3, where one rounding of a logit moves
 its weight by ~1e-4, is held to a float64 reference instead; at N = 49
 kernel A rounds as the plain version and is held to it exactly);
 PE fusion 1e-4, as on the CPU. The deformable-sampling backward (kernel C)
-holds d_pos and d_weights to rtol 2e-4, atol 2e-5, and d_value, which its
-atomics sum in any order, to rtol 2e-4 plus atol 1e-5·max|d_value|.
+holds d_pos and d_weights to rtol 2e-4, atol 2e-5, and d_value, which is
+summed in an order that changes from run to run, to rtol 2e-4 plus atol
+1e-5·max|d_value|. Kernels B and C are run with the window hint
+(`query_shapes`, `window_radius`: value windows staged in shared memory)
+and without it (every corner from device memory); both must agree with the
+plain versions for any positions.
 """
 import numpy as np
 import pytest
@@ -331,3 +335,154 @@ def test_msda_autograd_uses_kernels():
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=2e-4,
                                    atol=1e-5 * b.abs().max().item())
+
+
+# --- kernels B and C over their tile plan (staged windows, or device memory)
+
+def _scatter(pos, g, share, far):
+    """`share` of the samples moved by tens of pixels, or by `far`."""
+    hit = torch.rand(pos.shape[:-1], generator=g, device="cuda") < share
+    kick = 40.0 * torch.randn(pos.shape, generator=g, device="cuda")
+    if far:
+        kick = torch.where(kick > 0, far, -far)
+    return pos + kick * hit[..., None]
+
+
+TILE_EDGE_CASES = {
+    # query grids, levels, B, h, d, P
+    # grids that are no multiple of an 8x16 or 8x8 tile, three heads
+    "ragged_grids": (((19, 37), (5, 3)), ((38, 74), (19, 37), (5, 3)),
+                     2, 3, 64, 8),
+    # levels of one pixel and one row
+    "one_pixel_levels": (((9, 21),), ((9, 21), (1, 1), (1, 5)), 2, 8, 32, 4),
+    # a coarse grid over a fine level: its window cannot be staged
+    "coarse_over_fine": (((6, 10), (24, 40)), ((48, 80), (24, 40), (6, 10)),
+                         1, 5, 64, 8),
+    # widths of 8, 16 and 32 lanes with idle lanes, and the scalar instance
+    "d24": (((17, 9),), ((17, 9), (9, 5)), 2, 2, 24, 3),
+    "d128": (((17, 9),), ((17, 9), (9, 5)), 1, 2, 128, 8),
+    "d100": (((17, 9),), ((17, 9), (9, 5)), 1, 2, 100, 8),
+    "d6_scalar": (((17, 9),), ((17, 9), (9, 5)), 2, 3, 6, 8),
+    "d70_scalar": (((17, 9),), ((17, 9), (9, 5)), 1, 2, 70, 9),
+    # more points than a lane group sets up at once
+    "p19": (((12, 20),), ((24, 40), (12, 20)), 1, 4, 32, 19),
+    # so many points that the backward's corner list outgrows an SM: it
+    # then runs without bins
+    "p64": (((8, 8),), ((8, 8), (4, 4)), 1, 2, 16, 64),
+}
+
+
+@pytest.mark.parametrize("where", ["inside", "scattered", "far_out"])
+@pytest.mark.parametrize("case", sorted(TILE_EDGE_CASES))
+def test_msda_kernels_over_tile_plan(case, where):
+    """B and C against their plain versions with the window hint, positions
+    inside the window, a third of them scattered out of it, and a third at
+    ±1e9; the same without the hint; d_pos and d_w equal over two runs."""
+    query_shapes, levels, B, h, d, P = TILE_EDGE_CASES[case]
+    g = torch.Generator(device="cuda").manual_seed(11)
+    L = len(levels)
+    Nq = sum(a * b for a, b in query_shapes)
+    S = sum(a * b for a, b in levels)
+    value = _randn(g, B, S, h, d)
+    raw = 3.0 * _randn(g, B, Nq, h, L, P, 2)
+    pos = msda_ops.windowed_positions(raw, query_shapes, levels, 4)
+    if where != "inside":
+        pos = _scatter(pos, g, 0.33, 1e9 if where == "far_out" else 0.0)
+    w = _randn(g, B, Nq, h, L * P).softmax(-1).view(B, Nq, h, L, P)
+    gout = _randn(g, B, Nq, h * d)
+    want = msda_ops.msda_plain(value, levels, pos, w)
+    want_grads = msda_ops.msda_backward_plain(value, levels, pos, w, gout)
+    for hint in ((query_shapes, 4), ()):
+        got = msda_ops.msda(value, levels, pos, w, *hint)
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
+        grads = msda_ops.msda_backward(value, levels, pos, w, gout, *hint)
+        torch.cuda.synchronize()
+        _assert_msda_grads(grads, want_grads)
+        again = msda_ops.msda_backward(value, levels, pos, w, gout, *hint)
+        assert torch.equal(grads[1], again[1])
+        assert torch.equal(grads[2], again[2])
+
+
+def test_msda_kernels_unaligned_value_take_the_scalar_instance():
+    """A value that is not 16-byte aligned is read float by float."""
+    g = torch.Generator(device="cuda").manual_seed(12)
+    levels, query_shapes = ((16, 24), (8, 12)), ((16, 24),)
+    B, h, d, P, S, Nq = 1, 2, 64, 8, 16 * 24 + 8 * 12, 16 * 24
+    value = _randn(g, B * S * h * d + 1)[1:].view(B, S, h, d)
+    assert value.data_ptr() % 16 == 4 and value.is_contiguous()
+    pos = msda_ops.windowed_positions(
+        3.0 * _randn(g, B, Nq, h, 2, P, 2), query_shapes, levels, 4)
+    w = _randn(g, B, Nq, h, 2 * P).softmax(-1).view(B, Nq, h, 2, P)
+    gout = _randn(g, B, Nq, h * d)
+    got = msda_ops.msda(value, levels, pos, w, query_shapes, 4)
+    torch.testing.assert_close(got, msda_ops.msda_plain(value, levels, pos, w),
+                               rtol=2e-4, atol=2e-5)
+    _assert_msda_grads(
+        msda_ops.msda_backward(value, levels, pos, w, gout, query_shapes, 4),
+        msda_ops.msda_backward_plain(value, levels, pos, w, gout))
+
+
+@pytest.mark.parametrize("case", [
+    "d132", "pos_unaligned", "radius_alone", "grids_alone", "grids_sum",
+    "radius_zero", "level_2e31", "float64", "strided"])
+def test_msda_kernels_refuse(case):
+    """What kernels B and C do not take raises, for the forward and the
+    backward alike, and launches nothing."""
+    g = torch.Generator(device="cuda").manual_seed(13)
+    levels, query_shapes = ((4, 6),), ((4, 6),)
+    B, h, d, P, Nq = 1, 2, 8, 2, 24
+    hint, error = (query_shapes, 4), ValueError
+    if case == "level_2e31":
+        levels = ((2 ** 12, 2 ** 12),)          # x 2 heads x 64 = 2^31
+        d, hint = 64, ()
+        value = torch.empty(B, 2 ** 24, h, d, device="cuda")
+    else:
+        if case == "d132":
+            d = 132
+        value = _randn(g, B, 24, h, d)
+    pos = _randn(g, B, Nq, h, 1, P, 2)
+    w = _randn(g, B, Nq, h, 1, P)
+    if case == "pos_unaligned":
+        pos = _randn(g, pos.numel() + 1)[1:].view(pos.shape)
+        assert pos.data_ptr() % 8 == 4
+    elif case == "radius_alone":
+        hint = (None, 4)
+    elif case == "grids_alone":
+        hint = (query_shapes,)
+    elif case == "grids_sum":
+        hint = (((5, 5),), 4)
+    elif case == "radius_zero":
+        hint = (query_shapes, 0)
+    elif case == "float64":
+        value, pos, w, error = value.double(), pos.double(), w.double(), \
+            TypeError
+    elif case == "strided":
+        w = _randn(g, B, Nq, h, 1, 2 * P)[..., ::2]
+    gout = torch.zeros(B, Nq, h * d, device="cuda", dtype=value.dtype)
+    before = msda_ops.msda.launches, msda_ops.msda_backward.launches
+    with pytest.raises(error):
+        msda_ops.msda(value, levels, pos, w, *hint)
+    with pytest.raises(error):
+        msda_ops.msda_backward(value, levels, pos, w, gout, *hint)
+    assert before == (msda_ops.msda.launches, msda_ops.msda_backward.launches)
+
+
+def test_msda_kernels_at_the_train_crop_with_the_hint():
+    """The train crop's cross-attention (batch 2, 61,952 queries a sample)
+    through the staged windows, a tenth of the samples scattered out."""
+    g = torch.Generator(device="cuda").manual_seed(14)
+    levels, query_shapes = ((88, 176), (44, 88), (22, 44), (11, 22)), \
+        ((176, 352),)
+    B, h, d, P, Nq = 2, 8, 64, 8, 176 * 352
+    value = _randn(g, B, sum(a * b for a, b in levels), h, d)
+    pos = msda_ops.windowed_positions(
+        2.0 * _randn(g, B, Nq, h, 4, P, 2), query_shapes, levels, 4)
+    pos = _scatter(pos, g, 0.1, 0.0)
+    w = _randn(g, B, Nq, h, 4 * P).softmax(-1).view(B, Nq, h, 4, P)
+    gout = _randn(g, B, Nq, h * d)
+    torch.testing.assert_close(
+        msda_ops.msda(value, levels, pos, w, query_shapes, 4),
+        msda_ops.msda_plain(value, levels, pos, w), rtol=2e-4, atol=2e-5)
+    _assert_msda_grads(
+        msda_ops.msda_backward(value, levels, pos, w, gout, query_shapes, 4),
+        msda_ops.msda_backward_plain(value, levels, pos, w, gout))

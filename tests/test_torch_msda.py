@@ -275,20 +275,258 @@ def test_windowed_sampler_grads_match_pallas_backward_interpret():
 def test_msda_function_wiring(monkeypatch):
     """`MSDAFunction` (kernel B forward, kernel C backward) with both
     launches swapped for their plain versions: its gradients equal autograd
-    through `msda_plain` (saved tensors, argument order, the None slot of
-    the level shapes)."""
+    through `msda_plain` (saved tensors, argument order, the None slots of
+    the level shapes and the window, which reaches both launches)."""
     query_hw, levels, values, raw, w, cot = _msda_inputs(
         "coarse_grid_fine_level", seed=5)
-    monkeypatch.setattr(msda_ops, "_launch_forward", msda_ops.msda_plain)
-    monkeypatch.setattr(msda_ops, "msda_backward",
-                        msda_ops.msda_backward_plain)
+    windows = []
 
-    def through_function(value, shapes, pos, weights):
-        return msda_ops.MSDAFunction.apply(value, shapes, pos, weights)
+    def forward(value, shapes, pos, weights, window):
+        windows.append(window)
+        return msda_ops.msda_plain(value, shapes, pos, weights)
 
-    got = _port_grads(through_function, query_hw, levels, values, raw, w,
-                      cot)
+    def backward(value, shapes, pos, weights, grad_out, query_shapes=None,
+                 window_radius=None):
+        windows.append((query_shapes, window_radius))
+        return msda_ops.msda_backward_plain(value, shapes, pos, weights,
+                                            grad_out)
+
+    monkeypatch.setattr(msda_ops, "_launch_forward", forward)
+    monkeypatch.setattr(msda_ops, "msda_backward", backward)
     want = _port_grads(msda_ops.msda_plain, query_hw, levels, values, raw, w,
                        cot)
-    for g, w_ in zip(got, want):
-        np.testing.assert_allclose(g, w_, rtol=1e-6, atol=1e-7)
+    for window in (((query_hw,), float(R)), (((1, 15),), None)):
+        def through_function(value, shapes, pos, weights):
+            return msda_ops.MSDAFunction.apply(value, shapes, pos, weights,
+                                               window)
+
+        del windows[:]
+        got = _port_grads(through_function, query_hw, levels, values, raw, w,
+                          cot)
+        for g, w_ in zip(got, want):
+            np.testing.assert_allclose(g, w_, rtol=1e-6, atol=1e-7)
+        # without a radius the backward is told of no grids either
+        assert windows == [window, window if window[1] else (None, None)]
+
+# --- the tile plan of kernels B and C (host side; the kernels run on the card)
+
+SERVE_LEVELS = ((88, 304), (44, 152), (22, 76), (11, 38))
+TRAIN_LEVELS = ((88, 176), (44, 88), (22, 44), (11, 22))
+PLAN_CASES = {
+    # query grids, value levels
+    "serve_cross": (((176, 608),), SERVE_LEVELS),
+    "serve_self": (SERVE_LEVELS, SERVE_LEVELS),
+    "serve_self_hi1": (SERVE_LEVELS[1:], SERVE_LEVELS),
+    "train_cross": (((176, 352),), TRAIN_LEVELS),
+    "train_self_hi1": (TRAIN_LEVELS[1:], TRAIN_LEVELS),
+    "ragged": (((5, 13), (3, 5)), ((10, 26), (5, 13), (1, 1))),
+}
+
+
+def _plan(case, head_dim=64, radius=float(R), stage_bytes=None):
+    grids, levels = PLAN_CASES[case]
+    _, lanes = msda_ops.channel_lanes(head_dim)
+    return grids, levels, msda_ops.tile_plan(
+        grids, levels, radius, head_dim,
+        msda_ops.stage_budget(head_dim, lanes) if stage_bytes is None
+        else stage_bytes)
+
+
+def _plan_tiles(plan, n_levels):
+    """(q_start, Wq, y0, x0, th, tw, rects (L, 4)) of each row."""
+    for row in plan.rows:
+        yield (*(int(v) for v in row[:msda_ops.TILE_HEADER]),
+               row[msda_ops.TILE_HEADER:].reshape(n_levels, 4))
+
+
+@pytest.mark.parametrize("head_dim", [64, 128, 6])
+@pytest.mark.parametrize("case", sorted(PLAN_CASES))
+def test_tile_plan_covers_every_query_once(case, head_dim):
+    grids, levels, plan = _plan(case, head_dim)
+    Nq = sum(a * b for a, b in grids)
+    seen = np.zeros(Nq, np.int64)
+    starts = np.cumsum([0] + [a * b for a, b in grids])
+    for q_start, Wq, y0, x0, th, tw, _ in _plan_tiles(plan, len(levels)):
+        g = int(np.searchsorted(starts, q_start, side="right")) - 1
+        assert q_start == starts[g] and Wq == grids[g][1]
+        assert 0 < th * tw <= msda_ops.MAX_TILE_QUERIES
+        assert y0 + th <= grids[g][0] and x0 + tw <= Wq
+        ys, xs = np.meshgrid(np.arange(y0, y0 + th), np.arange(x0, x0 + tw),
+                             indexing="ij")
+        seen[q_start + ys * Wq + xs] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("case", sorted(PLAN_CASES))
+def test_tile_plan_windows_hold_what_their_queries_reach(case):
+    """A staged rectangle contains anchor ± (R + 1) of each of the tile's
+    queries, clipped to the level, and fits the shared memory the kernels
+    ask for: two blocks on an SM."""
+    grids, levels, plan = _plan(case)
+    starts = np.cumsum([0] + [a * b for a, b in grids])
+    for q_start, Wq, y0, x0, th, tw, rects in _plan_tiles(plan, len(levels)):
+        Hq = grids[int(np.searchsorted(starts, q_start, side="right")) - 1][0]
+        for (Hl, Wl), (y_lo, x_lo, rh, rw) in zip(levels, rects):
+            if rh == 0:
+                continue
+            assert 0 <= y_lo and y_lo + rh <= Hl
+            assert 0 <= x_lo and x_lo + rw <= Wl
+            assert rh * rw * 64 <= plan.stage_floats
+            ay = msda_ops.axis_anchor_residual(Hq, Hl)[0][y0:y0 + th]
+            ax = msda_ops.axis_anchor_residual(Wq, Wl)[0][x0:x0 + tw]
+            assert y_lo <= max(ay.min() - (R + 1), 0)
+            assert y_lo + rh - 1 >= min(ay.max() + (R + 1), Hl - 1)
+            assert x_lo <= max(ax.min() - (R + 1), 0)
+            assert x_lo + rw - 1 >= min(ax.max() + (R + 1), Wl - 1)
+    assert plan.stage_floats % 4 == 0 and plan.stage_floats > 0
+    # 1 KB of an SM's shared memory is reserved per resident block
+    assert 2 * (msda_ops.shared_bytes(plan.stage_floats, 64, 16) + 1024) \
+        <= msda_ops.SM_SHARED_BYTES
+
+
+def test_tile_plan_stages_what_fits_and_marks_the_rest():
+    staged = {}
+    for case in ("serve_cross", "train_cross", "serve_self_hi1"):
+        grids, levels, plan = _plan(case)
+        starts = np.cumsum([0] + [a * b for a, b in grids])
+        for q_start, *_, rects in _plan_tiles(plan, len(levels)):
+            g = int(np.searchsorted(starts, q_start, side="right")) - 1
+            for l in range(len(levels)):
+                staged.setdefault((case, g, l), []).append(rects[l, 2] > 0)
+    # the stem grid reaches every level through a staged window
+    for case in ("serve_cross", "train_cross"):
+        assert all(all(staged[case, 0, l]) for l in range(4))
+    # the 11x38 grid over the 88x304 level: an 8x8 query tile spans ~74x74
+    # pixels, 1.4 MB a head; it is gathered from device memory
+    assert not any(staged["serve_self_hi1", 2, 0])
+    # (of the 22x76 grid only clipped corner tiles fit)
+    assert np.mean(staged["serve_self_hi1", 1, 0]) < 0.1
+    # every grid sampling its own level or a coarser one is staged
+    assert all(staged["serve_self_hi1", 0, 1])
+    assert all(staged["serve_self_hi1", 1, 2])
+    assert all(staged["serve_self_hi1", 2, 3])
+    # without a radius nothing is staged and the queries are one row
+    grids, levels, plan = _plan("serve_cross", radius=None)
+    assert plan.stage_floats == 0
+    assert (plan.rows[:, msda_ops.TILE_HEADER:] == 0).all()
+    # a tighter budget stages fewer levels, never a larger window
+    _, _, small = _plan("serve_cross", stage_bytes=40 * 1024)
+    assert 0 < small.stage_floats * 4 <= 40 * 1024
+    assert (small.rows[:, msda_ops.TILE_HEADER + 2] == 0).any()
+
+
+@pytest.mark.parametrize("head_dim,want", [
+    (64, (4, 16)), (32, (4, 8)), (24, (4, 8)), (128, (4, 32)), (100, (4, 32)),
+    (8, (4, 4)), (4, (4, 4)), (1, (1, 32)), (30, (1, 32))])
+def test_channel_lanes(head_dim, want):
+    assert msda_ops.channel_lanes(head_dim) == want
+    assert msda_ops.channel_lanes(head_dim, aligned=False) == (1, 32)
+    vec, lanes = want
+    assert vec * lanes * (4 if vec == 1 else 1) >= head_dim
+    # two blocks fit an SM whatever the staged window
+    budget = msda_ops.stage_budget(head_dim, lanes)
+    assert 2 * (msda_ops.shared_bytes(budget // 4, head_dim, lanes) + 1024) \
+        <= msda_ops.SM_SHARED_BYTES
+
+
+def _emulate_tiled(value, levels, pos, w, plan):
+    """What kernels B and C do with a plan, in numpy: per tile and level the
+    staged rectangle is copied out of the value; a sample whose four
+    (clamped) corners lie in it reads the copy, any other sample reads the
+    value itself. Returns (out, share of samples read from a copy)."""
+    B, S, h, d = value.shape
+    Nq, L, P = pos.shape[1], pos.shape[3], pos.shape[4]
+    out = np.zeros((B, Nq, h, d), np.float32)
+    starts = np.cumsum([0] + [a * b for a, b in levels])
+    n_staged = 0
+    for q_start, Wq, y0, x0, th, tw, rects in _plan_tiles(plan, L):
+        ys, xs = np.meshgrid(np.arange(y0, y0 + th), np.arange(x0, x0 + tw),
+                             indexing="ij")
+        q = (q_start + ys * Wq + xs).reshape(-1)
+        for l, (Hl, Wl) in enumerate(levels):
+            level = value[:, starts[l]:starts[l + 1]].reshape(B, Hl, Wl, h, d)
+            y_lo, x_lo, rh, rw = (int(v) for v in rects[l])
+            stage = level[:, y_lo:y_lo + rh, x_lo:x_lo + rw].copy()
+            pq = pos[:, q][:, :, :, l]                  # (B, n, h, P, 2)
+            x, y = pq[..., 0], pq[..., 1]
+            x0f, y0f = np.floor(x), np.floor(y)
+            fx, fy = x - x0f, y - y0f
+            x0in, x1in = (x0f >= 0) & (x0f < Wl), (x0f >= -1) & (x0f < Wl - 1)
+            y0in, y1in = (y0f >= 0) & (y0f < Hl), (y0f >= -1) & (y0f < Hl - 1)
+            xi = np.clip(x0f, -1, Wl).astype(np.int64)
+            yi = np.clip(y0f, -1, Hl).astype(np.int64)
+            xa, xb = np.clip(xi, 0, Wl - 1), np.clip(xi + 1, 0, Wl - 1)
+            ya, yb = np.clip(yi, 0, Hl - 1), np.clip(yi + 1, 0, Hl - 1)
+            staged = ((xa >= x_lo) & (xb < x_lo + rw)
+                      & (ya >= y_lo) & (yb < y_lo + rh))
+            n_staged += int(staged.sum())
+            bi = np.arange(B)[:, None, None, None]
+            hi = np.arange(h)[None, None, :, None]
+            acc = np.zeros(x.shape + (d,), np.float32)
+            for yc, xc, inb, cw in (
+                    (ya, xa, y0in & x0in, (1 - fx) * (1 - fy)),
+                    (ya, xb, y0in & x1in, fx * (1 - fy)),
+                    (yb, xa, y1in & x0in, (1 - fx) * fy),
+                    (yb, xb, y1in & x1in, fx * fy)):
+                direct = level[bi, yc, xc, hi]
+                if rh:
+                    ys_, xs_ = (np.clip(yc - y_lo, 0, rh - 1),
+                                np.clip(xc - x_lo, 0, rw - 1))
+                    direct = np.where(staged[..., None],
+                                      stage[bi, ys_, xs_, hi], direct)
+                acc += (cw * inb)[..., None] * direct
+            out[:, q] += (w[:, q][:, :, :, l, :, None] * acc).sum(3)
+    return out.reshape(B, Nq, h * d), n_staged / (B * Nq * h * L * P)
+
+
+@pytest.mark.parametrize("spread,stage_bytes,share", [
+    # raw offsets of a few pixels: every sample lies in its staged window
+    (3.0, 64 * 1024, (1.0, 1.0)),
+    # a budget that leaves the finest level to device memory
+    (3.0, 8 * 4 * 150, (0.4, 0.8)),
+    # a quarter of the samples thrown far out of their windows and levels
+    (-1.0, 64 * 1024, (0.7, 0.95))])
+def test_tiled_emulation_matches_plain(spread, stage_bytes, share):
+    rng = np.random.default_rng(7)
+    grids, levels = ((20, 37), (5, 10)), ((40, 74), (20, 37), (10, 19), (5, 10))
+    B, h, d, P, L = 2, 2, 8, 3, len(levels)
+    Nq = sum(a * b for a, b in grids)
+    value = rng.standard_normal(
+        (B, sum(a * b for a, b in levels), h, d)).astype(np.float32)
+    raw = rng.normal(0, abs(spread), (B, Nq, h, L, P, 2)).astype(np.float32)
+    w = rng.uniform(0, 1, (B, Nq, h, L, P)).astype(np.float32)
+    pos = msda_ops.windowed_positions(torch.from_numpy(raw), grids, levels, R)
+    if spread < 0:
+        far = rng.uniform(size=pos.shape[:-1]) < 0.25
+        kick = rng.choice([-1e9, -60.0, -7.5, 6.5, 45.0, 1e9], pos.shape)
+        pos = pos + torch.from_numpy((kick * far[..., None]).astype(np.float32))
+    plan = msda_ops.tile_plan(grids, levels, float(R), d, stage_bytes)
+    assert len(plan.rows) > len(grids)
+    got, staged_share = _emulate_tiled(value, levels, pos.numpy(), w, plan)
+    want = msda_ops.msda_plain(torch.from_numpy(value), levels, pos,
+                               torch.from_numpy(w))
+    np.testing.assert_allclose(got, want.numpy(), rtol=1e-4, atol=1e-5)
+    assert share[0] <= staged_share <= share[1], staged_share
+
+
+def test_msda_window_arguments():
+    """`query_shapes` and `window_radius` change no result and are checked
+    before any device is looked at."""
+    query_hw, levels, values, raw, w, _ = _msda_inputs("multi_ratio")
+    B, h, d = values[0].shape[0], values[0].shape[3], values[0].shape[4]
+    value = torch.from_numpy(np.concatenate(
+        [v.reshape(B, -1, h, d) for v in values], axis=1))
+    pos = msda_ops.windowed_positions(torch.from_numpy(raw), [query_hw],
+                                      levels, R)
+    w = torch.from_numpy(w)
+    want = msda_ops.msda(value, levels, pos, w)
+    got = msda_ops.msda(value, levels, pos, w, [query_hw], R)
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="together"):
+        msda_ops.msda(value, levels, pos, w, [query_hw])
+    with pytest.raises(ValueError, match="together"):
+        msda_ops.msda(value, levels, pos, w, window_radius=R)
+    with pytest.raises(ValueError, match="add up"):
+        msda_ops.msda(value, levels, pos, w, [(3, 3)], R)
+    with pytest.raises(ValueError, match="positive"):
+        msda_ops.msda(value, levels, pos, w, [query_hw], 0)
