@@ -11,7 +11,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
   3. kernels: each kernel against its plain PyTorch version at the
      full-width shapes of the serving slice, with the stated tolerance, the
      median CUDA-event time of both (which holds the wrapper's host time
-     too) and the device time per call of both from `torch.profiler`;
+     too), the CUDA-event time per call of 10 back-to-back kernel calls
+     (`event_ms`) and the device time per call of both from
+     `torch.profiler` (`device_ms`; one trace per shape);
      kernel A also at the train crop's stage 1 (batch 2), with k and v as
      views into a packed qkv as the model passes them, and beside one
      `F.scaled_dot_product_attention` call on the same inputs (a yardstick
@@ -48,15 +50,55 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      the most sensitive: a relative change of 1e-7 in the window
      attention's output moves them by ~4.5e-4 relative, ~0.45 of the
      bound. Kernel A therefore rounds as its plain version does.
-Then the kernels as one JSON line (launches from phase 7, those of phase 4
-beside them; `bound_ms` the larger of the call's bytes over 3.35 TB/s and
-its f32 operations over 67 TFLOP/s, the H100 SXM's published peaks), and
-last the device as one JSON line.
+  9. sampling rules: kernels B and C against their plain versions at
+     positions formed by the exact rule (seeded offsets around grid-centre
+     and learned reference points, a share of the samples far outside every
+     level), the nearest rule and the compat rule at R = 6, at the serving
+     shapes (self-attention over all four levels, 35,530 queries, and
+     cross-attention, 107,008) and the train crop's (2 x 20,570 and
+     2 x 61,952), with the tolerances of phases 3 and 6; the bound from
+     the samples that touch their level, what the compat plan stages per
+     (query grid, level), and B's exact self-attention with a window hint
+     of 4 and 8 pixels; timed as phases 3 and 6, `device_ms` by the
+     profiler and `event_ms` beside it;
+ 10. presets: `init_depther` + `inference_depther` for
+     `gedepth_adaptive_kitti` (exact) and `gedepth_adaptive_kitti_compat`
+     (2 flip-TTA requests each) and one request each for
+     `gedepth_vanilla_kitti` and `depthformer_baseline_kitti` (RGB only);
+     depth (352, 1216), finite, in range; the launch counts of every preset
+     exactly 24 A and 2 B a forward (B once at the self-attention's 35,530
+     queries and once at the cross-attention's 107,008), 1 E a forward for
+     the adaptive presets and 0 for the others; the exact preset's whole
+     forward with kernels against the plain versions as phase 5;
+ 11. exact train path: `train("gedepth_adaptive_kitti")` for 3 steps at
+     352x704, batch 2, checked as phase 7; the gradients of
+     `neck.reference_points` and `neck.multi_att.sampling_offsets` non-zero;
+     phases 7 and 11 hold B and C to one launch a step at the
+     self-attention's query count and one at the cross-attention's;
+ 12. evaluation: `Evaluator` over 4 synthetic 352x1216 frames of the exact
+     preset with ms_ratios (0.75, 1.0, 1.25), numpy metrics and device
+     metrics (held together to rtol 1e-5), then mode='slide' with a
+     352x704 tile; the time per image of each.
+The phases run in the order 1, 2, 3, 6, 9, 4, 5, 7, 8, 10, 11, 12: every
+kernel check comes before the first model, because `torch.profiler` loses
+device activities as a process ages, and all of them once it has trained.
+A `device_ms` that is not within a tenth of its `event_ms` (kernels of
+0.5 ms and more) is printed, dropped and null in its row; `event_ms` is in
+every row. Then the kernels as one JSON line. The first four rows
+carry their kernel's launches over the whole of phase 7 (`launches`,
+`launches_train`) and of phase 4 (`launches_serving`). The rows of phase
+9's shapes carry the launches that the wrapper counted at that row's query
+count on its own path: the requests of phase 10 for the serving shapes, the
+3 steps of phase 11 for the train crop's. `bound_ms` is the larger of the
+call's bytes over 3.35 TB/s and its f32 operations over 67 TFLOP/s, the
+H100 SXM's published peaks. Last the device as one JSON line. Nothing of
+phases 1-8 was cut to make room.
 Imports nothing of JAX. Exits non-zero without a CUDA device.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import statistics
 import subprocess
@@ -92,44 +134,72 @@ def cuda_ms(fn, reps=10, warmup=2):
     return statistics.median(times)
 
 
-def device_ms(fn, reps=10, warmup=2):
-    """Median over `reps` calls of fn() of the device time per call in
-    milliseconds: the summed durations of the kernels, copies and fills
-    that `torch.profiler` saw on the card during the call. Each call runs
-    in its own named range that ends in a synchronise; a device activity
-    belongs to the last range that started before it. Returns (median over
-    the calls that were seen, activities per call), or (None, 0) when the
-    profiler saw none."""
+def burst_ms(fn, calls=10, warmup=2):
+    """CUDA-event time per call of `calls` back-to-back fn(): for a kernel
+    that outlasts its wrapper's host time the queue never runs dry, so this
+    is the card's time per call."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def device_times(calls):
+    """Device time per call, in milliseconds, of each (fn, reps) of `calls`,
+    all taken in one `torch.profiler` trace: the median over the reps of
+    the summed durations of the kernels, copies and fills that the profiler
+    saw on the card during the call. Every fn runs once inside the trace
+    to warm up; then each call runs in its own named range that ends in a
+    synchronise, and a device activity belongs to the last range that
+    started before it. None for an fn of which the profiler saw nothing.
+    As a process ages the profiler drops device activities, whole calls or
+    parts of them: `timed` holds each reading against the event time."""
     import bisect
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    for _ in range(warmup):
-        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for i in range(reps):
-            with record_function(f"chip_smoke_call_{i}"):
-                fn()
-                torch.cuda.synchronize()
+        for fn, _ in calls:
+            fn()
+        torch.cuda.synchronize()
+        for j, (fn, reps) in enumerate(calls):
+            for _ in range(reps):
+                with record_function(f"chip_smoke_call_{j}"):
+                    fn()
+                    torch.cuda.synchronize()
     events = prof.events()
-    starts = sorted(e.time_range.start for e in events
+    ranges = sorted((e.time_range.start, int(e.name.rsplit("_", 1)[1]))
+                    for e in events
                     if e.name.startswith("chip_smoke_call_")
                     and e.device_type == DeviceType.CPU)
-    device = [e for e in events if e.device_type == DeviceType.CUDA
-              and not e.name.startswith("chip_smoke_call_")]
-    if len(starts) != reps or not device:
-        return None, 0
-    per_call = [0.0] * reps
-    for e in device:
-        i = max(bisect.bisect_right(starts, e.time_range.start) - 1, 0)
-        per_call[i] += e.time_range.elapsed_us()
+    if len(ranges) != sum(reps for _, reps in calls):
+        return [None] * len(calls)
+    starts = [start for start, _ in ranges]
+    total = [0.0] * len(ranges)
+    for e in events:
+        if e.device_type != DeviceType.CUDA \
+                or e.name.startswith("chip_smoke_call_"):
+            continue
+        i = bisect.bisect_right(starts, e.time_range.start) - 1
+        if i >= 0:                      # else: the runs before the ranges
+            total[i] += e.time_range.elapsed_us()
     # a call whose activities were stamped into a neighbour's range, or
     # dropped by the profiler, counts as not seen
-    seen = [t for t in per_call if t > 0.0]
-    return statistics.median(seen) / 1e3, len(device) / reps
+    out = []
+    for j in range(len(calls)):
+        seen = [t for t, (_, k) in zip(total, ranges) if k == j and t > 0]
+        out.append(statistics.median(seen) / 1e3 if seen else None)
+    return out
 
 
 def compare(name, got, want, rtol, atol):
@@ -165,24 +235,52 @@ def n_bytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def timed(kernel, plain, *, reps=10, plain_reps=3, library=None):
-    """Event medians and device times of a kernel call and its plain
-    version (and of a library call, where one computes the function)."""
+def timed(kernel, plain, *, reps=10, plain_reps=3, library=None, extra=None):
+    """Times of a kernel call and its plain version (and of a library call,
+    where one computes the function): CUDA-event medians of single calls
+    (`ms`, `plain_ms`, `library_ms`: they hold the wrapper's host time), the
+    CUDA-event time per call of 10 back-to-back kernel calls (`event_ms`:
+    the card's time for a kernel that outlasts its wrapper) and the device
+    times from one profiler trace (`device_ms`, `plain_device_ms`,
+    `library_device_ms`). `extra`: other calls of the kernel, by label, read
+    both ways into `extra_ms[label]` = (device, event). A kernel's device
+    time of 0.5 ms and more that is not within a tenth of its event time is
+    a reading the profiler lost activities of: it is printed and dropped."""
+    extra = extra or {}
     t = {"ms": cuda_ms(kernel, reps=reps),
          "plain_ms": cuda_ms(plain, reps=plain_reps, warmup=1),
-         "device_ms": device_ms(kernel, reps=reps)[0],
-         "plain_device_ms": device_ms(plain, reps=plain_reps, warmup=1)[0],
-         "library_ms": None}
+         "event_ms": burst_ms(kernel), "library_ms": None}
+    calls = [(kernel, reps), (plain, plain_reps)]
+    calls += [(fn, reps) for fn in extra.values()]
     if library is not None:
         t["library_ms"] = cuda_ms(library, reps=reps)
-        t["library_device_ms"] = device_ms(library, reps=reps)[0]
+        calls.append((library, reps))
+    times = device_times(calls)
+
+    def sound(device, event):
+        if device is None or event < 0.5 or abs(device / event - 1) <= 0.1:
+            return device
+        print(f"    [profiler] device time {device:.4f} ms against "
+              f"{event:.4f} ms by events: activities lost, reading dropped",
+              flush=True)
+        return None
+
+    t["device_ms"] = sound(times[0], t["event_ms"])
+    t["plain_device_ms"] = times[1]
+    t["extra_ms"] = {}
+    for (label, fn), device in zip(extra.items(), times[2:]):
+        event = burst_ms(fn)
+        t["extra_ms"][label] = (sound(device, event), event)
+    if library is not None:
+        t["library_device_ms"] = times[-1]
     return t
 
 
 def show(t, **more):
     def f(x):
         return "not measured" if x is None else f"{x:.4f}"
-    line = (f"    ms={f(t['ms'])} plain_ms={f(t['plain_ms'])} (CUDA events) "
+    line = (f"    ms={f(t['ms'])} plain_ms={f(t['plain_ms'])} "
+            f"event_ms={f(t['event_ms'])} (CUDA events) "
             f"device_ms={f(t['device_ms'])} "
             f"plain_device_ms={f(t['plain_device_ms'])} (profiler)")
     if t["library_ms"] is not None:
@@ -192,6 +290,8 @@ def show(t, **more):
         line += f" bound_ms={t['bound_ms']:.4f} ({t['bound_by']})"
         if t["device_ms"]:
             line += f" device/bound={t['device_ms'] / t['bound_ms']:.1f}"
+    for label, (device, event) in t["extra_ms"].items():
+        line += f" {label}: device_ms={f(device)} event_ms={f(event)}"
     for k, v in more.items():
         line += f" {k}={v}"
     print(line, flush=True)
@@ -326,11 +426,12 @@ def phase_kernels():
         compare(f"B {label} without the window hint",
                 msda_ops.msda(value, levels, pos, w), want, 2e-4, 2e-5)
         t = timed(lambda: msda_ops.msda(value, levels, pos, w, grids, RADIUS),
-                  lambda: msda_ops.msda_plain(value, levels, pos, w))
+                  lambda: msda_ops.msda_plain(value, levels, pos, w),
+                  extra={"without_hint":
+                         lambda: msda_ops.msda(value, levels, pos, w)})
         t["bound_ms"], t["bound_by"] = bound(
             n_bytes(value, pos, w, want), 9 * w.numel() * 64)
-        hintless = device_ms(lambda: msda_ops.msda(value, levels, pos, w))[0]
-        show(t, device_ms_without_hint=f"{hintless:.4f}")
+        show(t)
         results["msda"] = dict(t, max_abs_err=err)   # cross_attn is kept
         del value, pos, w, want
 
@@ -436,7 +537,7 @@ def plain_ops():
         yield
 
 
-def phase_whole_forward(handle, requests):
+def phase_whole_forward(handle, requests, tag="[whole]"):
     from gedepth_tpu_torch.geometry.plane import clip_pe_for_input
 
     rgb, pe = requests[0]
@@ -449,7 +550,8 @@ def phase_whole_forward(handle, requests):
         got = handle.model(x, cam)["depth"]
         with plain_ops():
             want = handle.model(x, cam)["depth"]
-    print("[whole] GEDepth depth, kernels vs plain (f32, TF32 off)")
+    print(f"{tag} GEDepth({handle.cfg.name!r}) depth, kernels vs plain "
+          "(f32, TF32 off)")
     compare("depth (1,176,608,1)", got, want, 1e-3, 1e-3)
 
 
@@ -495,11 +597,12 @@ def phase_kernel_c():
         n_out = n_bytes(*want)
         del got, want, again, hintless
         t = timed(lambda: msda_ops.msda_backward(*args, grids, RADIUS),
-                  lambda: msda_ops.msda_backward_plain(*args))
+                  lambda: msda_ops.msda_backward_plain(*args),
+                  extra={"without_hint":
+                         lambda: msda_ops.msda_backward(*args)})
         t["bound_ms"], t["bound_by"] = bound(
             n_bytes(value, pos, w, gout) + n_out, 17 * w.numel() * 64)
-        hintless = device_ms(lambda: msda_ops.msda_backward(*args))[0]
-        show(t, device_ms_without_hint=f"{hintless:.4f}")
+        show(t)
         result = dict(t, max_abs_err=err)    # cross_attn is kept
         del pos, w, gout, args
     torch.cuda.empty_cache()
@@ -516,37 +619,62 @@ def _kernel_counters():
             "pe_fusion": pe_ops.pe_fusion}
 
 
-def phase_train():
+def reset_counts(counters):
+    for c in counters.values():
+        c.launches = 0
+        if hasattr(c, "launches_by_queries"):
+            c.launches_by_queries.clear()
+
+
+def read_counts(counters):
+    """(launches per kernel; for B and C, launches per query count, which
+    tells the self-attention's launches from the cross-attention's)."""
+    return ({name: c.launches for name, c in counters.items()},
+            {name: dict(c.launches_by_queries)
+             for name, c in counters.items()
+             if hasattr(c, "launches_by_queries")})
+
+
+TRAIN_GRADS = ("backbone.stages.0.blocks.0.attn.w_msa.qkv.weight",
+               "neck.self_attn.sampling_offsets.weight",
+               "neck.multi_att.value_proj.weight",
+               "dynamic_pe_neck.conv0.weight")
+
+
+def phase_train(preset=PRESET, steps=5, nonzero=TRAIN_GRADS, tag="[train]",
+                queries=(5082, 61952)):
+    """`queries`: the self- and the cross-attention's queries per sample;
+    B and C must each have been launched once a step at each."""
     from gedepth_tpu_torch.configs import get_config
     from gedepth_tpu_torch.train.loop import train
 
     import dataclasses
 
     # the reference's per-GPU batch of 2 (its global batch spans 8 GPUs)
-    cfg = get_config(PRESET)
+    cfg = get_config(preset)
     cfg = cfg.replace(train=dataclasses.replace(cfg.train, global_batch=2))
     counters = _kernel_counters()
-    for c in counters.values():
-        c.launches = 0
+    reset_counts(counters)
     t0 = time.perf_counter()
-    state, history = train(cfg, max_iters=5, device="cuda")
+    state, history = train(cfg, max_iters=steps, device="cuda")
     wall = time.perf_counter() - t0
-    launches = {name: c.launches for name, c in counters.items()}
+    launches, by_queries = read_counts(counters)
 
-    print(f"[train] train({PRESET!r}, max_iters=5), global_batch 2, crop "
-          f"{cfg.data.crop_size}, synthetic frames {cfg.data.eval_size}: "
-          f"{wall:.2f} s including init")
+    print(f"{tag} train({preset!r}, max_iters={steps}), global_batch 2, "
+          f"crop {cfg.data.crop_size}, synthetic frames "
+          f"{cfg.data.eval_size}: {wall:.2f} s including init")
     for r in history:
-        print(f"[train] iter {r['iter']} loss={r['loss']:.6f} "
+        print(f"{tag} iter {r['iter']} loss={r['loss']:.6f} "
               f"loss_depth={r['loss_depth']:.6f} "
               f"loss_slope={r['loss_slope']:.6f} "
               f"grad_norm={r['grad_norm']:.6f} lr={r['lr']:.6e} "
               f"step_ms={r['time'] * 1e3:.3f} "
               f"step_peak_mem_mib={r['peak_mem_mib']:.1f}", flush=True)
-    print(f"[train] peak device memory: step 1 (cuDNN's autotuner trying "
+    print(f"{tag} peak device memory: step 1 (cuDNN's autotuner trying "
           f"algorithms) {history[0]['peak_mem_mib']:.1f} MiB, later steps "
           f"{max(r['peak_mem_mib'] for r in history[1:]):.1f} MiB; "
-          f"launches {launches}", flush=True)
+          f"launches {launches}, by queries per sample {by_queries}",
+          flush=True)
     for r in history:
         if not all(np.isfinite(v) for v in r.values()):
             fail(f"non-finite train metrics at iter {r['iter']}: {r}")
@@ -560,22 +688,23 @@ def phase_train():
         fail(f"parameters without a gradient {missing[:8]} "
              f"({len(missing)}), with a non-finite one {bad[:8]}")
     grads = dict(state.model.named_parameters())
-    for name in ("backbone.stages.0.blocks.0.attn.w_msa.qkv.weight",
-                 "neck.self_attn.sampling_offsets.weight",
-                 "neck.multi_att.value_proj.weight",
-                 "dynamic_pe_neck.conv0.weight"):
+    for name in nonzero:
         norm = grads[name].grad.norm().item()
-        print(f"[train] |grad {name}| = {norm:.6e}")
+        print(f"{tag} |grad {name}| = {norm:.6e}")
         if not norm > 0:
             fail(f"zero gradient for {name}")
-    print(f"[train] all {len(grads)} parameters have finite gradients after "
+    print(f"{tag} all {len(grads)} parameters have finite gradients after "
           "the last step", flush=True)
     for name, n in launches.items():
         if n <= 0:
             fail(f"kernel {name} was not launched on the train path")
+    once_a_step = {q: steps for q in queries}
+    if by_queries != {"msda": once_a_step, "msda_backward": once_a_step}:
+        fail(f"{preset}: B and C launched {by_queries}, expected "
+             f"{once_a_step} each")
     del state
     torch.cuda.empty_cache()
-    return launches
+    return launches, by_queries
 
 
 def phase_whole_step():
@@ -631,20 +760,282 @@ def phase_whole_step():
           f"({worst_rel[1]})", flush=True)
 
 
+COMPAT_RADIUS = 6
+EXACT = "gedepth_adaptive_kitti"
+COMPAT = "gedepth_adaptive_kitti_compat"
+
+
+def rule_positions(rule, randn, g, B, levels, grids, learned):
+    """(positions, weights, window hint) of one sampling rule at seeded
+    offsets of a few level pixels. learned: one set of reference points for
+    the whole batch, sigmoid(Linear(query_pos)) at the layer's seeded
+    initialisation, which puts neighbouring queries far apart (the
+    cross-attention); else the grid centres (the self-attention).
+    A twentieth of the exact and nearest samples is thrown tens of pixels
+    or a million away, out of every level."""
+    from gedepth_tpu_torch.models.layers import sine_positional_encoding
+    from gedepth_tpu_torch.ops import msda as msda_ops
+
+    Nq, L = sum(a * b for a, b in grids), len(levels)
+    off = 3.0 * randn(B, Nq, 8, L, 8, 2)
+    w = randn(B, Nq, 8, L * 8).softmax(-1).view(B, Nq, 8, L, 8)
+    if learned:
+        # as HAHINeck forms them: sigmoid(Linear(512 -> 2)(sine encoding)),
+        # the layer's seeded xavier initialisation
+        weight = torch.empty(2, 512)
+        torch.nn.init.xavier_uniform_(
+            weight, generator=torch.Generator().manual_seed(SEED))
+        qpos = sine_positional_encoding(*grids[0], 256, device="cuda")
+        ref = torch.sigmoid(qpos.reshape(1, Nq, -1) @ weight.cuda().T)
+        ref = ref[:, :, None, :].expand(1, Nq, L, 2)
+    else:
+        ref = msda_ops.center_reference_points(levels, "cuda")[-Nq:]
+    if rule == "compat":
+        pos, _ = msda_ops.compat_positions(ref, off, grids, levels,
+                                           COMPAT_RADIUS)
+        return pos, w, (grids, COMPAT_RADIUS)
+    off = scatter(off, g, share=0.05)
+    form = (msda_ops.exact_positions if rule == "exact"
+            else msda_ops.nearest_positions)
+    return form(ref, off, levels), w, ()
+
+
+def touching(pos, levels):
+    """How many samples have at least one corner inside their level: the
+    others read and add nothing."""
+    n = 0
+    for l, (Hl, Wl) in enumerate(levels):
+        x, y = pos[:, :, :, l, :, 0], pos[:, :, :, l, :, 1]
+        n += ((x > -1) & (x < Wl) & (y > -1) & (y < Hl)).sum().item()
+    return n
+
+
+def staged_by_plan(grids, levels, radius):
+    """Share of the tiles of each query grid that stage each level."""
+    from gedepth_tpu_torch.ops import msda as msda_ops
+
+    _, lanes = msda_ops.channel_lanes(64)
+    plan = msda_ops.tile_plan(tuple(grids), tuple(levels), float(radius), 64,
+                              msda_ops.stage_budget(64, lanes))
+    starts = np.cumsum([0] + [a * b for a, b in grids])
+    rects = plan.rows[:, msda_ops.TILE_HEADER:].reshape(len(plan.rows), -1, 4)
+    grid_of = np.searchsorted(starts, plan.rows[:, 0], side="right") - 1
+    return {f"{grids[gi][0]}x{grids[gi][1]}": [
+        round(float((rects[grid_of == gi, l, 2] > 0).mean()), 3)
+        for l in range(len(levels))] for gi in range(len(grids))}
+
+
+def phase_rule_kernels():
+    from gedepth_tpu_torch.ops import msda as msda_ops
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+
+    print("[rules] kernels B and C at exact, nearest and compat (R = 6) "
+          "positions (B: rtol 2e-4, atol 2e-5; C as phase 6)")
+    for name, grids, levels in (
+            ("serving self", SERVE_LEVELS, SERVE_LEVELS),
+            ("serving cross", ((176, 608),), SERVE_LEVELS),
+            ("train self", TRAIN_LEVELS, TRAIN_LEVELS),
+            ("train cross", ((176, 352),), TRAIN_LEVELS)):
+        print(f"[rules] compat plan, {name}: share of tiles staging levels "
+              f"0..3 per query grid {staged_by_plan(grids, levels, 6)}")
+    results = {}
+    for shape, B, levels, grids, learned, backward in (
+            ("serving_self", 1, SERVE_LEVELS, SERVE_LEVELS, False, False),
+            ("serving_cross", 1, SERVE_LEVELS, ((176, 608),), True, False),
+            ("train_self", 2, TRAIN_LEVELS, TRAIN_LEVELS, False, True),
+            ("train_cross", 2, TRAIN_LEVELS, ((176, 352),), True, True)):
+        value = randn(B, sum(a * b for a, b in levels), 8, 64)
+        for rule in ("exact", "nearest", "compat"):
+            pos, w, hint = rule_positions(rule, randn, g, B, levels, grids,
+                                          learned)
+            Nq, label = pos.shape[1], f"{rule} {shape}"
+            n_touch = touching(pos, levels)
+            want = msda_ops.msda_plain(value, levels, pos, w)
+            err = compare(f"B {label} {B}x{Nq} queries",
+                          msda_ops.msda(value, levels, pos, w, *hint), want,
+                          2e-4, 2e-5)
+            extra = {}
+            if rule == "exact" and not learned:
+                for r in (4, 8):    # a hint the positions do not keep to
+                    extra[f"hint_r{r}"] = functools.partial(
+                        msda_ops.msda, value, levels, pos, w, grids, r)
+            if rule == "compat":
+                extra["without_hint"] = functools.partial(
+                    msda_ops.msda, value, levels, pos, w)
+            t = timed(lambda: msda_ops.msda(value, levels, pos, w, *hint),
+                      lambda: msda_ops.msda_plain(value, levels, pos, w),
+                      plain_reps=2, extra=extra)
+            t["bound_ms"], t["bound_by"] = bound(
+                n_bytes(value, pos, w, want), 9 * n_touch * 64)
+            show(t, touching=f"{n_touch / w.numel():.3f}")
+            results[f"msda {label}"] = dict(t, max_abs_err=err, queries=Nq)
+            del want
+            if not backward:
+                continue
+            gout = randn(B, Nq, 512)
+            args = (value, levels, pos, w, gout)
+            got = msda_ops.msda_backward(*args, *hint)
+            want = msda_ops.msda_backward_plain(*args)
+            dv_atol = 1e-5 * want[0].abs().max().item()
+            err = max(compare(f"C {label} d_value", got[0], want[0], 2e-4,
+                              dv_atol),
+                      compare(f"C {label} d_pos", got[1], want[1], 2e-4,
+                              2e-5),
+                      compare(f"C {label} d_weights", got[2], want[2], 2e-4,
+                              2e-5))
+            n_out = n_bytes(*want)
+            del got, want
+            extra = {}
+            if rule == "compat":
+                extra["without_hint"] = functools.partial(
+                    msda_ops.msda_backward, *args)
+            t = timed(lambda: msda_ops.msda_backward(*args, *hint),
+                      lambda: msda_ops.msda_backward_plain(*args),
+                      plain_reps=2, extra=extra)
+            t["bound_ms"], t["bound_by"] = bound(
+                n_bytes(value, pos, w, gout) + n_out, 17 * n_touch * 64)
+            show(t)
+            results[f"msda_backward {label}"] = dict(t, max_abs_err=err,
+                                                     queries=Nq)
+            del gout, args
+        del value, pos, w
+        torch.cuda.empty_cache()
+    return results
+
+
+def phase_presets(requests):
+    """Serve the four reference-semantics presets; returns the exact
+    preset's handle and every preset's launches of B by query count."""
+    from gedepth_tpu_torch.apis import inference_depther, init_depther
+
+    counters = _kernel_counters()
+    counted, exact = {}, None
+    for preset, n_requests in ((EXACT, 2), (COMPAT, 2),
+                               ("gedepth_vanilla_kitti", 1),
+                               ("depthformer_baseline_kitti", 1)):
+        t0 = time.perf_counter()
+        handle = init_depther(preset, device="cuda", pe_raw=requests[0][1],
+                              seed=SEED)
+        torch.cuda.synchronize()
+        cfg = handle.cfg.model
+        print(f"[presets] init_depther({preset!r}): sampling "
+              f"{cfg.neck_sampling!r}, pe_variant {cfg.pe_variant!r}, "
+              f"{sum(p.numel() for p in handle.model.parameters())} "
+              f"parameters in {time.perf_counter() - t0:.2f} s", flush=True)
+        inference_depther(handle, requests[0][0])       # warm-up
+        reset_counts(counters)
+        latencies, depths = [], []
+        for rgb, _ in requests[:n_requests]:
+            t = time.perf_counter()
+            depths.append(inference_depther(handle, rgb))
+            latencies.append((time.perf_counter() - t) * 1e3)
+        launches, by_queries = read_counts(counters)
+        for i, d in enumerate(depths):
+            if d.shape != (352, 1216) or not np.isfinite(d).all():
+                fail(f"{preset} request {i}: depth {d.shape} not finite")
+            if d.min() < cfg.min_depth - 1e-6 \
+                    or d.max() > cfg.max_depth + 1e-4:
+                fail(f"{preset} request {i}: depth outside [{cfg.min_depth}, "
+                     f"{cfg.max_depth}]: {d.min()}..{d.max()}")
+        forwards = 2 * n_requests          # flip-TTA: two forwards a request
+        want = {"window_attention": 24 * forwards, "msda": 2 * forwards,
+                "msda_backward": 0,
+                "pe_fusion": forwards if cfg.pe_variant == "adaptive" else 0}
+        print(f"[presets] {preset}: flip-TTA request latency ms "
+              f"{[round(x, 3) for x in latencies]}; depth in "
+              f"[{min(d.min() for d in depths):.4f}, "
+              f"{max(d.max() for d in depths):.4f}] m; launches {launches}, "
+              f"by queries per sample {by_queries}", flush=True)
+        # every preset here attends from all four levels (35,530 queries)
+        # and from the stem's 176x608 grid (107,008)
+        want_by = {"msda": {35530: forwards, 107008: forwards},
+                   "msda_backward": {}}
+        if launches != want or by_queries != want_by:
+            fail(f"{preset}: launches {launches}, {by_queries}; expected "
+                 f"{want}, {want_by}")
+        if cfg.neck_sampling == "windowed_compat":
+            neck = handle.model.neck
+            print(f"[presets] {preset}: compat_clamp_mass self "
+                  f"{neck.self_attn.compat_clamp_mass.item():.6f} cross "
+                  f"{neck.multi_att.compat_clamp_mass.item():.6f} (seeded "
+                  "initialisation)")
+        counted[preset] = by_queries
+        if preset == EXACT:
+            exact = handle
+            phase_whole_forward(handle, requests, tag="[presets]")
+        else:
+            del handle
+            torch.cuda.empty_cache()
+    return exact, counted
+
+
+def phase_evaluator(model):
+    import dataclasses
+
+    from gedepth_tpu_torch.configs import get_config
+    from gedepth_tpu_torch.eval import Evaluator
+    from gedepth_tpu_torch.train.loop import build_eval_dataset
+
+    cfg = get_config(EXACT)
+    cfg = cfg.replace(data=dataclasses.replace(cfg.data, synthetic_size=16))
+    dataset = build_eval_dataset(cfg)       # 4 synthetic 352x1216 frames
+    runs = {}
+    for label, kw in (
+            ("multi-ratio", dict(ms_ratios=(0.75, 1.0, 1.25))),
+            ("multi-ratio, device metrics",
+             dict(ms_ratios=(0.75, 1.0, 1.25), device_metrics=True)),
+            ("slide 352x704", dict(mode="slide", slide_tile=(352, 704)))):
+        evaluator = Evaluator(model, dataset, cfg.data, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        agg, rows = evaluator.run()
+        per_image = (time.perf_counter() - t0) * 1e3 / len(dataset)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        if len(rows) != len(dataset) or len(agg) != 9 \
+                or not np.isfinite(np.asarray(rows)).all():
+            fail(f"evaluator ({label}): {len(rows)} rows, aggregate {agg}")
+        print(f"[eval] Evaluator({EXACT!r}, {label}), {len(dataset)} frames: "
+              f"{per_image:.1f} ms an image (the first carries cuDNN's "
+              f"choice of algorithms), peak device memory {peak:.1f} MiB; "
+              + " ".join(f"{k}={v:.6f}" for k, v in agg.items()), flush=True)
+        runs[label] = np.asarray(rows, np.float64)
+    a, b = runs["multi-ratio"], runs["multi-ratio, device metrics"]
+    worst = float(np.max(np.abs(a - b) / np.maximum(np.abs(a), 1e-12)))
+    print(f"[eval] numpy vs device metrics: largest relative difference "
+          f"{worst:.3e} (rtol 1e-5)", flush=True)
+    if not np.allclose(b, a, rtol=1e-5, atol=1e-9):
+        fail("device metrics disagree with the numpy metrics")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     smi = phase_device()
     phase_build()
+    # every kernel against its plain version first, while the process is
+    # young: `torch.profiler` loses device activities later on
     results = phase_kernels()
+    results["msda_backward"] = phase_kernel_c()
+    rule_results = phase_rule_kernels()
     handle, requests, serving_launches = phase_main_path()
     phase_whole_forward(handle, requests)
     del handle
     torch.cuda.empty_cache()
-    results["msda_backward"] = phase_kernel_c()
-    launches = phase_train()
+    launches, _ = phase_train()
     phase_whole_step()
+    exact, preset_launches = phase_presets(requests)
+    _, exact_train = phase_train(
+        EXACT, steps=3, tag="[train exact]", queries=(20570, 61952),
+        nonzero=("neck.reference_points.weight",
+                 "neck.multi_att.sampling_offsets.weight",
+                 "neck.self_attn.sampling_offsets.weight"))
+    phase_evaluator(exact.model)
 
     sources = {
         "window_attention": ("gedepth_tpu_torch/csrc/window_attention.cu",
@@ -656,18 +1047,38 @@ def main():
         "pe_fusion": ("gedepth_tpu_torch/csrc/pe_fusion.cu",
                       "gedepth_tpu/ops/pallas/pe_fusion.py:57"),
     }
-    kernels = []
-    for name, (source, replaces) in sources.items():
-        t = results[name]
-        kernels.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
-            "launches_serving": serving_launches.get(name, 0),
-            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
-            "plain_ms": t["plain_ms"], "device_ms": t["device_ms"],
-            "plain_device_ms": t["plain_device_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"]})
+
+    def row(name, kernel, t, n_train, n_serving):
+        source, replaces = sources[kernel]
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": n_train or n_serving,
+                "launches_train": n_train, "launches_serving": n_serving,
+                "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "event_ms": t["event_ms"],
+                "device_ms": t["device_ms"],
+                "plain_device_ms": t["plain_device_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": t["library_ms"]}
+
+    kernels = [row(name, name, results[name], launches[name],
+                   serving_launches.get(name, 0)) for name in sources]
+    # the shapes of the exact and compat presets: the launches that their
+    # paths made at this shape's query count
+    for name, t in rule_results.items():
+        kernel, rule, shape = name.split()
+        if rule == "nearest":
+            continue            # no preset samples nearest; checked above
+        train_shape = shape.startswith("train")
+        if rule == "compat" and train_shape:
+            continue            # the compat preset is served, not trained
+        counted = exact_train if train_shape else preset_launches[
+            EXACT if rule == "exact" else COMPAT]
+        n = counted[kernel].get(t["queries"], 0)
+        kernels.append(row(f"{kernel}[{rule} {shape}]", kernel, t,
+                           n if train_shape else 0, 0 if train_shape else n))
+    for k in kernels:
+        if k["launches"] <= 0:
+            fail(f"kernel row {k['name']} was launched on no main path")
     print(f"[power] {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,8 @@ A raw image goes through the KITTI test pipeline (KB crop, normalisation),
 then the eval step: forward, clamp to [min_depth, max_depth], resize to the
 input size with align_corners=True, and with flip-TTA the mean of the
 prediction and the un-flipped prediction of the mirrored image
-(`gedepth_tpu.train.steps.make_eval_step` at ratio 1.0).
+(`train.steps.make_eval_step`). A model without ground embedding
+(pe_variant 'none') takes the RGB image alone.
 """
 from __future__ import annotations
 
@@ -21,27 +22,7 @@ import torch
 from gedepth_tpu_torch.configs import get_config
 from gedepth_tpu_torch.data.transforms import build_test_pipeline
 from gedepth_tpu_torch.geometry.plane import clip_pe_for_input
-from gedepth_tpu_torch.ops.resize import resize_bilinear
-
-
-def make_eval_step(model, flip_tta: bool = True):
-    """eval_step(img (B, H, W, 5), cam_height (B,)) -> (B, H, W) depth."""
-
-    @torch.inference_mode()
-    def eval_step(img, cam_height=None):
-        base_hw = img.shape[1:3]
-
-        def run(im):
-            d = model(im, cam_height)["depth"].float()
-            d = d.clamp(model.min_depth, model.max_depth)
-            return resize_bilinear(d, base_hw, align_corners=True)
-
-        pred = run(img)
-        if flip_tta:
-            pred = 0.5 * (pred + run(img.flip(2)).flip(2))
-        return pred[..., 0]
-
-    return eval_step
+from gedepth_tpu_torch.train.steps import make_eval_step  # noqa: F401
 
 
 @dataclasses.dataclass
@@ -63,7 +44,7 @@ def init_depther(config: Union[str, object], device="cuda",
     The weights are the port's seeded random initialisation, or
     `state_dict` (e.g. `convert.state_dict_from_flax`) loaded strictly.
     pe_raw: the camera's raw plane embedding at the raw image size, needed
-    when feeding 3-channel images.
+    when feeding 3-channel images to a model with a PE variant.
     """
     cfg = get_config(config) if isinstance(config, str) else config
     device = torch.device(device)
@@ -87,7 +68,7 @@ def inference_depther(handle: DeptherHandle, image: np.ndarray,
     sample = {"img": image,
               "cam_height": np.float32(cam_height if cam_height is not None
                                        else cfg.model.default_cam_height)}
-    if image.shape[-1] != 5:
+    if cfg.model.pe_variant != "none" and image.shape[-1] != 5:
         if handle.pe_raw is None:
             raise ValueError("PE variant needs a plane embedding: pass "
                              "pe_raw to init_depther or a 5-channel image")

@@ -1,10 +1,12 @@
 """Typed experiment configuration for the PyTorch port.
 
 The same frozen dataclasses as `gedepth_tpu.configs.base`, cut to the fields
-the serving and training slices read. Field names and defaults are identical, so a preset
-compares equal field by field with its JAX counterpart. `swin_scan` is not
-among them: it changes only the JAX parameter layout, which
-`convert.from_jax` unstacks.
+the serving, training and evaluation slices read. Field names and defaults
+are identical, so a preset compares equal field by field with its JAX
+counterpart. Left out on purpose: `swin_scan` (it changes only the JAX
+parameter layout, which `convert.from_jax` unstacks), the remat switches
+(memory only), `neck_value_bf16`, the zoo's fields, and the fields of
+modules not ported yet (real datasets, checkpoints, multi-process loading).
 """
 from __future__ import annotations
 
@@ -25,18 +27,22 @@ class ModelConfig:
     neck_channels: Tuple[int, ...] = (64, 192, 384, 768, 1536)
     neck_embed_dim: int = 512
     neck_num_points: int = 8
-    # the port serves 'windowed' only (models/hahi.py)
+    # 'bilinear' (exact mmcv sampling) | 'nearest' | 'windowed' |
+    # 'windowed_compat' (the reference parameter tree, displacements clamped
+    # to the window); see ops/msda.py and models/hahi.py
     neck_sampling: str = "bilinear"
     neck_window_radius: int = 4
     neck_hi_min_level: int = 0
     # the port serves 'none' only (models/depther.py)
     bf16_scope: str = "none"
     # head
+    head_channels: int = 64
     min_depth: float = 1e-3
     max_depth: float = 80.0
-    # PE subsystem; the port serves 'adaptive' only
-    pe_variant: str = "adaptive"
+    # PE subsystem
+    pe_variant: str = "adaptive"          # 'none' | 'vanilla' | 'adaptive'
     depth_scale: float = 200.0
+    vanilla_pe_multiplier: float = 200.0  # the reference hardcodes 200
     default_cam_height: float = 1.65
 
     def build(self, device=None, generator=None):
@@ -53,8 +59,10 @@ class ModelConfig:
             neck_window_radius=self.neck_window_radius,
             neck_hi_min_level=self.neck_hi_min_level,
             bf16_scope=self.bf16_scope,
+            head_channels=self.head_channels,
             min_depth=self.min_depth, max_depth=self.max_depth,
             pe_variant=self.pe_variant, depth_scale=self.depth_scale,
+            vanilla_pe_multiplier=self.vanilla_pe_multiplier,
             default_cam_height=self.default_cam_height,
             device=device, generator=generator).eval()
 
@@ -65,7 +73,12 @@ class DataConfig:
     crop_size: Tuple[int, int] = (352, 704)
     eval_size: Tuple[int, int] = (352, 1216)
     flip_prob: float = 0.5
+    garg_crop: bool = True
+    eigen_crop: bool = False
     eval_flip_tta: bool = True
+    # 'whole' or 'slide' (sliding-window inference; window and step default
+    # to crop_size and half of it, see eval/evaluator.py)
+    eval_mode: str = "whole"
     # samples of the synthetic train set (and the stand-in for KITTI)
     synthetic_size: int = 64
 

@@ -7,6 +7,27 @@ from gedepth_tpu_torch.configs.base import (
     DataConfig, ExperimentConfig, ModelConfig, OptimConfig, TrainConfig)
 
 _PRESETS = {
+    # DepthFormer Swin-L baseline (no ground embedding), KITTI
+    "depthformer_baseline_kitti": lambda: ExperimentConfig(
+        name="depthformer_baseline_kitti",
+        model=ModelConfig(pe_variant="none"), data=DataConfig()),
+    # GEDepth-Vanilla: the ground prior times the ground mask
+    "gedepth_vanilla_kitti": lambda: ExperimentConfig(
+        name="gedepth_vanilla_kitti",
+        model=ModelConfig(pe_variant="vanilla"), data=DataConfig()),
+    # GEDepth-Adaptive with the exact mmcv deformable sampling: the preset
+    # that loads converted reference checkpoints
+    "gedepth_adaptive_kitti": lambda: ExperimentConfig(
+        name="gedepth_adaptive_kitti",
+        model=ModelConfig(pe_variant="adaptive"), data=DataConfig()),
+    # the same parameter tree sampled inside a window of +-6 level pixels
+    # around each query's grid centre (displacements clamped)
+    "gedepth_adaptive_kitti_compat": lambda: ExperimentConfig(
+        name="gedepth_adaptive_kitti_compat",
+        model=ModelConfig(pe_variant="adaptive",
+                          neck_sampling="windowed_compat",
+                          neck_window_radius=6),
+        data=DataConfig()),
     # GEDepth-Adaptive Swin-L with the windowed deformable-attention neck
     # and HI self-attention queries from transformer level 1 on
     "gedepth_adaptive_kitti_tpu": lambda: ExperimentConfig(

@@ -1,2 +1,2 @@
 from gedepth_tpu_torch.convert.from_jax import (  # noqa: F401
-    state_dict_from_flax, unstack_swin_params)
+    load_flax_variables, state_dict_from_flax, unstack_swin_params)

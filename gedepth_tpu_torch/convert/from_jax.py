@@ -13,8 +13,13 @@ state_dict that the port's `GEDepth` loads with `strict=True`:
     per-block entries first, as `gedepth_tpu.models.swin.unstack_swin_params`
     does.
 
-The windowed neck has no `reference_points` layer; a tree that carries one
-belongs to another sampling mode and is refused.
+The trees differ with the model: only the windowed neck lacks
+`neck/reference_points` (the cross-attention's learned reference points,
+`neck.reference_points.{weight,bias}` in the reference), a model without
+ground embedding has no `pe_mask_neck` and a 3-channel patch embed, and only
+the adaptive one has `dynamic_pe_neck`. `load_flax_variables` loads a tree
+into a model strictly and says which of the two, sampling mode or PE
+variant, does not match when the keys differ.
 """
 from __future__ import annotations
 
@@ -103,6 +108,8 @@ def _torch_name(names):
             return _convmodule(f"neck.{sub}.0", names[2:])
         if sub == "level_embed":
             return "neck.level_embed"
+        if sub == "reference_points":
+            return f"neck.reference_points.{leaf}"
         if sub in ("self_attn", "cross_attn"):
             mod = "self_attn" if sub == "self_attn" else "multi_att"
             return f"neck.{mod}.{names[2]}.{leaf}"
@@ -133,8 +140,34 @@ def state_dict_from_flax(params: Mapping, batch_stats: Mapping = None):
         key = _torch_name(names)
         if names[-1] == "kernel":
             arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
-        sd[key] = torch.from_numpy(np.ascontiguousarray(arr, np.float32))
+        sd[key] = torch.from_numpy(np.array(arr, np.float32, order="C"))
         if key.endswith(".running_mean"):
             sd[key[:-len("running_mean")] + "num_batches_tracked"] = \
                 torch.zeros((), dtype=torch.long)
     return sd
+
+
+def load_flax_variables(model, params: Mapping, batch_stats: Mapping = None):
+    """Load JAX GEDepth variables into the port's `model`, strictly. A tree
+    of another sampling mode (with or without `neck/reference_points`) or
+    another PE variant (PE necks, patch-embed channels) is refused."""
+    sd = state_dict_from_flax(params, batch_stats)
+    want = model.state_dict()
+    missing, extra = sorted(set(want) - set(sd)), sorted(set(sd) - set(want))
+    shapes = [k for k in sd if k in want and sd[k].shape != want[k].shape]
+    if missing or extra or shapes:
+        def about(prefixes):
+            return any(k.startswith(prefixes) for k in missing + extra + shapes)
+        why = []
+        if about(("neck.reference_points",)):
+            why.append("the neck's sampling mode (only 'windowed' has no "
+                       "reference_points layer)")
+        if about(("pe_mask_neck", "dynamic_pe_neck",
+                  "backbone.patch_embed.projection")):
+            why.append("the PE variant")
+        raise ValueError(
+            "the JAX tree does not fit this model: it differs in "
+            f"{' and '.join(why) or 'its layers'}; missing {missing[:4]}, "
+            f"unexpected {extra[:4]}, other shapes {shapes[:4]}")
+    model.load_state_dict(sd, strict=True)
+    return model

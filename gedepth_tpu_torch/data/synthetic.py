@@ -39,14 +39,19 @@ class SyntheticGroundDataset:
       depth_gt    (H, W) float32 metres, 0 = no measurement
       pe_k_gt     (H, W) float32 slope classes 0..10, 255 = ignore
       cam_height  float32; index; pe_ori_point
+
+    use_pe=False (a model without ground embedding) gives `img` (H, W, 3)
+    and neither pe_k_gt nor pe_ori_point. `seed` separates the scenes of one
+    dataset from another's (the eval split uses seed 1).
     """
 
     camera_height = 1.65
     min_depth = 1e-3
 
     def __init__(self, size=64, height=352, width=1216, depth_scale=200.0,
-                 max_depth=80.0):
+                 max_depth=80.0, use_pe=True, seed=0):
         self.size = size
+        self.use_pe, self.seed = use_pe, seed
         self.height, self.width = height, width
         self.depth_scale = depth_scale
         self.max_depth = max_depth
@@ -57,7 +62,7 @@ class SyntheticGroundDataset:
         return self.size
 
     def __getitem__(self, idx):
-        rng = np.random.default_rng(idx)
+        rng = np.random.default_rng(self.seed * 100003 + idx)
         H, W, pe, h = self.height, self.width, self._pe, self.camera_height
 
         tan_k = np.tan(np.deg2rad(rng.uniform(-4, 4)))
@@ -82,12 +87,14 @@ class SyntheticGroundDataset:
              np.linspace(0, 1, W)[None, :].repeat(H, 0) * 160 + 50], axis=-1)
         rgb = np.clip(base + rng.normal(0, 8, size=(H, W, 3)), 0, 255)
 
+        sample = {"depth_gt": gt, "cam_height": np.float32(h), "index": idx}
+        if not self.use_pe:
+            return dict(sample, img=rgb.astype(np.float32))
         pe_raw = sanitize_pe_raw(pe)
         img = np.concatenate(
             [rgb.astype(np.float32),
              clip_pe_for_input(pe, self.depth_scale)[..., None],
              pe_raw[..., None]], axis=-1)
-        return {"img": img, "depth_gt": gt, "cam_height": np.float32(h),
-                "index": idx,
-                "pe_k_gt": slope_gt_to_class(slope_bin_gt(gt, pe, h)),
-                "pe_ori_point": np.float32(pe_raw[-1, -1])}
+        return dict(sample, img=img,
+                    pe_k_gt=slope_gt_to_class(slope_bin_gt(gt, pe, h)),
+                    pe_ori_point=np.float32(pe_raw[-1, -1]))

@@ -1,13 +1,21 @@
 """GEDepth composition: backbone -> HAHI -> PE necks -> PE fusion -> decode
-head (the port of `gedepth_tpu.models.depther` for pe_variant='adaptive',
-bf16_scope='none' and the windowed neck).
+head (the port of `gedepth_tpu.models.depther` for bf16_scope='none').
+
+PE variants:
+  * 'none'     the DepthFormer baseline: RGB only, depth = relu(conv) +
+    min_depth, no PE necks;
+  * 'vanilla'  pe_mask = img[..., 3]·y·vanilla_pe_multiplier (200, as the
+    reference hardcodes it, even where depth_scale is 250);
+  * 'adaptive' slope-bin logits -> expected slope -> the ground prior
+    re-derived per pixel with the sample's camera height (`ops.pe_fusion`).
 
 `forward` takes and returns the JAX package's NHWC layout:
-  img          (B, H, W, 5): normalised RGB, clipped PE / depth_scale, raw PE
+  img          (B, H, W, 5): normalised RGB, clipped PE / depth_scale, raw
+               PE; (B, H, W, 3) suffices for 'none'
   depth        (B, H/2, W/2, 1) fused depth before the clamp
-  y            (B, H, W, 1) ground mask at input resolution
-  slope_logits (B, H, W, 11)
-  pe_mask      (B, H, W, 1) adaptive ground prior
+  y            (B, H, W, 1) ground mask at input resolution (None for 'none')
+  slope_logits (B, H, W, 11) ('adaptive' only, else None)
+  pe_mask      (B, H, W, 1) the ground prior (None for 'none')
 """
 from __future__ import annotations
 
@@ -25,11 +33,13 @@ from gedepth_tpu_torch.ops import pe_fusion as pe_ops
 from gedepth_tpu_torch.ops.resize import resize_bilinear, resize_bilinear_nchw
 
 
+PE_VARIANTS = ("none", "vanilla", "adaptive")
+
+
 class GEDepth(nn.Module):
-    """GEDepth-Adaptive. The modules are built without storage, then
-    allocated on the CPU and initialised from `generator` (seed 0 when
-    None), so the same seed gives the same weights on every device; then
-    moved to `device`.
+    """GEDepth. The modules are built without storage, then allocated on
+    the CPU and initialised from `generator` (seed 0 when None), so the same
+    seed gives the same weights on every device; then moved to `device`.
 
     `.train()` turns on what the JAX package's `train=True` does: batch
     statistics in every BatchNorm (updating the running ones as flax does),
@@ -45,32 +55,38 @@ class GEDepth(nn.Module):
                  neck_embed_dim: int = 512, neck_num_points: int = 8,
                  neck_sampling: str = "windowed", neck_window_radius: int = 4,
                  neck_hi_min_level: int = 0, bf16_scope: str = "none",
+                 head_channels: int = 64,
                  min_depth: float = 1e-3, max_depth: float = 80.0,
                  pe_variant: str = "adaptive", depth_scale: float = 200.0,
+                 vanilla_pe_multiplier: float = 200.0,
                  default_cam_height: float = 1.65, device=None,
                  generator=None):
         super().__init__()
-        if pe_variant != "adaptive":
-            raise NotImplementedError(
-                f"pe_variant {pe_variant!r} is not ported yet")
+        if pe_variant not in PE_VARIANTS:
+            raise ValueError(f"pe_variant {pe_variant!r} not in {PE_VARIANTS}")
         if bf16_scope != "none":
             raise NotImplementedError(
                 f"bf16_scope {bf16_scope!r} is not ported yet")
         self.min_depth, self.max_depth = min_depth, max_depth
-        self.depth_scale = depth_scale
+        self.pe_variant, self.depth_scale = pe_variant, depth_scale
+        self.vanilla_pe_multiplier = vanilla_pe_multiplier
         self.default_cam_height = default_cam_height
         with torch.device("meta"):
             self.backbone = DepthFormerSwin(embed_dims, depths, num_heads,
                                             window,
-                                            drop_path_rate=drop_path_rate)
+                                            drop_path_rate=drop_path_rate,
+                                            use_pe=pe_variant != "none")
             self.neck = HAHINeck(neck_channels, neck_channels, neck_embed_dim,
                                  num_points=neck_num_points,
                                  sampling=neck_sampling,
                                  window_radius=neck_window_radius,
                                  hi_min_level=neck_hi_min_level)
-            self.pe_mask_neck = LightPEMaskNeck(neck_channels)
-            self.dynamic_pe_neck = DynamicPENeckSoft(neck_channels)
+            if pe_variant != "none":
+                self.pe_mask_neck = LightPEMaskNeck(neck_channels)
+            if pe_variant == "adaptive":
+                self.dynamic_pe_neck = DynamicPENeckSoft(neck_channels)
             self.decode_head = DenseDepthHead(neck_channels,
+                                              channels=head_channels,
                                               min_depth=min_depth)
         self.to_empty(device="cpu")
         init_weights(self, generator if generator is not None
@@ -90,18 +106,28 @@ class GEDepth(nn.Module):
         B, H, W, _ = img.shape
         feats = self.backbone(img.permute(0, 3, 1, 2).contiguous())
         feats = self.neck(feats)
+        if self.pe_variant == "none":
+            depth = self.decode_head(feats)
+            return {"depth": depth.permute(0, 2, 3, 1), "y": None,
+                    "slope_logits": None, "pe_mask": None}
         y_small, _ = self.pe_mask_neck(feats)
         y = resize_bilinear_nchw(y_small, (H, W), align_corners=False)
-        slope_logits = resize_bilinear_nchw(
-            self.dynamic_pe_neck(feats), (H, W),
-            align_corners=False).permute(0, 2, 3, 1).contiguous()
-        if cam_height is None:
-            h = torch.full((B,), self.default_cam_height, dtype=img.dtype,
-                           device=img.device)
+        slope_logits = None
+        if self.pe_variant == "adaptive":
+            slope_logits = resize_bilinear_nchw(
+                self.dynamic_pe_neck(feats), (H, W),
+                align_corners=False).permute(0, 2, 3, 1).contiguous()
+            if cam_height is None:
+                h = torch.full((B,), self.default_cam_height,
+                               dtype=img.dtype, device=img.device)
+            else:
+                h = cam_height.reshape(B).to(img.dtype)
+            pe_mask = pe_ops.pe_fusion(slope_logits,
+                                       img[..., 4].contiguous(),
+                                       y[:, 0].contiguous(), h,
+                                       self.depth_scale)
         else:
-            h = cam_height.reshape(B).to(img.dtype)
-        pe_mask = pe_ops.pe_fusion(slope_logits, img[..., 4].contiguous(),
-                                   y[:, 0].contiguous(), h, self.depth_scale)
+            pe_mask = img[..., 3] * y[:, 0] * self.vanilla_pe_multiplier
         depth = self.decode_head(feats, pe_mask[:, None], y)
         return {"depth": depth.permute(0, 2, 3, 1),
                 "y": y.permute(0, 2, 3, 1),

@@ -2,7 +2,8 @@
 of `gedepth_tpu.models.heads`): an upsample-and-fuse chain from the deepest
 neck scale to the stem scale, then
   depth = relu(conv_depth(x)) · (1 − y) + pe + min_depth
-with pe and y resized to the head's resolution. align_corners=True
+with pe and y resized to the head's resolution, or relu(conv_depth(x)) +
+min_depth for a model without ground embedding. align_corners=True
 throughout; LeakyReLU(0.01) in the upsample blocks.
 """
 from __future__ import annotations
@@ -45,14 +46,16 @@ class DenseDepthHead(nn.Module):
         self.conv_list = nn.ModuleList(blocks)
         self.conv_depth = conv2d(up[-1], 1, 3, padding=1)
 
-    def forward(self, inputs, pe_mask, y):
+    def forward(self, inputs, pe_mask=None, y=None):
         """inputs [stem, s1..s4] NCHW fine -> coarse; pe_mask and y
-        (B, 1, H, W). Returns depth (B, 1, H/2, W/2)."""
+        (B, 1, H, W), or None for both. Returns depth (B, 1, H/2, W/2)."""
         feats = inputs[::-1]
         x = self.conv_list[0](feats[0])
         for block, feat in zip(self.conv_list[1:], feats[1:]):
             x = block(x, feat)
         d = F.relu(self.conv_depth(x))
+        if pe_mask is None:
+            return d + self.min_depth
         pe = resize_bilinear_nchw(pe_mask, d.shape[2:], align_corners=True)
         y_r = resize_bilinear_nchw(y, d.shape[2:], align_corners=True)
         return d * (1.0 - y_r) + pe + self.min_depth

@@ -1,5 +1,6 @@
 """DepthFormer-Swin backbone: a conv stem over RGB at stride 2 plus a Swin
-transformer over the 4-channel RGB+PE input at stride 4 (the port of
+transformer at stride 4 over the 4-channel RGB+PE input, or over RGB alone
+when the model has no ground embedding (the port of
 `gedepth_tpu.models.swin`).
 
 Module names follow the reference PyTorch keys (`backbone.conv1`,
@@ -204,18 +205,22 @@ class SwinStage(nn.Module):
 
 
 class DepthFormerSwin(nn.Module):
-    """Conv stem (RGB) + Swin stages (RGB+PE). Input NCHW (B, ≥4, H, W)."""
+    """Conv stem (RGB) + Swin stages (RGB+PE when use_pe, else RGB). Input
+    NCHW (B, ≥4, H, W), or (B, ≥3, H, W) without PE."""
 
     def __init__(self, embed_dims: int = 192,
                  depths: Sequence[int] = (2, 2, 18, 2),
                  num_heads: Sequence[int] = (6, 12, 24, 48), window: int = 7,
                  patch_size: int = 4, mlp_ratio: int = 4,
-                 drop_path_rate: float = 0.3, stem_channels: int = 64):
+                 drop_path_rate: float = 0.3, stem_channels: int = 64,
+                 use_pe: bool = True):
         super().__init__()
+        self.in_channels = 4 if use_pe else 3
         self.conv1 = conv2d(3, stem_channels, 7, stride=2, padding=3,
                             bias=False)
         self.bn1 = BatchNorm2d(stem_channels)
-        self.patch_embed = PatchEmbed(4, embed_dims, patch_size)
+        self.patch_embed = PatchEmbed(self.in_channels, embed_dims,
+                                      patch_size)
         dpr = np.linspace(0, drop_path_rate, sum(depths)).tolist()
         stages, start, ch = [], 0, embed_dims
         for i, depth in enumerate(depths):
@@ -229,7 +234,7 @@ class DepthFormerSwin(nn.Module):
 
     def forward(self, img):
         outs = [F.relu(self.bn1(self.conv1(img[:, :3])))]
-        x, hw = self.patch_embed(img[:, :4])
+        x, hw = self.patch_embed(img[:, :self.in_channels])
         for i, stage in enumerate(self.stages):
             for block in stage.blocks:
                 x = block(x, hw)

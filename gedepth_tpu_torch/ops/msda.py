@@ -25,13 +25,25 @@ from (and, in C, added to) device memory, so any positions are sampled
 correctly.
 
 The sampling modes of `gedepth_tpu.ops.msda` differ only in how positions
-are formed. `windowed_positions` is the windowed rule: each query's anchor
-on the level (its grid centre, split into an integer anchor and a residual
-from the float64 table of `gedepth_tpu.ops.msda._axis_anchor_residual`)
-plus the bounded offset R·tanh(off/R).
+are formed; the rules are plain functions on tensors, differentiated by
+autograd upstream of the kernels:
+
+  * `exact_positions` ('bilinear'): loc = ref + off / (W_l, H_l), then
+    x = loc·W_l − 0.5, in that f32 order;
+  * `nearest_positions` ('nearest'): floor(loc·size) as an integer-valued
+    float, so the bilinear rule reads one corner with weight 1; the
+    floor's gradient is zero;
+  * `windowed_positions` ('windowed'): each query's anchor on the level (its
+    grid centre, split into an integer anchor and a residual from the
+    float64 table of `gedepth_tpu.ops.msda._axis_anchor_residual`) plus the
+    bounded offset R·tanh(off/R);
+  * `compat_positions` ('windowed_compat'): the same anchor plus the exact
+    rule's displacement from the grid centre (`compat_delta_px`) clamped to
+    ±R level pixels.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import math
@@ -125,21 +137,126 @@ def _anchor_tables(query_shapes, spatial_shapes, device):
         return (to(np.concatenate(anchors)), to(np.concatenate(residuals)))
 
 
-def windowed_positions(offsets, query_shapes, spatial_shapes, radius):
-    """Level-pixel sample positions of the windowed rule.
-
-    offsets: (B, Nq, heads, L, P, 2) raw offsets (x, y); the queries are
-    the row-major grids `query_shapes`, concatenated. Returns the positions
-    anchor + (residual + R·tanh(off/R)), the residual sum in f32 as the JAX
-    package forms it.
-    """
+def anchored_positions(displacement, query_shapes, spatial_shapes):
+    """anchor + (residual + displacement): level-pixel positions of samples
+    displaced (B, Nq, heads, L, P, 2) level pixels from their queries' grid
+    centres; the queries are the row-major grids `query_shapes`,
+    concatenated. The residual sum is taken first, in f32, as the JAX
+    package forms it."""
     anc, res = _anchor_tables(tuple(map(tuple, query_shapes)),
                               tuple(map(tuple, spatial_shapes)),
-                              offsets.device)
-    R = float(radius)
-    bounded = R * torch.tanh(offsets / R)
-    return ((res[None, :, None, :, None, :] + bounded)
+                              displacement.device)
+    return ((res[None, :, None, :, None, :] + displacement)
             + anc[None, :, None, :, None, :])
+
+
+def windowed_positions(offsets, query_shapes, spatial_shapes, radius):
+    """Level-pixel sample positions of the windowed rule: the query's grid
+    centre plus R·tanh(off/R). offsets: (B, Nq, heads, L, P, 2) raw offsets
+    (x, y)."""
+    R = float(radius)
+    return anchored_positions(R * torch.tanh(offsets / R), query_shapes,
+                              spatial_shapes)
+
+
+def grid_centers(query_shapes) -> np.ndarray:
+    """Normalised (x, y) centres of the row-major grids `query_shapes`,
+    concatenated: (ΣHW, 2) f32, (i + 0.5) / n formed in f32."""
+    pts = []
+    for (H_, W_) in query_shapes:
+        ys = (np.arange(H_, dtype=np.float32) + 0.5) / H_
+        xs = (np.arange(W_, dtype=np.float32) + 0.5) / W_
+        gy, gx = np.meshgrid(ys, xs, indexing="ij")
+        pts.append(np.stack([gx.reshape(-1), gy.reshape(-1)], axis=-1))
+    return np.concatenate(pts, axis=0)
+
+
+@functools.lru_cache(maxsize=16)
+def _centers(query_shapes, device):
+    # a normal tensor even under inference_mode (see `_level_table`)
+    with torch.inference_mode(False):
+        return torch.as_tensor(grid_centers(query_shapes), device=device)
+
+
+@functools.lru_cache(maxsize=16)
+def _normalizer(spatial_shapes, device):
+    """(L, 2) f32 (W_l, H_l), the (x, y) order of the locations."""
+    norm = np.array([[W_, H_] for (H_, W_) in spatial_shapes], np.float32)
+    with torch.inference_mode(False):
+        return torch.as_tensor(norm, device=device)
+
+
+def center_reference_points(spatial_shapes, device=None):
+    """Reference points of a self-attention whose queries are the levels'
+    own tokens: every token's normalised grid centre, the same on each
+    level: (ΣHW, L, 2), (x, y)."""
+    shapes = tuple(map(tuple, spatial_shapes))
+    centers = _centers(shapes, torch.device(device or "cpu"))
+    return centers[:, None, :].expand(-1, len(shapes), -1)
+
+
+def _broadcast_reference(reference_points):
+    """(Nq, L, 2) or (B', Nq, L, 2) -> (B', Nq, 1, L, 1, 2)."""
+    if reference_points.dim() == 3:
+        reference_points = reference_points[None]
+    return reference_points[:, :, None, :, None, :]
+
+
+def _locations(reference_points, offsets, spatial_shapes):
+    """Normalised sample locations ref + off / (W_l, H_l), and (W_l, H_l)."""
+    norm = _normalizer(tuple(map(tuple, spatial_shapes)), offsets.device)
+    norm = norm[None, None, None, :, None, :]
+    return _broadcast_reference(reference_points) + offsets / norm, norm
+
+
+def exact_positions(reference_points, offsets, spatial_shapes):
+    """Level-pixel positions of the exact (mmcv) rule: loc = ref + off /
+    (W_l, H_l), x = loc·W_l − 0.5. reference_points: (Nq, L, 2) or
+    (B, Nq, L, 2) normalised (x, y); offsets (B, Nq, heads, L, P, 2) in
+    level pixels."""
+    locs, norm = _locations(reference_points, offsets, spatial_shapes)
+    return locs * norm - 0.5
+
+
+def nearest_positions(reference_points, offsets, spatial_shapes):
+    """Positions of the nearest rule: the pixel floor(loc·size), zero
+    outside the level, as an integer-valued float (a bilinear sample there
+    is that one pixel). The floor's gradient is zero, so the offsets and
+    the reference points get zero gradients, as in the JAX package."""
+    locs, norm = _locations(reference_points, offsets, spatial_shapes)
+    return torch.floor(locs * norm)
+
+
+def compat_delta_px(reference_points, offsets, query_shapes, spatial_shapes):
+    """Displacement, in level pixels, of each sample of the exact rule from
+    its query's own grid centre: (ref − centre)·(W_l, H_l) + off. Unclamped
+    it reproduces the exact positions; 'windowed_compat' clamps it to ±R,
+    so the share of |delta| > R says how much a set of weights loses.
+    Shapes as `exact_positions`; returns (B, Nq, heads, L, P, 2)."""
+    centers = _centers(tuple(map(tuple, query_shapes)), offsets.device)
+    norm = _normalizer(tuple(map(tuple, spatial_shapes)), offsets.device)
+    delta_norm = (_broadcast_reference(reference_points)
+                  - centers[None, :, None, None, None, :])
+    return delta_norm * norm[None, None, None, :, None, :] + offsets
+
+
+def compat_positions(reference_points, offsets, query_shapes, spatial_shapes,
+                     radius):
+    """Level-pixel positions of the compat rule, and the displacement before
+    the clamp: anchor + (residual + clip(delta, ±R))."""
+    delta = compat_delta_px(reference_points, offsets, query_shapes,
+                            spatial_shapes)
+    R = float(radius)
+    return (anchored_positions(delta.clamp(-R, R), query_shapes,
+                               spatial_shapes), delta)
+
+
+def compat_clamp_mass(delta, weights, radius):
+    """Attention mass that the compat clamp moved: Σ weights·any(|delta| >
+    R) / (B·Nq·heads), a 0-dim tensor on the inputs' device."""
+    clamped = (delta.abs() > float(radius)).any(-1).to(weights.dtype)
+    B, Nq, h = weights.shape[:3]
+    return (weights * clamped).sum() / (B * Nq * h)
 
 
 def channel_lanes(head_dim: int, aligned: bool = True):
@@ -366,6 +483,7 @@ def _launch_forward(value, spatial_shapes, pos, weights, window):
               weights.data_ptr(), out.data_ptr(), B, S, Nq, h, d, L, P,
               n_tiles, stage_floats, vec, lanes)
     msda.launches += 1
+    msda.launches_by_queries[Nq] += 1
     return out
 
 
@@ -399,6 +517,7 @@ def msda_backward(value, spatial_shapes, pos, weights, grad_out,
               d_pos.data_ptr(), d_weights.data_ptr(), B, S, Nq, h, d, L, P,
               n_tiles, stage_floats, vec, lanes)
     msda_backward.launches += 1
+    msda_backward.launches_by_queries[Nq] += 1
     return d_value, d_pos, d_weights
 
 
@@ -470,3 +589,7 @@ def msda(value, spatial_shapes, pos, weights, query_shapes=None,
 
 msda.launches = 0
 msda_backward.launches = 0
+# the same launches by queries per sample, which tells a model's
+# self-attention from its cross-attention
+msda.launches_by_queries = collections.Counter()
+msda_backward.launches_by_queries = collections.Counter()

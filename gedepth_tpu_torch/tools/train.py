@@ -35,9 +35,10 @@ def main(argv=None):
     for r in history:
         mem = (f" peak_mem={r['peak_mem_mib']:.0f}MiB"
                if "peak_mem_mib" in r else "")
+        slope = (f"loss_slope={r['loss_slope']:.6f} "
+                 if "loss_slope" in r else "")
         print(f"iter {r['iter']} loss={r['loss']:.6f} "
-              f"loss_depth={r['loss_depth']:.6f} "
-              f"loss_slope={r['loss_slope']:.6f} "
+              f"loss_depth={r['loss_depth']:.6f} {slope}"
               f"grad_norm={r['grad_norm']:.6f} lr={r['lr']:.3e} "
               f"time={r['time']:.4f}s{mem}", flush=True)
 

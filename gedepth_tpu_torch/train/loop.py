@@ -39,26 +39,43 @@ def _cudnn_autotuner():
         torch.backends.cudnn.benchmark = saved
 
 
-def build_train_dataset(cfg):
-    d, m = cfg.data, cfg.model
-    if d.dataset == "synthetic":
-        h, w = d.crop_size
-    elif d.dataset == "kitti":
-        h, w = d.eval_size       # synthetic stand-in for the KB-cropped frame
-    else:
-        raise NotImplementedError(f"dataset {d.dataset!r} is not ported yet")
-    return SyntheticGroundDataset(size=d.synthetic_size, height=h, width=w,
+def _synthetic_dataset(cfg, size, hw, seed):
+    m = cfg.model
+    return SyntheticGroundDataset(size=size, height=hw[0], width=hw[1],
                                   depth_scale=m.depth_scale,
-                                  max_depth=m.max_depth)
+                                  max_depth=m.max_depth,
+                                  use_pe=m.pe_variant != "none", seed=seed)
+
+
+def _frame_size(cfg, synthetic_hw):
+    d = cfg.data
+    if d.dataset == "synthetic":
+        return synthetic_hw
+    if d.dataset == "kitti":
+        return d.eval_size       # synthetic stand-in for the KB-cropped frame
+    raise NotImplementedError(f"dataset {d.dataset!r} is not ported yet")
+
+
+def build_train_dataset(cfg):
+    return _synthetic_dataset(cfg, cfg.data.synthetic_size,
+                              _frame_size(cfg, cfg.data.crop_size), seed=0)
+
+
+def build_eval_dataset(cfg):
+    """The test split of `gedepth_tpu.train.loop.build_datasets`: a quarter
+    as many synthetic frames as the train split (at least 2), at eval_size,
+    from other scenes (seed 1)."""
+    return _synthetic_dataset(cfg, max(cfg.data.synthetic_size // 4, 2),
+                              _frame_size(cfg, cfg.data.eval_size), seed=1)
 
 
 def train(cfg, work_dir: Optional[str] = None,
           max_iters: Optional[int] = None, device="cuda"):
     """Train `cfg` from the port's seeded initialisation; returns
     (state, history) with one dict of floats per step: iter, lr, loss,
-    loss_depth, loss_slope, grad_norm, time (seconds of the step on a
-    synchronised host clock) and, on a CUDA device, peak_mem_mib (the
-    step's peak of allocated device memory).
+    loss_depth, loss_slope (adaptive models), grad_norm, time (seconds of
+    the step on a synchronised host clock) and, on a CUDA device,
+    peak_mem_mib (the step's peak of allocated device memory).
 
     Each step takes cfg.train.global_batch samples on this one device; its
     BatchNorm statistics span them all, as the reference's SyncBN spans the
@@ -91,11 +108,10 @@ def train(cfg, work_dir: Optional[str] = None,
                 torch.cuda.reset_peak_memory_stats(device)
             t0 = time.perf_counter()
             metrics = train_step(state, batch)
-            values = torch.stack([metrics[k] for k in (
-                "loss", "loss_depth", "loss_slope", "grad_norm")]).tolist()
-            record = dict(zip(("loss", "loss_depth", "loss_slope",
-                               "grad_norm"), values),
-                          iter=it + 1, lr=metrics["lr"],
+            keys = [k for k in ("loss", "loss_depth", "loss_slope",
+                                "grad_norm") if k in metrics]
+            values = torch.stack([metrics[k] for k in keys]).tolist()
+            record = dict(zip(keys, values), iter=it + 1, lr=metrics["lr"],
                           time=time.perf_counter() - t0)
             if cuda:
                 record["peak_mem_mib"] = (

@@ -1,12 +1,19 @@
-"""The train step (the port of `gedepth_tpu.train.steps.make_train_step`
-and `gedepth_tpu.train.state.TrainState`).
+"""The train and eval steps (the port of `gedepth_tpu.train.steps` and
+`gedepth_tpu.train.state.TrainState`).
 
-One step: forward in train mode, the half-resolution depth resized to the
-GT size with align_corners=True, SigLoss + 0.08·slope CE on the f32 logits,
-backward, the global gradient norm of the raw gradients, the clip, then one
-AdamW update at the LR the schedule gives for the updates done so far.
-PyTorch runs eagerly, so the step is a plain function that updates the
-state in place.
+One train step: forward in train mode, the half-resolution depth resized to
+the GT size with align_corners=True, SigLoss (+ 0.08·slope CE on the f32
+logits when the model is adaptive), backward, the global gradient norm of
+the raw gradients, the clip, then one AdamW update at the LR the schedule
+gives for the updates done so far. PyTorch runs eagerly, so the step is a
+plain function that updates the state in place.
+
+Eval steps: `make_eval_step` (whole image, flip-TTA, one multi-scale ratio
+with the PE channels resampled exactly: `resize_pe_exact`,
+`resize_img5_scaled`) and `make_slide_eval_step` (sliding window). They
+take (img, cam_height) tensors and return (B, H, W) depth; the model holds
+its weights, so there is no params argument. The JAX steps' `bf16` argument
+is not ported yet.
 """
 from __future__ import annotations
 
@@ -76,10 +83,11 @@ def make_train_step(sig_loss_weight: float = 1.0,
                     slope_ce_weight: float = 0.08):
     """train_step(state, batch) -> metrics, updating `state` in place.
 
-    batch: img (B, H, W, 5), depth_gt (B, H, W) with 0 = invalid, pe_k_gt
-    (B, H, W) slope classes, cam_height (B,), tensors on the model's device.
-    metrics: loss, loss_depth, loss_slope and grad_norm (0-dim tensors, not
-    synchronised) and lr (the rate this update used)."""
+    batch: img (B, H, W, 5|3), depth_gt (B, H, W) with 0 = invalid, pe_k_gt
+    (B, H, W) slope classes (adaptive models only), cam_height (B,), tensors
+    on the model's device. metrics: loss, loss_depth, grad_norm and, for an
+    adaptive model, loss_slope (0-dim tensors, not synchronised) and lr (the
+    rate this update used)."""
 
     def train_step(state: TrainState, batch):
         model = state.model
@@ -91,14 +99,140 @@ def make_train_step(sig_loss_weight: float = 1.0,
         gt = batch["depth_gt"][..., None]
         depth = resize_bilinear(out["depth"].float(), gt.shape[1:3],
                                 align_corners=True)
-        loss_depth = sig_loss_weight * sigloss(depth, gt)
-        loss_slope = slope_ce_weight * softmax_ce_ignore(
-            out["slope_logits"].float(), batch["pe_k_gt"])
-        loss = loss_depth + loss_slope
+        loss = loss_depth = sig_loss_weight * sigloss(depth, gt)
+        metrics = {"loss_depth": loss_depth.detach()}
+        if model.pe_variant == "adaptive":
+            loss_slope = slope_ce_weight * softmax_ce_ignore(
+                out["slope_logits"].float(), batch["pe_k_gt"])
+            metrics["loss_slope"] = loss_slope.detach()
+            loss = loss_depth + loss_slope
         loss.backward()
         grad_norm, lr = state.apply_gradients()
-        return {"loss": loss.detach(), "loss_depth": loss_depth.detach(),
-                "loss_slope": loss_slope.detach(), "grad_norm": grad_norm,
-                "lr": lr}
+        return dict(metrics, loss=loss.detach(), grad_norm=grad_norm, lr=lr)
 
     return train_step
+
+
+def _predict(model, img, cam_height, size):
+    """One forward: depth clamped to [min_depth, max_depth] and resized to
+    `size` (align_corners=True), (B, H, W, 1) f32."""
+    d = model(img, cam_height)["depth"].float()
+    d = d.clamp(model.min_depth, model.max_depth)
+    return resize_bilinear(d, size, align_corners=True)
+
+
+def _with_flip(run, img, flip_tta):
+    """run(img), averaged with the un-flipped run of the mirrored image."""
+    pred = run(img)
+    if flip_tta:
+        pred = 0.5 * (pred + run(img.flip(2)).flip(2))
+    return pred[..., 0]
+
+
+def snap32(n: int, ratio: float) -> int:
+    """n·ratio snapped to a multiple of 32 (at least 32), so every pyramid
+    level of the scaled view stays even."""
+    return max(32, int(round(n * ratio / 32)) * 32)
+
+
+def make_eval_step(model, flip_tta: bool = True, ratio: float = 1.0):
+    """eval_step(img (B, H, W, 5|3), cam_height (B,)) -> (B, H, W) depth.
+
+    Flip-TTA averages the prediction with the un-flipped prediction of the
+    mirrored image. ratio != 1.0 is one view of multi-scale TTA: the input
+    is resized to the ratio (snapped to multiples of 32) with its PE
+    channels resampled exactly (`resize_img5_scaled`), and the prediction
+    is resized back to the base resolution."""
+    pe_clip_scale = float(model.depth_scale)
+
+    @torch.inference_mode()
+    def eval_step(img, cam_height=None):
+        base_hw = tuple(img.shape[1:3])
+        if ratio != 1.0:
+            img = resize_img5_scaled(
+                img, (snap32(base_hw[0], ratio), snap32(base_hw[1], ratio)),
+                pe_clip_scale)
+        return _with_flip(lambda im: _predict(model, im, cam_height, base_hw),
+                          img, flip_tta)
+
+    return eval_step
+
+
+def resize_pe_exact(pe_raw, size, bound: float = 1e6):
+    """Resample the raw plane-embedding channel (B, H, W, 1) exactly under
+    a bilinear resize, by interpolating in inverse-depth space: the ground
+    plane's depth is c / (a·u + b·v + d), so 1/pe is affine in the pixel
+    coordinates, also across the horizon where pe itself diverges.
+
+    Zeros in the input (the horizon row, whose true inverse is 0) map to 0;
+    outputs whose inverse magnitude falls below 1/bound are clamped to
+    ±bound (an exact 0 stays 0), as `geometry.plane.sanitize_pe_raw` does."""
+    f32 = pe_raw.float()
+    zero = f32 == 0.0
+    inv = torch.where(zero, 0.0, 1.0 / torch.where(zero, 1.0, f32))
+    inv = resize_bilinear(inv, size, align_corners=False)
+    small = inv.abs() < (1.0 / bound)
+    pe = torch.where(small, torch.sign(inv) * bound,
+                     1.0 / torch.where(small, 1.0, inv))
+    return pe.to(pe_raw.dtype)
+
+
+def resize_img5_scaled(img, size, pe_clip_scale: float):
+    """The 5-channel model input at `size` with consistent PE channels: RGB
+    resized bilinearly, the raw PE (channel 4) resampled exactly, and the
+    clipped and normalised PE input (channel 3) recomputed from it with the
+    load-time rule: keep (0, clip], divide by `pe_clip_scale` (the model's
+    depth_scale). A 3-channel input is resized plainly."""
+    if img.shape[-1] != 5:
+        return resize_bilinear(img, size, align_corners=False)
+    rgb = resize_bilinear(img[..., :3], size, align_corners=False)
+    pe_raw = resize_pe_exact(img[..., 4:5], size)
+    pr = pe_raw.float()
+    pe_in = torch.where((pr > 0) & (pr <= pe_clip_scale), pr / pe_clip_scale,
+                        0.0).to(img.dtype)
+    return torch.cat([rgb, pe_in, pe_raw], dim=-1)
+
+
+def slide_positions(size: int, tile: int, stride: int):
+    """Window starts covering [0, size): ceil((size − tile) / stride) + 1
+    windows, the last pulled back flush with the border."""
+    if tile >= size:
+        return [0]
+    n = -(-(size - tile) // stride) + 1
+    return [min(i * stride, size - tile) for i in range(n)]
+
+
+def make_slide_eval_step(model, tile, stride, flip_tta: bool = True):
+    """Sliding-window eval step: eval_step(img, cam_height) -> (B, H, W).
+
+    Every crop of `tile` = (h, w), `stride` apart, runs the same forward;
+    depth is clamped per crop, overlapping predictions are averaged through
+    an accumulate/count pair, and flip-TTA wraps the whole slide."""
+    th, tw = int(tile[0]), int(tile[1])
+    sh, sw = int(stride[0]), int(stride[1])
+    if sh > th or sw > tw:
+        raise ValueError(f"stride {stride} must not exceed tile {tile} "
+                         "(uncovered gaps)")
+
+    @torch.inference_mode()
+    def eval_step(img, cam_height=None):
+        B, H, W = img.shape[:3]
+        if th > H or tw > W:
+            raise ValueError(f"slide tile {(th, tw)} larger than input "
+                             f"{(H, W)}; use mode='whole'")
+        positions = [(y0, x0) for y0 in slide_positions(H, th, sh)
+                     for x0 in slide_positions(W, tw, sw)]
+
+        def run(im):
+            acc = im.new_zeros((B, H, W, 1), dtype=torch.float32)
+            cnt = im.new_zeros((1, H, W, 1), dtype=torch.float32)
+            for (y0, x0) in positions:
+                crop = im[:, y0:y0 + th, x0:x0 + tw, :].contiguous()
+                acc[:, y0:y0 + th, x0:x0 + tw] += _predict(
+                    model, crop, cam_height, (th, tw))
+                cnt[:, y0:y0 + th, x0:x0 + tw] += 1.0
+            return acc / cnt
+
+        return _with_flip(run, img, flip_tta)
+
+    return eval_step

@@ -90,9 +90,15 @@ def test_converter_layouts_and_unstacking():
     want = jax_unstack(params["backbone"])
     got = unstack_swin_params(params["backbone"])
     assert sorted(got) == sorted(want)
+    # the cross-attention's learned reference points keep the reference key
+    sd = state_dict_from_flax({"neck": {"reference_points": {
+        "kernel": dense, "bias": dense[0]}}})
+    np.testing.assert_array_equal(
+        sd["neck.reference_points.weight"].numpy(), dense.T)
+    np.testing.assert_array_equal(
+        sd["neck.reference_points.bias"].numpy(), dense[0])
     with pytest.raises(KeyError):
-        state_dict_from_flax({"neck": {"reference_points": {
-            "kernel": dense}}})
+        state_dict_from_flax({"neck": {"query_embed": {"kernel": dense}}})
 
 
 def test_slope_gt_matches_jax():

@@ -17,7 +17,9 @@ summed in an order that changes from run to run, to rtol 2e-4 plus atol
 1e-5·max|d_value|. Kernels B and C are run with the window hint
 (`query_shapes`, `window_radius`: value windows staged in shared memory)
 and without it (every corner from device memory); both must agree with the
-plain versions for any positions.
+plain versions for any positions: those of the windowed rule and those of
+the exact, nearest and compat rules, whose reference points may sit on the
+image border and whose offsets may be ±1e9.
 """
 import numpy as np
 import pytest
@@ -327,10 +329,15 @@ def test_msda_autograd_uses_kernels():
 
     fwd0 = msda_ops.msda.launches
     bwd0 = msda_ops.msda_backward.launches
+    by_queries0 = (msda_ops.msda.launches_by_queries[32],
+                   msda_ops.msda_backward.launches_by_queries[32])
     got = grads(msda_ops.msda)
     torch.cuda.synchronize()
     assert msda_ops.msda.launches == fwd0 + 1
     assert msda_ops.msda_backward.launches == bwd0 + 1
+    assert (msda_ops.msda.launches_by_queries[32],
+            msda_ops.msda_backward.launches_by_queries[32]) == (
+                by_queries0[0] + 1, by_queries0[1] + 1)
     want = grads(msda_ops.msda_plain)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=2e-4,
@@ -486,3 +493,142 @@ def test_msda_kernels_at_the_train_crop_with_the_hint():
     _assert_msda_grads(
         msda_ops.msda_backward(value, levels, pos, w, gout, query_shapes, 4),
         msda_ops.msda_backward_plain(value, levels, pos, w, gout))
+
+
+# --- the exact, nearest and compat position rules through kernels B and C
+
+RULE_SHAPES = {
+    # query grids, levels, B, learned reference points
+    "self": (((16, 24), (8, 12), (4, 6)), ((16, 24), (8, 12), (4, 6)), 2,
+             False),
+    "cross": (((32, 48),), ((16, 24), (8, 12), (4, 6)), 2, True),
+    # the serving cross-attention at full width
+    "serving_cross": (((176, 608),),
+                      ((88, 304), (44, 152), (22, 76), (11, 38)), 1, True),
+}
+
+
+def _rule_positions(rule, g, case, extreme):
+    """Positions of one rule. extreme: reference points of 0 and 1 (the
+    image border) for a fifth of the queries each, and a tenth of the
+    offsets at ±1e9."""
+    query_shapes, levels, B, learned = RULE_SHAPES[case]
+    Nq, L, h, P = sum(a * b for a, b in query_shapes), len(levels), 8, 8
+    off = 3.0 * _randn(g, B, Nq, h, L, P, 2)
+    if learned:
+        ref = torch.rand(1, Nq, 1, 2, generator=g, device="cuda").expand(
+            1, Nq, L, 2).contiguous()
+    else:
+        ref = msda_ops.center_reference_points(levels, "cuda").contiguous()
+    if extreme:
+        ref[..., 0::5, :, :] = 0.0
+        ref[..., 1::5, :, :] = 1.0
+        far = torch.rand(off.shape, generator=g, device="cuda") < 0.1
+        off = torch.where(far, torch.where(off > 0, 1e9, -1e9), off)
+    if rule == "compat":
+        pos, delta = msda_ops.compat_positions(ref, off, query_shapes, levels,
+                                               6)
+        assert delta.abs().max().item() > 6     # the clamp is active
+        assert (pos - msda_ops.anchored_positions(
+            torch.zeros_like(pos), query_shapes, levels)).abs().max() <= 6.001
+        return pos, (query_shapes, 6)
+    form = (msda_ops.exact_positions if rule == "exact"
+            else msda_ops.nearest_positions)
+    pos = form(ref, off, levels)
+    if rule == "nearest":
+        assert torch.equal(pos, pos.floor())
+    return pos, (query_shapes, 4)    # a hint these positions do not keep to
+
+
+@pytest.mark.parametrize("extreme", [False, True])
+@pytest.mark.parametrize("case", ["self", "cross"])
+@pytest.mark.parametrize("rule", ["exact", "nearest", "compat"])
+def test_msda_kernels_at_rule_positions(rule, case, extreme):
+    """B and C against their plain versions at the positions of each rule,
+    with a hint and without."""
+    _, levels, B, _ = RULE_SHAPES[case]
+    g = torch.Generator(device="cuda").manual_seed(21)
+    pos, hint = _rule_positions(rule, g, case, extreme)
+    Nq, h, d = pos.shape[1], 8, 64
+    value = _randn(g, B, sum(a * b for a, b in levels), h, d)
+    w = _randn(g, B, Nq, h, len(levels) * 8).softmax(-1).view(
+        B, Nq, h, len(levels), 8)
+    gout = _randn(g, B, Nq, h * d)
+    want = msda_ops.msda_plain(value, levels, pos, w)
+    want_grads = msda_ops.msda_backward_plain(value, levels, pos, w, gout)
+    assert bool(torch.isfinite(want).all())
+    for window in (hint, ()):
+        before = msda_ops.msda.launches, msda_ops.msda_backward.launches
+        got = msda_ops.msda(value, levels, pos, w, *window)
+        grads = msda_ops.msda_backward(value, levels, pos, w, gout, *window)
+        torch.cuda.synchronize()
+        assert (msda_ops.msda.launches, msda_ops.msda_backward.launches) == (
+            before[0] + 1, before[1] + 1)
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
+        _assert_msda_grads(grads, want_grads)
+
+
+@pytest.mark.parametrize("rule", ["exact", "nearest", "compat"])
+def test_msda_kernel_at_rule_positions_full_width(rule):
+    g = torch.Generator(device="cuda").manual_seed(22)
+    _, levels, B, _ = RULE_SHAPES["serving_cross"]
+    pos, hint = _rule_positions(rule, g, "serving_cross", True)
+    Nq = pos.shape[1]
+    value = _randn(g, B, sum(a * b for a, b in levels), 8, 64)
+    w = _randn(g, B, Nq, 8, 32).softmax(-1).view(B, Nq, 8, 4, 8)
+    want = msda_ops.msda_plain(value, levels, pos, w)
+    for window in ((hint if rule == "compat" else ()), ()):
+        torch.testing.assert_close(
+            msda_ops.msda(value, levels, pos, w, *window), want, rtol=2e-4,
+            atol=2e-5)
+
+
+@pytest.mark.parametrize("sampling", ["bilinear", "nearest",
+                                      "windowed_compat"])
+def test_neck_modes_launch_the_kernels_under_autograd(sampling):
+    """Every sampling mode of the neck goes through kernel B, and kernel C
+    under autograd, on CUDA tensors; its gradients equal those of the plain
+    versions (nearest: zero for the offsets and the reference points)."""
+    import contextlib
+    from unittest import mock
+
+    from gedepth_tpu_torch.models.hahi import HAHINeck
+    from gedepth_tpu_torch.models.layers import init_weights
+
+    chans = (16, 24, 32, 40, 48)
+    grids = ((32, 64), (16, 32), (8, 16), (4, 8), (2, 4))
+    neck = HAHINeck(chans, chans, embed_dim=64, num_heads=2, num_points=4,
+                    sampling=sampling, window_radius=6)
+    init_weights(neck, torch.Generator().manual_seed(0))
+    with torch.no_grad():     # offsets that depend on the query
+        for att in (neck.self_attn, neck.multi_att):
+            att.sampling_offsets.weight.normal_(0, 0.3)
+    neck = neck.cuda().eval()
+    g = torch.Generator(device="cuda").manual_seed(23)
+    feats = [_randn(g, 2, c, h_, w_) for (h_, w_), c in zip(grids, chans)]
+
+    def grads(plain):
+        neck.zero_grad()
+        ctx = (mock.patch.object(
+            msda_ops, "msda", lambda v, s, p, w_, *hint: msda_ops.msda_plain(
+                v, s, p, w_)) if plain else contextlib.nullcontext())
+        with ctx:
+            sum(o.square().sum() for o in neck(feats)).backward()
+        return {n: p.grad.clone() for n, p in neck.named_parameters()}
+
+    before = msda_ops.msda.launches, msda_ops.msda_backward.launches
+    got = grads(plain=False)
+    torch.cuda.synchronize()
+    assert (msda_ops.msda.launches, msda_ops.msda_backward.launches) == (
+        before[0] + 2, before[1] + 2)
+    want = grads(plain=True)
+    assert (msda_ops.msda.launches, msda_ops.msda_backward.launches) == (
+        before[0] + 2, before[1] + 2)
+    for name, w_ in want.items():
+        torch.testing.assert_close(got[name], w_, rtol=2e-3,
+                                   atol=1e-4 * w_.abs().max().item() + 1e-9,
+                                   msg=lambda m, name=name: f"{name}: {m}")
+    moved = got["multi_att.sampling_offsets.weight"].abs().sum().item()
+    assert (moved == 0) == (sampling == "nearest")
+    assert (got["reference_points.weight"].abs().sum().item() == 0) == (
+        sampling == "nearest")
