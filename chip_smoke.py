@@ -4,7 +4,8 @@ GPU.
 
     python3 chip_smoke.py
 
-Phases, each printing its lines; any failure raises and exits non-zero:
+Phases, each printing its lines (and, per group of phases, a `[time]` line
+with its host-clock seconds); any failure raises and exits non-zero:
   1. device: the card's name and power limit (nvidia-smi), CUDA version and
      capability; TF32 off for matmuls and convolutions;
   2. build: the CUDA kernels of gedepth_tpu_torch/csrc with nvcc;
@@ -59,8 +60,10 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      2 x 61,952), with the tolerances of phases 3 and 6; the bound from
      the samples that touch their level, what the compat plan stages per
      (query grid, level), and B's exact self-attention with a window hint
-     of 4 and 8 pixels; timed as phases 3 and 6, `device_ms` by the
-     profiler and `event_ms` beside it;
+     of 4 and 8 pixels; exact and compat timed as phases 3 and 6 with one
+     repetition of the plain version, `device_ms` by the profiler and
+     `event_ms` beside it; nearest, which no preset samples, checked and
+     timed by events only;
  10. presets: `init_depther` + `inference_depther` for
      `gedepth_adaptive_kitti` (exact) and `gedepth_adaptive_kitti_compat`
      (2 flip-TTA requests each) and one request each for
@@ -79,9 +82,57 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      preset with ms_ratios (0.75, 1.0, 1.25), numpy metrics and device
      metrics (held together to rtol 1e-5), then mode='slide' with a
      352x704 tile; the time per image of each.
-The phases run in the order 1, 2, 3, 6, 9, 4, 5, 7, 8, 10, 11, 12: every
-kernel check comes before the first model, because `torch.profiler` loses
-device activities as a process ages, and all of them once it has trained.
+ 13. kernels, bf16: the bf16 instances of A (stage 1 shifted, serving and
+     train crop, packed qkv, bf16 bias, f32 mask), B (serving shapes under
+     the windowed, compat R = 5 and exact rules) and C (the train crop's
+     windowed self- and cross-attention and the exact self-attention), each
+     against a float64 evaluation of the same bf16 inputs: its largest
+     error at most max(2 x the plain bf16 version's, one bf16 ulp of the
+     output's largest magnitude; for C's f32 outputs 1e-5 of theirs). A
+     bf16 kernel rounds once where its plain version rounds alike but not
+     bit for bit, so the f32 phases' bounds do not apply. Timed as phase 3,
+     with the f32 instance at the same shape (`f32_device_ms`,
+     `f32_event_ms`), and for A one bf16 `scaled_dot_product_attention`;
+     what the compat plan stages for a bf16 value at R = 5 and 6;
+ 14. parity preset: `init_depther("gedepth_adaptive_kitti_parity")` (compat
+     R = 5, Swin and decode head bf16, the rest f32), 3 flip-TTA requests;
+     depth as phase 4; per forward exactly 24 A (bf16 instance), 1 + 1 B
+     (f32: HAHI is outside the scope), 1 E; the whole forward with kernels
+     against the plain versions, the mean of |d - d_plain| / max(d,
+     d_plain) at most 1e-2 (a rounding that falls the other way moves
+     single pixels across the prior's validity edge, 4 mm against 44 m);
+ 15. scopes: one forward each of `backbone`, `backbone_neck`,
+     `backbone_neck_head` and whole-tree bf16 (`init_depther(bf16=True)`)
+     on the windowed preset, and of the compat tree at R = 5 with
+     `backbone_neck_head`; A's bf16 instance in all, B's where the neck is
+     inside;
+ 16. accuracy on seeded weights, same weights and request: the depth of
+     `backbone_neck_head` and of whole-tree bf16 on the exact tree against
+     the exact f32 preset, and of the parity preset against exact and
+     against its own tree in f32 (compat R = 5); the mean abs-rel
+     difference printed beside the JAX package's records on converted
+     weights; asserted below 2e-2 is the mean of |d - ref| / max(d, ref) of
+     each bf16 model against the f32 model of its own sampling rule (see
+     `phase_accuracy` for why not the plain mean, and not parity against
+     exact);
+ 17. bf16 evaluation: `Evaluator(bf16=True)` over 2 frames, whole + flip
+     and multi-ratio, 9 finite metrics; an f32 step on bf16 weights raises;
+     `tools.test --bf16` once;
+ 18. bf16 training: `train()` with `bf16_compute` for 3 steps at 352x704,
+     batch 2, checked as phase 7; the bf16 instances of A, B and C and E
+     launched; parameters, gradients, AdamW moments and BatchNorm
+     statistics f32 and finite; peak memory beside phase 7's;
+ 19. f32 beside bf16 in one process, through `tools.benchmark`'s functions,
+     the configurations taking turns: serving (exact f32, parity, windowed
+     f32, windowed `backbone_neck_head`, windowed whole-tree bf16; 12
+     iterations each) and a train step (f32, `bf16_compute`; 6 timed steps
+     each after the autotuned ones): one JSON line each with the median
+     device time by events (gaps included), the busy time by the profiler,
+     host ms, idle share and peak memory.
+The phases run in the order 1, 2, 3, 6, 13, 9, 4, 5, 7, 8, 10, 11, 12,
+14-19: every kernel check comes before the first model, because
+`torch.profiler` loses device activities as a process ages, and all of
+them once it has trained.
 A `device_ms` that is not within a tenth of its `event_ms` (kernels of
 0.5 ms and more) is printed, dropped and null in its row; `event_ms` is in
 every row. Then the kernels as one JSON line. The first four rows
@@ -91,8 +142,14 @@ carry their kernel's launches over the whole of phase 7 (`launches`,
 count on its own path: the requests of phase 10 for the serving shapes, the
 3 steps of phase 11 for the train crop's. `bound_ms` is the larger of the
 call's bytes over 3.35 TB/s and its f32 operations over 67 TFLOP/s, the
-H100 SXM's published peaks. Last the device as one JSON line. Nothing of
-phases 1-8 was cut to make room.
+H100 SXM's published peaks (for the bf16 instance of A its products over
+989 TFLOP/s, the tensor cores' bf16 rate). The rows of phase 13 carry the
+error against float64 as `max_abs_err` and the launches of the bf16 paths:
+A from phase 14's requests and phase 18's steps, B from the forwards of
+phases 15 and 16, C from phase 18. Last the device as one JSON line.
+To make room for phases 13-19, phase 9 times its plain versions once
+instead of twice and the nearest rule by events alone; every check of
+phases 1-12 stayed.
 Imports nothing of JAX. Exits non-zero without a CUDA device.
 """
 from __future__ import annotations
@@ -219,14 +276,16 @@ def compare(name, got, want, rtol, atol):
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, published
 F32_FLOP_PER_S = 67e12        # H100 SXM, f32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12      # H100 SXM, bf16 on the tensor cores, dense
 
 
-def bound(n_bytes, n_flop):
+def bound(n_bytes, n_flop, flop_per_s=F32_FLOP_PER_S):
     """(bound_ms, bound_by): the least time the card could take to move the
     call's bytes (each input read once, each output written once) or to do
-    its f32 operations, whichever is larger."""
+    its operations at the peak rate of the unit that does them (f32 on CUDA
+    cores unless said otherwise), whichever is larger."""
     by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    by_ops = n_flop / F32_FLOP_PER_S * 1e3
+    by_ops = n_flop / flop_per_s * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                            "operations")
 
@@ -456,6 +515,184 @@ def phase_kernels():
     return results
 
 
+def bf16_ulp(x):
+    """One bf16 unit in the last place at magnitude x (a float)."""
+    return 2.0 ** (int(np.floor(np.log2(max(x, 1e-30)))) - 7)
+
+
+def compare64(name, got, plain, ref, floor=None):
+    """A bf16 instance against float64: the kernel's largest error against a
+    float64 evaluation of the same inputs must be at most the larger of
+    twice the plain version's error and `floor` (default: one bf16 ulp at
+    the output's largest magnitude). Returns the kernel's error."""
+    ref = ref.double()
+    err = (got.double() - ref).abs().max().item()
+    plain_err = (plain.double() - ref).abs().max().item()
+    if floor is None:
+        floor = bf16_ulp(ref.abs().max().item())
+    limit = max(2 * plain_err, floor)
+    ok = bool(torch.isfinite(got).all()) and err <= limit
+    print(f"  {name}: err_vs_f64={err:.3e} plain_err_vs_f64={plain_err:.3e} "
+          f"floor={floor:.3e} (limit max(2 x plain, floor) = {limit:.3e}) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail(f"{name} is further from float64 than its bound")
+    return err
+
+
+def phase_kernels_bf16():
+    """The bf16 instances of A, B and C against float64 evaluations of the
+    same bf16 inputs, each beside its f32 instance at the same shape
+    (`extra_ms['f32']`: device, event)."""
+    import torch.nn.functional as F
+
+    from gedepth_tpu_torch.models.swin import shifted_window_mask
+    from gedepth_tpu_torch.ops import msda as msda_ops
+    from gedepth_tpu_torch.ops import window_attention as wa
+
+    bf = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+
+    results = {}
+    # A-bf16: q, k, v views of a packed bf16 qkv, a bf16 bias (a model cast
+    # to bf16 holds its table so), the f32 shift mask. Operations: the two
+    # products on the tensor cores.
+    print("[kernels bf16] A window attention, bf16 on the tensor cores "
+          "(against float64; limit max(2 x plain's error, 1 bf16 ulp))")
+    for label, nWB, H, grid in (("stage1_shifted", 572, 6, (91, 308)),
+                                ("train_stage1_shifted", 676, 6, (91, 182))):
+        qkv = randn(nWB, 49, 3, H, 32).to(bf)
+        q, k, v = qkv[:, :, 0] * 32 ** -0.5, qkv[:, :, 1], qkv[:, :, 2]
+        bias = randn(H, 49, 49).to(bf)
+        mask = torch.as_tensor(shifted_window_mask(*grid, 7, 3),
+                               device="cuda")
+        ref = wa.window_attention_plain(q.double(), k.double(), v.double(),
+                                        bias.double(), mask.double())
+        got = wa.window_attention(q, k, v, bias, mask)
+        plain = wa.window_attention_plain(q, k, v, bias, mask)
+        err = compare64(f"A bf16 {label} ({nWB},49,{H},32)", got, plain, ref)
+        attn_mask = (bias.float()[None]
+                     + mask.repeat(nWB // mask.shape[0], 1, 1)[:, None]).to(bf)
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+
+        def library():
+            return F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=attn_mask, scale=1.0).transpose(1, 2)
+
+        print(f"  A bf16 {label} library call: err_vs_f64="
+              f"{(library().double() - ref).abs().max().item():.3e} (a "
+              "yardstick, not held to the bound)")
+        q32, k32, v32, b32 = q.float(), k.float(), v.float(), bias.float()
+        t = timed(lambda: wa.window_attention(q, k, v, bias, mask),
+                  lambda: wa.window_attention_plain(q, k, v, bias, mask),
+                  plain_reps=10, library=library,
+                  extra={"f32": lambda: wa.window_attention(q32, k32, v32,
+                                                            b32, mask)})
+        t["bound_ms"], t["bound_by"] = bound(
+            n_bytes(q, k, v, bias, mask, got), nWB * H * 49 * 49 * 4 * 32,
+            BF16_FLOP_PER_S)
+        show(t)
+        results[f"window_attention[bf16 {label}]"] = dict(
+            t, max_abs_err=err, kernel="window_attention_bf16")
+        del qkv, q, k, v, ref, got, plain, attn_mask, q32, k32, v32
+
+    # B-bf16 at the serving shapes under the windowed (R = 4), compat
+    # (R = 5) and exact rules; C-bf16 at the train crop's. 9 (B) and 17 (C)
+    # f32 operations per touching sample and channel, on CUDA cores.
+    print("[kernels bf16] B deformable sampling, bf16 value (against "
+          "float64; limit max(2 x plain's error, 1 bf16 ulp))")
+    cases = (
+        ("windowed serving_self", 1, SERVE_LEVELS, SERVE_LEVELS[1:], False),
+        ("windowed serving_cross", 1, SERVE_LEVELS, ((176, 608),), False),
+        ("compat5 serving_self", 1, SERVE_LEVELS, SERVE_LEVELS, False),
+        ("compat5 serving_cross", 1, SERVE_LEVELS, ((176, 608),), True),
+        ("exact serving_self", 1, SERVE_LEVELS, SERVE_LEVELS, False),
+        ("exact serving_cross", 1, SERVE_LEVELS, ((176, 608),), True),
+        ("windowed train_self", 2, TRAIN_LEVELS, TRAIN_LEVELS[1:], False),
+        ("exact train_self", 2, TRAIN_LEVELS, TRAIN_LEVELS, False),
+        ("windowed train_cross", 2, TRAIN_LEVELS, ((176, 352),), False))
+    for label, B, levels, grids, learned in cases:
+        rule, shape = label.split()
+        value = randn(B, sum(a * b for a, b in levels), 8, 64)
+        if rule == "windowed":
+            pos, w = msda_inputs(randn, B, levels, grids)
+            hint = (grids, RADIUS)
+        else:
+            pos, w, hint = rule_positions(
+                "compat" if rule == "compat5" else "exact", randn, g, B,
+                levels, grids, learned, radius=PARITY_RADIUS)
+        vb = value.to(bf)
+        Nq, n_touch = pos.shape[1], touching(pos, levels)
+        if shape.startswith("serving"):
+            ref = msda_ops.msda_plain(vb.double(), levels, pos.double(),
+                                      w.double())
+            got = msda_ops.msda(vb, levels, pos, w, *hint)
+            plain = msda_ops.msda_plain(vb, levels, pos, w)
+            err = compare64(f"B bf16 {label} {B}x{Nq} queries", got, plain,
+                            ref)
+            t = timed(lambda: msda_ops.msda(vb, levels, pos, w, *hint),
+                      lambda: msda_ops.msda_plain(vb, levels, pos, w),
+                      plain_reps=1,
+                      extra={"f32": lambda: msda_ops.msda(value, levels, pos,
+                                                          w, *hint)})
+            t["bound_ms"], t["bound_by"] = bound(
+                n_bytes(vb, pos, w, got), 9 * n_touch * 64)
+            show(t, touching=f"{n_touch / w.numel():.3f}")
+            results[f"msda[bf16 {label}]"] = dict(
+                t, max_abs_err=err, kernel="msda_bf16", queries=Nq)
+            del ref, got, plain
+        else:
+            gout = randn(B, Nq, 512)
+            gb = gout.to(bf)
+            ref = msda_ops.msda_backward_plain(
+                vb.double(), levels, pos.double(), w.double(), gb.double())
+            got = msda_ops.msda_backward(vb, levels, pos, w, gb, *hint)
+            plain = msda_ops.msda_backward_plain(vb, levels, pos, w, gb)
+            if got[0].dtype != bf or got[1].dtype != torch.float32 \
+                    or got[2].dtype != torch.float32:
+                fail(f"C bf16 {label}: gradient dtypes "
+                     f"{[x.dtype for x in got]}")
+            err = max(
+                compare64(f"C bf16 {label} 2x{Nq} queries d_value", got[0],
+                          plain[0], ref[0]),
+                compare64(f"C bf16 {label} d_pos (f32 out)", got[1],
+                          plain[1], ref[1],
+                          floor=1e-5 * ref[1].abs().max().item()),
+                compare64(f"C bf16 {label} d_weights (f32 out)", got[2],
+                          plain[2], ref[2],
+                          floor=1e-5 * ref[2].abs().max().item()))
+            n_out = n_bytes(*got)
+            del ref, got, plain
+            args32 = (value, levels, pos, w, gout)
+            t = timed(lambda: msda_ops.msda_backward(vb, levels, pos, w, gb,
+                                                     *hint),
+                      lambda: msda_ops.msda_backward_plain(vb, levels, pos, w,
+                                                           gb),
+                      plain_reps=1,
+                      extra={"f32": lambda: msda_ops.msda_backward(*args32,
+                                                                   *hint)})
+            t["bound_ms"], t["bound_by"] = bound(
+                n_bytes(vb, pos, w, gb) + n_out, 17 * n_touch * 64)
+            show(t)
+            results[f"msda_backward[bf16 {label}]"] = dict(
+                t, max_abs_err=err, kernel="msda_backward_bf16", queries=Nq)
+            del gout, gb, args32
+        del value, vb, pos, w
+        torch.cuda.empty_cache()
+    # what the compat plan stages with the window at half the bytes
+    for R in (PARITY_RADIUS, COMPAT_RADIUS):
+        for name, grids in (("serving self", SERVE_LEVELS),
+                            ("serving cross", ((176, 608),))):
+            print(f"[kernels bf16] compat plan R = {R}, {name}: share of "
+                  f"tiles staging levels 0..3 per query grid, f32 "
+                  f"{staged_by_plan(grids, SERVE_LEVELS, R)}, bf16 "
+                  f"{staged_by_plan(grids, SERVE_LEVELS, R, itemsize=2)}")
+    return results
+
+
 def phase_main_path():
     import dataclasses
 
@@ -537,7 +774,11 @@ def plain_ops():
         yield
 
 
-def phase_whole_forward(handle, requests, tag="[whole]"):
+def phase_whole_forward(handle, requests, tag="[whole]", rtol=1e-3,
+                        atol=1e-3, precision="f32, TF32 off", mean_rel=None):
+    """`mean_rel`: hold the mean relative difference to this bound instead
+    of every element to rtol and atol (bf16: a rounding that falls the
+    other way moves single pixels across the prior's validity edge)."""
     from gedepth_tpu_torch.geometry.plane import clip_pe_for_input
 
     rgb, pe = requests[0]
@@ -551,8 +792,23 @@ def phase_whole_forward(handle, requests, tag="[whole]"):
         with plain_ops():
             want = handle.model(x, cam)["depth"]
     print(f"{tag} GEDepth({handle.cfg.name!r}) depth, kernels vs plain "
-          "(f32, TF32 off)")
-    compare("depth (1,176,608,1)", got, want, 1e-3, 1e-3)
+          f"({precision})")
+    if mean_rel is None:
+        compare("depth (1,176,608,1)", got.float(), want.float(), rtol, atol)
+        return
+    # relative to the larger of the two depths (both >= min_depth), so a
+    # pixel that a rounding moved across the prior's validity edge (4 mm
+    # against 44 m) counts as 1, not as 5,500
+    diff = (got.float() - want.float()).abs()
+    rel = diff / torch.maximum(got.float(), want.float())
+    mean, beyond = rel.mean().item(), (rel > 2e-2).float().mean().item()
+    ok = bool(torch.isfinite(got).all()) and mean <= mean_rel
+    print(f"  depth (1,176,608,1): mean_rel_diff={mean:.3e} (bound "
+          f"{mean_rel:g}) max_abs_diff={diff.max().item():.3e} share of "
+          f"pixels beyond 2e-2 relative {beyond:.3e} {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        fail("depth disagrees with the plain versions' in the mean")
 
 
 def phase_kernel_c():
@@ -622,8 +878,18 @@ def _kernel_counters():
 def reset_counts(counters):
     for c in counters.values():
         c.launches = 0
-        if hasattr(c, "launches_by_queries"):
-            c.launches_by_queries.clear()
+        for by in ("launches_by_queries", "launches_by_dtype"):
+            if hasattr(c, by):
+                getattr(c, by).clear()
+
+
+def read_dtypes(counters):
+    """Launches per kernel by the dtype of its q or value ('bf16', 'f32'):
+    which instance ran."""
+    names = {torch.bfloat16: "bf16", torch.float32: "f32"}
+    return {name: {names[k]: n for k, n in c.launches_by_dtype.items()}
+            for name, c in counters.items()
+            if hasattr(c, "launches_by_dtype")}
 
 
 def read_counts(counters):
@@ -642,9 +908,13 @@ TRAIN_GRADS = ("backbone.stages.0.blocks.0.attn.w_msa.qkv.weight",
 
 
 def phase_train(preset=PRESET, steps=5, nonzero=TRAIN_GRADS, tag="[train]",
-                queries=(5082, 61952)):
+                queries=(5082, 61952), bf16=False):
     """`queries`: the self- and the cross-attention's queries per sample;
-    B and C must each have been launched once a step at each."""
+    B and C must each have been launched once a step at each. bf16:
+    `TrainConfig.bf16_compute`; then the bf16 instances of A, B and C must
+    have run, and every parameter, gradient, AdamW moment and buffer must
+    be f32 (or integer) and finite afterwards. Returns (launches, launches
+    by queries, the later steps' peak memory in MiB)."""
     from gedepth_tpu_torch.configs import get_config
     from gedepth_tpu_torch.train.loop import train
 
@@ -652,15 +922,18 @@ def phase_train(preset=PRESET, steps=5, nonzero=TRAIN_GRADS, tag="[train]",
 
     # the reference's per-GPU batch of 2 (its global batch spans 8 GPUs)
     cfg = get_config(preset)
-    cfg = cfg.replace(train=dataclasses.replace(cfg.train, global_batch=2))
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, global_batch=2,
+                                                bf16_compute=bf16))
     counters = _kernel_counters()
     reset_counts(counters)
     t0 = time.perf_counter()
     state, history = train(cfg, max_iters=steps, device="cuda")
     wall = time.perf_counter() - t0
     launches, by_queries = read_counts(counters)
+    by_dtype = read_dtypes(counters)
 
     print(f"{tag} train({preset!r}, max_iters={steps}), global_batch 2, "
+          f"bf16_compute {bf16}, "
           f"crop {cfg.data.crop_size}, synthetic frames "
           f"{cfg.data.eval_size}: {wall:.2f} s including init")
     for r in history:
@@ -673,8 +946,17 @@ def phase_train(preset=PRESET, steps=5, nonzero=TRAIN_GRADS, tag="[train]",
     print(f"{tag} peak device memory: step 1 (cuDNN's autotuner trying "
           f"algorithms) {history[0]['peak_mem_mib']:.1f} MiB, later steps "
           f"{max(r['peak_mem_mib'] for r in history[1:]):.1f} MiB; "
-          f"launches {launches}, by queries per sample {by_queries}",
-          flush=True)
+          f"launches {launches}, by queries per sample {by_queries}, by "
+          f"dtype {by_dtype}", flush=True)
+    instance = "bf16" if bf16 else "f32"
+    want_dtype = {"window_attention": {instance: 24 * steps},
+                  "msda": {instance: 2 * steps},
+                  "msda_backward": {instance: 2 * steps}}
+    if by_dtype != want_dtype:
+        fail(f"{preset}: instances launched {by_dtype}, expected "
+             f"{want_dtype}")
+    if bf16:
+        check_f32_state(state, steps, tag)
     for r in history:
         if not all(np.isfinite(v) for v in r.values()):
             fail(f"non-finite train metrics at iter {r['iter']}: {r}")
@@ -704,7 +986,337 @@ def phase_train(preset=PRESET, steps=5, nonzero=TRAIN_GRADS, tag="[train]",
              f"{once_a_step} each")
     del state
     torch.cuda.empty_cache()
-    return launches, by_queries
+    return launches, by_queries, max(r["peak_mem_mib"] for r in history[1:])
+
+
+def check_f32_state(state, steps, tag):
+    """After bf16-compute steps: parameters, gradients, AdamW's moments and
+    the BatchNorm statistics are f32 and finite, and the statistics moved."""
+    f32 = torch.float32
+    bad = [n for n, p in state.model.named_parameters()
+           if p.dtype != f32 or p.grad is None or p.grad.dtype != f32
+           or not bool(torch.isfinite(p.grad).all())
+           or not bool(torch.isfinite(p).all())]
+    moments = [t for st in state.optimizer.state.values()
+               for t in st.values() if torch.is_tensor(t) and t.dim() > 0]
+    bad += [f"moment {tuple(t.shape)}" for t in moments
+            if t.dtype != f32 or not bool(torch.isfinite(t).all())]
+    n_stats = 0
+    for n, b in state.model.named_buffers():
+        if b.is_floating_point():
+            n_stats += 1
+            if b.dtype != f32 or not bool(torch.isfinite(b).all()):
+                bad.append(n)
+            elif n.endswith("running_mean") and not b.abs().sum().item() > 0:
+                bad.append(n + " (did not move)")
+        elif n.endswith("num_batches_tracked") and b.item() != steps:
+            bad.append(n)
+    if bad or not moments or not n_stats:
+        fail(f"bf16-compute state not f32 and finite: {bad[:8]} "
+             f"({len(bad)}); {len(moments)} moments, {n_stats} statistics")
+    print(f"{tag} after {steps} bf16-compute steps every parameter, gradient, "
+          f"AdamW moment ({len(moments)}) and BatchNorm statistic ({n_stats}) "
+          "is f32 and finite; the statistics moved", flush=True)
+
+
+def check_depth(tag, d, cfg):
+    if d.shape != (352, 1216) or not np.isfinite(d).all():
+        fail(f"{tag}: depth {d.shape} not finite")
+    if d.min() < cfg.min_depth - 1e-6 or d.max() > cfg.max_depth + 1e-4:
+        fail(f"{tag}: depth outside [{cfg.min_depth}, {cfg.max_depth}]: "
+             f"{d.min()}..{d.max()}")
+
+
+def phase_parity(requests):
+    """Serve the parity preset (compat R = 5; Swin and the decode head in
+    bf16, HAHI, the PE necks and the fusion in f32): 3 flip-TTA requests."""
+    from gedepth_tpu_torch.apis import inference_depther, init_depther
+
+    counters = _kernel_counters()
+    t0 = time.perf_counter()
+    handle = init_depther(PARITY, device="cuda", pe_raw=requests[0][1],
+                          seed=SEED)
+    torch.cuda.synchronize()
+    model, cfg = handle.model, handle.cfg.model
+    dtypes = {name: {str(p.dtype) for p in getattr(model, name).parameters()}
+              for name in ("backbone", "neck", "pe_mask_neck",
+                           "dynamic_pe_neck", "decode_head")}
+    print(f"[parity] init_depther({PARITY!r}): scope {cfg.bf16_scope!r}, "
+          f"sampling {cfg.neck_sampling!r} R = {cfg.neck_window_radius}, "
+          f"parameter dtypes {dtypes} in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    bf, f32 = {"torch.bfloat16"}, {"torch.float32"}
+    if dtypes != {"backbone": bf, "neck": f32, "pe_mask_neck": f32,
+                  "dynamic_pe_neck": f32, "decode_head": bf}:
+        fail(f"parity preset: scope not cast as 'backbone_head': {dtypes}")
+    inference_depther(handle, requests[0][0])       # warm-up
+    reset_counts(counters)
+    latencies, depths = [], []
+    for rgb, _ in requests:
+        t = time.perf_counter()
+        depths.append(inference_depther(handle, rgb))
+        latencies.append((time.perf_counter() - t) * 1e3)
+    launches, by_queries = read_counts(counters)
+    by_dtype = read_dtypes(counters)
+    for i, d in enumerate(depths):
+        check_depth(f"{PARITY} request {i}", d, cfg)
+    forwards = 2 * len(requests)
+    print(f"[parity] flip-TTA request latency ms "
+          f"{[round(x, 3) for x in latencies]}; depth in "
+          f"[{min(d.min() for d in depths):.4f}, "
+          f"{max(d.max() for d in depths):.4f}] m; launches {launches}, by "
+          f"queries {by_queries}, by dtype {by_dtype}", flush=True)
+    want = {"window_attention": 24 * forwards, "msda": 2 * forwards,
+            "msda_backward": 0, "pe_fusion": forwards}
+    want_dtype = {"window_attention": {"bf16": 24 * forwards},
+                  "msda": {"f32": 2 * forwards}, "msda_backward": {}}
+    if launches != want or by_dtype != want_dtype or by_queries["msda"] != {
+            35530: forwards, 107008: forwards}:
+        fail(f"{PARITY}: launches {launches}, {by_dtype}, {by_queries}; "
+             f"expected {want}, {want_dtype}")
+    # bf16 kernels and bf16 plain versions round alike but not bit for bit
+    # (ties, and P kept wider in A), and 24 bf16 blocks carry a flipped
+    # rounding on: the mean relative difference is held to 1e-2, stated
+    # here and measured below, not every element to the f32 phases' 1e-3
+    phase_whole_forward(handle, requests, tag="[parity]", mean_rel=1e-2,
+                        precision="bf16_scope 'backbone_head'")
+    del handle
+    torch.cuda.empty_cache()
+    return by_dtype["window_attention"]["bf16"]
+
+
+def phase_scopes(requests):
+    """One forward of each other scope and of whole-tree bf16 on the
+    windowed preset, and of the compat tree at R = 5 with HAHI inside the
+    scope: the instance of A and B that each runs. Returns B's bf16
+    launches by (rule, queries)."""
+    import dataclasses
+
+    from gedepth_tpu_torch.apis import inference_depther, init_depther
+    from gedepth_tpu_torch.configs import get_config
+
+    counters = _kernel_counters()
+    counted = {}
+    for preset, scope, whole in ((PRESET, "backbone", False),
+                                 (PRESET, "backbone_neck", False),
+                                 (PRESET, "backbone_neck_head", False),
+                                 (PRESET, "none", True),
+                                 (PARITY, "backbone_neck_head", False)):
+        cfg = get_config(preset)
+        cfg = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                    bf16_scope=scope))
+        handle = init_depther(cfg, device="cuda", pe_raw=requests[0][1],
+                              seed=SEED, flip_tta=False, bf16=whole)
+        reset_counts(counters)
+        t = time.perf_counter()
+        depth = inference_depther(handle, requests[0][0])
+        ms = (time.perf_counter() - t) * 1e3
+        launches, by_queries = read_counts(counters)
+        by_dtype = read_dtypes(counters)
+        label = "whole-tree bf16" if whole else f"bf16_scope {scope!r}"
+        check_depth(f"{preset} {label}", depth, cfg.model)
+        neck_bf16 = whole or "neck" in scope
+        want_dtype = {"window_attention": {"bf16": 24},
+                      "msda": {"bf16" if neck_bf16 else "f32": 2},
+                      "msda_backward": {}}
+        print(f"[scopes] {preset}, {label}: first forward {ms:.1f} ms; depth "
+              f"in [{depth.min():.4f}, {depth.max():.4f}] m; launches "
+              f"{launches}, by queries {by_queries}, by dtype {by_dtype}",
+              flush=True)
+        if by_dtype != want_dtype or launches["pe_fusion"] != 1:
+            fail(f"{preset} {label}: instances {by_dtype}, E "
+                 f"{launches['pe_fusion']}; expected {want_dtype}, 1")
+        if neck_bf16:
+            rule = "windowed" if preset == PRESET else "compat5"
+            for q, n in by_queries["msda"].items():
+                counted[rule, q] = counted.get((rule, q), 0) + n
+        del handle
+        torch.cuda.empty_cache()
+    return counted
+
+
+def delta_stats(d, ref):
+    """(mean abs-rel, mean of |d - ref| / max(d, ref), median abs-rel, share
+    of pixels beyond 2e-2 abs-rel)."""
+    rel = np.abs(d - ref) / ref
+    return (float(rel.mean()),
+            float(np.mean(np.abs(d - ref) / np.maximum(d, ref))),
+            float(np.median(rel)), float(np.mean(rel > 2e-2)))
+
+
+def phase_accuracy(exact, requests):
+    """What bf16 moves on seeded weights and one flip-TTA request: the depth
+    of `backbone_neck_head` and of whole-tree bf16 against the exact f32
+    preset (all on the exact tree), and of the parity preset against exact
+    and against its own tree in f32 (compat, R = 5).
+
+    Printed: the mean abs-rel difference (the JAX package's measure), the
+    mean of |d - ref| / max(d, ref), the median abs-rel, the share of pixels
+    beyond 2e-2. Asserted below 2e-2: the second, of each bf16 model against
+    the f32 model of its own sampling rule. The plain mean abs-rel is not
+    held: at the seeded initialisation a rounding moves single pixels across
+    the prior's validity edge (4 mm against 44 m), and one such pixel in
+    428,032 adds 2.6e-2 to it. The parity preset against exact is not held
+    either: the compat clamp, in f32, already moves a third of the pixels
+    beyond 2e-2 on these weights (it clamps 0.94 of the cross-attention's
+    mass at the seeded initialisation).
+    Returns the whole-tree bf16 handle and B's bf16 launches by queries."""
+    import dataclasses
+
+    from gedepth_tpu_torch.apis import inference_depther, init_depther
+    from gedepth_tpu_torch.configs import get_config
+
+    counters = _kernel_counters()
+    rgb, pe = requests[0]
+    ref = inference_depther(exact, rgb)
+    state = {k: v.detach().clone() for k, v in
+             exact.model.state_dict().items()}
+    cfg = get_config(EXACT)
+    scoped = cfg.replace(model=dataclasses.replace(
+        cfg.model, bf16_scope="backbone_neck_head"))
+    # the JAX package's records on converted reference weights
+    # (gedepth_tpu/configs/presets.py): an accuracy, not a time
+    recorded = {"parity": "5.9e-4", "backbone_neck_head": "~1.0e-3",
+                "whole-tree bf16": "2.2e-3"}
+    counted, whole = {}, None
+    parity = get_config(PARITY)
+    compat_f32 = parity.replace(model=dataclasses.replace(
+        parity.model, bf16_scope="none"))
+    refs = {"exact": ref}
+    for label, config, bf16, against in (
+            ("compat R = 5 f32", compat_f32, False, "exact"),
+            ("parity", PARITY, False, "exact"),
+            ("parity", PARITY, False, "compat R = 5 f32"),
+            ("backbone_neck_head", scoped, False, "exact"),
+            ("whole-tree bf16", EXACT, True, "exact")):
+        if label not in refs:
+            handle = init_depther(config, device="cuda", pe_raw=pe, seed=SEED,
+                                  state_dict=state, bf16=bf16)
+            reset_counts(counters)
+            refs[label] = inference_depther(handle, rgb)
+            _, by_queries = read_counts(counters)
+            check_depth(f"accuracy {label}", refs[label], cfg.model)
+            if label in ("backbone_neck_head", "whole-tree bf16"):
+                for q, n in by_queries["msda"].items():
+                    counted["exact", q] = counted.get(("exact", q), 0) + n
+            if bf16:
+                whole = handle
+            del handle
+            torch.cuda.empty_cache()
+        depth = refs[label]
+        delta, sym, median, beyond = delta_stats(depth, refs[against])
+        print(f"[accuracy] {label} against {against}: mean abs-rel "
+              f"{delta:.3e}, mean |d - ref| / max(d, ref) {sym:.3e}, median "
+              f"abs-rel {median:.3e}, share beyond 2e-2 {beyond:.3e}"
+              + (f" (the JAX package records {recorded[label]} on converted "
+                 "weights)" if label in recorded and against == "exact"
+                 else ""), flush=True)
+        if bf16 or against != "exact" or label == "backbone_neck_head":
+            # a bf16 model against the f32 model of its own sampling rule
+            if not sym < 2e-2:
+                fail(f"accuracy {label} against {against}: mean "
+                     f"|d - ref| / max(d, ref) {sym:.3e} not below 2e-2")
+    return whole, counted
+
+
+def phase_eval_bf16(handle):
+    """`Evaluator(bf16=True)` on the whole-tree bf16 model, 2 frames, whole
+    + flip and multi-ratio; a flag that disagrees with the weights raises;
+    then the CLI once with --bf16."""
+    import dataclasses
+
+    from gedepth_tpu_torch.configs import get_config
+    from gedepth_tpu_torch.eval import Evaluator
+    from gedepth_tpu_torch.tools import test as test_cli
+    from gedepth_tpu_torch.train.loop import build_eval_dataset
+    from gedepth_tpu_torch.train.steps import make_eval_step
+
+    cfg = get_config(EXACT)
+    cfg = cfg.replace(data=dataclasses.replace(cfg.data, synthetic_size=8))
+    dataset = build_eval_dataset(cfg)       # 2 synthetic 352x1216 frames
+    for label, kw in (("whole + flip", {}),
+                      ("multi-ratio", dict(ms_ratios=(0.75, 1.0, 1.25)))):
+        evaluator = Evaluator(handle.model, dataset, cfg.data, bf16=True,
+                              **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        agg, rows = evaluator.run(max_images=2)
+        per_image = (time.perf_counter() - t0) * 1e3 / 2
+        if len(rows) != 2 or len(agg) != 9 \
+                or not np.isfinite(np.asarray(rows)).all():
+            fail(f"bf16 evaluator ({label}): {len(rows)} rows, {agg}")
+        print(f"[eval bf16] Evaluator({EXACT!r}, bf16=True, {label}), 2 "
+              f"frames: {per_image:.1f} ms an image; "
+              + " ".join(f"{k}={v:.6f}" for k, v in agg.items()), flush=True)
+    x = torch.zeros(1, 352, 1216, 5, device="cuda")
+    try:
+        make_eval_step(handle.model, bf16=False)(x)
+    except ValueError as e:
+        print(f"[eval bf16] bf16=False on bf16 weights raises: "
+              f"{str(e)[:60]}...")
+    else:
+        fail("an f32 eval step took a bf16 model")
+    t0 = time.perf_counter()
+    test_cli.main([EXACT, "--bf16", "--max-images", "2"])
+    print(f"[eval bf16] tools.test {EXACT} --bf16 --max-images 2: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def phase_benchmark():
+    """f32 beside bf16 in one process, through `tools.benchmark`'s
+    functions: serving (`predict_depth`, no flip, batch 1, 352x1216) and a
+    train step (352x704, batch 2), the configurations taking turns; one
+    JSON line each."""
+    import dataclasses
+
+    from gedepth_tpu_torch.configs import get_config
+    from gedepth_tpu_torch.tools import benchmark as bench
+
+    def scoped(preset, scope):
+        cfg = get_config(preset)
+        return cfg.replace(model=dataclasses.replace(cfg.model,
+                                                     bf16_scope=scope))
+
+    def take_turns(runners, rounds, iters, warmup):
+        device_ms = [[] for _ in runners]
+        host_ms, peak = [0.0] * len(runners), [0.0] * len(runners)
+        for r in runners:
+            with r.context():
+                bench.time_iterations(r, warmup)
+        for _ in range(rounds):
+            for i, r in enumerate(runners):
+                torch.cuda.reset_peak_memory_stats()
+                with r.context():
+                    d, h, out = bench.time_iterations(r, iters)
+                if not bool(torch.isfinite(out.float()).all()):
+                    fail(f"benchmark {r.cfg.name} {r.dtype}: non-finite")
+                device_ms[i] += d
+                host_ms[i] += h
+                peak[i] = max(peak[i],
+                              torch.cuda.max_memory_allocated() / 2**20)
+        records = []
+        for i, r in enumerate(runners):
+            with r.context():
+                busy = bench.device_busy_ms(r)
+            rec = bench.summarise(r, rounds * iters, device_ms[i],
+                                  host_ms[i], warmup, peak_mem_mib=peak[i],
+                                  busy_ms=busy)
+            print("[benchmark] " + json.dumps(rec), flush=True)
+            records.append(rec)
+        return records
+
+    serving = [bench.build_runner(c, bf16=b, seed=SEED) for c, b in (
+        (EXACT, False), (PARITY, False), (PRESET, False),
+        (scoped(PRESET, "backbone_neck_head"), False), (PRESET, True))]
+    take_turns(serving, rounds=2, iters=6, warmup=2)
+    del serving
+    torch.cuda.empty_cache()
+    training = [bench.build_runner(PRESET, batch=2, height=352, width=704,
+                                   train_step=True, bf16=b, seed=SEED)
+                for b in (False, True)]
+    take_turns(training, rounds=2, iters=3, warmup=2)
+    del training
+    torch.cuda.empty_cache()
 
 
 def phase_whole_step():
@@ -761,18 +1373,22 @@ def phase_whole_step():
 
 
 COMPAT_RADIUS = 6
+PARITY_RADIUS = 5
 EXACT = "gedepth_adaptive_kitti"
+PARITY = "gedepth_adaptive_kitti_parity"
 COMPAT = "gedepth_adaptive_kitti_compat"
 
 
-def rule_positions(rule, randn, g, B, levels, grids, learned):
+def rule_positions(rule, randn, g, B, levels, grids, learned,
+                   radius=None):
     """(positions, weights, window hint) of one sampling rule at seeded
     offsets of a few level pixels. learned: one set of reference points for
     the whole batch, sigmoid(Linear(query_pos)) at the layer's seeded
     initialisation, which puts neighbouring queries far apart (the
     cross-attention); else the grid centres (the self-attention).
     A twentieth of the exact and nearest samples is thrown tens of pixels
-    or a million away, out of every level."""
+    or a million away, out of every level. `radius`: the compat rule's
+    (default COMPAT_RADIUS)."""
     from gedepth_tpu_torch.models.layers import sine_positional_encoding
     from gedepth_tpu_torch.ops import msda as msda_ops
 
@@ -791,9 +1407,9 @@ def rule_positions(rule, randn, g, B, levels, grids, learned):
     else:
         ref = msda_ops.center_reference_points(levels, "cuda")[-Nq:]
     if rule == "compat":
-        pos, _ = msda_ops.compat_positions(ref, off, grids, levels,
-                                           COMPAT_RADIUS)
-        return pos, w, (grids, COMPAT_RADIUS)
+        radius = COMPAT_RADIUS if radius is None else radius
+        pos, _ = msda_ops.compat_positions(ref, off, grids, levels, radius)
+        return pos, w, (grids, radius)
     off = scatter(off, g, share=0.05)
     form = (msda_ops.exact_positions if rule == "exact"
             else msda_ops.nearest_positions)
@@ -810,13 +1426,14 @@ def touching(pos, levels):
     return n
 
 
-def staged_by_plan(grids, levels, radius):
-    """Share of the tiles of each query grid that stage each level."""
+def staged_by_plan(grids, levels, radius, itemsize=4):
+    """Share of the tiles of each query grid that stage each level, for a
+    value of `itemsize` bytes an element."""
     from gedepth_tpu_torch.ops import msda as msda_ops
 
-    _, lanes = msda_ops.channel_lanes(64)
+    _, lanes = msda_ops.channel_lanes(64, itemsize=itemsize)
     plan = msda_ops.tile_plan(tuple(grids), tuple(levels), float(radius), 64,
-                              msda_ops.stage_budget(64, lanes))
+                              msda_ops.stage_budget(64, lanes), itemsize)
     starts = np.cumsum([0] + [a * b for a, b in grids])
     rects = plan.rows[:, msda_ops.TILE_HEADER:].reshape(len(plan.rows), -1, 4)
     grid_of = np.searchsorted(starts, plan.rows[:, 0], side="right") - 1
@@ -858,21 +1475,30 @@ def phase_rule_kernels():
             err = compare(f"B {label} {B}x{Nq} queries",
                           msda_ops.msda(value, levels, pos, w, *hint), want,
                           2e-4, 2e-5)
-            extra = {}
-            if rule == "exact" and not learned:
-                for r in (4, 8):    # a hint the positions do not keep to
-                    extra[f"hint_r{r}"] = functools.partial(
-                        msda_ops.msda, value, levels, pos, w, grids, r)
-            if rule == "compat":
-                extra["without_hint"] = functools.partial(
-                    msda_ops.msda, value, levels, pos, w)
-            t = timed(lambda: msda_ops.msda(value, levels, pos, w, *hint),
-                      lambda: msda_ops.msda_plain(value, levels, pos, w),
-                      plain_reps=2, extra=extra)
-            t["bound_ms"], t["bound_by"] = bound(
-                n_bytes(value, pos, w, want), 9 * n_touch * 64)
-            show(t, touching=f"{n_touch / w.numel():.3f}")
-            results[f"msda {label}"] = dict(t, max_abs_err=err, queries=Nq)
+            kernel_b = functools.partial(msda_ops.msda, value, levels, pos, w,
+                                         *hint)
+            if rule == "nearest":
+                # no preset samples nearest: checked above, timed by events
+                # only, and no row in the `kernels` line
+                print(f"    event_ms={burst_ms(kernel_b):.4f} (CUDA events) "
+                      f"touching={n_touch / w.numel():.3f}", flush=True)
+            else:
+                extra = {}
+                if rule == "exact" and not learned:
+                    for r in (4, 8):    # a hint the positions do not keep to
+                        extra[f"hint_r{r}"] = functools.partial(
+                            msda_ops.msda, value, levels, pos, w, grids, r)
+                if rule == "compat":
+                    extra["without_hint"] = functools.partial(
+                        msda_ops.msda, value, levels, pos, w)
+                t = timed(kernel_b,
+                          lambda: msda_ops.msda_plain(value, levels, pos, w),
+                          plain_reps=1, extra=extra)
+                t["bound_ms"], t["bound_by"] = bound(
+                    n_bytes(value, pos, w, want), 9 * n_touch * 64)
+                show(t, touching=f"{n_touch / w.numel():.3f}")
+                results[f"msda {label}"] = dict(t, max_abs_err=err,
+                                                queries=Nq)
             del want
             if not backward:
                 continue
@@ -889,18 +1515,23 @@ def phase_rule_kernels():
                               2e-5))
             n_out = n_bytes(*want)
             del got, want
-            extra = {}
-            if rule == "compat":
-                extra["without_hint"] = functools.partial(
-                    msda_ops.msda_backward, *args)
-            t = timed(lambda: msda_ops.msda_backward(*args, *hint),
-                      lambda: msda_ops.msda_backward_plain(*args),
-                      plain_reps=2, extra=extra)
-            t["bound_ms"], t["bound_by"] = bound(
-                n_bytes(value, pos, w, gout) + n_out, 17 * n_touch * 64)
-            show(t)
-            results[f"msda_backward {label}"] = dict(t, max_abs_err=err,
-                                                     queries=Nq)
+            kernel_c = functools.partial(msda_ops.msda_backward, *args, *hint)
+            if rule == "nearest":
+                print(f"    event_ms={burst_ms(kernel_c):.4f} (CUDA events)",
+                      flush=True)
+            else:
+                extra = {}
+                if rule == "compat":
+                    extra["without_hint"] = functools.partial(
+                        msda_ops.msda_backward, *args)
+                t = timed(kernel_c,
+                          lambda: msda_ops.msda_backward_plain(*args),
+                          plain_reps=1, extra=extra)
+                t["bound_ms"], t["bound_by"] = bound(
+                    n_bytes(value, pos, w, gout) + n_out, 17 * n_touch * 64)
+                show(t)
+                results[f"msda_backward {label}"] = dict(
+                    t, max_abs_err=err, queries=Nq)
             del gout, args
         del value, pos, w
         torch.cuda.empty_cache()
@@ -1016,26 +1647,66 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    started = last = time.perf_counter()
+
+    def lap(name):
+        # host-clock seconds of the phases since the last lap
+        nonlocal last
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        print(f"[time] {name}: {now - last:.1f} s ({now - started:.1f} s "
+              "since the start)", flush=True)
+        last = now
+
     smi = phase_device()
     phase_build()
+    lap("device, build")
     # every kernel against its plain version first, while the process is
     # young: `torch.profiler` loses device activities later on
     results = phase_kernels()
     results["msda_backward"] = phase_kernel_c()
+    lap("kernels f32 (phases 3, 6)")
+    bf16_results = phase_kernels_bf16()
+    lap("kernels bf16 (phase 13)")
     rule_results = phase_rule_kernels()
+    lap("sampling rules (phase 9)")
     handle, requests, serving_launches = phase_main_path()
     phase_whole_forward(handle, requests)
     del handle
     torch.cuda.empty_cache()
-    launches, _ = phase_train()
+    lap("serving, whole forward (phases 4, 5)")
+    launches, _, f32_peak = phase_train()
     phase_whole_step()
+    lap("train, whole step (phases 7, 8)")
     exact, preset_launches = phase_presets(requests)
-    _, exact_train = phase_train(
+    _, exact_train, _ = phase_train(
         EXACT, steps=3, tag="[train exact]", queries=(20570, 61952),
         nonzero=("neck.reference_points.weight",
                  "neck.multi_att.sampling_offsets.weight",
                  "neck.self_attn.sampling_offsets.weight"))
     phase_evaluator(exact.model)
+    lap("presets, exact train, evaluation (phases 10-12)")
+    # bf16: the parity preset, the other scopes, accuracy on seeded weights,
+    # bf16 evaluation, bf16-compute training, f32 beside bf16 in one process
+    parity_a = phase_parity(requests)
+    b_bf16 = phase_scopes(requests)
+    whole, counted = phase_accuracy(exact, requests)
+    b_bf16.update(counted)
+    del exact
+    phase_eval_bf16(whole)
+    lap("parity, scopes, accuracy, bf16 evaluation (phases 14-17)")
+    del whole
+    torch.cuda.empty_cache()
+    bf16_train, bf16_by_queries, bf16_peak = phase_train(
+        steps=3, tag="[train bf16]", bf16=True,
+        nonzero=TRAIN_GRADS + ("neck.multi_att.sampling_offsets.weight",
+                               "neck.multi_att.attention_weights.weight"))
+    print(f"[train bf16] peak device memory of a step {bf16_peak:.1f} MiB "
+          f"with bf16_compute against {f32_peak:.1f} MiB in f32 (phase 7)",
+          flush=True)
+    lap("bf16 training (phase 18)")
+    phase_benchmark()
+    lap("f32 beside bf16 (phase 19)")
 
     sources = {
         "window_attention": ("gedepth_tpu_torch/csrc/window_attention.cu",
@@ -1047,6 +1718,14 @@ def main():
         "pe_fusion": ("gedepth_tpu_torch/csrc/pe_fusion.cu",
                       "gedepth_tpu/ops/pallas/pe_fusion.py:57"),
     }
+    # the bf16 instances: A is a source of its own; B and C are msda.cu and
+    # msda_bwd.cu compiled for __nv_bfloat16 (units msda_bf16.cu,
+    # msda_bwd_bf16.cu)
+    sources["window_attention_bf16"] = (
+        "gedepth_tpu_torch/csrc/window_attention_bf16.cu",
+        sources["window_attention"][1])
+    sources["msda_bf16"] = sources["msda"]
+    sources["msda_backward_bf16"] = sources["msda_backward"]
 
     def row(name, kernel, t, n_train, n_serving):
         source, replaces = sources[kernel]
@@ -1061,13 +1740,13 @@ def main():
                 "library_ms": t["library_ms"]}
 
     kernels = [row(name, name, results[name], launches[name],
-                   serving_launches.get(name, 0)) for name in sources]
+                   serving_launches.get(name, 0))
+               for name in ("window_attention", "msda", "msda_backward",
+                            "pe_fusion")]
     # the shapes of the exact and compat presets: the launches that their
     # paths made at this shape's query count
     for name, t in rule_results.items():
         kernel, rule, shape = name.split()
-        if rule == "nearest":
-            continue            # no preset samples nearest; checked above
         train_shape = shape.startswith("train")
         if rule == "compat" and train_shape:
             continue            # the compat preset is served, not trained
@@ -1076,6 +1755,30 @@ def main():
         n = counted[kernel].get(t["queries"], 0)
         kernels.append(row(f"{kernel}[{rule} {shape}]", kernel, t,
                            n if train_shape else 0, 0 if train_shape else n))
+    # the bf16 instances, held against float64 (`max_abs_err` is that
+    # error), each with its f32 instance's time at the same shape; launches
+    # from the bf16 paths: A from the parity preset's requests and the
+    # bf16-compute steps, B from the scope forwards and the accuracy
+    # forwards, C from the bf16-compute steps
+    for name, t in bf16_results.items():
+        kernel = t["kernel"]
+        rule, shape = name[name.index("[") + 1:-1].split()[-2:]
+        train_shape = shape.startswith("train")
+        if kernel == "window_attention_bf16":
+            n = bf16_train["window_attention"] if train_shape else parity_a
+        elif kernel == "msda_bf16":
+            n = b_bf16.get((rule, t["queries"]), 0)
+        else:
+            n = bf16_by_queries["msda_backward"].get(t["queries"], 0)
+        if n == 0:
+            print(f"[kernels bf16] {name}: checked above; no bf16 path of "
+                  "this run launches it, so it gets no row")
+            continue
+        r = row(name, kernel, t, n if train_shape else 0,
+                0 if train_shape else n)
+        r["against"] = "float64"
+        r["f32_device_ms"], r["f32_event_ms"] = t["extra_ms"]["f32"]
+        kernels.append(r)
     for k in kernels:
         if k["launches"] <= 0:
             fail(f"kernel row {k['name']} was launched on no main path")

@@ -10,6 +10,12 @@ input size with align_corners=True, and with flip-TTA the mean of the
 prediction and the un-flipped prediction of the mirrored image
 (`train.steps.make_eval_step`). A model without ground embedding
 (pe_variant 'none') takes the RGB image alone.
+
+Precision: a preset with a `bf16_scope` (`gedepth_adaptive_kitti_parity`:
+Swin and the decode head in bf16, HAHI, the PE necks and the fusion in f32)
+gets the scope's parameters cast once at start; `bf16=True` casts the whole
+model once and serves through the bf16 eval step (depth clamp and final
+resize in f32). `cast_params_bf16` is the cast, for a caller's own model.
 """
 from __future__ import annotations
 
@@ -25,6 +31,40 @@ from gedepth_tpu_torch.geometry.plane import clip_pe_for_input
 from gedepth_tpu_torch.train.steps import make_eval_step  # noqa: F401
 
 
+# the top-level modules whose parameters and BatchNorm statistics each scope
+# holds in bf16 (the caller's half of `GEDepth.bf16_scope`)
+SCOPE_MODULES = {"backbone": ("backbone",),
+                 "backbone_neck": ("backbone", "neck"),
+                 "backbone_head": ("backbone", "decode_head"),
+                 "backbone_neck_head": ("backbone", "neck", "decode_head")}
+
+
+def cast_params_bf16(model, scope: str = "all"):
+    """Cast f32 parameters and buffers of `model` to bf16 in place, within a
+    scope; returns the model.
+
+    scope='all' casts the whole model (full-bf16 serving and evaluation);
+    a `GEDepth.bf16_scope` name casts only that scope's top-level modules
+    (`SCOPE_MODULES`): the model casts activations at the scope's boundary,
+    this casts the matching weights, or type promotion lifts the compute
+    back to f32. Only f32 tensors are cast: BatchNorm's running statistics
+    are, integer buffers (`num_batches_tracked`) are not. The `state_dict`
+    keeps its keys."""
+    if scope == "all":
+        modules = [model]
+    elif scope in SCOPE_MODULES:
+        modules = [getattr(model, name) for name in SCOPE_MODULES[scope]]
+    else:
+        raise ValueError(f"bf16 scope {scope!r} not in "
+                         f"{('all', *SCOPE_MODULES)}")
+    with torch.no_grad():
+        for module in modules:
+            for t in (*module.parameters(), *module.buffers()):
+                if t.dtype == torch.float32:
+                    t.data = t.data.to(torch.bfloat16)
+    return model
+
+
 @dataclasses.dataclass
 class DeptherHandle:
     cfg: object
@@ -38,13 +78,17 @@ class DeptherHandle:
 def init_depther(config: Union[str, object], device="cuda",
                  flip_tta: Optional[bool] = None,
                  pe_raw: Optional[np.ndarray] = None, seed: int = 0,
-                 state_dict: Optional[dict] = None) -> DeptherHandle:
+                 state_dict: Optional[dict] = None,
+                 bf16: bool = False) -> DeptherHandle:
     """Build a model and its eval step for single-image inference.
 
     The weights are the port's seeded random initialisation, or
     `state_dict` (e.g. `convert.state_dict_from_flax`) loaded strictly.
     pe_raw: the camera's raw plane embedding at the raw image size, needed
     when feeding 3-channel images to a model with a PE variant.
+    bf16: serve the whole model in bf16 (cast once here; the eval step casts
+    the input and returns f32 depth). Without it, a preset whose
+    `bf16_scope` is not 'none' gets that scope's weights cast once.
     """
     cfg = get_config(config) if isinstance(config, str) else config
     device = torch.device(device)
@@ -52,10 +96,15 @@ def init_depther(config: Union[str, object], device="cuda",
     if state_dict is not None:
         model.load_state_dict(state_dict, strict=True)
     model.to(device)
+    if bf16:
+        cast_params_bf16(model, "all")
+    elif cfg.model.bf16_scope != "none":
+        cast_params_bf16(model, cfg.model.bf16_scope)
     flip = cfg.data.eval_flip_tta if flip_tta is None else flip_tta
     if pe_raw is not None:
         pe_raw = np.asarray(pe_raw, dtype=np.float32)
-    return DeptherHandle(cfg, model, make_eval_step(model, flip_tta=flip),
+    return DeptherHandle(cfg, model,
+                         make_eval_step(model, flip_tta=flip, bf16=bf16),
                          build_test_pipeline(cfg.data), device, pe_raw)
 
 

@@ -5,8 +5,10 @@ the serving, training and evaluation slices read. Field names and defaults
 are identical, so a preset compares equal field by field with its JAX
 counterpart. Left out on purpose: `swin_scan` (it changes only the JAX
 parameter layout, which `convert.from_jax` unstacks), the remat switches
-(memory only), `neck_value_bf16`, the zoo's fields, and the fields of
-modules not ported yet (real datasets, checkpoints, multi-process loading).
+(memory only), `neck_value_bf16` (bf16 values in an f32 neck: the port's
+bf16 goes by `bf16_scope`, whole-model casts and `bf16_compute`), the zoo's
+fields, and the fields of modules not ported yet (real datasets,
+checkpoints, multi-process loading).
 """
 from __future__ import annotations
 
@@ -33,7 +35,10 @@ class ModelConfig:
     neck_sampling: str = "bilinear"
     neck_window_radius: int = 4
     neck_hi_min_level: int = 0
-    # the port serves 'none' only (models/depther.py)
+    # mixed precision for serving: 'none' | 'backbone' | 'backbone_neck' |
+    # 'backbone_head' | 'backbone_neck_head' run the named modules in bf16
+    # and the rest (always the PE necks and the fusion) in f32; the caller
+    # casts the matching weights (apis.inference.cast_params_bf16)
     bf16_scope: str = "none"
     # head
     head_channels: int = 64
@@ -102,6 +107,10 @@ class TrainConfig:
     global_batch: int = 16                # 8 GPUs x 2 in the reference
     log_interval: int = 10
     seed: int = 0
+    # bf16 mixed-precision training: forward and backward in bf16
+    # (parameters and inputs cast at the apply boundary), master parameters,
+    # gradients, optimizer state, losses and BatchNorm statistics f32
+    bf16_compute: bool = False
 
 
 @dataclass(frozen=True)

@@ -28,6 +28,17 @@ _PRESETS = {
                           neck_sampling="windowed_compat",
                           neck_window_radius=6),
         data=DataConfig()),
+    # the parity serving preset: the compat tree at R = 5 with Swin and the
+    # decode head's convs in bf16 and HAHI, the PE necks, the slope bins
+    # and the fusion in f32 (the JAX package records a combined abs-rel
+    # delta of 5.9e-4 against exact f32 on converted weights)
+    "gedepth_adaptive_kitti_parity": lambda: ExperimentConfig(
+        name="gedepth_adaptive_kitti_parity",
+        model=ModelConfig(pe_variant="adaptive",
+                          neck_sampling="windowed_compat",
+                          neck_window_radius=5,
+                          bf16_scope="backbone_head"),
+        data=DataConfig()),
     # GEDepth-Adaptive Swin-L with the windowed deformable-attention neck
     # and HI self-attention queries from transformer level 1 on
     "gedepth_adaptive_kitti_tpu": lambda: ExperimentConfig(

@@ -1,4 +1,6 @@
-// Multi-level deformable sampling, forward, f32 (kernel B).
+// Multi-level deformable sampling, forward (kernel B): the f32 instance, and
+// through csrc/msda_bf16.cu, which includes this file with MSDA_T set, the
+// bf16 instance.
 //
 // Replaces the Pallas TPU kernel `_kernel` of
 // gedepth_tpu/ops/pallas/msda_windowed.py:112, launched by
@@ -26,8 +28,21 @@
 // (1, 35530, 8, 64) over levels 88x304, 44x152, 22x76, 11x38; L = 4, P = 8;
 // self-attention 8,778 queries, cross-attention 107,008 queries (176x608).
 //
+//
+// The bf16 instance (`msda_fwd_bf16`) takes the value and writes the output
+// in bf16; positions and attention weights stay f32 (a bf16 position on a
+// 304-pixel level has a quarter-pixel grid). It stages its windows in bf16,
+// so the same shared memory holds twice the pixels, reads a corner as 4
+// bf16 (8 bytes a lane: the lane groups stay those of the f32 instance),
+// sums in f32 in the order of `blend_add` and rounds once at the store.
+//
 // What bounds it on the H100, and the design: see the note above the kernel.
 #include "msda_tile.cuh"
+
+#ifndef MSDA_T
+#define MSDA_T float
+#define MSDA_FWD_ENTRY msda_fwd
+#endif
 
 namespace {
 
@@ -41,8 +56,8 @@ using namespace msda_tile;
 // c00·v00 rounded instead (2.4e-7 away at most), a train step's gradient
 // for the cross-attention's output bias moved from 4e-6 to 3e-4 of its
 // norm against the plain versions (PERF.md).
-template <int V, int G, int K, bool kGlobal>
-__device__ __forceinline__ void blend_add(float (&acc)[K * V], const float* p,
+template <int V, int G, int K, bool kGlobal, typename T>
+__device__ __forceinline__ void blend_add(float (&acc)[K * V], const T* p,
                                           int sx, int sy, int lane_g, int d,
                                           const Record& r) {
 #pragma unroll
@@ -91,17 +106,18 @@ __device__ __forceinline__ void blend_add(float (&acc)[K * V], const float* p,
 // warps of an SM already hide that latency. Deterministic: no atomics; per
 // channel the samples are summed over l, p ascending with the first
 // version's arithmetic.
-template <int V, int G, int K>
+template <typename T, int V, int G, int K>
 __global__ void __launch_bounds__(kThreads, 2)
-msda_fwd_kernel(const float* __restrict__ value,
+msda_fwd_kernel(const T* __restrict__ value,
                 const int* __restrict__ levels,
                 const int* __restrict__ tiles,
                 const float* __restrict__ pos,
                 const float* __restrict__ weight,
-                float* __restrict__ out,
+                T* __restrict__ out,
                 int S, int Nq, int h, int d, int L, int P, int n_tiles,
-                int stage_floats) {
-  extern __shared__ __align__(16) float stage[];
+                int stage_elems) {
+  extern __shared__ __align__(16) unsigned char shared[];
+  T* stage = reinterpret_cast<T*>(shared);
   constexpr int kGroups = kThreads / G;
   constexpr int kChunk = records_per_group(G);
 
@@ -113,16 +129,16 @@ msda_fwd_kernel(const float* __restrict__ value,
   const int n_iter = (n_q + kGroups - 1) / kGroups;
   const int group = threadIdx.x / G, lane_g = threadIdx.x % G;
   const int hd = h * d;
-  // after the stage: the tile's running sums, d floats a query, then kChunk
-  // records for each lane group
-  float* sums = stage + stage_floats;
+  // after the stage (whole 16-byte units): the tile's running sums, d floats
+  // a query, then kChunk records for each lane group
+  float* sums = reinterpret_cast<float*>(stage + stage_elems);
   Record* records =
       reinterpret_cast<Record*>(sums + round_up4(kMaxTileQueries * d)) +
       group * kChunk;
 
   for (int l = 0; l < L; ++l) {
     const int Hl = levels[3 * l], Wl = levels[3 * l + 1];
-    const float* vl =
+    const T* vl =
         value + ((long long)b * S + levels[3 * l + 2]) * hd + head * d;
     const Rect r = tile.rect(l);
     if (r.rh > 0) {
@@ -178,7 +194,6 @@ msda_fwd_kernel(const float* __restrict__ value,
         }
       }
       if (active) {
-        float* dst = l == L - 1 ? out + qh * d : mine;
 #pragma unroll
         for (int k = 0; k < K; ++k) {
           const int c = (lane_g + k * G) * V;
@@ -186,7 +201,11 @@ msda_fwd_kernel(const float* __restrict__ value,
             float t[V];
 #pragma unroll
             for (int v = 0; v < V; ++v) t[v] = acc[k * V + v];
-            store_vec<V>(dst + c, t);
+            if (l == L - 1) {
+              store_vec<V>(out + qh * d + c, t);
+            } else {
+              store_vec<V>(mine + c, t);
+            }
           }
         }
       }
@@ -194,52 +213,56 @@ msda_fwd_kernel(const float* __restrict__ value,
   }
 }
 
-template <int V, int G, int K>
-int launch(const float* value, const int* levels, const int* tiles,
-           const float* pos, const float* weight, float* out, int B, int S,
-           int Nq, int h, int d, int L, int P, int n_tiles, int stage_floats,
+template <typename T, int V, int G, int K>
+int launch(const T* value, const int* levels, const int* tiles,
+           const float* pos, const float* weight, T* out, int B, int S,
+           int Nq, int h, int d, int L, int P, int n_tiles, int stage_elems,
            cudaStream_t stream) {
   // the staged window, the tile's running sums, the groups' records
   const int smem =
-      (stage_floats + round_up4(kMaxTileQueries * d)) * (int)sizeof(float) +
+      stage_elems * (int)sizeof(T) +
+      round_up4(kMaxTileQueries * d) * (int)sizeof(float) +
       kThreads / G * records_per_group(G) * kRecordBytes;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        msda_fwd_kernel<V, G, K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        msda_fwd_kernel<T, V, G, K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);
     if (e != cudaSuccess) return (int)e;
-    e = cudaFuncSetAttribute(msda_fwd_kernel<V, G, K>,
+    e = cudaFuncSetAttribute(msda_fwd_kernel<T, V, G, K>,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
     if (e != cudaSuccess) return (int)e;
   }
   const long long blocks = (long long)B * n_tiles * h;
-  msda_fwd_kernel<V, G, K><<<(unsigned)blocks, kThreads, smem, stream>>>(
+  msda_fwd_kernel<T, V, G, K><<<(unsigned)blocks, kThreads, smem, stream>>>(
       value, levels, tiles, pos, weight, out, S, Nq, h, d, L, P, n_tiles,
-      stage_floats);
+      stage_elems);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// value (B, S, h, d); levels (L, 3) int32 rows (H, W, start); tiles
+// value (B, S, h, d) of MSDA_T (float for `msda_fwd`, __nv_bfloat16 for
+// `msda_fwd_bf16`); levels (L, 3) int32 rows (H, W, start); tiles
 // (n_tiles, 6 + 4·L) int32, the plan of ops/msda.py `tile_plan` for lane
-// groups of `lanes`; pos (B, Nq, h, L, P, 2), 8-byte aligned; weight
-// (B, Nq, h, L, P); out (B, Nq, h·d); all f32 contiguous, d <= 128, a level
-// below 2^31 floats. `vec` = 4 (d a multiple of 4 and value, out 16-byte
-// aligned; lanes = 4, 8, 16 or 32 with 4·lanes >= d) or 1 (lanes = 32).
-// `stage_floats`: the plan's largest staged window. Returns the CUDA error
-// of the launch, or cudaErrorInvalidValue for another instance.
-extern "C" int msda_fwd(const float* value, const int* levels,
-                        const int* tiles, const float* pos,
-                        const float* weight, float* out, int B, int S, int Nq,
-                        int h, int d, int L, int P, int n_tiles,
-                        int stage_floats, int vec, int lanes, void* stream) {
+// groups of `lanes`; pos (B, Nq, h, L, P, 2) f32, 8-byte aligned; weight
+// (B, Nq, h, L, P) f32; out (B, Nq, h·d) of MSDA_T; all contiguous, d <= 128,
+// a level below 2^31 elements. `vec` = 4 (d a multiple of 4 floats or 8
+// bf16 and value, out 16-byte aligned; lanes = 4, 8, 16 or 32 with
+// 4·lanes >= d) or 1 (lanes = 32). `stage_elems`: the plan's largest staged
+// window in elements, whole 16-byte units. Returns the CUDA error of the
+// launch, or cudaErrorInvalidValue for another instance.
+extern "C" int MSDA_FWD_ENTRY(const MSDA_T* value, const int* levels,
+                              const int* tiles, const float* pos,
+                              const float* weight, MSDA_T* out, int B, int S,
+                              int Nq, int h, int d, int L, int P, int n_tiles,
+                              int stage_elems, int vec, int lanes,
+                              void* stream) {
   if ((long long)B * n_tiles * h == 0 || d == 0) return (int)cudaGetLastError();
   cudaStream_t st = (cudaStream_t)stream;
-#define MSDA_FWD(V, G, K)                                                     \
-  return launch<V, G, K>(value, levels, tiles, pos, weight, out, B, S, Nq, h, \
-                         d, L, P, n_tiles, stage_floats, st)
+#define MSDA_FWD(V, G, K)                                                  \
+  return launch<MSDA_T, V, G, K>(value, levels, tiles, pos, weight, out, B, \
+                                 S, Nq, h, d, L, P, n_tiles, stage_elems, st)
   if (vec == 4 && lanes == 4) MSDA_FWD(4, 4, 1);
   if (vec == 4 && lanes == 8) MSDA_FWD(4, 8, 1);
   if (vec == 4 && lanes == 16) MSDA_FWD(4, 16, 1);

@@ -1,4 +1,6 @@
-// Multi-level deformable sampling, backward, f32 (kernel C).
+// Multi-level deformable sampling, backward (kernel C): the f32 instance,
+// and through csrc/msda_bwd_bf16.cu, which includes this file with MSDA_T
+// set, the bf16 instance.
 //
 // Replaces the Pallas TPU kernel `_kernel_bwd` of
 // gedepth_tpu/ops/pallas/msda_windowed.py:898, launched by
@@ -29,10 +31,22 @@
 // 61,952 queries per sample (stem grid 176x352) with positions
 // (2, 61952, 8, 4, 8, 2) f32 = 254 MB and grad_out (2, 61952, 512) = 254 MB.
 //
+//
+// The bf16 instance (`msda_bwd_bf16`) takes value and grad_out in bf16 and
+// positions and weights in f32; d_pos and d_weight come out in f32. d_value
+// is summed in an f32 buffer of the value's shape that the caller lends
+// (`d_value_acc`), by the same binning, and rounded to bf16 once at the end
+// by `round_kernel`: atomics on bf16 would round at every add.
+//
 // What bounds it on the H100, and the design: see the notes above the two
 // kernels, `msda_bwd_pos_kernel` (d_pos, d_w) and `msda_bwd_value_kernel`
 // (d_value).
 #include "msda_tile.cuh"
+
+#ifndef MSDA_T
+#define MSDA_T float
+#define MSDA_BWD_ENTRY msda_bwd
+#endif
 
 namespace {
 
@@ -59,8 +73,8 @@ __device__ __forceinline__ float group_sum4(float s0, float s1, float s2,
 }
 
 // The partial corner dots of one sample over this lane's channels.
-template <int V, int G, int K, bool kGlobal>
-__device__ __forceinline__ void corner_dots(const float* p, int sx, int sy,
+template <int V, int G, int K, bool kGlobal, typename T>
+__device__ __forceinline__ void corner_dots(const T* p, int sx, int sy,
                                             int lane_g, int d,
                                             const float (&g)[K * V],
                                             float (&s)[4]) {
@@ -94,19 +108,20 @@ __device__ __forceinline__ void corner_dots(const float* p, int sx, int sy,
 // lane group by `group_sum4` (5 shuffles at d = 64), left in shared memory,
 // and the lane that set the sample up forms d_w and d_pos from them, so
 // those are written coalesced. Deterministic.
-template <int V, int G, int K>
+template <typename T, int V, int G, int K>
 __global__ void __launch_bounds__(kThreads, 2)
-msda_bwd_pos_kernel(const float* __restrict__ value,
+msda_bwd_pos_kernel(const T* __restrict__ value,
                     const int* __restrict__ levels,
                     const int* __restrict__ tiles,
                     const float* __restrict__ pos,
                     const float* __restrict__ weight,
-                    const float* __restrict__ grad_out,
+                    const T* __restrict__ grad_out,
                     float* __restrict__ d_pos,
                     float* __restrict__ d_weight,
                     int S, int Nq, int h, int d, int L, int P, int n_tiles,
-                    int stage_floats) {
-  extern __shared__ __align__(16) float stage[];
+                    int stage_elems) {
+  extern __shared__ __align__(16) unsigned char shared[];
+  T* stage = reinterpret_cast<T*>(shared);
   constexpr int kGroups = kThreads / G;
   constexpr int kChunk = records_per_group(G);
 
@@ -120,15 +135,15 @@ msda_bwd_pos_kernel(const float* __restrict__ value,
   const int hd = h * d;
   // after the stage: per lane group kChunk records, then kChunk x 4 dots
   Record* records =
-      reinterpret_cast<Record*>(stage + stage_floats) + group * kChunk;
+      reinterpret_cast<Record*>(stage + stage_elems) + group * kChunk;
   float4* dots = reinterpret_cast<float4*>(
-                     reinterpret_cast<Record*>(stage + stage_floats) +
+                     reinterpret_cast<Record*>(stage + stage_elems) +
                      kGroups * kChunk) +
                  group * kChunk;
 
   for (int l = 0; l < L; ++l) {
     const int Hl = levels[3 * l], Wl = levels[3 * l + 1];
-    const float* vl =
+    const T* vl =
         value + ((long long)b * S + levels[3 * l + 2]) * hd + head * d;
     const Rect r = tile.rect(l);
     if (r.rh > 0) {
@@ -305,17 +320,18 @@ __device__ __forceinline__ void direct_pass(
   }
 }
 
-template <int V, int G, int K>
+template <typename T, int V, int G, int K>
 __global__ void __launch_bounds__(kThreads, 2)
 msda_bwd_value_kernel(const int* __restrict__ levels,
                       const int* __restrict__ tiles,
                       const float* __restrict__ pos,
                       const float* __restrict__ weight,
-                      const float* __restrict__ grad_out,
+                      const T* __restrict__ grad_out,
                       float* __restrict__ d_value,
                       int S, int Nq, int h, int d, int L, int P, int n_tiles,
-                      int stage_floats) {
-  extern __shared__ __align__(16) float gs[];
+                      int stage_elems) {
+  extern __shared__ __align__(16) unsigned char shared[];
+  float* gs = reinterpret_cast<float*>(shared);
   constexpr int kGroups = kThreads / G;
   constexpr int kChunk = records_per_group(G);
 
@@ -328,20 +344,20 @@ msda_bwd_value_kernel(const int* __restrict__ levels,
   const int hd = h * d;
   // the tile's g rows, the groups' records, the corner list (query, w·cw),
   // then per window pixel its count and its bin's start, and one counter
-  const int max_px = stage_floats / d;
+  const int max_px = stage_elems / d;
   Record* all_records =
       reinterpret_cast<Record*>(gs + round_up4(kMaxTileQueries * d));
   float2* list = reinterpret_cast<float2*>(all_records + kGroups * kChunk);
   int* count = reinterpret_cast<int*>(
-      list + (stage_floats ? kMaxTileQueries * P * 4 : 0));
+      list + (stage_elems ? kMaxTileQueries * P * 4 : 0));
   int* start = count + max_px;
   int* n_far = start + max_px;
 
   for (int t = threadIdx.x; t < n_q * d; t += kThreads) {
     const int qi = t / d;
-    gs[t] = __ldg(grad_out +
-                  (((long long)b * Nq + tile.query(qi)) * h + head) * d +
-                  (t - qi * d));
+    gs[t] = to_float(ldg_elem(
+        grad_out + (((long long)b * Nq + tile.query(qi)) * h + head) * d +
+        (t - qi * d)));
   }
 
   for (int l = 0; l < L; ++l) {
@@ -451,18 +467,28 @@ msda_bwd_value_kernel(const int* __restrict__ levels,
   }
 }
 
-__host__ __device__ constexpr int shared_bytes_pos(int stage_floats, int G) {
-  return stage_floats * (int)sizeof(float) +
+// d_value of the bf16 instance: the f32 sums rounded to nearest even, once
+__global__ void round_kernel(const float* __restrict__ src,
+                             bf16* __restrict__ dst, long long n) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += stride)
+    dst[i] = __float2bfloat16_rn(src[i]);
+}
+
+__host__ __device__ constexpr int shared_bytes_pos(int stage_elems, int G,
+                                                   int elem_bytes) {
+  return stage_elems * elem_bytes +
          kThreads / G * records_per_group(G) *
              (kRecordBytes + (int)sizeof(float4));
 }
 
-__host__ __device__ constexpr int shared_bytes_value(int stage_floats, int G,
+__host__ __device__ constexpr int shared_bytes_value(int stage_elems, int G,
                                                      int d, int P) {
   return round_up4(kMaxTileQueries * d) * (int)sizeof(float) +
          kThreads / G * records_per_group(G) * kRecordBytes +
-         (stage_floats ? kMaxTileQueries * P * 4 : 0) * (int)sizeof(float2) +
-         (2 * (stage_floats / d) + 1) * (int)sizeof(int);
+         (stage_elems ? kMaxTileQueries * P * 4 : 0) * (int)sizeof(float2) +
+         (2 * (stage_elems / d) + 1) * (int)sizeof(int);
 }
 
 template <typename Kernel>
@@ -476,54 +502,85 @@ cudaError_t allow_shared(Kernel kernel, int smem) {
                               cudaSharedmemCarveoutMaxShared);
 }
 
-template <int V, int G, int K>
-int launch(const float* value, const int* levels, const int* tiles,
-           const float* pos, const float* weight, const float* grad_out,
+template <typename T, int V, int G, int K>
+int launch(const T* value, const int* levels, const int* tiles,
+           const float* pos, const float* weight, const T* grad_out,
            float* d_value, float* d_pos, float* d_weight, int B, int S, int Nq,
-           int h, int d, int L, int P, int n_tiles, int stage_floats,
+           int h, int d, int L, int P, int n_tiles, int stage_elems,
            cudaStream_t stream) {
   const unsigned blocks = (unsigned)((long long)B * n_tiles * h);
-  int smem = shared_bytes_pos(stage_floats, G);
-  cudaError_t e = allow_shared(msda_bwd_pos_kernel<V, G, K>, smem);
+  int smem = shared_bytes_pos(stage_elems, G, (int)sizeof(T));
+  cudaError_t e = allow_shared(msda_bwd_pos_kernel<T, V, G, K>, smem);
   if (e != cudaSuccess) return (int)e;
-  msda_bwd_pos_kernel<V, G, K><<<blocks, kThreads, smem, stream>>>(
+  msda_bwd_pos_kernel<T, V, G, K><<<blocks, kThreads, smem, stream>>>(
       value, levels, tiles, pos, weight, grad_out, d_pos, d_weight, S, Nq, h,
-      d, L, P, n_tiles, stage_floats);
+      d, L, P, n_tiles, stage_elems);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  smem = shared_bytes_value(stage_floats, G, d, P);
-  e = allow_shared(msda_bwd_value_kernel<V, G, K>, smem);
+  smem = shared_bytes_value(stage_elems, G, d, P);
+  e = allow_shared(msda_bwd_value_kernel<T, V, G, K>, smem);
   if (e != cudaSuccess) return (int)e;
-  msda_bwd_value_kernel<V, G, K><<<blocks, kThreads, smem, stream>>>(
+  msda_bwd_value_kernel<T, V, G, K><<<blocks, kThreads, smem, stream>>>(
       levels, tiles, pos, weight, grad_out, d_value, S, Nq, h, d, L, P,
-      n_tiles, stage_floats);
+      n_tiles, stage_elems);
   return (int)cudaGetLastError();
+}
+
+// the f32 instance sums into d_value itself
+inline int finish(const float*, float*, long long, cudaStream_t) {
+  return (int)cudaSuccess;
+}
+inline int finish(const float* acc, bf16* d_value, long long n,
+                  cudaStream_t stream) {
+  round_kernel<<<1024, 256, 0, stream>>>(acc, d_value, n);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int V, int G, int K>
+int run(const T* value, const int* levels, const int* tiles, const float* pos,
+        const float* weight, const T* grad_out, float* d_value_acc,
+        T* d_value, float* d_pos, float* d_weight, int B, int S, int Nq, int h,
+        int d, int L, int P, int n_tiles, int stage_elems,
+        cudaStream_t stream) {
+  const int err = launch<T, V, G, K>(value, levels, tiles, pos, weight,
+                                     grad_out, d_value_acc, d_pos, d_weight, B,
+                                     S, Nq, h, d, L, P, n_tiles, stage_elems,
+                                     stream);
+  if (err != 0) return err;
+  return finish(d_value_acc, d_value, (long long)B * S * h * d, stream);
 }
 
 }  // namespace
 
-// value (B, S, h, d); levels, tiles, pos, weight, vec, lanes and
-// stage_floats as `msda_fwd` takes them (csrc/msda.cu); grad_out
-// (B, Nq, h·d); outputs d_value (B, S, h, d), zeroed here first, d_pos and
-// d_weight in the shapes of pos and weight; all f32 contiguous; vec = 4
-// also needs grad_out and d_value 16-byte aligned. Three launches on
-// `stream` (the memset of d_value, then the two kernels); returns the CUDA
-// error, or cudaErrorInvalidValue for another instance.
-extern "C" int msda_bwd(const float* value, const int* levels,
-                        const int* tiles, const float* pos,
-                        const float* weight, const float* grad_out,
-                        float* d_value, float* d_pos, float* d_weight, int B,
-                        int S, int Nq, int h, int d, int L, int P, int n_tiles,
-                        int stage_floats, int vec, int lanes, void* stream) {
+// value (B, S, h, d) and grad_out (B, Nq, h·d) of MSDA_T (float for
+// `msda_bwd`, __nv_bfloat16 for `msda_bwd_bf16`); levels, tiles, pos, weight,
+// vec, lanes and stage_elems as `msda_fwd` takes them (csrc/msda.cu);
+// outputs d_value (B, S, h, d) of MSDA_T, d_pos and d_weight f32 in the
+// shapes of pos and weight; d_value_acc: f32, the value's shape, zeroed here
+// and summed into (for `msda_bwd` it is d_value itself; for `msda_bwd_bf16`
+// a buffer the caller lends, rounded into d_value at the end); all
+// contiguous; vec = 4 also needs grad_out, d_value and d_value_acc 16-byte
+// aligned. Launches on `stream` the memset of d_value_acc, the two kernels
+// and, for bf16, the rounding; returns the CUDA error, or
+// cudaErrorInvalidValue for another instance.
+extern "C" int MSDA_BWD_ENTRY(const MSDA_T* value, const int* levels,
+                              const int* tiles, const float* pos,
+                              const float* weight, const MSDA_T* grad_out,
+                              float* d_value_acc, MSDA_T* d_value,
+                              float* d_pos, float* d_weight, int B, int S,
+                              int Nq, int h, int d, int L, int P, int n_tiles,
+                              int stage_elems, int vec, int lanes,
+                              void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const size_t value_bytes = (size_t)B * S * h * d * sizeof(float);
-  cudaError_t err = cudaMemsetAsync(d_value, 0, value_bytes, st);
+  const size_t acc_bytes = (size_t)B * S * h * d * sizeof(float);
+  cudaError_t err = cudaMemsetAsync(d_value_acc, 0, acc_bytes, st);
   if (err != cudaSuccess) return (int)err;
-  if ((long long)B * n_tiles * h == 0 || d == 0) return (int)cudaGetLastError();
-#define MSDA_BWD(V, G, K)                                                    \
-  return launch<V, G, K>(value, levels, tiles, pos, weight, grad_out,        \
-                         d_value, d_pos, d_weight, B, S, Nq, h, d, L, P,     \
-                         n_tiles, stage_floats, st)
+  if ((long long)B * n_tiles * h == 0 || d == 0)
+    return finish(d_value_acc, d_value, (long long)B * S * h * d, st);
+#define MSDA_BWD(V, G, K)                                                     \
+  return run<MSDA_T, V, G, K>(value, levels, tiles, pos, weight, grad_out,    \
+                              d_value_acc, d_value, d_pos, d_weight, B, S,    \
+                              Nq, h, d, L, P, n_tiles, stage_elems, st)
   if (vec == 4 && lanes == 4) MSDA_BWD(4, 4, 1);
   if (vec == 4 && lanes == 8) MSDA_BWD(4, 8, 1);
   if (vec == 4 && lanes == 16) MSDA_BWD(4, 16, 1);

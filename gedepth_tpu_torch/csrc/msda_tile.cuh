@@ -12,17 +12,26 @@
 // plan is a hint: every sample tests whether its corners lie inside the
 // staged rectangle and goes to device memory when they do not.
 //
-// A query's d channels lie over a group of G lanes, V floats a lane (V = 4:
-// one 16-byte slice each; V = 1: single floats, K rounds of G). Lane j of a
+// The value's element type T is float or __nv_bfloat16: a bf16 value is
+// staged as bf16 (half the bytes a pixel, so twice the pixels fit a window)
+// and lifted to float where a corner is read; positions, weights, the
+// records and every sum are f32 for both.
+//
+// A query's d channels lie over a group of G lanes, V elements a lane (V = 4:
+// one 16-byte slice of floats or one 8-byte slice of bf16 each; V = 1:
+// single elements, K rounds of G). Lane j of a
 // group sets up sample j of the level once (floor, bounds, corner
 // coefficients and offset) and leaves it as a 32-byte record in shared
 // memory; the group reads it back with two broadcast loads. The set-up is
 // done once per sample, not once per channel.
 #pragma once
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace msda_tile {
+
+using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 512;
 constexpr int kMaxTileQueries = 128;  // queries of a tile, as the host plans
@@ -42,7 +51,7 @@ struct Rect {
 
 // One sample as its lane group reads it: the four corner coefficients
 // (zero for a corner outside the level), the attention weight, the offset
-// in floats of corner (ya, xa) from the stage's (or the level's) origin,
+// in elements of corner (ya, xa) from the stage's (or the level's) origin,
 // before the channel, and the steps to the right and the lower corners.
 // sy >= 0: all four corners lie in the staged rectangle; sy < 0: they are
 // read from device memory and the lower step is -1 - sy.
@@ -131,6 +140,29 @@ __device__ __forceinline__ void load_vec(float (&dst)[V], const float* p) {
   }
 }
 
+// V bf16 values from p as floats (a bf16 is the upper half of its float):
+// one 8-byte load for V = 4.
+template <int V, bool kGlobal>
+__device__ __forceinline__ void load_vec(float (&dst)[V], const bf16* p) {
+  if constexpr (V == 4) {
+    uint2 t;
+    if constexpr (kGlobal) {
+      t = __ldg(reinterpret_cast<const uint2*>(p));
+    } else {
+      t = *reinterpret_cast<const uint2*>(p);
+    }
+    dst[0] = __uint_as_float(t.x << 16);
+    dst[1] = __uint_as_float(t.x & 0xffff0000u);
+    dst[2] = __uint_as_float(t.y << 16);
+    dst[3] = __uint_as_float(t.y & 0xffff0000u);
+  } else {
+    const unsigned short* u = reinterpret_cast<const unsigned short*>(p);
+#pragma unroll
+    for (int v = 0; v < V; ++v)
+      dst[v] = __uint_as_float((unsigned)(kGlobal ? __ldg(u + v) : u[v]) << 16);
+  }
+}
+
 template <int V>
 __device__ __forceinline__ void store_vec(float* p, const float (&src)[V]) {
   if constexpr (V == 4) {
@@ -141,7 +173,34 @@ __device__ __forceinline__ void store_vec(float* p, const float (&src)[V]) {
   }
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+// rounded to nearest even, once
+template <int V>
+__device__ __forceinline__ void store_vec(bf16* p, const float (&src)[V]) {
+  if constexpr (V == 4) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(src[0], src[1]);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(src[2], src[3]);
+    uint2 t;
+    t.x = *reinterpret_cast<const unsigned*>(&lo);
+    t.y = *reinterpret_cast<const unsigned*>(&hi);
+    *reinterpret_cast<uint2*>(p) = t;
+  } else {
+#pragma unroll
+    for (int v = 0; v < V; ++v) p[v] = __float2bfloat16_rn(src[v]);
+  }
+}
+
+// one element through the read-only path
+__device__ __forceinline__ float ldg_elem(const float* p) { return __ldg(p); }
+__device__ __forceinline__ bf16 ldg_elem(const bf16* p) {
+  return __ushort_as_bfloat16(
+      __ldg(reinterpret_cast<const unsigned short*>(p)));
+}
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(bf16 x) {
+  return __bfloat162float(x);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
                "l"(src));
@@ -152,23 +211,25 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // The head slice of rectangle r of a level into `stage`, pixel-major, d
-// floats a pixel; vl points at (level origin, this head). All threads of
-// the block call it; the copies have landed for the calling thread on
-// return, for the block after the next __syncthreads().
-template <int V>
-__device__ __forceinline__ void stage_window(float* stage, const float* vl,
+// elements a pixel; vl points at (level origin, this head). For V = 4 the
+// copies are 16 bytes (4 floats or 8 bf16: d is a multiple of that). All
+// threads of the block call it; the copies have landed for the calling
+// thread on return, for the block after the next __syncthreads().
+template <int V, typename T>
+__device__ __forceinline__ void stage_window(T* stage, const T* vl,
                                              const Rect& r, int Wl, int hd,
                                              int d) {
-  const int chunks = d / V;
+  constexpr int E = V == 4 ? 16 / (int)sizeof(T) : 1;  // elements a copy
+  const int chunks = d / E;
   const int total = r.rh * r.rw * chunks;
   for (int t = threadIdx.x; t < total; t += blockDim.x) {
-    const int px = t / chunks, c = (t - px * chunks) * V;
+    const int px = t / chunks, c = (t - px * chunks) * E;
     const int y = px / r.rw, x = px - y * r.rw;
-    const float* src = vl + ((r.y_lo + y) * Wl + r.x_lo + x) * hd + c;
+    const T* src = vl + ((r.y_lo + y) * Wl + r.x_lo + x) * hd + c;
     if constexpr (V == 4) {
       cp_async16(stage + px * d + c, src);
     } else {
-      stage[px * d + c] = __ldg(src);
+      stage[px * d + c] = ldg_elem(src);
     }
   }
   if constexpr (V == 4) cp_async_wait_all();

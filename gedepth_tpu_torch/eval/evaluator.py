@@ -32,9 +32,14 @@ class Evaluator:
     rule = "less"
 
     def __init__(self, model, dataset, data_cfg, batch_size=1, flip_tta=None,
-                 ms_ratios=(), device_metrics=False, mode=None,
+                 ms_ratios=(), device_metrics=False, bf16=False, mode=None,
                  slide_tile=None, slide_stride=None):
         """model: a `GEDepth` on its device, in eval mode.
+
+        bf16=True runs every eval step in bf16 (`make_eval_step`: depth
+        clamp and final resize stay f32) on a model that was cast as a whole
+        (`apis.inference.cast_params_bf16(model, "all")`); the steps raise
+        when the flag and the weights disagree.
 
         ms_ratios: multi-scale TTA ratios; the predictions of every ratio
         (each at base resolution, each flip-averaged when flip TTA is on)
@@ -64,9 +69,10 @@ class Evaluator:
             tile = slide_tile or data_cfg.crop_size
             stride = slide_stride or (tile[0] // 2, tile[1] // 2)
             self.eval_steps = [make_slide_eval_step(model, tile, stride,
-                                                    flip_tta=flip)]
+                                                    flip_tta=flip, bf16=bf16)]
         elif mode == "whole":
-            self.eval_steps = [make_eval_step(model, flip_tta=flip, ratio=r)
+            self.eval_steps = [make_eval_step(model, flip_tta=flip, ratio=r,
+                                              bf16=bf16)
                                for r in (tuple(ms_ratios) or (1.0,))]
         else:
             raise ValueError(f"eval mode {mode!r} is neither 'whole' nor "

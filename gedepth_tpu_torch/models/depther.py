@@ -1,5 +1,18 @@
 """GEDepth composition: backbone -> HAHI -> PE necks -> PE fusion -> decode
-head (the port of `gedepth_tpu.models.depther` for bf16_scope='none').
+head (the port of `gedepth_tpu.models.depther`).
+
+Mixed precision for serving, `bf16_scope`: the named modules run in bf16 and
+the rest in f32. The model casts activations at the scope's boundaries; the
+caller casts the matching parameters (`apis.inference.cast_params_bf16`).
+The PE necks, the slope bins, the prior (up to depth_scale = 200, 8 mantissa
+bits in bf16) and the fusion d·(1 − y) + pe stay f32 in every scope:
+  * 'backbone'            Swin only
+  * 'backbone_neck'       Swin + HAHI
+  * 'backbone_head'       Swin + decode head (HAHI f32)
+  * 'backbone_neck_head'  all but the PE necks and the fusion
+A model whose every parameter was cast (scope 'all' of `cast_params_bf16`)
+follows a bf16 input through in bf16, fusion included; `bf16_scope` stays
+'none' for that.
 
 PE variants:
   * 'none'     the DepthFormer baseline: RGB only, depth = relu(conv) +
@@ -34,6 +47,8 @@ from gedepth_tpu_torch.ops.resize import resize_bilinear, resize_bilinear_nchw
 
 
 PE_VARIANTS = ("none", "vanilla", "adaptive")
+BF16_SCOPES = ("none", "backbone", "backbone_neck", "backbone_head",
+               "backbone_neck_head")
 
 
 class GEDepth(nn.Module):
@@ -53,7 +68,7 @@ class GEDepth(nn.Module):
                  drop_path_rate: float = 0.3,
                  neck_channels: Sequence[int] = (64, 192, 384, 768, 1536),
                  neck_embed_dim: int = 512, neck_num_points: int = 8,
-                 neck_sampling: str = "windowed", neck_window_radius: int = 4,
+                 neck_sampling: str = "bilinear", neck_window_radius: int = 4,
                  neck_hi_min_level: int = 0, bf16_scope: str = "none",
                  head_channels: int = 64,
                  min_depth: float = 1e-3, max_depth: float = 80.0,
@@ -64,9 +79,9 @@ class GEDepth(nn.Module):
         super().__init__()
         if pe_variant not in PE_VARIANTS:
             raise ValueError(f"pe_variant {pe_variant!r} not in {PE_VARIANTS}")
-        if bf16_scope != "none":
-            raise NotImplementedError(
-                f"bf16_scope {bf16_scope!r} is not ported yet")
+        if bf16_scope not in BF16_SCOPES:
+            raise ValueError(f"bf16_scope {bf16_scope!r} not in {BF16_SCOPES}")
+        self.bf16_scope = bf16_scope
         self.min_depth, self.max_depth = min_depth, max_depth
         self.pe_variant, self.depth_scale = pe_variant, depth_scale
         self.vanilla_pe_multiplier = vanilla_pe_multiplier
@@ -104,10 +119,21 @@ class GEDepth(nn.Module):
 
     def forward(self, img, cam_height=None):
         B, H, W, _ = img.shape
-        feats = self.backbone(img.permute(0, 3, 1, 2).contiguous())
+        scope = self.bf16_scope
+        x = img.to(torch.bfloat16) if scope != "none" else img
+        feats = self.backbone(x.permute(0, 3, 1, 2).contiguous())
+        if scope in ("backbone", "backbone_head"):
+            feats = [f.float() for f in feats]
         feats = self.neck(feats)
+        if scope in ("backbone_neck", "backbone_neck_head"):
+            feats = [f.float() for f in feats]
+        head_in = feats
+        if scope in ("backbone_head", "backbone_neck_head"):
+            # the head's convs run in bf16; pe_mask and y stay f32, so the
+            # fusion d·(1 − y) + pe inside the head promotes back to f32
+            head_in = [f.to(torch.bfloat16) for f in feats]
         if self.pe_variant == "none":
-            depth = self.decode_head(feats)
+            depth = self.decode_head(head_in)
             return {"depth": depth.permute(0, 2, 3, 1), "y": None,
                     "slope_logits": None, "pe_mask": None}
         y_small, _ = self.pe_mask_neck(feats)
@@ -128,7 +154,7 @@ class GEDepth(nn.Module):
                                        self.depth_scale)
         else:
             pe_mask = img[..., 3] * y[:, 0] * self.vanilla_pe_multiplier
-        depth = self.decode_head(feats, pe_mask[:, None], y)
+        depth = self.decode_head(head_in, pe_mask[:, None], y)
         return {"depth": depth.permute(0, 2, 3, 1),
                 "y": y.permute(0, 2, 3, 1),
                 "slope_logits": slope_logits,

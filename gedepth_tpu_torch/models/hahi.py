@@ -58,7 +58,7 @@ class MSDeformAttention(nn.Module):
 
     def __init__(self, embed_dims=512, num_heads=8, num_levels=4,
                  num_points=8, window_radius=4, dropout=0.1,
-                 sampling="windowed"):
+                 sampling="bilinear"):
         super().__init__()
         if sampling not in SAMPLING_MODES:
             raise ValueError(f"sampling {sampling!r} not in {SAMPLING_MODES}")
@@ -110,15 +110,22 @@ class MSDeformAttention(nn.Module):
         value (B, Nv, C) flattened over `spatial_shapes`; query_pos is
         added to the query; reference_points (Nq, L, 2) or (B or 1, Nq, L,
         2) normalised (x, y), unused in windowed mode (the grid centres are
-        implied). Returns (B, Nq, C)."""
+        implied). Returns (B, Nq, C).
+
+        The value keeps the module's dtype (bf16 in a bf16 model); the
+        positions and the attention weights are formed in f32 from the
+        projections, which is what `ops.msda` takes: a bf16 position on a
+        304-pixel level has a quarter-pixel grid."""
         B, Nq, C = query.shape
         h, L, P = self.num_heads, self.num_levels, self.num_points
         identity = query
-        query = query + query_pos
+        query = query + query_pos.to(query.dtype)
         value = self.value_proj(value).view(B, -1, h, C // h)
-        offsets = self.sampling_offsets(query).view(B, Nq, h, L, P, 2)
-        weights = self.attention_weights(query).view(B, Nq, h, L * P)
+        offsets = self.sampling_offsets(query).float().view(B, Nq, h, L, P, 2)
+        weights = self.attention_weights(query).float().view(B, Nq, h, L * P)
         weights = weights.softmax(-1).view(B, Nq, h, L, P)
+        if reference_points is not None:
+            reference_points = reference_points.float()
         pos, hint = self._positions(offsets, weights, reference_points,
                                     spatial_shapes, query_shapes)
         out = msda_ops.msda(value, spatial_shapes, pos, weights, *hint)
@@ -135,7 +142,7 @@ class HAHINeck(nn.Module):
 
     def __init__(self, in_channels: Sequence[int] = (64, 192, 384, 768, 1536),
                  out_channels: Sequence[int] = (64, 192, 384, 768, 1536),
-                 embed_dim=512, num_heads=8, num_points=8, sampling="windowed",
+                 embed_dim=512, num_heads=8, num_points=8, sampling="bilinear",
                  window_radius=4, hi_min_level=0):
         super().__init__()
         L = len(in_channels) - 1
@@ -184,7 +191,8 @@ class HAHINeck(nn.Module):
             H_, W_ = f.shape[2:]
             src.append(self.trans_proj[i](f).flatten(2).transpose(1, 2))
             pe = sine_positional_encoding(H_, W_, num_feats, device=f.device)
-            pos.append(pe.reshape(1, H_ * W_, -1) + self.level_embed[i])
+            pos.append(pe.reshape(1, H_ * W_, -1).to(self.level_embed.dtype)
+                       + self.level_embed[i])
         src = torch.cat(src, dim=1)
         pos = torch.cat(pos, dim=1)
 
@@ -204,7 +212,8 @@ class HAHINeck(nn.Module):
             Hc, Wc, num_feats, device=query.device).reshape(1, Hc * Wc, -1)
         ref_q = None
         if not windowed:
-            ref_q = torch.sigmoid(self.reference_points(qpos))  # (1, Nq, 2)
+            ref_q = torch.sigmoid(self.reference_points(
+                qpos.to(query.dtype)))                           # (1, Nq, 2)
             ref_q = ref_q[:, :, None, :].expand(-1, -1, len(spatial_shapes),
                                                 -1)
         fused = self.multi_att(query, src, qpos, spatial_shapes,

@@ -91,7 +91,12 @@ class BatchNorm2d(nn.BatchNorm2d):
         if not self.training:
             return super().forward(x)
         with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            # f32 statistics of a bf16 activation, as flax computes them;
+            # the running buffers keep their own (f32) dtype
+            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
+                                       correction=0)
+            var, mean = (var.to(self.running_var.dtype),
+                         mean.to(self.running_mean.dtype))
             self.running_mean.lerp_(mean, self.momentum)
             self.running_var.lerp_(var, self.momentum)
             self.num_batches_tracked += 1
@@ -187,7 +192,8 @@ def sine_positional_encoding(h: int, w: int, num_feats: int = 256,
                              temperature: float = 10000.0, device=None):
     """DETR-style sine encoding over an (h, w) grid with 1-based cumsum
     coordinates (mmcv SinePositionalEncoding, normalize=False, all-valid
-    mask). Returns (h, w, 2·num_feats) f32."""
+    mask). Returns (h, w, 2·num_feats) f32; a bf16 caller casts it to its
+    query's dtype."""
     dim_t = np.arange(num_feats, dtype=np.float32)
     dim_t = torch.as_tensor(temperature ** (2 * (dim_t // 2) / num_feats),
                             device=device)

@@ -32,13 +32,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signatures: pointers and the stream as void*, sizes as int, strides as
 # long long
+_MSDA_FWD = [_P] * 6 + [_I] * 11 + [_P]
+_MSDA_BWD = [_P] * 10 + [_I] * 11 + [_P]
 _SIGNATURES = {
     "window_attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _L, _L, _L, _L, _L, _L, _P],
-    "msda_fwd": [_P, _P, _P, _P, _P, _P,
-                 _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "msda_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                 _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "window_attention_fwd_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                  _I, _I, _I, _L, _L, _L, _L, _L, _L, _P],
+    "msda_fwd": _MSDA_FWD, "msda_fwd_bf16": _MSDA_FWD,
+    "msda_bwd": _MSDA_BWD, "msda_bwd_bf16": _MSDA_BWD,
     "pe_fusion_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P],
 }
 

@@ -15,6 +15,16 @@ kernel of `csrc/msda_bwd.cu` (C), which emits d_value, d_pos and d_weights.
 On a CPU tensor it runs the plain per-level gather, which autograd
 differentiates; `msda_backward_plain` is kernel C's plain twin.
 
+The value is f32 or bf16, and each kernel has an instance for either. pos
+and weights are f32 at the kernels' boundary whatever the value: a bf16
+position on a 304-pixel level has a quarter-pixel grid, so a bf16 model
+forms them in f32 from its bf16 projections (as the JAX package's kernel
+path lifts them). With a bf16 value the output is bf16: the sums are f32
+and rounded once, in the kernels and in the plain version alike; kernel C
+takes grad_out in bf16 and returns d_value in bf16 (summed in f32, rounded
+once), d_pos and d_weights in f32. A bf16 window takes half the shared
+memory, so the tile plan of a bf16 value stages more.
+
 Both kernels walk a tile plan (`tile_plan`): a block owns a rectangle of
 one query grid and one head and, level by level, stages in shared memory
 the value window its queries can reach. The plan needs the query grids
@@ -72,17 +82,18 @@ def _round_up4(n: int) -> int:
     return -(-n // 4) * 4
 
 
-def shared_bytes(stage_floats: int, head_dim: int, lanes: int) -> int:
+def shared_bytes(stage_elems: int, head_dim: int, lanes: int,
+                 itemsize: int = 4) -> int:
     """Dynamic shared memory of a block of kernel B: the staged value
-    window, the tile's running sums (d floats a query), and a 32-byte
-    record for each of the 8 (or `lanes`, if fewer) samples a lane group
-    sets up at a time."""
+    window (`stage_elems` elements of `itemsize` bytes), the tile's running
+    sums (d floats a query), and a 32-byte record for each of the 8 (or
+    `lanes`, if fewer) samples a lane group sets up at a time."""
     records = TILE_THREADS // lanes * min(lanes, 8) * RECORD_BYTES
-    return (4 * (stage_floats + _round_up4(MAX_TILE_QUERIES * head_dim))
-            + records)
+    return (itemsize * stage_elems
+            + 4 * _round_up4(MAX_TILE_QUERIES * head_dim) + records)
 
 
-def shared_bytes_backward(stage_floats: int, head_dim: int, lanes: int,
+def shared_bytes_backward(stage_elems: int, head_dim: int, lanes: int,
                           points: int) -> int:
     """Dynamic shared memory of the larger block of kernel C, the d_value
     kernel: the tile's grad_out rows, the groups' records, the list of
@@ -91,9 +102,9 @@ def shared_bytes_backward(stage_floats: int, head_dim: int, lanes: int,
     d_pos kernel takes the staged window plus records and dots: less than
     kernel B.)"""
     records = TILE_THREADS // lanes * min(lanes, 8) * RECORD_BYTES
-    corners = MAX_TILE_QUERIES * points * 4 * 8 if stage_floats else 0
+    corners = MAX_TILE_QUERIES * points * 4 * 8 if stage_elems else 0
     return (4 * _round_up4(MAX_TILE_QUERIES * head_dim) + records + corners
-            + 4 * (2 * (stage_floats // head_dim) + 1))
+            + 4 * (2 * (stage_elems // head_dim) + 1))
 
 
 def stage_budget(head_dim: int, lanes: int) -> int:
@@ -259,12 +270,14 @@ def compat_clamp_mass(delta, weights, radius):
     return (weights * clamped).sum() / (B * Nq * h)
 
 
-def channel_lanes(head_dim: int, aligned: bool = True):
-    """(floats per lane, lanes per query) of the kernel instance that
-    serves a head width: 16-byte slices over the smallest of 4, 8, 16 or
-    32 lanes that holds a multiple of 4, else (or when the tensors are not
-    16-byte aligned) single floats over 32 lanes, four rounds at most."""
-    if head_dim % 4 == 0 and aligned:
+def channel_lanes(head_dim: int, aligned: bool = True, itemsize: int = 4):
+    """(elements per lane, lanes per query) of the kernel instance that
+    serves a head width: slices of 4 elements over the smallest of 4, 8, 16
+    or 32 lanes that holds the head, when the head is whole 16-byte units
+    (a multiple of 4 floats or 8 bf16: a window is staged in 16-byte
+    copies); else (or when the tensors are not 16-byte aligned) single
+    elements over 32 lanes, four rounds at most."""
+    if head_dim % (16 // itemsize) == 0 and aligned:
         return 4, next(g for g in (4, 8, 16, 32) if 4 * g >= head_dim)
     return 1, 32
 
@@ -277,7 +290,7 @@ class TilePlan:
     rectangle (y_lo, x_lo, height, width), height 0 where the level is
     gathered from device memory."""
     rows: np.ndarray
-    stage_floats: int        # floats of the largest staged rectangle
+    stage_elems: int         # elements of the largest staged rectangle
 
 
 def _grid_rows(q_start, grid, tile, spatial_shapes, margin, max_pixels):
@@ -310,14 +323,16 @@ def _grid_rows(q_start, grid, tile, spatial_shapes, margin, max_pixels):
 
 
 @functools.lru_cache(maxsize=64)
-def tile_plan(query_shapes, spatial_shapes, radius, head_dim, stage_bytes):
+def tile_plan(query_shapes, spatial_shapes, radius, head_dim, stage_bytes,
+              itemsize=4):
     """The tile plan of a launch: `query_shapes` row-major query grids,
     concatenated, sampling `spatial_shapes` with offsets bounded by
     `radius` level pixels around each query's anchor (None: unbounded,
     nothing is staged and the queries are one row). Per grid, the tile
     shape that stages the most (query, level) pairs within `stage_bytes`,
-    the larger shape on a tie."""
-    max_pixels = stage_bytes // (4 * head_dim)
+    the larger shape on a tie. `itemsize`: bytes of a value element (4 for
+    f32, 2 for bf16)."""
+    max_pixels = stage_bytes // (itemsize * head_dim)
     if radius is None:
         margin, candidates = None, ((1, MAX_TILE_QUERIES),)
     else:
@@ -340,15 +355,16 @@ def tile_plan(query_shapes, spatial_shapes, radius, head_dim, stage_bytes):
     rects = rows[:, TILE_HEADER:].reshape(len(rows), -1, 4)
     stage_pixels = int((rects[:, :, 2] * rects[:, :, 3]).max(initial=0))
     # whole 16-byte units: the kernels lay their records after the stage
-    stage_floats = -(-stage_pixels * head_dim // 4) * 4
-    return TilePlan(rows, stage_floats)
+    unit = 16 // itemsize
+    stage_elems = -(-stage_pixels * head_dim // unit) * unit
+    return TilePlan(rows, stage_elems)
 
 
 @functools.lru_cache(maxsize=64)
 def _tile_table(query_shapes, spatial_shapes, radius, head_dim, stage_bytes,
-                device):
+                itemsize, device):
     plan = tile_plan(query_shapes, spatial_shapes, radius, head_dim,
-                     stage_bytes)
+                     stage_bytes, itemsize)
     # a normal tensor even under inference_mode (see `_level_table`)
     with torch.inference_mode(False):
         return torch.as_tensor(plan.rows, device=device), plan
@@ -356,7 +372,12 @@ def _tile_table(query_shapes, spatial_shapes, radius, head_dim, stage_bytes,
 
 def msda_plain(value, spatial_shapes, pos, weights):
     """Plain PyTorch version: four corner gathers per level, chunked over
-    queries."""
+    queries. A bf16 value is lifted to f32 and the result rounded to bf16
+    once, as the bf16 kernel computes; pos and weights of any float dtype
+    are taken as f32."""
+    if value.dtype == torch.bfloat16:
+        return msda_plain(value.float(), spatial_shapes, pos.float(),
+                          weights.float()).to(value.dtype)
     B, S, h, d = value.shape
     Nq, L, P = pos.shape[1], pos.shape[3], pos.shape[4]
     table = value.permute(0, 2, 1, 3).reshape(B * h, S, d)
@@ -436,14 +457,26 @@ def _normalise_window(query_shapes, window_radius, Nq):
     return query_shapes, radius
 
 
-def _check_kernel_inputs(value, spatial_shapes, pos, *tensors):
+VALUE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check_kernel_inputs(value, spatial_shapes, pos, weights, grad_out=None):
     """What kernels B and C do not take raises here: nothing falls back to
     the plain version on a CUDA tensor."""
-    for t in (value, pos, *tensors):
+    if value.dtype not in VALUE_DTYPES:
+        raise TypeError(f"msda kernels take an f32 or bf16 value, got "
+                        f"{value.dtype}")
+    for name, t, dtype in (("value", value, value.dtype),
+                           ("pos", pos, torch.float32),
+                           ("weights", weights, torch.float32),
+                           ("grad_out", grad_out, value.dtype)):
+        if t is None:
+            continue
         if t.device.type != "cuda":
             raise ValueError(f"msda: no kernel for {t.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"msda kernel is f32, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"msda kernel with a {value.dtype} value takes "
+                            f"{name} in {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError("msda kernel needs contiguous inputs")
     h, d = value.shape[2:]
@@ -460,16 +493,20 @@ def _check_kernel_inputs(value, spatial_shapes, pos, *tensors):
 
 def _plan_args(value, spatial_shapes, window, *tensors):
     """The kernel instance and plan of a launch: (levels, tile table, tile
-    count, stage floats, floats per lane, lanes per query)."""
-    d = value.shape[3]
+    count, stage elements, elements per lane, lanes per query)."""
+    d, itemsize = value.shape[3], value.element_size()
     aligned = all(t.data_ptr() % 16 == 0 for t in (value, *tensors))
-    vec, lanes = channel_lanes(d, aligned)
+    vec, lanes = channel_lanes(d, aligned, itemsize)
     query_shapes, radius = window
     table, plan = _tile_table(query_shapes, spatial_shapes, radius, d,
-                              stage_budget(d, lanes), value.device)
+                              stage_budget(d, lanes), itemsize, value.device)
     levels = _level_table(spatial_shapes, value.device)
     return (levels.data_ptr(), table.data_ptr(), len(plan.rows),
-            plan.stage_floats, vec, lanes)
+            plan.stage_elems, vec, lanes)
+
+
+def _entry(name, value):
+    return name + "_bf16" if value.dtype == torch.bfloat16 else name
 
 
 def _launch_forward(value, spatial_shapes, pos, weights, window):
@@ -477,23 +514,26 @@ def _launch_forward(value, spatial_shapes, pos, weights, window):
     B, S, h, d = value.shape
     Nq, L, P = pos.shape[1], pos.shape[3], pos.shape[4]
     out = value.new_empty(B, Nq, h * d)
-    levels, tiles, n_tiles, stage_floats, vec, lanes = _plan_args(
+    levels, tiles, n_tiles, stage_elems, vec, lanes = _plan_args(
         value, spatial_shapes, window, out)
-    _lib.call("msda_fwd", value.data_ptr(), levels, tiles, pos.data_ptr(),
-              weights.data_ptr(), out.data_ptr(), B, S, Nq, h, d, L, P,
-              n_tiles, stage_floats, vec, lanes)
+    _lib.call(_entry("msda_fwd", value), value.data_ptr(), levels, tiles,
+              pos.data_ptr(), weights.data_ptr(), out.data_ptr(), B, S, Nq, h,
+              d, L, P, n_tiles, stage_elems, vec, lanes)
     msda.launches += 1
     msda.launches_by_queries[Nq] += 1
+    msda.launches_by_dtype[value.dtype] += 1
     return out
 
 
 def msda_backward(value, spatial_shapes, pos, weights, grad_out,
                   query_shapes=None, window_radius=None):
     """Kernel C: (d_value, d_pos, d_weights) of `msda` for the cotangent
-    grad_out (B, Nq, heads·d), CUDA tensors only. `query_shapes` and
-    `window_radius` as in `msda`. d_value is summed in an order that
-    changes from run to run, and its low bits with it; d_pos and d_weights
-    are deterministic."""
+    grad_out (B, Nq, heads·d) in the value's dtype, CUDA tensors only.
+    `query_shapes` and `window_radius` as in `msda`. d_value comes in the
+    value's dtype (a bf16 one summed in f32 and rounded once), d_pos and
+    d_weights in f32. d_value is summed in an order that changes from run
+    to run, and its low bits with it; d_pos and d_weights are
+    deterministic."""
     spatial_shapes = tuple((int(H_), int(W_)) for (H_, W_) in spatial_shapes)
     _check(value, spatial_shapes, pos, weights)
     B, S, h, d = value.shape
@@ -503,21 +543,26 @@ def msda_backward(value, spatial_shapes, pos, weights, grad_out,
                          f"{(B, Nq, h * d)}")
     window = _normalise_window(query_shapes, window_radius, Nq)
     _check_kernel_inputs(value, spatial_shapes, pos, weights, grad_out)
-    d_value = torch.empty_like(value)      # zeroed by the C entry point
+    d_value = torch.empty_like(value)
+    # the f32 sums (zeroed by the C entry point): d_value itself when f32
+    acc = (d_value if value.dtype == torch.float32
+           else torch.empty_like(value, dtype=torch.float32))
     d_pos = torch.empty_like(pos)
     d_weights = torch.empty_like(weights)
-    plan = _plan_args(value, spatial_shapes, window, grad_out, d_value)
+    plan = _plan_args(value, spatial_shapes, window, grad_out, d_value, acc)
     if shared_bytes_backward(plan[3], d, plan[5], P) > SM_SHARED_BYTES - 1024:
         # so many points that a tile's corner list outgrows an SM: no bins
         plan = _plan_args(value, spatial_shapes, (((1, Nq),), None),
-                          grad_out, d_value)
-    levels, tiles, n_tiles, stage_floats, vec, lanes = plan
-    _lib.call("msda_bwd", value.data_ptr(), levels, tiles, pos.data_ptr(),
-              weights.data_ptr(), grad_out.data_ptr(), d_value.data_ptr(),
-              d_pos.data_ptr(), d_weights.data_ptr(), B, S, Nq, h, d, L, P,
-              n_tiles, stage_floats, vec, lanes)
+                          grad_out, d_value, acc)
+    levels, tiles, n_tiles, stage_elems, vec, lanes = plan
+    _lib.call(_entry("msda_bwd", value), value.data_ptr(), levels, tiles,
+              pos.data_ptr(), weights.data_ptr(), grad_out.data_ptr(),
+              acc.data_ptr(), d_value.data_ptr(), d_pos.data_ptr(),
+              d_weights.data_ptr(), B, S, Nq, h, d, L, P, n_tiles,
+              stage_elems, vec, lanes)
     msda_backward.launches += 1
     msda_backward.launches_by_queries[Nq] += 1
+    msda_backward.launches_by_dtype[value.dtype] += 1
     return d_value, d_pos, d_weights
 
 
@@ -528,6 +573,11 @@ def msda_backward_plain(value, spatial_shapes, pos, weights, grad_out):
     the whole `msda_plain` would keep every chunk's gathered corners alive
     at once (~34 GB at the train crop's cross-attention)."""
     spatial_shapes = tuple((int(H_), int(W_)) for (H_, W_) in spatial_shapes)
+    if value.dtype == torch.bfloat16:
+        # as kernel C: f32 sums of the lifted inputs, d_value rounded once
+        d_value, d_pos, d_weights = msda_backward_plain(
+            value.float(), spatial_shapes, pos, weights, grad_out.float())
+        return d_value.to(value.dtype), d_pos, d_weights
     d_value = torch.zeros_like(value)
     d_pos = torch.empty_like(pos)
     d_weights = torch.empty_like(weights)
@@ -564,6 +614,7 @@ class MSDAFunction(torch.autograd.Function):
         d_value, d_pos, d_weights = msda_backward(
             value, ctx.spatial_shapes, pos, weights, grad_out.contiguous(),
             None if radius is None else query_shapes, radius)
+        # each gradient in its input's dtype: pos and weights are f32
         return d_value, None, d_pos, d_weights, None
 
 
@@ -593,3 +644,6 @@ msda_backward.launches = 0
 # self-attention from its cross-attention
 msda.launches_by_queries = collections.Counter()
 msda_backward.launches_by_queries = collections.Counter()
+# and by the value's dtype: which instance ran
+msda.launches_by_dtype = collections.Counter()
+msda_backward.launches_by_dtype = collections.Counter()

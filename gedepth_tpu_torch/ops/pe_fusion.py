@@ -9,6 +9,11 @@ cam_height (B,); returns (B, H, W).
 On a CUDA tensor the wrapper runs `PEFusionFunction`: the hand-written
 forward kernel of `csrc/pe_fusion.cu` (E) and the VJP of the plain version
 as its backward. On a CPU tensor it runs the plain version.
+
+Kernel E is f32. Inside every `bf16_scope` it sees f32 (the PE necks and the
+fusion are always f32); only a model cast to bf16 as a whole hands it bf16
+logits, y and PE. The wrapper then lifts them to f32, launches E and rounds
+the result to bf16 once; the plain version does the same.
 """
 from __future__ import annotations
 
@@ -23,7 +28,13 @@ DEG2RAD = float(np.float32(np.pi / 180.0))
 
 
 def pe_fusion_plain(slope_logits, pe_comput, y, cam_height, depth_scale):
-    """Plain PyTorch version: the math of `pe_fusion_xla`."""
+    """Plain PyTorch version: the math of `pe_fusion_xla`; bf16 inputs are
+    lifted to f32 and the result rounded to bf16 once, as the wrapper does
+    around kernel E."""
+    if slope_logits.dtype == torch.bfloat16:
+        return pe_fusion_plain(slope_logits.float(), pe_comput.float(),
+                               y.float(), cam_height.float(),
+                               depth_scale).to(slope_logits.dtype)
     probs = slope_logits.softmax(dim=-1)
     centers = torch.as_tensor(SLOPE_BIN_CENTERS_DEG, device=probs.device)
     slope_deg = (probs * centers).sum(-1)
@@ -87,13 +98,19 @@ def pe_fusion(slope_logits, pe_comput, y, cam_height, depth_scale):
                                depth_scale)
     if slope_logits.device.type != "cuda":
         raise ValueError(f"pe_fusion: no kernel for {slope_logits.device}")
-    for t in (slope_logits, pe_comput, y, cam_height):
-        if t.dtype != torch.float32:
-            raise TypeError(f"pe_fusion kernel is f32, got {t.dtype}")
+    tensors = (slope_logits, pe_comput, y, cam_height)
+    dtype = slope_logits.dtype
+    if dtype not in (torch.float32, torch.bfloat16) \
+            or any(t.dtype != dtype for t in tensors):
+        raise TypeError("pe_fusion takes inputs of one dtype, f32 or bf16, "
+                        f"got {[t.dtype for t in tensors]}")
+    if dtype == torch.bfloat16:
+        # E keeps its one f32 instance: lifted in, rounded out once
+        tensors = tuple(t.float() for t in tensors)
+    for t in tensors:
         if not t.is_contiguous():
             raise ValueError("pe_fusion kernel needs contiguous inputs")
-    return PEFusionFunction.apply(slope_logits, pe_comput, y, cam_height,
-                                  depth_scale)
+    return PEFusionFunction.apply(*tensors, depth_scale).to(dtype)
 
 
 pe_fusion.launches = 0

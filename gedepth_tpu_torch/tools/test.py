@@ -4,7 +4,7 @@
         [--max-images N] [--batch-size B] [--no-tta]
         [--aug-test --aug-ratios 0.75,1.0,1.25]
         [--slide --slide-tile H,W --slide-stride H,W]
-        [--device-metrics] [--device cuda]
+        [--device-metrics] [--bf16] [--device cuda]
 
 Runs the `Evaluator` over the preset's test split and prints the aggregate
 of the 9 metrics as one JSON line. The repository holds no KITTI data, so
@@ -45,11 +45,16 @@ def main(argv=None):
                         help="H,W slide step (default: half the tile)")
     parser.add_argument("--device-metrics", action="store_true",
                         help="compute the per-image metrics on the device")
+    parser.add_argument("--bf16", action="store_true",
+                        help="cast the whole model to bf16 once and run the "
+                        "eval forward in bf16 (depth clamp and final resize "
+                        "stay f32)")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
 
     import torch
 
+    from gedepth_tpu_torch.apis.inference import cast_params_bf16
     from gedepth_tpu_torch.eval import Evaluator
     from gedepth_tpu_torch.train.loop import build_eval_dataset
 
@@ -59,18 +64,23 @@ def main(argv=None):
         model.load_state_dict(torch.load(args.state_dict, map_location="cpu",
                                          weights_only=True), strict=True)
     model.to(torch.device(args.device))
+    if args.bf16:
+        cast_params_bf16(model, "all")
+    elif cfg.model.bf16_scope != "none":
+        cast_params_bf16(model, cfg.model.bf16_scope)
     ratios = (tuple(float(r) for r in args.aug_ratios.split(","))
               if args.aug_test else ())
     evaluator = Evaluator(model, build_eval_dataset(cfg), cfg.data,
                           batch_size=args.batch_size,
                           flip_tta=False if args.no_tta else None,
                           ms_ratios=ratios,
-                          device_metrics=args.device_metrics,
+                          device_metrics=args.device_metrics, bf16=args.bf16,
                           mode="slide" if args.slide else None,
                           slide_tile=args.slide_tile,
                           slide_stride=args.slide_stride)
     agg, per_image = evaluator.run(max_images=args.max_images, progress=50)
-    print(json.dumps(dict(agg, images=len(per_image), config=cfg.name)))
+    print(json.dumps(dict(agg, images=len(per_image), config=cfg.name,
+                          bf16=args.bf16)))
 
 
 if __name__ == "__main__":

@@ -1,7 +1,7 @@
 """Training CLI of the port (the counterpart of tools/train.py).
 
     python -m gedepth_tpu_torch.tools.train <preset> [--max-iters N]
-        [--work-dir DIR] [--seed S] [--device cuda]
+        [--work-dir DIR] [--seed S] [--bf16-compute] [--device cuda]
 
 Trains the preset from the port's seeded initialisation on one device, at
 the preset's global batch, and prints one line per step (loss, its parts,
@@ -21,12 +21,19 @@ def main(argv=None):
     parser.add_argument("--work-dir", default=None)
     parser.add_argument("--max-iters", type=int, default=None)
     parser.add_argument("--seed", type=int, default=None)
+    parser.add_argument("--bf16-compute", action="store_true",
+                        help="train.bf16_compute=True: forward and backward "
+                        "in bf16 on f32 master weights")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
 
     cfg = get_config(args.config)
     if args.seed is not None:
         cfg = cfg.replace(train=dataclasses.replace(cfg.train, seed=args.seed))
+
+    if args.bf16_compute:
+        cfg = cfg.replace(train=dataclasses.replace(cfg.train,
+                                                    bf16_compute=True))
 
     from gedepth_tpu_torch.train.loop import train
 

@@ -26,7 +26,7 @@ from gedepth_tpu_torch.train.steps import (
 
 
 @contextlib.contextmanager
-def _cudnn_autotuner():
+def cudnn_autotuner():
     """cuDNN's autotuner on (`torch.backends.cudnn.benchmark`), restored
     after. Its default heuristic picks FFT algorithms for the f32 3x3
     convolutions at 88x176 of the 352x704 crop: 66 GB of workspace and
@@ -79,7 +79,9 @@ def train(cfg, work_dir: Optional[str] = None,
 
     Each step takes cfg.train.global_batch samples on this one device; its
     BatchNorm statistics span them all, as the reference's SyncBN spans the
-    global batch over its GPUs. max_iters: steps to run, and the length of
+    global batch over its GPUs. cfg.train.bf16_compute runs forward and
+    backward in bf16 on f32 master weights (`train.steps.make_train_step`).
+    max_iters: steps to run, and the length of
     the LR schedule, as in the JAX loop (default cfg.train.max_iters).
     work_dir: where `train.log.jsonl` is appended, one line every
     log_interval steps and at the last (none when None)."""
@@ -90,7 +92,8 @@ def train(cfg, work_dir: Optional[str] = None,
                             generator=torch.Generator().manual_seed(seed))
     state = create_train_state(model, cfg.optim, max_iters, seed=seed + 1)
     train_step = make_train_step(cfg.optim.sig_loss_weight,
-                                 cfg.optim.slope_ce_weight)
+                                 cfg.optim.slope_ce_weight,
+                                 bf16=cfg.train.bf16_compute)
     loader = TrainLoader(build_train_dataset(cfg),
                          build_train_pipeline(cfg.data, cfg.model.depth_scale),
                          cfg.train.global_batch, seed=seed)
@@ -100,7 +103,7 @@ def train(cfg, work_dir: Optional[str] = None,
     history = []
     batches = iter(loader)
     cuda = device.type == "cuda"
-    with _cudnn_autotuner(), contextlib.closing(batches):
+    with cudnn_autotuner(), contextlib.closing(batches):
         for it in range(max_iters):
             batch = batch_to_device(next(batches), device)
             if cuda:

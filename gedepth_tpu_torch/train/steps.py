@@ -12,8 +12,18 @@ Eval steps: `make_eval_step` (whole image, flip-TTA, one multi-scale ratio
 with the PE channels resampled exactly: `resize_pe_exact`,
 `resize_img5_scaled`) and `make_slide_eval_step` (sliding window). They
 take (img, cam_height) tensors and return (B, H, W) depth; the model holds
-its weights, so there is no params argument. The JAX steps' `bf16` argument
-is not ported yet.
+its weights, so there is no params argument.
+
+bf16. The JAX steps cast the parameter tree inside every call. Here the
+eval steps' `bf16=True` takes a model whose weights were cast once
+(`apis.inference.cast_params_bf16(model, "all")`), casts the input, and
+lifts the depth to f32 before the clamp and the final resize; the flag and
+the weights must agree. The train step's `bf16=True`
+(`TrainConfig.bf16_compute`) casts the f32 master parameters and the input
+to bf16 at the apply boundary (`torch.func.functional_call`), so forward and
+backward run in bf16 while gradients flow back through the cast into f32
+`.grad`s: masters, gradients, the clip, AdamW's moments, the losses and the
+BatchNorm statistics stay f32.
 """
 from __future__ import annotations
 
@@ -79,9 +89,23 @@ def batch_to_device(batch, device):
             for k in keys if k in batch}
 
 
+def _apply_bf16(model, img, cam_height):
+    """The model's forward on bf16 copies of its f32 parameters and of the
+    input; the copies are differentiable casts of the masters. Buffers (the
+    BatchNorm statistics) are the module's own f32 tensors, updated in
+    place."""
+    params = {name: p.to(torch.bfloat16) if p.dtype == torch.float32 else p
+              for name, p in model.named_parameters()}
+    return torch.func.functional_call(
+        model, params, (img.to(torch.bfloat16), cam_height))
+
+
 def make_train_step(sig_loss_weight: float = 1.0,
-                    slope_ce_weight: float = 0.08):
+                    slope_ce_weight: float = 0.08, bf16: bool = False):
     """train_step(state, batch) -> metrics, updating `state` in place.
+
+    bf16=True runs forward and backward in bf16 on f32 master weights
+    (`_apply_bf16`); the losses are taken on f32 copies of the outputs.
 
     batch: img (B, H, W, 5|3), depth_gt (B, H, W) with 0 = invalid, pe_k_gt
     (B, H, W) slope classes (adaptive models only), cam_height (B,), tensors
@@ -95,7 +119,10 @@ def make_train_step(sig_loss_weight: float = 1.0,
         model.set_generator(state.generator)
         state.optimizer.zero_grad(set_to_none=True)
 
-        out = model(batch["img"], batch.get("cam_height"))
+        if bf16:
+            out = _apply_bf16(model, batch["img"], batch.get("cam_height"))
+        else:
+            out = model(batch["img"], batch.get("cam_height"))
         gt = batch["depth_gt"][..., None]
         depth = resize_bilinear(out["depth"].float(), gt.shape[1:3],
                                 align_corners=True)
@@ -135,18 +162,38 @@ def snap32(n: int, ratio: float) -> int:
     return max(32, int(round(n * ratio / 32)) * 32)
 
 
-def make_eval_step(model, flip_tta: bool = True, ratio: float = 1.0):
+def _cast_input(model, img, bf16):
+    """The step's input in the precision its flag names, after holding the
+    flag against the model's weights: bf16=True wants a model cast as a
+    whole, bf16=False one that is not."""
+    whole = all(p.dtype == torch.bfloat16 for p in model.parameters()
+                if p.is_floating_point())
+    if bf16 != whole:
+        raise ValueError(
+            "eval step with bf16=True needs a model cast by "
+            "cast_params_bf16(model, 'all'), and bf16=False one that was "
+            f"not: bf16={bf16}, weights all bf16: {whole}")
+    return img.to(torch.bfloat16) if bf16 else img
+
+
+def make_eval_step(model, flip_tta: bool = True, ratio: float = 1.0,
+                   bf16: bool = False):
     """eval_step(img (B, H, W, 5|3), cam_height (B,)) -> (B, H, W) depth.
 
     Flip-TTA averages the prediction with the un-flipped prediction of the
     mirrored image. ratio != 1.0 is one view of multi-scale TTA: the input
     is resized to the ratio (snapped to multiples of 32) with its PE
     channels resampled exactly (`resize_img5_scaled`), and the prediction
-    is resized back to the base resolution."""
+    is resized back to the base resolution.
+
+    bf16=True: the model (cast once as a whole) and the input in bf16, the
+    ratio resize on the bf16 input, depth lifted to f32 before the clamp and
+    the final resize; f32 out."""
     pe_clip_scale = float(model.depth_scale)
 
     @torch.inference_mode()
     def eval_step(img, cam_height=None):
+        img = _cast_input(model, img, bf16)
         base_hw = tuple(img.shape[1:3])
         if ratio != 1.0:
             img = resize_img5_scaled(
@@ -202,12 +249,14 @@ def slide_positions(size: int, tile: int, stride: int):
     return [min(i * stride, size - tile) for i in range(n)]
 
 
-def make_slide_eval_step(model, tile, stride, flip_tta: bool = True):
+def make_slide_eval_step(model, tile, stride, flip_tta: bool = True,
+                         bf16: bool = False):
     """Sliding-window eval step: eval_step(img, cam_height) -> (B, H, W).
 
     Every crop of `tile` = (h, w), `stride` apart, runs the same forward;
     depth is clamped per crop, overlapping predictions are averaged through
-    an accumulate/count pair, and flip-TTA wraps the whole slide."""
+    an accumulate/count pair (f32), and flip-TTA wraps the whole slide.
+    bf16 as in `make_eval_step`."""
     th, tw = int(tile[0]), int(tile[1])
     sh, sw = int(stride[0]), int(stride[1])
     if sh > th or sw > tw:
@@ -216,6 +265,7 @@ def make_slide_eval_step(model, tile, stride, flip_tta: bool = True):
 
     @torch.inference_mode()
     def eval_step(img, cam_height=None):
+        img = _cast_input(model, img, bf16)
         B, H, W = img.shape[:3]
         if th > H or tw > W:
             raise ValueError(f"slide tile {(th, tw)} larger than input "

@@ -196,14 +196,15 @@ LEFT_OUT = {
     # the zoo's loss composition
     "optim": {"aux_loss_indices", "aux_loss_weights", "class_ce_weight",
               "chamfer_weight"},
-    # eval in the loop, checkpoints, bf16 and multi-process loading are not
-    # ported yet
+    # eval in the loop, checkpoints and multi-process loading are not ported
+    # yet
     "train": {"eval_interval", "checkpoint_interval", "max_keep_ckpts",
-              "save_best", "bf16_compute", "num_workers", "sampling"},
+              "save_best", "num_workers", "sampling"},
 }
 
 REFERENCE_PRESETS = ("gedepth_adaptive_kitti",
                      "gedepth_adaptive_kitti_compat",
+                     "gedepth_adaptive_kitti_parity",
                      "gedepth_vanilla_kitti", "depthformer_baseline_kitti")
 
 
@@ -234,13 +235,13 @@ def test_reference_presets_match_jax(name):
 
 def test_unsupported_modes_raise():
     _, tmodel_cfg = _configs(False)
-    with pytest.raises(NotImplementedError):
-        dataclasses.replace(tmodel_cfg, bf16_scope="backbone").build()
+    with pytest.raises(ValueError, match="bf16_scope"):
+        dataclasses.replace(tmodel_cfg, bf16_scope="neck").build()
     for over in (dict(neck_sampling="bicubic"), dict(pe_variant="learned")):
         with pytest.raises(ValueError):
             dataclasses.replace(tmodel_cfg, **over).build()
     with pytest.raises(KeyError):
-        get_config("gedepth_adaptive_kitti_parity")    # needs bf16_scope
+        get_config("gedepth_adaptive_kitti_fp8")       # no such preset
 
 
 def test_port_imports_neither_jax_nor_gedepth_tpu():

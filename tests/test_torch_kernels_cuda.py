@@ -19,7 +19,9 @@ summed in an order that changes from run to run, to rtol 2e-4 plus atol
 and without it (every corner from device memory); both must agree with the
 plain versions for any positions: those of the windowed rule and those of
 the exact, nearest and compat rules, whose reference points may sit on the
-image border and whose offsets may be ±1e9.
+image border and whose offsets may be ±1e9. The bf16 instances of A, B and
+C are held to float64 evaluations of their bf16 inputs (see the section at
+the end of the file).
 """
 import numpy as np
 import pytest
@@ -632,3 +634,242 @@ def test_neck_modes_launch_the_kernels_under_autograd(sampling):
     assert (moved == 0) == (sampling == "nearest")
     assert (got["reference_points.weight"].abs().sum().item() == 0) == (
         sampling == "nearest")
+
+
+# ---- the bf16 instances of A, B and C --------------------------------
+#
+# A bf16 kernel takes bf16 in, computes in f32 and rounds once; its plain
+# version rounds alike but not bit for bit, so both are held to a float64
+# evaluation of the same bf16 inputs: the kernel's largest error is at most
+# max(2 x the plain version's, one bf16 ulp at the output's largest
+# magnitude; for kernel C's f32 outputs 1e-5 of theirs).
+
+BF16 = torch.bfloat16
+
+
+def _bf16_ulp(x):
+    return 2.0 ** (int(np.floor(np.log2(max(x, 1e-30)))) - 7)
+
+
+def _assert_close_to_f64(got, plain, ref, floor=None):
+    ref = ref.double()
+    err = (got.double() - ref).abs().max().item()
+    plain_err = (plain.double() - ref).abs().max().item()
+    if floor is None:
+        floor = _bf16_ulp(ref.abs().max().item())
+    assert bool(torch.isfinite(got).all())
+    assert err <= max(2 * plain_err, floor), (err, plain_err, floor)
+
+
+@pytest.mark.parametrize("bias_dtype", [BF16, torch.float32])
+@pytest.mark.parametrize("nWB,N,H,D,grid", [
+    (572, 49, 6, 32, (91, 308)), (676, 49, 6, 32, (91, 182)),
+    (44, 49, 24, 32, (28, 77)), (12, 49, 48, 32, None),
+    # N != 49, D in {8, 64} and widths that are not multiples of 16
+    (12, 36, 4, 32, (12, 18)), (10, 9, 3, 64, None), (10, 64, 3, 64, None),
+    (7, 33, 2, 8, None), (16, 49, 2, 24, (14, 28)), (5, 16, 2, 56, None)])
+def test_window_attention_bf16_kernel(nWB, N, H, D, grid, bias_dtype):
+    g = torch.Generator(device="cuda").manual_seed(20)
+    qkv = _randn(g, nWB, N, 3, H, D).to(BF16)
+    q, k, v = qkv[:, :, 0] * D ** -0.5, qkv[:, :, 1], qkv[:, :, 2]
+    assert not k.is_contiguous()
+    bias = _randn(g, H, N, N).to(bias_dtype)
+    mask = None
+    if grid is not None:
+        win = int(round(N ** 0.5))
+        mask = torch.as_tensor(shifted_window_mask(*grid, win, win // 2),
+                               device="cuda")
+    before = wa.window_attention.launches_by_dtype[BF16]
+    got = wa.window_attention(q, k, v, bias, mask)
+    torch.cuda.synchronize()
+    assert got.dtype == BF16
+    assert wa.window_attention.launches_by_dtype[BF16] == before + 1
+    ref = wa.window_attention_plain(
+        *(t.double() for t in (q, k, v, bias)),
+        None if mask is None else mask.double())
+    _assert_close_to_f64(got, wa.window_attention_plain(q, k, v, bias, mask),
+                         ref)
+    if mask is not None:        # a bf16 mask (0 / -100 are exact) too
+        again = wa.window_attention(q, k, v, bias, mask.to(BF16))
+        assert torch.equal(again, got)
+
+
+def test_window_attention_bf16_kernel_large_logits():
+    g = torch.Generator(device="cuda").manual_seed(21)
+    qkv = (_randn(g, 44, 49, 3, 24, 32) * 16.0).to(BF16)
+    q, k, v = qkv[:, :, 0] * 32 ** -0.5, qkv[:, :, 1], qkv[:, :, 2] / 16.0
+    bias = _randn(g, 24, 49, 49).to(BF16)
+    mask = torch.as_tensor(shifted_window_mask(28, 77, 7, 3), device="cuda")
+    got = wa.window_attention(q, k, v.contiguous(), bias, mask)
+    ref = wa.window_attention_plain(
+        *(t.double() for t in (q, k, v, bias, mask)))
+    _assert_close_to_f64(got, wa.window_attention_plain(q, k, v, bias, mask),
+                         ref)
+
+
+@pytest.mark.parametrize("case", [
+    "mixed_qk", "float16_bias", "row_stride", "misaligned", "f32_q_bf16_bias"])
+def test_window_attention_bf16_kernel_refuses(case):
+    """What the bf16 instance does not take raises and launches nothing:
+    no cast to f32 around the f32 kernel, no plain version."""
+    nWB, N, H, D = 4, 49, 2, 32
+    g = torch.Generator(device="cuda").manual_seed(22)
+    qkv = _randn(g, nWB, N, 3, H, D).to(BF16)
+    q, k, v = qkv[:, :, 0] * D ** -0.5, qkv[:, :, 1], qkv[:, :, 2]
+    bias = _randn(g, H, N, N).to(BF16)
+    row, error = H * D, ValueError
+    base = torch.zeros(4096 * 64, device="cuda", dtype=BF16)
+    if case == "mixed_qk":
+        k, error = k.float(), TypeError
+    elif case == "float16_bias":
+        bias, error = bias.to(torch.float16), TypeError
+    elif case == "f32_q_bf16_bias":
+        q, k, v, error = q.float(), k.float(), v.float(), TypeError
+    elif case == "row_stride":       # rows 4 elements apart from 16 bytes
+        v = base.as_strided((nWB, N, H, D), (N * (row + 4), row + 4, D, 1))
+    elif case == "misaligned":       # 8 bytes into a 16-byte unit
+        q = base.as_strided((nWB, N, H, D), (N * row, row, D, 1), 4)
+    before = wa.window_attention.launches
+    with pytest.raises(error):
+        wa.window_attention(q, k, v, bias, None)
+    assert wa.window_attention.launches == before
+
+
+def test_window_attention_bf16_gradients_in_input_dtypes():
+    g = torch.Generator(device="cuda").manual_seed(23)
+    qkv = _randn(g, 8, 49, 3, 2, 32).to(BF16).requires_grad_()
+    bias = _randn(g, 2, 49, 49).to(BF16).requires_grad_()
+    out = wa.window_attention(qkv[:, :, 0] * 32 ** -0.5, qkv[:, :, 1],
+                              qkv[:, :, 2], bias)
+    out.float().square().sum().backward()
+    assert qkv.grad.dtype == BF16 and bias.grad.dtype == BF16
+    assert bool(torch.isfinite(qkv.grad).all()) and qkv.grad.abs().sum() > 0
+
+
+def _bf16_msda_case(g, query_shapes, levels, B, h, d, P, spread, far):
+    Nq = sum(a * b for a, b in query_shapes)
+    S = sum(a * b for a, b in levels)
+    value = _randn(g, B, S, h, d).to(BF16)
+    pos = msda_ops.windowed_positions(
+        spread * _randn(g, B, Nq, h, len(levels), P, 2), query_shapes,
+        levels, 4)
+    if far:     # a tenth of the samples out of their windows and levels
+        kick = _randn(g, *pos.shape) * torch.where(
+            torch.rand(pos.shape[:-1], generator=g, device="cuda") < 0.1,
+            1e6, 60.0)[..., None]
+        pos = pos + kick * (torch.rand(pos.shape[:-1], generator=g,
+                                       device="cuda") < 0.1)[..., None]
+    w = _randn(g, B, Nq, h, len(levels) * P).softmax(-1).view(
+        B, Nq, h, len(levels), P)
+    return value, pos, w, _randn(g, B, Nq, h * d).to(BF16)
+
+
+@pytest.mark.parametrize("far", [False, True])
+@pytest.mark.parametrize("query_shapes,levels,B,h,d", [
+    (((5, 13),), ((10, 26), (5, 13)), 2, 2, 24),      # d % 8 == 0, lanes idle
+    (((3, 5),), ((12, 20),), 1, 2, 64),               # one level
+    (((6, 10),), ((12, 20), (6, 10)), 1, 3, 12),      # d % 8 != 0: scalar
+    (((4, 6),), ((8, 12), (4, 6)), 1, 2, 7),          # odd head width
+    (((44, 88), (22, 44), (11, 22)),
+     ((88, 176), (44, 88), (22, 44), (11, 22)), 2, 8, 64),
+    (((176, 352),), ((88, 176), (44, 88), (22, 44), (11, 22)), 1, 8, 64)])
+def test_msda_bf16_kernels(query_shapes, levels, B, h, d, far):
+    """B and C on a bf16 value, with the hint and without, against float64
+    of the same inputs; gradients in their inputs' dtypes."""
+    g = torch.Generator(device="cuda").manual_seed(24)
+    value, pos, w, gout = _bf16_msda_case(g, query_shapes, levels, B, h, d,
+                                          4, 2.0, far)
+    ref = msda_ops.msda_plain(value.double(), levels, pos.double(),
+                              w.double())
+    plain = msda_ops.msda_plain(value, levels, pos, w)
+    ref_b = msda_ops.msda_backward_plain(value.double(), levels, pos.double(),
+                                         w.double(), gout.double())
+    plain_b = msda_ops.msda_backward_plain(value, levels, pos, w, gout)
+    for hint in ((query_shapes, 4), ()):
+        before = (msda_ops.msda.launches_by_dtype[BF16],
+                  msda_ops.msda_backward.launches_by_dtype[BF16])
+        got = msda_ops.msda(value, levels, pos, w, *hint)
+        got_b = msda_ops.msda_backward(value, levels, pos, w, gout, *hint)
+        torch.cuda.synchronize()
+        assert (msda_ops.msda.launches_by_dtype[BF16],
+                msda_ops.msda_backward.launches_by_dtype[BF16]) == (
+                    before[0] + 1, before[1] + 1)
+        assert got.dtype == BF16
+        assert [t.dtype for t in got_b] == [BF16, torch.float32,
+                                            torch.float32]
+        _assert_close_to_f64(got, plain, ref)
+        _assert_close_to_f64(got_b[0], plain_b[0], ref_b[0])
+        for i in (1, 2):
+            _assert_close_to_f64(got_b[i], plain_b[i], ref_b[i],
+                                 floor=1e-5 * ref_b[i].abs().max().item())
+
+
+def test_msda_bf16_unaligned_value_takes_the_scalar_instance():
+    g = torch.Generator(device="cuda").manual_seed(25)
+    levels, grids = ((8, 12), (4, 6)), ((4, 6),)
+    value, pos, w, _ = _bf16_msda_case(g, grids, levels, 1, 2, 64, 4, 2.0,
+                                       False)
+    shifted = torch.empty(value.numel() + 1, device="cuda", dtype=BF16)[1:]
+    shifted = shifted.view(value.shape).copy_(value)
+    assert shifted.data_ptr() % 16 == 2
+    assert torch.equal(msda_ops.msda(shifted, levels, pos, w, grids, 4),
+                       msda_ops.msda(value, levels, pos, w, grids, 4))
+
+
+@pytest.mark.parametrize("case", ["pos_bf16", "weights_bf16", "gout_f32",
+                                  "value_f16"])
+def test_msda_bf16_kernels_refuse(case):
+    """pos and weights are f32 at the kernels' boundary and grad_out has the
+    value's dtype; anything else raises and launches nothing."""
+    g = torch.Generator(device="cuda").manual_seed(26)
+    levels, grids = ((4, 6),), ((4, 6),)
+    value, pos, w, gout = _bf16_msda_case(g, grids, levels, 1, 2, 8, 2, 1.0,
+                                          False)
+    if case == "pos_bf16":
+        pos = pos.to(BF16)
+    elif case == "weights_bf16":
+        w = w.to(BF16)
+    elif case == "gout_f32":
+        gout = gout.float()
+    elif case == "value_f16":
+        value, gout = value.to(torch.float16), gout.to(torch.float16)
+    before = msda_ops.msda.launches, msda_ops.msda_backward.launches
+    if case != "gout_f32":
+        with pytest.raises(TypeError):
+            msda_ops.msda(value, levels, pos, w, grids, 4)
+    with pytest.raises(TypeError):
+        msda_ops.msda_backward(value, levels, pos, w, gout, grids, 4)
+    assert before == (msda_ops.msda.launches, msda_ops.msda_backward.launches)
+
+
+def test_msda_bf16_autograd_uses_the_bf16_kernels():
+    g = torch.Generator(device="cuda").manual_seed(27)
+    levels, grids = ((8, 12), (4, 6)), ((8, 12), (4, 6))
+    value, pos, w, gout = _bf16_msda_case(g, grids, levels, 2, 2, 32, 4, 2.0,
+                                          False)
+    value, pos, w = (t.requires_grad_() for t in (value, pos, w))
+    before = msda_ops.msda_backward.launches_by_dtype[BF16]
+    out = msda_ops.msda(value, levels, pos, w, grids, 4)
+    out.backward(gout)
+    assert msda_ops.msda_backward.launches_by_dtype[BF16] == before + 1
+    assert value.grad.dtype == BF16 and pos.grad.dtype == torch.float32 \
+        and w.grad.dtype == torch.float32
+    want = msda_ops.msda_backward_plain(value.detach(), levels, pos.detach(),
+                                        w.detach(), gout)
+    torch.testing.assert_close(pos.grad, want[1], rtol=2e-4, atol=2e-5)
+
+
+def test_pe_fusion_lifts_bf16_inputs_around_the_f32_kernel():
+    g = torch.Generator(device="cuda").manual_seed(28)
+    logits = _randn(g, 1, 64, 128, 11).to(BF16)
+    pe = (torch.rand(1, 64, 128, generator=g, device="cuda") * 78 + 2).to(BF16)
+    y = torch.rand(1, 64, 128, generator=g, device="cuda").to(BF16)
+    cam = torch.full((1,), 1.65, device="cuda", dtype=BF16)
+    before = pe_ops.pe_fusion.launches
+    got = pe_ops.pe_fusion(logits, pe, y, cam, 200.0)
+    assert got.dtype == BF16 and pe_ops.pe_fusion.launches == before + 1
+    want = pe_ops.pe_fusion_plain(logits, pe, y, cam, 200.0)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                               atol=1e-2)
+    with pytest.raises(TypeError):
+        pe_ops.pe_fusion(logits, pe.float(), y, cam, 200.0)

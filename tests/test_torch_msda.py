@@ -135,7 +135,8 @@ def test_msdeform_attention_matches_flax():
     variables = _random_variables(init, *args, seed=2)
     want = np.asarray(jax.jit(apply)(variables, *args))
 
-    tm = MSDeformAttention(C, heads, len(levels), P, R).eval()
+    tm = MSDeformAttention(C, heads, len(levels), P, R,
+                           sampling="windowed").eval()
     tm.load_state_dict(_strip(state_dict_from_flax(
         {"neck": {"self_attn": variables["params"]}}), "neck.self_attn."),
         strict=True)
@@ -161,7 +162,8 @@ def test_hahi_neck_matches_flax(hi_min_level):
     want = jax.jit(lambda v, x: jm.apply(v, x))(variables, args)
 
     tm = HAHINeck(chans, chans, embed_dim=32, num_heads=2, num_points=3,
-                  window_radius=R, hi_min_level=hi_min_level).eval()
+                  sampling="windowed", window_radius=R,
+                  hi_min_level=hi_min_level).eval()
     tm.load_state_dict(_strip(state_dict_from_flax(
         {"neck": variables["params"]}, {"neck": variables["batch_stats"]}),
         "neck."), strict=True)
@@ -371,16 +373,16 @@ def test_tile_plan_windows_hold_what_their_queries_reach(case):
                 continue
             assert 0 <= y_lo and y_lo + rh <= Hl
             assert 0 <= x_lo and x_lo + rw <= Wl
-            assert rh * rw * 64 <= plan.stage_floats
+            assert rh * rw * 64 <= plan.stage_elems
             ay = msda_ops.axis_anchor_residual(Hq, Hl)[0][y0:y0 + th]
             ax = msda_ops.axis_anchor_residual(Wq, Wl)[0][x0:x0 + tw]
             assert y_lo <= max(ay.min() - (R + 1), 0)
             assert y_lo + rh - 1 >= min(ay.max() + (R + 1), Hl - 1)
             assert x_lo <= max(ax.min() - (R + 1), 0)
             assert x_lo + rw - 1 >= min(ax.max() + (R + 1), Wl - 1)
-    assert plan.stage_floats % 4 == 0 and plan.stage_floats > 0
+    assert plan.stage_elems % 4 == 0 and plan.stage_elems > 0
     # 1 KB of an SM's shared memory is reserved per resident block
-    assert 2 * (msda_ops.shared_bytes(plan.stage_floats, 64, 16) + 1024) \
+    assert 2 * (msda_ops.shared_bytes(plan.stage_elems, 64, 16) + 1024) \
         <= msda_ops.SM_SHARED_BYTES
 
 
@@ -407,11 +409,11 @@ def test_tile_plan_stages_what_fits_and_marks_the_rest():
     assert all(staged["serve_self_hi1", 2, 3])
     # without a radius nothing is staged and the queries are one row
     grids, levels, plan = _plan("serve_cross", radius=None)
-    assert plan.stage_floats == 0
+    assert plan.stage_elems == 0
     assert (plan.rows[:, msda_ops.TILE_HEADER:] == 0).all()
     # a tighter budget stages fewer levels, never a larger window
     _, _, small = _plan("serve_cross", stage_bytes=40 * 1024)
-    assert 0 < small.stage_floats * 4 <= 40 * 1024
+    assert 0 < small.stage_elems * 4 <= 40 * 1024
     assert (small.rows[:, msda_ops.TILE_HEADER + 2] == 0).any()
 
 

@@ -324,7 +324,8 @@ def test_hahi_neck_modes_match_flax(mode, hi_min_level):
 
 def test_windowed_neck_has_no_reference_points_layer():
     assert not hasattr(thahi.HAHINeck(NECK_CHANS, NECK_CHANS, embed_dim=32,
-                                      num_heads=2, num_points=3),
+                                      num_heads=2, num_points=3,
+                                      sampling="windowed"),
                        "reference_points")
     _, tm, _, _ = _neck_pair("bilinear", 0, seed=8)
     assert tuple(tm.reference_points.weight.shape) == (2, 32)

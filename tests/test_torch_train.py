@@ -240,7 +240,8 @@ def test_hahi_neck_batch_stats_match_flax(monkeypatch):
         v, x, train=True, mutable=["batch_stats"]))(variables, args)
 
     tm = HAHINeck(chans, chans, embed_dim=32, num_heads=2, num_points=3,
-                  window_radius=4, hi_min_level=1).train()
+                  sampling="windowed", window_radius=4,
+                  hi_min_level=1).train()
     _no_dropout(tm)
     sd = state_dict_from_flax({"neck": variables["params"]},
                               {"neck": variables["batch_stats"]})
@@ -266,7 +267,7 @@ def test_msdeform_attention_dropout_in_training_only():
     query = torch.from_numpy(rng.normal(0, 1, (2, 8, 16)).astype(np.float32))
     value = torch.from_numpy(rng.normal(0, 1, (2, 40, 16)).astype(
         np.float32))
-    m = MSDeformAttention(16, 2, 2, 2, 4)
+    m = MSDeformAttention(16, 2, 2, 2, 4, sampling="windowed")
     with torch.no_grad():
         for p in m.parameters():
             p.copy_(torch.from_numpy(rng.normal(0, 0.3, p.shape).astype(
