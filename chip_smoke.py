@@ -39,7 +39,9 @@ with its host-clock seconds); any failure raises and exits non-zero:
      352x704, batch 2, on synthetic KITTI-shaped frames from the seeded
      initialisation; every metric finite, every parameter's gradient present
      and finite after the run, a few named ones non-zero, and kernels A, B,
-     C and E launched by it;
+     C and E launched by it; the loop's evaluation at the last step (2
+     synthetic 352x1216 frames, flip-TTA, f32: 24 A, 2 B and 1 E a forward)
+     with the nine metrics finite (phases 11 and 18 alike);
   8. whole step: one train step with the kernels and one with the plain
      versions on the same weights, batch and generator seed (full Swin-L,
      crop 176x352, batch 2): loss rtol 1e-4, each parameter's gradient
@@ -129,15 +131,35 @@ with its host-clock seconds); any failure raises and exits non-zero:
      each after the autotuned ones): one JSON line each with the median
      device time by events (gaps included), the busy time by the profiler,
      host ms, idle share and peak memory.
-The phases run in the order 1, 2, 3, 6, 13, 9, 4, 5, 7, 8, 10, 11, 12,
-14-19: every kernel check comes before the first model, because
+ 20. checkpointed training: `train()` of the main preset at 352x704, batch 2,
+     4 steps, evaluation (2 images, flip-TTA) and a checkpoint every 2
+     steps, keep 1, in a temporary work dir: two `val` records with the
+     nine metrics finite, one checkpoint, `best_abs_rel.npz`; the save and
+     restore seconds and the checkpoint's bytes; `restore_checkpoint` into
+     a fresh state bit-equal to the returned state (parameters, BatchNorm
+     statistics, AdamW moments, step); then `train(resume_from=...,
+     max_iters=6)`: steps 5 and 6 at the schedule's LR, finite losses,
+     kernels A, B, C and E launched;
+ 21. weights in: one request served by `init_depther(checkpoint=
+     best_abs_rel.npz)`, bit-equal to one served with `state_dict=` of the
+     same weights; the weights written as a reference `.pth` (`module.`
+     keys under `state_dict`, `relative_position_index` buffers), converted
+     by `tools.convert_torch_checkpoint` and served, bit-equal again; the
+     same with a 3-channel patch embed (padded with zeros; its twin has a
+     zero 4th channel); the `.pth` converted to the parity preset's tree
+     too, which reports the reference points missing;
+ 22. compat_check: `tools.compat_check` on that parity tree (phase-20
+     weights, reference points seeded), radii 5 and 6, one image: finite
+     deltas, clamp masses in [0, 1], a RECOMMENDATION line.
+The phases run in the order 1, 2, 3, 6, 13, 9, 4, 5, 7, 8, 20-22, 10, 11,
+12, 14-19: every kernel check comes before the first model, because
 `torch.profiler` loses device activities as a process ages, and all of
 them once it has trained.
 A `device_ms` that is not within a tenth of its `event_ms` (kernels of
 0.5 ms and more) is printed, dropped and null in its row; `event_ms` is in
 every row. Then the kernels as one JSON line. The first four rows
-carry their kernel's launches over the whole of phase 7 (`launches`,
-`launches_train`) and of phase 4 (`launches_serving`). The rows of phase
+carry their kernel's launches over the whole of phase 7, its steps and the
+evaluation at its end (`launches`, `launches_train`) and of phase 4 (`launches_serving`). The rows of phase
 9's shapes carry the launches that the wrapper counted at that row's query
 count on its own path: the requests of phase 10 for the serving shapes, the
 3 steps of phase 11 for the train crop's. `bound_ms` is the larger of the
@@ -160,6 +182,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
@@ -907,14 +930,21 @@ TRAIN_GRADS = ("backbone.stages.0.blocks.0.attn.w_msa.qkv.weight",
                "dynamic_pe_neck.conv0.weight")
 
 
+EVAL_IMAGES = 2          # the loop's evaluation at the last step: 2 images
+EVAL_FORWARDS = 2 * EVAL_IMAGES              # x flip-TTA
+
+
 def phase_train(preset=PRESET, steps=5, nonzero=TRAIN_GRADS, tag="[train]",
                 queries=(5082, 61952), bf16=False):
     """`queries`: the self- and the cross-attention's queries per sample;
-    B and C must each have been launched once a step at each. bf16:
+    B and C must each have been launched once a step at each. The loop's
+    evaluation at the last step (EVAL_IMAGES images with flip-TTA, f32
+    masters) adds 24 A, 2 B and 1 E a forward at the eval size. bf16:
     `TrainConfig.bf16_compute`; then the bf16 instances of A, B and C must
-    have run, and every parameter, gradient, AdamW moment and buffer must
-    be f32 (or integer) and finite afterwards. Returns (launches, launches
-    by queries, the later steps' peak memory in MiB)."""
+    have run the steps, and every parameter, gradient, AdamW moment and
+    buffer must be f32 (or integer) and finite afterwards. Returns
+    (launches, launches by queries, launches by dtype, the later steps'
+    peak memory in MiB)."""
     from gedepth_tpu_torch.configs import get_config
     from gedepth_tpu_torch.train.loop import train
 
@@ -927,10 +957,13 @@ def phase_train(preset=PRESET, steps=5, nonzero=TRAIN_GRADS, tag="[train]",
     counters = _kernel_counters()
     reset_counts(counters)
     t0 = time.perf_counter()
-    state, history = train(cfg, max_iters=steps, device="cuda")
+    state, history, best = train(cfg, max_iters=steps,
+                                 eval_max_images=EVAL_IMAGES, device="cuda")
     wall = time.perf_counter() - t0
     launches, by_queries = read_counts(counters)
     by_dtype = read_dtypes(counters)
+    vals = [r for r in history if r["mode"] == "val"]
+    history = [r for r in history if r["mode"] == "train"]
 
     print(f"{tag} train({preset!r}, max_iters={steps}), global_batch 2, "
           f"bf16_compute {bf16}, "
@@ -948,17 +981,24 @@ def phase_train(preset=PRESET, steps=5, nonzero=TRAIN_GRADS, tag="[train]",
           f"{max(r['peak_mem_mib'] for r in history[1:]):.1f} MiB; "
           f"launches {launches}, by queries per sample {by_queries}, by "
           f"dtype {by_dtype}", flush=True)
+    check_val(tag, vals, steps, best)
     instance = "bf16" if bf16 else "f32"
     want_dtype = {"window_attention": {instance: 24 * steps},
                   "msda": {instance: 2 * steps},
                   "msda_backward": {instance: 2 * steps}}
+    for name, n in (("window_attention", 24), ("msda", 2)):
+        want_dtype[name]["f32"] = (want_dtype[name].get("f32", 0)
+                                   + n * EVAL_FORWARDS)
     if by_dtype != want_dtype:
         fail(f"{preset}: instances launched {by_dtype}, expected "
              f"{want_dtype}")
+    if launches["pe_fusion"] != steps + EVAL_FORWARDS:
+        fail(f"{preset}: E launched {launches['pe_fusion']} times, expected "
+             f"{steps + EVAL_FORWARDS}")
     if bf16:
         check_f32_state(state, steps, tag)
     for r in history:
-        if not all(np.isfinite(v) for v in r.values()):
+        if not all(np.isfinite(v) for k, v in r.items() if k != "mode"):
             fail(f"non-finite train metrics at iter {r['iter']}: {r}")
     missing, bad = [], []
     for name, p in state.model.named_parameters():
@@ -981,12 +1021,36 @@ def phase_train(preset=PRESET, steps=5, nonzero=TRAIN_GRADS, tag="[train]",
         if n <= 0:
             fail(f"kernel {name} was not launched on the train path")
     once_a_step = {q: steps for q in queries}
-    if by_queries != {"msda": once_a_step, "msda_backward": once_a_step}:
+    evals = {q: n for q, n in by_queries["msda"].items() if q not in queries}
+    if (by_queries["msda_backward"] != once_a_step
+            or {q: by_queries["msda"].get(q) for q in queries} != once_a_step
+            or sorted(evals.values()) != [EVAL_FORWARDS] * 2):
         fail(f"{preset}: B and C launched {by_queries}, expected "
-             f"{once_a_step} each")
+             f"{once_a_step} each and B {EVAL_FORWARDS} times at each of "
+             "the evaluation's two query counts")
     del state
     torch.cuda.empty_cache()
-    return launches, by_queries, max(r["peak_mem_mib"] for r in history[1:])
+    return (launches, by_queries, by_dtype,
+            max(r["peak_mem_mib"] for r in history[1:]))
+
+
+def check_val(tag, vals, steps, best):
+    """The train loop's evaluation at the last step: one 'val' record of
+    the nine metrics, finite, over EVAL_IMAGES images; it is the best."""
+    metrics = ("abs_rel", "sq_rel", "rmse", "rmse_log", "log_10", "silog",
+               "a1", "a2", "a3")
+    if [r["iter"] for r in vals] != [steps] or any(
+            r["images"] != EVAL_IMAGES
+            or not all(np.isfinite(r[k]) for k in metrics) for r in vals):
+        fail(f"{tag}: evaluations {vals}, expected one of {EVAL_IMAGES} "
+             f"images at step {steps} with the nine metrics finite")
+    if best != vals[-1]:
+        fail(f"{tag}: best {best} is not the last evaluation")
+    r = vals[-1]
+    print(f"{tag} eval @ {steps}: " + " ".join(
+        f"{k}={r[k]:.6g}" for k in metrics) + f"; {r['images']} images in "
+        f"{r['time']:.2f} s ({r['time'] / r['images'] * 1e3:.1f} ms an "
+        "image, flip-TTA, cuDNN's autotuner on)", flush=True)
 
 
 def check_f32_state(state, steps, tag):
@@ -1643,6 +1707,258 @@ def phase_evaluator(model):
         fail("device metrics disagree with the numpy metrics")
 
 
+def _states_equal(a, b):
+    """Names of what differs between two `TrainState`s, bit for bit: the
+    model's parameters and buffers, AdamW's moments and step counts, and
+    `step`."""
+    bad = [] if a.step == b.step else ["step"]
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    bad += [k for k in sa if not torch.equal(sa[k], sb[k])]
+    oa = a.optimizer.state_dict()["state"]
+    ob = b.optimizer.state_dict()["state"]
+    if oa.keys() != ob.keys() or not oa:
+        bad.append("optimizer state keys")
+    bad += [f"optimizer {i} {n}" for i in oa for n, t in oa[i].items()
+            if not torch.equal(t.cpu(), ob[i][n].cpu())]
+    return bad
+
+
+def phase_checkpoints(work):
+    """Phase 20: `train()` with evaluation and checkpoints every 2 steps,
+    restore, resume. Returns (the best weights' .npz, a CPU copy of the
+    weights it was written from)."""
+    import dataclasses
+    import os
+    import os.path as osp
+
+    from gedepth_tpu_torch.configs import get_config
+    from gedepth_tpu_torch.train import checkpoint as ckpt
+    from gedepth_tpu_torch.train import loop
+    from gedepth_tpu_torch.train.optim import lr_schedule
+    from gedepth_tpu_torch.train.steps import create_train_state
+
+    cfg = get_config(PRESET)
+    cfg = cfg.replace(train=dataclasses.replace(
+        cfg.train, global_batch=2, eval_interval=2, checkpoint_interval=2,
+        max_keep_ckpts=1))
+    saves, npz_saves, best_weights = [], [], {}
+    keeper_save, npz_save = ckpt.CheckpointKeeper.save, loop.save_params_only
+
+    def timed_save(self, state, step):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = keeper_save(self, state, step)
+        saves.append((step, time.perf_counter() - t0, os.path.getsize(path)))
+        return path
+
+    def timed_npz(path, model):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        npz_save(path, model)
+        npz_saves.append((time.perf_counter() - t0, os.path.getsize(path)))
+        best_weights.clear()
+        best_weights.update({k: v.detach().cpu().clone()
+                             for k, v in model.state_dict().items()})
+
+    counters = _kernel_counters()
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    with mock.patch.object(ckpt.CheckpointKeeper, "save", timed_save), \
+            mock.patch.object(loop, "save_params_only", timed_npz):
+        state, history, best = loop.train(cfg, work_dir=work, max_iters=4,
+                                          eval_max_images=EVAL_IMAGES,
+                                          device="cuda")
+    wall = time.perf_counter() - t0
+    launches, _ = read_counts(counters)
+    vals = [r for r in history if r["mode"] == "val"]
+    ckpts = osp.join(work, "ckpts")
+    best_npz = osp.join(work, "best_abs_rel.npz")
+    print(f"[ckpt] train({PRESET!r}, max_iters=4), eval and checkpoint "
+          f"every 2 steps, keep 1: {wall:.2f} s including init; launches "
+          f"{launches}; checkpoints {ckpt.checkpoint_steps(ckpts)}; files "
+          f"{sorted(os.listdir(work))}", flush=True)
+    metrics = ("abs_rel", "sq_rel", "rmse", "rmse_log", "log_10", "silog",
+               "a1", "a2", "a3")
+    for r in vals:
+        print(f"[ckpt] eval @ {r['iter']}: " + " ".join(
+            f"{k}={r[k]:.6g}" for k in metrics) + f"; {r['images']} images, "
+            f"{r['time'] / r['images'] * 1e3:.1f} ms an image", flush=True)
+    if [r["iter"] for r in vals] != [2, 4] or not all(
+            np.isfinite(r[k]) for r in vals for k in metrics):
+        fail(f"expected evaluations at steps 2 and 4, finite: {vals}")
+    if ckpt.checkpoint_steps(ckpts) != [4] or not osp.exists(best_npz):
+        fail("expected one checkpoint (step 4) and best_abs_rel.npz")
+    if [s[0] for s in saves] != [2, 4] or not npz_saves:
+        fail(f"saves {saves}, best .npz writes {npz_saves}")
+    print(f"[ckpt] best abs_rel {best['abs_rel']:.6g} at step "
+          f"{best['iter']}; checkpoint saves (step, s, bytes) {saves}; best "
+          f".npz writes (s, bytes) {npz_saves}", flush=True)
+
+    fresh = create_train_state(
+        cfg.model.build(device="cuda",
+                        generator=torch.Generator().manual_seed(SEED + 7)),
+        cfg.optim, 4, seed=cfg.train.seed + 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt.restore_checkpoint(ckpts, fresh)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    bad = _states_equal(state, fresh)
+    print(f"[ckpt] restore_checkpoint of {saves[-1][2]} bytes into a fresh "
+          f"state: {restore_s:.2f} s; bit-equal parameters, buffers, AdamW "
+          f"moments and step: {not bad}", flush=True)
+    if bad:
+        fail(f"restored state differs: {bad[:8]} ({len(bad)})")
+    del state, fresh
+    torch.cuda.empty_cache()
+
+    reset_counts(counters)
+    resumed, history, _ = loop.train(cfg, max_iters=6, resume_from=ckpts,
+                                     eval_max_images=EVAL_IMAGES,
+                                     device="cuda")
+    launches, _ = read_counts(counters)
+    steps = [r for r in history if r["mode"] == "train"]
+    schedule = lr_schedule(cfg.optim.max_lr, 6, cfg.optim.warmup_iters,
+                           cfg.optim.warmup_ratio, cfg.optim.min_lr_ratio)
+    for r in steps:
+        print(f"[ckpt] resumed iter {r['iter']} loss={r['loss']:.6f} "
+              f"lr={r['lr']:.6e} step_ms={r['time'] * 1e3:.3f}", flush=True)
+    if [r["iter"] for r in steps] != [5, 6] or resumed.step != 6:
+        fail(f"resume ran iters {[r['iter'] for r in steps]}, step "
+             f"{resumed.step}")
+    if [r["lr"] for r in steps] != [schedule(4), schedule(5)]:
+        fail(f"resumed LR {[r['lr'] for r in steps]}, the schedule gives "
+             f"{[schedule(4), schedule(5)]}")
+    if not all(np.isfinite(r["loss"]) for r in steps):
+        fail("non-finite loss after resume")
+    if min(launches.values()) <= 0:
+        fail(f"resumed run launched {launches}")
+    print(f"[ckpt] resumed at step 4 for steps 5-6: LR at the schedule's "
+          f"4 and 5 of 6, finite losses, launches {launches}", flush=True)
+    del resumed
+    torch.cuda.empty_cache()
+    return best_npz, best_weights
+
+
+def _reference_pth(path, state_dict, window=7):
+    """`state_dict` as a reference training checkpoint holds it: under
+    `state_dict`, keys prefixed `module.`, with the relative_position_index
+    buffers the port computes on the fly."""
+    from gedepth_tpu_torch.models.swin import relative_position_index
+
+    out = {"module." + k: v for k, v in state_dict.items()}
+    index = torch.from_numpy(relative_position_index(window, window))
+    for k in state_dict:
+        if k.endswith("relative_position_bias_table"):
+            out["module." + k.replace("bias_table", "index")] = index
+    torch.save({"meta": {"iter": 4}, "state_dict": out}, path)
+
+
+def phase_weights_in(work, best_npz, best_weights, requests):
+    """Phase 21: serve the best .npz and the same weights by state_dict,
+    then as a reference .pth through tools.convert_torch_checkpoint (with
+    a 4- and a 3-channel patch embed); every depth bit-equal to its
+    state_dict twin. Returns the .pth converted to the parity preset's
+    tree (reference points seeded) for phase 22."""
+    import os.path as osp
+
+    from gedepth_tpu_torch.apis import inference_depther, init_depther
+    from gedepth_tpu_torch.tools import convert_torch_checkpoint
+
+    rgb, pe = requests[0]
+
+    def serve(**weights):
+        handle = init_depther(PRESET, device="cuda", pe_raw=pe, seed=SEED,
+                              **weights)
+        depth = inference_depther(handle, rgb)
+        del handle
+        torch.cuda.empty_cache()
+        check_depth("[weights]", depth, get_config_model(PRESET))
+        return depth
+
+    def same(label, a, b):
+        equal = np.array_equal(a, b)
+        print(f"[weights] {label}: depth bit-equal {equal} (max |diff| "
+              f"{np.abs(a - b).max():.3e} m)", flush=True)
+        if not equal:
+            fail(f"{label}: depth differs")
+
+    t0 = time.perf_counter()
+    by_npz = serve(checkpoint=best_npz)
+    print(f"[weights] init_depther(checkpoint=best_abs_rel.npz) and one "
+          f"request: {time.perf_counter() - t0:.2f} s", flush=True)
+    same("best_abs_rel.npz against state_dict=", by_npz,
+         serve(state_dict=best_weights))
+
+    key = "backbone.patch_embed.projection.weight"
+    rgb_only = dict(best_weights)
+    rgb_only[key] = best_weights[key][:, :3].clone()
+    padded = dict(best_weights)
+    padded[key] = torch.cat([rgb_only[key],
+                             torch.zeros_like(rgb_only[key][:, :1])], dim=1)
+    parity_npz = None
+    for label, weights, twin in (("4-channel", best_weights, by_npz),
+                                 ("3-channel", rgb_only, None)):
+        pth = osp.join(work, "reference.pth")
+        out = osp.join(work, "converted.npz")
+        _reference_pth(pth, weights)
+        t0 = time.perf_counter()
+        report = convert_torch_checkpoint.main([pth, PRESET, out])
+        print(f"[weights] tools.convert_torch_checkpoint ({label} patch "
+              f"embed): {time.perf_counter() - t0:.2f} s, report "
+              f"{report}", flush=True)
+        if any(report.values()):
+            fail(f"{label}: conversion report {report}")
+        if twin is None:
+            twin = serve(state_dict=padded)
+        same(f"reference .pth ({label} patch embed) against state_dict=",
+             serve(checkpoint=out), twin)
+        if parity_npz is None:
+            parity_npz = osp.join(work, "parity.npz")
+            report = convert_torch_checkpoint.main([pth, PARITY, parity_npz])
+            want = ["neck.reference_points.bias",
+                    "neck.reference_points.weight"]
+            if sorted(report["missing_params"]) != want \
+                    or report["unmapped_torch_keys"] \
+                    or report["missing_stats"]:
+                fail(f"windowed .pth into the parity tree: {report}")
+    return parity_npz
+
+
+def get_config_model(name):
+    from gedepth_tpu_torch.configs import get_config
+
+    return get_config(name).model
+
+
+def phase_compat_check(npz):
+    """Phase 22: tools.compat_check on the phase-20 weights in the parity
+    tree, radii 5 and 6, one image."""
+    from gedepth_tpu_torch.configs import get_config
+    from gedepth_tpu_torch.tools import compat_check as cc
+
+    cfg = get_config(PARITY)
+    t0 = time.perf_counter()
+    rows = cc.compat_check(cfg, npz, (5, 6), budget=1e-3, images=1,
+                           seed=SEED, device="cuda")
+    seconds = time.perf_counter() - t0
+    print(f"[compat] compat_check({PARITY!r}, radii 5 and 6, 1 image of "
+          f"{cfg.data.eval_size}): {seconds:.2f} s (seeded weights trained "
+          "4 steps, reference points seeded: not a contract)")
+    print(cc.format_table(rows, cfg.model.bf16_scope))
+    line = cc.recommendation(rows, PARITY, cfg.model.bf16_scope, 1e-3)
+    print(line, flush=True)
+    for r in rows:
+        masses = list(r["clamp_mass"].values())
+        if not (np.isfinite(r["delta_f32"]) and np.isfinite(r["delta_scope"])
+                and all(0.0 <= m <= 1.0 for m in masses)):
+            fail(f"compat_check row {r}")
+    if not line.startswith("RECOMMENDATION:"):
+        fail("no recommendation")
+
+
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1675,11 +1991,20 @@ def main():
     del handle
     torch.cuda.empty_cache()
     lap("serving, whole forward (phases 4, 5)")
-    launches, _, f32_peak = phase_train()
+    launches, _, _, f32_peak = phase_train()
     phase_whole_step()
     lap("train, whole step (phases 7, 8)")
+    # weights in and out, while cuDNN's choices for the train crop are warm
+    with tempfile.TemporaryDirectory() as work:
+        best_npz, best_weights = phase_checkpoints(work)
+        lap("checkpointed training, restore, resume (phase 20)")
+        parity_npz = phase_weights_in(work, best_npz, best_weights, requests)
+        del best_weights
+        lap("weights in: .npz and reference .pth (phase 21)")
+        phase_compat_check(parity_npz)
+        lap("compat_check (phase 22)")
     exact, preset_launches = phase_presets(requests)
-    _, exact_train, _ = phase_train(
+    _, exact_train, _, _ = phase_train(
         EXACT, steps=3, tag="[train exact]", queries=(20570, 61952),
         nonzero=("neck.reference_points.weight",
                  "neck.multi_att.sampling_offsets.weight",
@@ -1697,7 +2022,7 @@ def main():
     lap("parity, scopes, accuracy, bf16 evaluation (phases 14-17)")
     del whole
     torch.cuda.empty_cache()
-    bf16_train, bf16_by_queries, bf16_peak = phase_train(
+    _, bf16_by_queries, bf16_dtypes, bf16_peak = phase_train(
         steps=3, tag="[train bf16]", bf16=True,
         nonzero=TRAIN_GRADS + ("neck.multi_att.sampling_offsets.weight",
                                "neck.multi_att.attention_weights.weight"))
@@ -1765,7 +2090,8 @@ def main():
         rule, shape = name[name.index("[") + 1:-1].split()[-2:]
         train_shape = shape.startswith("train")
         if kernel == "window_attention_bf16":
-            n = bf16_train["window_attention"] if train_shape else parity_a
+            n = (bf16_dtypes["window_attention"]["bf16"] if train_shape
+                 else parity_a)
         elif kernel == "msda_bf16":
             n = b_bf16.get((rule, t["queries"]), 0)
         else:

@@ -28,6 +28,7 @@ import torch
 from gedepth_tpu_torch.configs import get_config
 from gedepth_tpu_torch.data.transforms import build_test_pipeline
 from gedepth_tpu_torch.geometry.plane import clip_pe_for_input
+from gedepth_tpu_torch.train.checkpoint import load_params_only
 from gedepth_tpu_torch.train.steps import make_eval_step  # noqa: F401
 
 
@@ -79,11 +80,16 @@ def init_depther(config: Union[str, object], device="cuda",
                  flip_tta: Optional[bool] = None,
                  pe_raw: Optional[np.ndarray] = None, seed: int = 0,
                  state_dict: Optional[dict] = None,
-                 bf16: bool = False) -> DeptherHandle:
+                 bf16: bool = False,
+                 checkpoint: Optional[str] = None) -> DeptherHandle:
     """Build a model and its eval step for single-image inference.
 
     The weights are the port's seeded random initialisation, or
-    `state_dict` (e.g. `convert.state_dict_from_flax`) loaded strictly.
+    `state_dict` (e.g. `convert.state_dict_from_flax`) loaded strictly, or
+    `checkpoint`, a params-only `.npz` of either package
+    (`train.checkpoint.load_params_only`: the train loop's best weights,
+    `tools.convert_torch_checkpoint`'s output), loaded strictly before any
+    bf16 cast. TF32 is left as the caller set it.
     pe_raw: the camera's raw plane embedding at the raw image size, needed
     when feeding 3-channel images to a model with a PE variant.
     bf16: serve the whole model in bf16 (cast once here; the eval step casts
@@ -95,6 +101,8 @@ def init_depther(config: Union[str, object], device="cuda",
     model = cfg.model.build(generator=torch.Generator().manual_seed(seed))
     if state_dict is not None:
         model.load_state_dict(state_dict, strict=True)
+    if checkpoint is not None:
+        load_params_only(checkpoint, model)
     model.to(device)
     if bf16:
         cast_params_bf16(model, "all")

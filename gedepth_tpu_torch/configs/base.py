@@ -8,7 +8,7 @@ parameter layout, which `convert.from_jax` unstacks), the remat switches
 (memory only), `neck_value_bf16` (bf16 values in an f32 neck: the port's
 bf16 goes by `bf16_scope`, whole-model casts and `bf16_compute`), the zoo's
 fields, and the fields of modules not ported yet (real datasets,
-checkpoints, multi-process loading).
+multi-process loading).
 """
 from __future__ import annotations
 
@@ -105,8 +105,14 @@ class OptimConfig:
 class TrainConfig:
     max_iters: int = 1600 * 48
     global_batch: int = 16                # 8 GPUs x 2 in the reference
+    eval_interval: int = 800
+    checkpoint_interval: int = 800
+    max_keep_ckpts: int = 2
     log_interval: int = 10
     seed: int = 0
+    # the metric whose best value writes best_{save_best}.npz; rule 'less'
+    # for the six error metrics, 'greater' for a1-a3 (train.loop.best_rule)
+    save_best: str = "abs_rel"
     # bf16 mixed-precision training: forward and backward in bf16
     # (parameters and inputs cast at the apply boundary), master parameters,
     # gradients, optimizer state, losses and BatchNorm statistics f32
@@ -120,6 +126,8 @@ class ExperimentConfig:
     data: DataConfig = field(default_factory=DataConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    # the command-line trainer writes to work_dir/name
+    work_dir: str = "work_dirs"
 
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)

@@ -56,7 +56,8 @@ _PRESETS = {
         data=DataConfig(dataset="synthetic", crop_size=(96, 192),
                         eval_size=(96, 192), synthetic_size=16),
         optim=OptimConfig(warmup_iters=10),
-        train=TrainConfig(max_iters=50, global_batch=2)),
+        train=TrainConfig(max_iters=50, global_batch=2, eval_interval=25,
+                          checkpoint_interval=25)),
 }
 
 

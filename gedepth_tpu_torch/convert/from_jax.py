@@ -20,6 +20,11 @@ ground embedding has no `pe_mask_neck` and a 3-channel patch embed, and only
 the adaptive one has `dynamic_pe_neck`. `load_flax_variables` loads a tree
 into a model strictly and says which of the two, sampling mode or PE
 variant, does not match when the keys differ.
+
+`flax_variables_from_state_dict` goes the other way, in the per-block Swin
+layout (the JAX package's `load_params_only` adapts it to either
+`swin_scan`); `train.checkpoint.save_params_only` writes it as the JAX
+package's `.npz`.
 """
 from __future__ import annotations
 
@@ -125,6 +130,97 @@ def _torch_name(names):
         if names[1] == "conv_depth":
             return f"decode_head.conv_depth.{leaf}"
     raise KeyError(f"no port parameter for {'/'.join(names)}")
+
+
+def _flax_module(key):
+    """Flax module path of one reference key without its leaf (the inverse
+    of `_torch_name`'s module rules, per-block Swin layout)."""
+    p = key.split(".")
+    if p[0] == "backbone":
+        if p[1] == "patch_embed":
+            return ("backbone", "patch_embed", p[2])
+        if p[1] == "stages" and p[3] == "blocks":
+            block = ("backbone", f"stage{p[2]}_block{p[4]}")
+            if p[5] in ("norm1", "norm2"):
+                return block + (p[5],)
+            if p[5] == "attn":
+                return block + ("attn",) + tuple(p[7:-1])
+            if p[5] == "ffn":
+                return block + ("ffn", "Dense_0" if p[7] == "0" else "Dense_1")
+        if p[1] == "stages" and p[3] == "downsample":
+            return ("backbone", f"downsample{p[2]}", p[4])
+        if re.fullmatch(r"norm\d+", p[1]):
+            return ("backbone", p[1])
+        if p[1] == "conv1":
+            return ("backbone", "conv_stem", "Conv_0")
+        if p[1] == "bn1":
+            return ("backbone", "conv_stem", "BatchNorm_0")
+    if p[0] == "neck":
+        conv_bn = {"conv": "Conv_0", "bn": "BatchNorm_0"}
+        for torch_base, flax_base in (("lateral_convs", "lateral"),
+                                      ("trans_proj", "trans_proj"),
+                                      ("trans_fusion", "trans_fusion")):
+            if p[1] == torch_base:
+                return ("neck", flax_base + p[2], conv_bn[p[3]])
+        if p[1] in ("conv_proj", "conv_fusion"):
+            return ("neck", p[1], conv_bn[p[3]])
+        if p[1] == "reference_points":
+            return ("neck", p[1])
+        if p[1] in ("self_attn", "multi_att"):
+            return ("neck", "self_attn" if p[1] == "self_attn"
+                    else "cross_attn", p[2])
+    if p[0] in ("pe_mask_neck", "dynamic_pe_neck"):
+        return ((p[0], p[1]) if p[1] == "convfinal"
+                else (p[0], "fuse", p[1]))
+    if p[0] == "decode_head":
+        if p[1] == "conv_list":
+            if p[2] == "0":
+                return ("decode_head", "conv0", "Conv_0")
+            return ("decode_head", f"up{p[2]}", p[3], "Conv_0")
+        if p[1] == "conv_depth":
+            return ("decode_head", "conv_depth")
+    raise KeyError(f"no flax path for {key}")
+
+
+def flax_path(key: str, ndim: int):
+    """(collection, flax path) of one port state_dict entry of `ndim`
+    dimensions, the inverse of `_torch_name`; None for
+    `num_batches_tracked`, which flax does not keep. A `weight` is a
+    `kernel` when it has two dimensions or more, else a norm's `scale`."""
+    leaf = key.rsplit(".", 1)[1]
+    if leaf == "num_batches_tracked":
+        return None
+    if key == "neck.level_embed":
+        return "params", ("neck", "level_embed")
+    if leaf == "relative_position_bias_table":
+        return "params", _flax_module(key) + (leaf,)
+    stats = {"running_mean": "mean", "running_var": "var"}
+    if leaf in stats:
+        return "batch_stats", _flax_module(key) + (stats[leaf],)
+    if leaf == "weight":
+        leaf = "kernel" if ndim >= 2 else "scale"
+    return "params", _flax_module(key) + (leaf,)
+
+
+def flax_variables_from_state_dict(state_dict: Mapping):
+    """(params, batch_stats) of the JAX GEDepth, nested dicts of f32 numpy
+    arrays in the per-block Swin layout, for the port's `state_dict`: conv
+    kernels OIHW -> HWIO, dense kernels transposed, `num_batches_tracked`
+    dropped. The inverse of `state_dict_from_flax`."""
+    trees = {"params": {}, "batch_stats": {}}
+    for key, t in state_dict.items():
+        where = flax_path(key, t.dim())
+        if where is None:
+            continue
+        collection, names = where
+        arr = t.detach().float().cpu().numpy()
+        if names[-1] == "kernel":
+            arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+        node = trees[collection]
+        for n in names[:-1]:
+            node = node.setdefault(n, {})
+        node[names[-1]] = np.ascontiguousarray(arr)
+    return trees["params"], trees["batch_stats"]
 
 
 def state_dict_from_flax(params: Mapping, batch_stats: Mapping = None):

@@ -1,0 +1,207 @@
+"""Load a reference GEDepth `.pth` (or an official Swin ImageNet checkpoint)
+into the port's model (the GEDepth part of
+`gedepth_tpu.convert.torch_to_jax`).
+
+The port's parameters carry the reference's names, so a reference state
+dict needs no renaming, only what the JAX converter does around its
+renames:
+
+  * `load_torch_checkpoint`: unwrap `state_dict` or `model`, strip the
+    `module.` prefix of a DataParallel save;
+  * `swin_official_to_gedepth`: official Swin keys to the reference
+    backbone's, with the PatchMerging channel reorder;
+  * `reference_key_rule`: which keys are GEDepth's (kept), which the model
+    recomputes or does not keep (dropped: `relative_position_index`,
+    `num_batches_tracked`) and which are neither (reported as unmapped);
+  * `pad_patch_embed_for_pe`: a 3-channel patch embed zero-padded to the 4
+    channels of a model with ground embedding;
+  * `resize_swin_pos_tables`: relative-position tables of another window
+    size resized bicubically (`F.interpolate`, the reference's own call);
+  * `convert_checkpoint_file`: all of it into a model, whose missing keys
+    keep their seeded initialisation, with a report of the unmapped and
+    missing keys.
+"""
+from __future__ import annotations
+
+import re
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+
+_BLOCK_LEAVES = {
+    "norm1.weight", "norm1.bias", "norm2.weight", "norm2.bias",
+    "attn.w_msa.relative_position_bias_table",
+    "attn.w_msa.qkv.weight", "attn.w_msa.qkv.bias",
+    "attn.w_msa.proj.weight", "attn.w_msa.proj.bias",
+    "ffn.layers.0.0.weight", "ffn.layers.0.0.bias",
+    "ffn.layers.1.weight", "ffn.layers.1.bias"}
+_CONVMODULE_LEAVES = {"conv.weight", "conv.bias", "bn.weight", "bn.bias",
+                      "bn.running_mean", "bn.running_var"}
+_WB = r"(weight|bias)"
+# GEDepth's reference keys outside the Swin blocks and the ConvModules
+# (gedepth_tpu/convert/torch_to_jax.py `_map_torch_key`)
+_KEPT = [re.compile(p + "$") for p in (
+    r"backbone\.absolute_pos_embed",
+    r"backbone\.patch_embed\.(projection|norm)\." + _WB,
+    r"backbone\.stages\.\d+\.downsample\.(norm|reduction)\." + _WB,
+    r"backbone\.norm\d\." + _WB,
+    r"backbone\.conv1\.weight",
+    r"backbone\.bn1\.(weight|bias|running_mean|running_var)",
+    r"neck\.reference_points\." + _WB,
+    r"neck\.level_embed",
+    r"neck\.(self_attn|multi_att)\.(sampling_offsets|attention_weights|"
+    r"value_proj|output_proj)\." + _WB,
+    r"(pe_mask_neck|dynamic_pe_neck)\.(conv\d|convfinal)\." + _WB,
+    r"decode_head\.conv_list\.0\.conv\." + _WB,
+    r"decode_head\.conv_list\.\d+\.(convA|convB)\.conv\." + _WB,
+    r"decode_head\.conv_depth\." + _WB)]
+_CONVMODULE = re.compile(r"neck\.(lateral_convs\.\d+|trans_proj\.\d+|"
+                         r"trans_fusion\.\d+|conv_proj\.0|conv_fusion\.0)\."
+                         r"(.*)$")
+_BLOCK = re.compile(r"backbone\.stages\.\d+\.blocks\.\d+\.(.*)$")
+
+
+def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """The tensors of a `.pth` on the CPU, by key: the `state_dict` or
+    `model` entry of a training checkpoint, `module.` prefixes stripped.
+    Loaded with `weights_only=True`: tensors and plain containers only."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    for key in ("state_dict", "model"):
+        if isinstance(ckpt, dict) and key in ckpt:
+            ckpt = ckpt[key]
+            break
+    return {(k[7:] if k.startswith("module.") else k): v
+            for k, v in ckpt.items() if torch.is_tensor(v)}
+
+
+def swin_official_to_gedepth(sd: Dict[str, torch.Tensor]):
+    """Official Swin checkpoint keys -> reference backbone keys (without the
+    `backbone.` prefix): layers -> stages, mlp -> ffn, attn -> attn.w_msa,
+    patch_embed.proj -> projection, the classifier head dropped, and the
+    PatchMerging reduction and norm reordered from the official position-
+    major concatenation [(0,0), (1,0), (0,1), (1,1)] to the channel-major
+    raster order of torch's Unfold (the reference's
+    `correct_unfold_reduction_order`)."""
+    out = {}
+    for k, v in sd.items():
+        if k.startswith("head."):
+            continue
+        nk = (k.replace("layers.", "stages.")
+              .replace("patch_embed.proj", "patch_embed.projection")
+              .replace("mlp.fc1", "ffn.layers.0.0")
+              .replace("mlp.fc2", "ffn.layers.1"))
+        m = re.match(r"(.*)\.attn\.(qkv|proj|relative_position_bias_table|"
+                     r"relative_position_index)(.*)", nk)
+        if m:
+            nk = f"{m.group(1)}.attn.w_msa.{m.group(2)}{m.group(3)}"
+        if "downsample.reduction.weight" in nk:
+            o, i = v.shape
+            v = v.reshape(o, 4, i // 4)[:, [0, 2, 1, 3], :]
+            v = v.transpose(1, 2).reshape(o, i)
+        elif "downsample.norm." in nk:
+            i = v.shape[0]
+            v = v.reshape(4, i // 4)[[0, 2, 1, 3], :]
+            v = v.transpose(0, 1).reshape(i)
+        out[nk] = v.contiguous()
+    return out
+
+
+def reference_key_rule(key: str):
+    """True for a GEDepth reference key the port keeps, False for one it
+    drops (`attn.w_msa.relative_position_index`, computed by the model;
+    BatchNorm's `num_batches_tracked`), None for a key no rule maps."""
+    m = _BLOCK.match(key)
+    if m:
+        if m.group(1) in _BLOCK_LEAVES:
+            return True
+        return False if m.group(1) == "attn.w_msa.relative_position_index" \
+            else None
+    m = _CONVMODULE.match(key)
+    if m:
+        if m.group(2) in _CONVMODULE_LEAVES:
+            return True
+        return False if m.group(2) == "bn.num_batches_tracked" else None
+    if key == "backbone.bn1.num_batches_tracked":
+        return False
+    return True if any(p.match(key) for p in _KEPT) else None
+
+
+def pad_patch_embed_for_pe(sd: Dict[str, torch.Tensor]):
+    """Zero-pad a 3-channel patch-embed conv to 4 input channels, in place
+    (the reference's depthformer_swin.py:1113-1123); returns `sd`."""
+    key = "backbone.patch_embed.projection.weight"
+    if key in sd and sd[key].shape[1] == 3:
+        w = sd[key]
+        sd[key] = torch.cat([w, torch.zeros_like(w[:, :1])], dim=1)
+    return sd
+
+
+def resize_swin_pos_tables(sd: Dict[str, torch.Tensor],
+                           model_sd: Dict[str, torch.Tensor]):
+    """Resize, in place, every `relative_position_bias_table` (L1, nH) whose
+    L1 differs from the model's L2 through its (2w-1, 2w-1) grid with
+    `F.interpolate(mode="bicubic", align_corners=False)` in float64; a
+    table with another head count or a non-square grid is left alone (the
+    reference warns and skips). Returns `sd`."""
+    for k, v in sd.items():
+        want = model_sd.get(k)
+        if (not k.endswith("relative_position_bias_table") or want is None
+                or v.shape == want.shape or v.shape[-1] != want.shape[-1]):
+            continue
+        s1, s2 = round(v.shape[0] ** 0.5), round(want.shape[0] ** 0.5)
+        if s1 * s1 != v.shape[0] or s2 * s2 != want.shape[0]:
+            continue
+        grid = v.double().T.reshape(1, -1, s1, s1)         # (1, nH, S, S)
+        grid = F.interpolate(grid, size=(s2, s2), mode="bicubic",
+                             align_corners=False)
+        sd[k] = grid.reshape(-1, s2 * s2).T.to(v.dtype).contiguous()
+    return sd
+
+
+def convert_state_dict(sd: Dict[str, torch.Tensor]):
+    """(kept entries, unmapped keys) of a reference state dict, by
+    `reference_key_rule`."""
+    rules = {k: reference_key_rule(k) for k in sd}
+    return ({k: v for k, v in sd.items() if rules[k]},
+            [k for k, r in rules.items() if r is None])
+
+
+def convert_checkpoint_file(pth_path: str, model, official_swin=False):
+    """Load a reference `.pth` into `model` (the port's `GEDepth`, on any
+    device); returns (model, report).
+
+    official_swin: the file is an official Swin ImageNet checkpoint; its
+    backbone goes in and the rest of the model keeps its weights. A model
+    with ground embedding takes a 3-channel patch embed zero-padded; Swin
+    tables of another window size are resized. Keys of the file that the
+    model lacks (the windowed neck's `reference_points`, say) are ignored,
+    as the JAX converter ignores them; model keys the file lacks keep their
+    values. report: `unmapped_torch_keys` (keys no GEDepth rule maps),
+    `missing_params` and `missing_stats` (model parameters and BatchNorm
+    running statistics the file did not give)."""
+    sd = load_torch_checkpoint(pth_path)
+    if official_swin:
+        sd = {f"backbone.{k}": v
+              for k, v in swin_official_to_gedepth(sd).items()}
+    sd, unmapped = convert_state_dict(sd)
+    if model.pe_variant != "none":
+        pad_patch_embed_for_pe(sd)
+    merged = model.state_dict()
+    resize_swin_pos_tables(sd, merged)
+    params = dict(model.named_parameters())
+    missing_p, missing_s = [], []
+    for k, want in merged.items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        if k not in sd:
+            (missing_p if k in params else missing_s).append(k)
+        elif sd[k].shape != want.shape:
+            raise ValueError(f"{pth_path}: {k} has shape "
+                             f"{tuple(sd[k].shape)}, the model "
+                             f"{tuple(want.shape)}")
+        else:
+            merged[k] = sd[k]
+    model.load_state_dict(merged, strict=True)
+    return model, {"unmapped_torch_keys": unmapped,
+                   "missing_params": missing_p, "missing_stats": missing_s}

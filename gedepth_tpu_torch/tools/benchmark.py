@@ -90,10 +90,9 @@ def build_runner(config, batch=1, height=352, width=1216, train_step=False,
 
     from gedepth_tpu_torch.apis.inference import cast_params_bf16
     from gedepth_tpu_torch.configs import get_config
+    from gedepth_tpu_torch.utils.env import disable_tf32
 
-    # f32 means f32: cuDNN would otherwise run f32 convolutions in TF32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    disable_tf32()
     cfg = get_config(config) if isinstance(config, str) else config
     device = torch.device(device)
     model = cfg.model.build(device=device,

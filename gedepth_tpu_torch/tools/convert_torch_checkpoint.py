@@ -1,0 +1,58 @@
+"""Convert a reference GEDepth/DepthFormer `.pth` (or an official Swin
+ImageNet checkpoint) into a params-only `.npz` that `tools.test`,
+`tools.compat_check` and `init_depther(checkpoint=...)` of either package
+read (the counterpart of tools/convert_torch_checkpoint.py).
+
+    python -m gedepth_tpu_torch.tools.convert_torch_checkpoint \
+        <ckpt.pth> <preset> <out.npz> [--official-swin]
+
+The preset's model is built from its seeded initialisation and the file is
+loaded into it (`convert.from_pth.convert_checkpoint_file`); what the file
+does not give keeps that initialisation and is listed. --official-swin: the
+file holds an official Swin backbone only. Runs on the CPU.
+"""
+from __future__ import annotations
+
+import argparse
+
+
+def main(argv=None):
+    from gedepth_tpu_torch.configs import get_config, list_configs
+    from gedepth_tpu_torch.utils.env import disable_tf32
+
+    parser = argparse.ArgumentParser(
+        description="Convert a reference .pth to a params-only .npz")
+    parser.add_argument("checkpoint")
+    parser.add_argument("config", choices=list_configs())
+    parser.add_argument("out")
+    parser.add_argument("--official-swin", action="store_true",
+                        help="the file uses the official Swin key names "
+                        "(backbone only; the rest keeps the seeded "
+                        "initialisation)")
+    args = parser.parse_args(argv)
+
+    import torch
+
+    from gedepth_tpu_torch.convert.from_pth import convert_checkpoint_file
+    from gedepth_tpu_torch.train.checkpoint import save_params_only
+
+    disable_tf32()
+    cfg = get_config(args.config)
+    model = cfg.model.build(generator=torch.Generator().manual_seed(0))
+    _, report = convert_checkpoint_file(args.checkpoint, model,
+                                        official_swin=args.official_swin)
+    for name, what in (("unmapped_torch_keys", "torch keys had no mapping"),
+                       ("missing_params", "model parameters kept the "
+                        "seeded initialisation"),
+                       ("missing_stats", "BatchNorm statistics kept their "
+                        "initial values")):
+        if report[name]:
+            print(f"[warn] {len(report[name])} {what}, e.g. "
+                  f"{report[name][:5]}")
+    save_params_only(args.out, model)
+    print(f"wrote {args.out}")
+    return report
+
+
+if __name__ == "__main__":
+    main()

@@ -1,6 +1,7 @@
 """Evaluation CLI of the port (the counterpart of tools/test.py).
 
-    python -m gedepth_tpu_torch.tools.test <preset> [--state-dict FILE]
+    python -m gedepth_tpu_torch.tools.test <preset> [checkpoint.npz]
+        [--state-dict FILE]
         [--max-images N] [--batch-size B] [--no-tta]
         [--aug-test --aug-ratios 0.75,1.0,1.25]
         [--slide --slide-tile H,W --slide-stride H,W]
@@ -8,11 +9,13 @@
 
 Runs the `Evaluator` over the preset's test split and prints the aggregate
 of the 9 metrics as one JSON line. The repository holds no KITTI data, so
-the split is synthetic (`train.loop.build_eval_dataset`). Without
---state-dict the weights are the port's seeded initialisation: the numbers
-then show that the path runs, not how good a model is. --state-dict takes a
-file written by `torch.save(model.state_dict(), FILE)`, for instance of
-`convert.state_dict_from_flax`.
+the split is synthetic (`train.loop.build_eval_dataset`). The weights come
+from `checkpoint`, a params-only `.npz` of either package (the train loop's
+`best_abs_rel.npz`, `tools.convert_torch_checkpoint`'s output), or from
+--state-dict, a file written by `torch.save(model.state_dict(), FILE)`;
+without either they are the port's seeded initialisation, and the numbers
+then show that the path runs, not how good a model is. f32 runs without
+TF32.
 """
 from __future__ import annotations
 
@@ -29,6 +32,8 @@ def main(argv=None):
 
     parser = argparse.ArgumentParser(description="Evaluate GEDepth (PyTorch)")
     parser.add_argument("config", choices=list_configs())
+    parser.add_argument("checkpoint", nargs="?", default=None,
+                        help="params-only .npz")
     parser.add_argument("--state-dict", default=None)
     parser.add_argument("--max-images", type=int, default=None)
     parser.add_argument("--batch-size", type=int, default=1)
@@ -56,13 +61,18 @@ def main(argv=None):
 
     from gedepth_tpu_torch.apis.inference import cast_params_bf16
     from gedepth_tpu_torch.eval import Evaluator
+    from gedepth_tpu_torch.train.checkpoint import load_params_only
     from gedepth_tpu_torch.train.loop import build_eval_dataset
+    from gedepth_tpu_torch.utils.env import disable_tf32
 
+    disable_tf32()
     cfg = get_config(args.config)
     model = cfg.model.build(generator=torch.Generator().manual_seed(0))
     if args.state_dict:
         model.load_state_dict(torch.load(args.state_dict, map_location="cpu",
                                          weights_only=True), strict=True)
+    if args.checkpoint:
+        load_params_only(args.checkpoint, model)
     model.to(torch.device(args.device))
     if args.bf16:
         cast_params_bf16(model, "all")

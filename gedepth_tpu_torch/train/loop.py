@@ -1,5 +1,7 @@
 """Iteration-based training on one device (the port of
-`gedepth_tpu.train.loop.train`, without eval, checkpoints, resume or DDP).
+`gedepth_tpu.train.loop.train`, without DDP): evaluation every
+eval_interval steps with save-best, keep-N checkpoints, resume, and a JSONL
+log.
 
 The repository holds no KITTI data, so a KITTI preset trains on
 `SyntheticGroundDataset` frames at its KB-cropped size (eval_size,
@@ -11,7 +13,6 @@ from __future__ import annotations
 
 import contextlib
 import json
-import os
 import os.path as osp
 import time
 from typing import Optional
@@ -21,8 +22,12 @@ import torch
 from gedepth_tpu_torch.data.loader import TrainLoader
 from gedepth_tpu_torch.data.synthetic import SyntheticGroundDataset
 from gedepth_tpu_torch.data.transforms import build_train_pipeline
+from gedepth_tpu_torch.eval.evaluator import Evaluator
+from gedepth_tpu_torch.train.checkpoint import (
+    CheckpointKeeper, restore_checkpoint, save_params_only)
 from gedepth_tpu_torch.train.steps import (
     batch_to_device, create_train_state, make_train_step)
+from gedepth_tpu_torch.utils.env import collect_env
 
 
 @contextlib.contextmanager
@@ -69,42 +74,121 @@ def build_eval_dataset(cfg):
                               _frame_size(cfg, cfg.data.eval_size), seed=1)
 
 
+LESS_IS_BETTER = ("abs_rel", "sq_rel", "rmse", "rmse_log", "log_10", "silog")
+GREATER_IS_BETTER = ("a1", "a2", "a3")
+
+
+def best_rule(save_best: str, key_metric: str = Evaluator.key_metric):
+    """(metric, sign) of the save-best rule: `save_best` when the evaluator
+    publishes it, else the evaluator's `key_metric`; sign 1 where less is
+    better (the six error metrics), -1 where greater is (a1-a3), so that
+    sign·value falls as the model improves."""
+    key = (save_best if save_best in LESS_IS_BETTER + GREATER_IS_BETTER
+           else key_metric)
+    return key, 1.0 if key in LESS_IS_BETTER else -1.0
+
+
+def evaluate(evaluator, model, max_images=None):
+    """One evaluation of `model` in eval mode; its mode is restored after.
+    Returns (aggregate metrics, images evaluated, seconds)."""
+    was_training = model.training
+    model.eval()
+    try:
+        t0 = time.perf_counter()
+        agg, per_image = evaluator.run(max_images=max_images)
+        return agg, len(per_image), time.perf_counter() - t0
+    finally:
+        model.train(was_training)
+
+
 def train(cfg, work_dir: Optional[str] = None,
-          max_iters: Optional[int] = None, device="cuda"):
-    """Train `cfg` from the port's seeded initialisation; returns
-    (state, history) with one dict of floats per step: iter, lr, loss,
-    loss_depth, loss_slope (adaptive models), grad_norm, time (seconds of
-    the step on a synchronised host clock) and, on a CUDA device,
-    peak_mem_mib (the step's peak of allocated device memory).
+          max_iters: Optional[int] = None,
+          eval_max_images: Optional[int] = None, resume_state=None,
+          resume_from: Optional[str] = None, device="cuda"):
+    """Train `cfg` from the port's seeded initialisation, or from a
+    checkpoint; returns (state, history, best).
+
+    history: one dict per step, mode 'train': iter, lr, loss, loss_depth,
+    loss_slope (adaptive models), grad_norm, time (seconds of the step on a
+    synchronised host clock) and, on a CUDA device, peak_mem_mib (the
+    step's peak of allocated device memory); and one per evaluation, mode
+    'val': iter, the nine metrics, images and time (seconds).
+    best: the 'val' record with the best value of the save-best metric
+    (`best_rule(cfg.train.save_best)`), or {metric: ±inf} before any.
 
     Each step takes cfg.train.global_batch samples on this one device; its
     BatchNorm statistics span them all, as the reference's SyncBN spans the
     global batch over its GPUs. cfg.train.bf16_compute runs forward and
     backward in bf16 on f32 master weights (`train.steps.make_train_step`).
-    max_iters: steps to run, and the length of
-    the LR schedule, as in the JAX loop (default cfg.train.max_iters).
-    work_dir: where `train.log.jsonl` is appended, one line every
-    log_interval steps and at the last (none when None)."""
-    device = torch.device(device)
+    The steps run from the state's step + 1 to max_iters (default
+    cfg.train.max_iters, also the length of the LR schedule, as in the JAX
+    loop). Every cfg.train.eval_interval steps and at the last, the
+    `Evaluator` scores the f32 model on the test split (its first
+    `eval_max_images` images when given) in eval mode, whatever the
+    precision of training.
+
+    Resuming follows the JAX loop and mmcv's IterBasedRunner: `resume_from`
+    (a checkpoint directory; its latest step) or `resume_state` (a
+    `TrainState`, such as the first element this returned) gives the
+    model, AdamW's moments, the LR schedule's position and the BatchNorm
+    statistics; the loader's stream and the dropout generator (seed + 1)
+    start again from their beginning, so k steps and a resume for k more
+    are not 2k steps.
+
+    work_dir=None writes nothing. With a work_dir: `train.log.jsonl` (an
+    'env' record, then a 'train' record every log_interval steps and at the
+    last, and every 'val' record), `best_{metric}.npz`
+    (`checkpoint.save_params_only`) whenever the metric improves, and the
+    newest cfg.train.max_keep_ckpts checkpoints under work_dir/ckpts, one
+    every cfg.train.checkpoint_interval steps and at the last.
+
+    TF32 is left as the caller set it (`utils.env.disable_tf32`)."""
     max_iters = max_iters or cfg.train.max_iters
     seed = cfg.train.seed
-    model = cfg.model.build(device=device,
-                            generator=torch.Generator().manual_seed(seed))
-    state = create_train_state(model, cfg.optim, max_iters, seed=seed + 1)
+    if resume_state is not None:
+        state = resume_state
+        device = next(state.model.parameters()).device
+    else:
+        device = torch.device(device)
+        model = cfg.model.build(device=device,
+                                generator=torch.Generator().manual_seed(seed))
+        state = create_train_state(model, cfg.optim, max_iters, seed=seed + 1)
+    if resume_from:
+        restore_checkpoint(resume_from, state)
+        print(f"resumed from {resume_from} at iter {state.step}", flush=True)
+    state.generator.manual_seed(seed + 1)
     train_step = make_train_step(cfg.optim.sig_loss_weight,
                                  cfg.optim.slope_ce_weight,
                                  bf16=cfg.train.bf16_compute)
     loader = TrainLoader(build_train_dataset(cfg),
                          build_train_pipeline(cfg.data, cfg.model.depth_scale),
                          cfg.train.global_batch, seed=seed)
-    if work_dir is not None:
-        os.makedirs(work_dir, exist_ok=True)
+    evaluator = Evaluator(state.model, build_eval_dataset(cfg), cfg.data)
+    key, sign = best_rule(cfg.train.save_best, evaluator.key_metric)
+    best = {key: sign * float("inf")}
 
     history = []
     batches = iter(loader)
     cuda = device.type == "cuda"
-    with cudnn_autotuner(), contextlib.closing(batches):
-        for it in range(max_iters):
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(cudnn_autotuner())
+        stack.enter_context(contextlib.closing(batches))
+        log = keeper = None
+        if work_dir is not None:
+            keeper = CheckpointKeeper(osp.join(work_dir, "ckpts"),
+                                      cfg.train.max_keep_ckpts)
+            log = stack.enter_context(
+                open(osp.join(work_dir, "train.log.jsonl"), "a"))
+            log.write(json.dumps({"mode": "env", **{
+                k: str(v) for k, v in collect_env().items()}}) + "\n")
+            log.flush()
+
+        def write(record):
+            if log is not None:
+                log.write(json.dumps(record) + "\n")
+                log.flush()
+
+        for it in range(state.step, max_iters):
             batch = batch_to_device(next(batches), device)
             if cuda:
                 torch.cuda.synchronize(device)
@@ -115,14 +199,35 @@ def train(cfg, work_dir: Optional[str] = None,
                                 "grad_norm") if k in metrics]
             values = torch.stack([metrics[k] for k in keys]).tolist()
             record = dict(zip(keys, values), iter=it + 1, lr=metrics["lr"],
-                          time=time.perf_counter() - t0)
+                          time=time.perf_counter() - t0, mode="train")
             if cuda:
                 record["peak_mem_mib"] = (
                     torch.cuda.max_memory_allocated(device) / 2**20)
             history.append(record)
-            if work_dir is not None and (
-                    (it + 1) % cfg.train.log_interval == 0
-                    or it + 1 == max_iters):
-                with open(osp.join(work_dir, "train.log.jsonl"), "a") as f:
-                    f.write(json.dumps(dict(record, mode="train")) + "\n")
-    return state, history
+            is_last = it + 1 == max_iters
+            if (it + 1) % cfg.train.log_interval == 0 or is_last:
+                write(record)
+                print(f"iter {it + 1}/{max_iters} loss={record['loss']:.4f} "
+                      f"lr={record['lr']:.2e}", flush=True)
+
+            if (it + 1) % cfg.train.eval_interval == 0 or is_last:
+                agg, images, seconds = evaluate(evaluator, state.model,
+                                                eval_max_images)
+                val = {k: float(v) for k, v in agg.items()}
+                val.update(iter=it + 1, images=images, time=seconds,
+                           mode="val")
+                history.append(val)
+                write(val)
+                print(f"eval @ {it + 1}: " + " ".join(
+                    f"{k}={agg[k]:.4f}" for k in dict.fromkeys(
+                        (key, "rmse", "a1")) if k in agg), flush=True)
+                if sign * val[key] < sign * best[key]:
+                    best = val
+                    if work_dir is not None:
+                        save_params_only(osp.join(work_dir, f"best_{key}.npz"),
+                                         state.model)
+
+            if keeper is not None and (
+                    (it + 1) % cfg.train.checkpoint_interval == 0 or is_last):
+                keeper.save(state, it + 1)
+    return state, history, best

@@ -541,9 +541,13 @@ def test_train_loop_passes_bf16_compute():
 
     cfg = get_config("smoke_synthetic")
     cfg = cfg.replace(train=dataclasses.replace(cfg.train, bf16_compute=True))
-    state, history = train(cfg, max_iters=2, device="cpu")
-    assert len(history) == 2
-    assert all(np.isfinite(r["loss"]) for r in history)
+    state, history, _ = train(cfg, max_iters=2, eval_max_images=1,
+                              device="cpu")
+    steps = [r for r in history if r["mode"] == "train"]
+    assert len(steps) == 2
+    assert all(np.isfinite(r["loss"]) for r in steps)
+    # the evaluation at the last step scores the f32 masters
+    assert [r["mode"] for r in history] == ["train", "train", "val"]
     assert all(p.dtype == torch.float32 for p in state.model.parameters())
 
 

@@ -196,10 +196,8 @@ LEFT_OUT = {
     # the zoo's loss composition
     "optim": {"aux_loss_indices", "aux_loss_weights", "class_ce_weight",
               "chamfer_weight"},
-    # eval in the loop, checkpoints and multi-process loading are not ported
-    # yet
-    "train": {"eval_interval", "checkpoint_interval", "max_keep_ckpts",
-              "save_best", "num_workers", "sampling"},
+    # multi-process loading is not ported yet
+    "train": {"num_workers", "sampling"},
 }
 
 REFERENCE_PRESETS = ("gedepth_adaptive_kitti",
@@ -213,6 +211,7 @@ def _assert_preset_matches_jax(name):
     with the same value, or listed in LEFT_OUT; the port adds none."""
     jcfg, tcfg = jax_get_config(name), get_config(name)
     assert tcfg.name == jcfg.name == name
+    assert tcfg.work_dir == jcfg.work_dir
     for part in ("model", "data", "optim", "train"):
         tpart, jpart = getattr(tcfg, part), getattr(jcfg, part)
         tnames = {f.name for f in dataclasses.fields(tpart)}

@@ -873,3 +873,61 @@ def test_pe_fusion_lifts_bf16_inputs_around_the_f32_kernel():
                                atol=1e-2)
     with pytest.raises(TypeError):
         pe_ops.pe_fusion(logits, pe.float(), y, cam, 200.0)
+
+
+# ---- checkpoints written on the card ----------------------------------
+
+def _smoke_cfg():
+    """smoke_synthetic on 64x128 frames, 2 test images, no flip-TTA."""
+    import dataclasses
+
+    from gedepth_tpu_torch.configs import get_config
+
+    cfg = get_config("smoke_synthetic")
+    return cfg.replace(data=dataclasses.replace(
+        cfg.data, crop_size=(64, 128), eval_size=(64, 128), synthetic_size=8,
+        eval_flip_tta=False))
+
+
+def _assert_same_state(a, b):
+    assert a.step == b.step
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    for k in sa:
+        assert torch.equal(sa[k].cpu(), sb[k].cpu()), k
+    oa = a.optimizer.state_dict()["state"]
+    ob = b.optimizer.state_dict()["state"]
+    assert oa.keys() == ob.keys() and oa
+    for i in oa:
+        for name, t in oa[i].items():
+            assert torch.equal(t.cpu(), ob[i][name].cpu()), (i, name)
+
+
+@pytest.mark.parametrize("restore_on", ["cuda", "cpu"])
+def test_card_checkpoint_restores_bit_equal(tmp_path, restore_on):
+    """A checkpoint that train() wrote on the card restores bit for bit
+    into a fresh state on the card, and into one on the CPU (the tensors
+    follow the state's device); training then resumes on that device."""
+    from gedepth_tpu_torch.train.checkpoint import restore_checkpoint
+    from gedepth_tpu_torch.train.loop import train
+    from gedepth_tpu_torch.train.steps import create_train_state
+
+    cfg = _smoke_cfg()
+    state, _, _ = train(cfg, work_dir=str(tmp_path), max_iters=2,
+                        eval_max_images=1, device="cuda")
+    fresh = create_train_state(
+        cfg.model.build(device=restore_on,
+                        generator=torch.Generator().manual_seed(5)),
+        cfg.optim, 2)
+    restore_checkpoint(str(tmp_path / "ckpts"), fresh)
+    assert next(fresh.model.parameters()).device.type == restore_on
+    assert all(t.device.type == restore_on
+               for st in fresh.optimizer.state.values()
+               for n, t in st.items() if n != "step")
+    _assert_same_state(state, fresh)
+    resumed, history, _ = train(cfg, max_iters=3, eval_max_images=1,
+                                resume_from=str(tmp_path / "ckpts"),
+                                device=restore_on)
+    assert resumed.step == 3 and next(
+        resumed.model.parameters()).device.type == restore_on
+    assert [(r["mode"], r["iter"]) for r in history] == [("train", 3),
+                                                         ("val", 3)]
