@@ -36,15 +36,18 @@ with its host-clock seconds); any failure raises and exits non-zero:
      of both; once more with a share of the samples thrown out of their
      windows and levels;
   7. train main path: `train("gedepth_adaptive_kitti_tpu")` for 5 steps at
-     352x704, batch 2, on synthetic KITTI-shaped frames from the seeded
+     352x704, batch 2, from the KITTI tree of phase 23 (the KITTI chain:
+     KB crop, ratio resize, pad, rotate, flip, crop, colour) and the seeded
      initialisation; every metric finite, every parameter's gradient present
      and finite after the run, a few named ones non-zero, and kernels A, B,
-     C and E launched by it; the loop's evaluation at the last step (2
-     synthetic 352x1216 frames, flip-TTA, f32: 24 A, 2 B and 1 E a forward)
-     with the nine metrics finite (phases 11 and 18 alike);
+     C and E launched by it; the loop's evaluation at the last step (the
+     tree's 2 test frames KB-cropped to 352x1216, flip-TTA, f32: 24 A, 2 B
+     and 1 E a forward) with the nine metrics finite (phases 11 and 18
+     alike, on synthetic frames, which they keep); then `tools.test` on the
+     tree through --options data.data_root=...;
   8. whole step: one train step with the kernels and one with the plain
      versions on the same weights, batch and generator seed (full Swin-L,
-     crop 176x352, batch 2): loss rtol 1e-4, each parameter's gradient
+     synthetic frames, crop 176x352, batch 2): loss rtol 1e-4, each parameter's gradient
      ‖g − g_plain‖ <= 1e-3·‖g_plain‖ + 1e-7. The absolute term covers the
      gradients that are zero but for rounding: a LayerNorm bias that feeds
      only a conv and a train-mode BatchNorm (backbone.norm{i}.bias) shifts
@@ -151,10 +154,35 @@ with its host-clock seconds); any failure raises and exits non-zero:
  22. compat_check: `tools.compat_check` on that parity tree (phase-20
      weights, reference points seeded), radii 5 and 6, one image: finite
      deltas, clamp masses in [0, 1], a RECOMMENDATION line.
-The phases run in the order 1, 2, 3, 6, 13, 9, 4, 5, 7, 8, 20-22, 10, 11,
-12, 14-19: every kernel check comes before the first model, because
-`torch.profiler` loses device activities as a process ages, and all of
-them once it has trained.
+ 23. trees: a KITTI tree (dates 2011_09_26 at 375x1242 and 2011_09_28 at
+     370x1224, calibration files, RGB and 16-bit GT PNGs, a `None` pair)
+     and a DDAD tree (CAMERA_01 and CAMERA_05 at 1216x1936, a calibration
+     `.npz`, GT `.npz` files, a split line of a filtered camera), written
+     from seeded data by `tools.make_tree` with `utils.png.write_png` and
+     finished by `tools.preprocess_data_kitti` and
+     `tools.preprocess_data_ddad`; the host ms a sample of the PNG decode,
+     of a dataset sample and of each whole train chain;
+ 24. kernels at DDAD's 384x640 shapes against their plain versions, timed
+     as phase 3: A at stage 1 shifted (322 windows, the mask's period;
+     batch 1 and 2), B windowed (5,040 and 61,440 queries, batch 1 and 2)
+     and exact (20,400 and 61,440, batch 1), C at the windowed train
+     shapes, E with four camera heights in one batch and depth_scale 250;
+ 25. DDAD serving: `init_depther(pe_path=...)` and `inference_depther` on
+     PNG paths of the tree, 3 requests of `gedepth_adaptive_ddad_tpu`
+     (no flip), one each of `gedepth_adaptive_ddad` (exact) and
+     `gedepth_vanilla_ddad`; depth (384, 640), finite, in range; per
+     forward exactly 24 A, B once at the self-attention's queries and once
+     at the cross-attention's, 1 E (0 for vanilla); the windowed preset's
+     whole forward with kernels against plain, rtol 1e-3, atol 1e-3 m;
+ 26. DDAD training: `train("gedepth_adaptive_ddad_tpu")` for 3 steps at
+     384x640, batch 2, from the tree, checked as phase 7, then the loop's
+     evaluation of the tree's 2 test frames (one forward each, the
+     prediction upsampled to the 1216x1936 GT); whether one prefetch
+     thread keeps up with a step, KITTI and DDAD.
+The phases run in the order 1, 2, 23, 3, 6, 13, 9, 24, 4, 5, 7, 8, 20-22,
+25, 26, 10, 11, 12, 14-19: every kernel check comes before the first
+model, because `torch.profiler` loses device activities as a process ages,
+and all of them once it has trained.
 A `device_ms` that is not within a tenth of its `event_ms` (kernels of
 0.5 ms and more) is printed, dropped and null in its row; `event_ms` is in
 every row. Then the kernels as one JSON line. The first four rows
@@ -168,7 +196,9 @@ H100 SXM's published peaks (for the bf16 instance of A its products over
 989 TFLOP/s, the tensor cores' bf16 rate). The rows of phase 13 carry the
 error against float64 as `max_abs_err` and the launches of the bf16 paths:
 A from phase 14's requests and phase 18's steps, B from the forwards of
-phases 15 and 16, C from phase 18. Last the device as one JSON line.
+phases 15 and 16, C from phase 18. The rows of phase 24 carry the launches
+of phase 25's requests (serving shapes) and of phase 26's steps and
+evaluation (train shapes; E both). Last the device as one JSON line.
 To make room for phases 13-19, phase 9 times its plain versions once
 instead of twice and the nearest rule by events alone; every check of
 phases 1-12 stayed.
@@ -191,6 +221,17 @@ import torch
 
 SEED = 0
 PRESET = "gedepth_adaptive_kitti_tpu"
+DDAD = "gedepth_adaptive_ddad_tpu"
+
+
+def synthetic_data(**over):
+    """The DataConfig of the phases that keep synthetic frames: train
+    frames at the 352x704 crop, test frames at 352x1216, the KITTI chain's
+    flip, crop and colour steps."""
+    from gedepth_tpu_torch.configs import DataConfig
+
+    return DataConfig(**{"dataset": "synthetic", "crop_size": (352, 704),
+                         "eval_size": (352, 1216), **over})
 
 
 def fail(msg):
@@ -798,26 +839,30 @@ def plain_ops():
 
 
 def phase_whole_forward(handle, requests, tag="[whole]", rtol=1e-3,
-                        atol=1e-3, precision="f32, TF32 off", mean_rel=None):
-    """`mean_rel`: hold the mean relative difference to this bound instead
-    of every element to rtol and atol (bf16: a rounding that falls the
-    other way moves single pixels across the prior's validity edge)."""
+                        atol=1e-3, precision="f32, TF32 off", mean_rel=None,
+                        cam_height=1.65):
+    """The first request's whole forward with the kernels and with the
+    plain versions. `mean_rel`: hold the mean relative difference to this
+    bound instead of every element to rtol and atol (bf16: a rounding that
+    falls the other way moves single pixels across the prior's validity
+    edge)."""
     from gedepth_tpu_torch.geometry.plane import clip_pe_for_input
 
     rgb, pe = requests[0]
-    img = np.concatenate([rgb, clip_pe_for_input(pe)[..., None],
-                          pe[..., None]], axis=-1)
+    pe_in = clip_pe_for_input(pe, handle.cfg.model.depth_scale)
+    img = np.concatenate([rgb, pe_in[..., None], pe[..., None]], axis=-1)
     img = handle.pipeline({"img": img})["img"]
     x = torch.from_numpy(np.ascontiguousarray(img[None])).cuda()
-    cam = torch.full((1,), 1.65, device="cuda")
+    cam = torch.full((1,), cam_height, device="cuda")
     with torch.inference_mode():
         got = handle.model(x, cam)["depth"]
         with plain_ops():
             want = handle.model(x, cam)["depth"]
     print(f"{tag} GEDepth({handle.cfg.name!r}) depth, kernels vs plain "
           f"({precision})")
+    shape = tuple(got.shape)
     if mean_rel is None:
-        compare("depth (1,176,608,1)", got.float(), want.float(), rtol, atol)
+        compare(f"depth {shape}", got.float(), want.float(), rtol, atol)
         return
     # relative to the larger of the two depths (both >= min_depth), so a
     # pixel that a rounding moved across the prior's validity edge (4 mm
@@ -826,7 +871,7 @@ def phase_whole_forward(handle, requests, tag="[whole]", rtol=1e-3,
     rel = diff / torch.maximum(got.float(), want.float())
     mean, beyond = rel.mean().item(), (rel > 2e-2).float().mean().item()
     ok = bool(torch.isfinite(got).all()) and mean <= mean_rel
-    print(f"  depth (1,176,608,1): mean_rel_diff={mean:.3e} (bound "
+    print(f"  depth {shape}: mean_rel_diff={mean:.3e} (bound "
           f"{mean_rel:g}) max_abs_diff={diff.max().item():.3e} share of "
           f"pixels beyond 2e-2 relative {beyond:.3e} {'ok' if ok else 'FAIL'}",
           flush=True)
@@ -934,12 +979,17 @@ EVAL_IMAGES = 2          # the loop's evaluation at the last step: 2 images
 EVAL_FORWARDS = 2 * EVAL_IMAGES              # x flip-TTA
 
 
-def phase_train(preset=PRESET, steps=5, nonzero=TRAIN_GRADS, tag="[train]",
-                queries=(5082, 61952), bf16=False):
-    """`queries`: the self- and the cross-attention's queries per sample;
-    B and C must each have been launched once a step at each. The loop's
-    evaluation at the last step (EVAL_IMAGES images with flip-TTA, f32
-    masters) adds 24 A, 2 B and 1 E a forward at the eval size. bf16:
+def phase_train(data, preset=PRESET, steps=5, nonzero=TRAIN_GRADS,
+                tag="[train]", queries=(5082, 61952), bf16=False,
+                eval_forwards=EVAL_FORWARDS, eval_queries=None):
+    """`data`: the DataConfig to train and evaluate on (a KITTI or DDAD
+    tree, or synthetic frames). `queries`: the self- and the
+    cross-attention's queries per sample; B and C must each have been
+    launched once a step at each. The loop's evaluation at the last step
+    (EVAL_IMAGES images, `eval_forwards` forwards with flip-TTA or without,
+    f32 masters) adds 24 A, 2 B and 1 E a forward at the eval size, at the
+    query counts `eval_queries` (None: two other counts than `queries`,
+    eval_forwards launches each). bf16:
     `TrainConfig.bf16_compute`; then the bf16 instances of A, B and C must
     have run the steps, and every parameter, gradient, AdamW moment and
     buffer must be f32 (or integer) and finite afterwards. Returns
@@ -952,8 +1002,8 @@ def phase_train(preset=PRESET, steps=5, nonzero=TRAIN_GRADS, tag="[train]",
 
     # the reference's per-GPU batch of 2 (its global batch spans 8 GPUs)
     cfg = get_config(preset)
-    cfg = cfg.replace(train=dataclasses.replace(cfg.train, global_batch=2,
-                                                bf16_compute=bf16))
+    cfg = cfg.replace(data=data, train=dataclasses.replace(
+        cfg.train, global_batch=2, bf16_compute=bf16))
     counters = _kernel_counters()
     reset_counts(counters)
     t0 = time.perf_counter()
@@ -967,8 +1017,10 @@ def phase_train(preset=PRESET, steps=5, nonzero=TRAIN_GRADS, tag="[train]",
 
     print(f"{tag} train({preset!r}, max_iters={steps}), global_batch 2, "
           f"bf16_compute {bf16}, "
-          f"crop {cfg.data.crop_size}, synthetic frames "
-          f"{cfg.data.eval_size}: {wall:.2f} s including init")
+          f"crop {cfg.data.crop_size}, {cfg.data.dataset} data"
+          + (f" from {cfg.data.data_root}" if cfg.data.dataset != "synthetic"
+             else "") + f", eval size {cfg.data.eval_size}: {wall:.2f} s "
+          "including init")
     for r in history:
         print(f"{tag} iter {r['iter']} loss={r['loss']:.6f} "
               f"loss_depth={r['loss_depth']:.6f} "
@@ -981,20 +1033,20 @@ def phase_train(preset=PRESET, steps=5, nonzero=TRAIN_GRADS, tag="[train]",
           f"{max(r['peak_mem_mib'] for r in history[1:]):.1f} MiB; "
           f"launches {launches}, by queries per sample {by_queries}, by "
           f"dtype {by_dtype}", flush=True)
-    check_val(tag, vals, steps, best)
+    check_val(tag, vals, steps, best, eval_forwards)
     instance = "bf16" if bf16 else "f32"
     want_dtype = {"window_attention": {instance: 24 * steps},
                   "msda": {instance: 2 * steps},
                   "msda_backward": {instance: 2 * steps}}
     for name, n in (("window_attention", 24), ("msda", 2)):
         want_dtype[name]["f32"] = (want_dtype[name].get("f32", 0)
-                                   + n * EVAL_FORWARDS)
+                                   + n * eval_forwards)
     if by_dtype != want_dtype:
         fail(f"{preset}: instances launched {by_dtype}, expected "
              f"{want_dtype}")
-    if launches["pe_fusion"] != steps + EVAL_FORWARDS:
+    if launches["pe_fusion"] != steps + eval_forwards:
         fail(f"{preset}: E launched {launches['pe_fusion']} times, expected "
-             f"{steps + EVAL_FORWARDS}")
+             f"{steps + eval_forwards}")
     if bf16:
         check_f32_state(state, steps, tag)
     for r in history:
@@ -1021,20 +1073,30 @@ def phase_train(preset=PRESET, steps=5, nonzero=TRAIN_GRADS, tag="[train]",
         if n <= 0:
             fail(f"kernel {name} was not launched on the train path")
     once_a_step = {q: steps for q in queries}
-    evals = {q: n for q, n in by_queries["msda"].items() if q not in queries}
-    if (by_queries["msda_backward"] != once_a_step
-            or {q: by_queries["msda"].get(q) for q in queries} != once_a_step
-            or sorted(evals.values()) != [EVAL_FORWARDS] * 2):
+    if eval_queries is None:
+        evals = {q: n for q, n in by_queries["msda"].items()
+                 if q not in queries}
+        b_ok = ({q: by_queries["msda"].get(q) for q in queries} == once_a_step
+                and sorted(evals.values()) == [eval_forwards] * 2)
+    else:
+        want_b = dict(once_a_step)
+        for q in eval_queries:
+            want_b[q] = want_b.get(q, 0) + eval_forwards
+        b_ok = by_queries["msda"] == want_b
+    if by_queries["msda_backward"] != once_a_step or not b_ok:
         fail(f"{preset}: B and C launched {by_queries}, expected "
-             f"{once_a_step} each and B {EVAL_FORWARDS} times at each of "
+             f"{once_a_step} each and B {eval_forwards} times at each of "
              "the evaluation's two query counts")
     del state
     torch.cuda.empty_cache()
+    step_ms = statistics.median(r["time"] for r in history[1:]) * 1e3
+    print(f"{tag} median step {step_ms:.1f} ms at batch 2 "
+          f"({step_ms / 2:.1f} ms a sample)", flush=True)
     return (launches, by_queries, by_dtype,
-            max(r["peak_mem_mib"] for r in history[1:]))
+            max(r["peak_mem_mib"] for r in history[1:]), step_ms)
 
 
-def check_val(tag, vals, steps, best):
+def check_val(tag, vals, steps, best, forwards=EVAL_FORWARDS):
     """The train loop's evaluation at the last step: one 'val' record of
     the nine metrics, finite, over EVAL_IMAGES images; it is the best."""
     metrics = ("abs_rel", "sq_rel", "rmse", "rmse_log", "log_10", "silog",
@@ -1050,7 +1112,8 @@ def check_val(tag, vals, steps, best):
     print(f"{tag} eval @ {steps}: " + " ".join(
         f"{k}={r[k]:.6g}" for k in metrics) + f"; {r['images']} images in "
         f"{r['time']:.2f} s ({r['time'] / r['images'] * 1e3:.1f} ms an "
-        "image, flip-TTA, cuDNN's autotuner on)", flush=True)
+        f"image, {forwards // r['images']} forward(s) an image, cuDNN's "
+        "autotuner on)", flush=True)
 
 
 def check_f32_state(state, steps, tag):
@@ -1287,16 +1350,13 @@ def phase_eval_bf16(handle):
     """`Evaluator(bf16=True)` on the whole-tree bf16 model, 2 frames, whole
     + flip and multi-ratio; a flag that disagrees with the weights raises;
     then the CLI once with --bf16."""
-    import dataclasses
-
     from gedepth_tpu_torch.configs import get_config
     from gedepth_tpu_torch.eval import Evaluator
     from gedepth_tpu_torch.tools import test as test_cli
     from gedepth_tpu_torch.train.loop import build_eval_dataset
     from gedepth_tpu_torch.train.steps import make_eval_step
 
-    cfg = get_config(EXACT)
-    cfg = cfg.replace(data=dataclasses.replace(cfg.data, synthetic_size=8))
+    cfg = get_config(EXACT, data=synthetic_data(synthetic_size=8))
     dataset = build_eval_dataset(cfg)       # 2 synthetic 352x1216 frames
     for label, kw in (("whole + flip", {}),
                       ("multi-ratio", dict(ms_ratios=(0.75, 1.0, 1.25)))):
@@ -1321,7 +1381,8 @@ def phase_eval_bf16(handle):
     else:
         fail("an f32 eval step took a bf16 model")
     t0 = time.perf_counter()
-    test_cli.main([EXACT, "--bf16", "--max-images", "2"])
+    test_cli.main([EXACT, "--bf16", "--max-images", "2", "--options",
+                   "data.dataset=synthetic", "data.synthetic_size=8"])
     print(f"[eval bf16] tools.test {EXACT} --bf16 --max-images 2: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -1384,8 +1445,6 @@ def phase_benchmark():
 
 
 def phase_whole_step():
-    import dataclasses
-
     from gedepth_tpu_torch.configs import get_config
     from gedepth_tpu_torch.data.loader import TrainLoader
     from gedepth_tpu_torch.data.synthetic import SyntheticGroundDataset
@@ -1394,7 +1453,7 @@ def phase_whole_step():
         batch_to_device, create_train_state, make_train_step)
 
     cfg = get_config(PRESET)
-    data = dataclasses.replace(cfg.data, crop_size=(176, 352))
+    data = synthetic_data(crop_size=(176, 352))      # synthetic frames
     loader = TrainLoader(SyntheticGroundDataset(size=4, height=176,
                                                 width=352),
                          build_train_pipeline(data), 2, seed=SEED)
@@ -1669,14 +1728,11 @@ def phase_presets(requests):
 
 
 def phase_evaluator(model):
-    import dataclasses
-
     from gedepth_tpu_torch.configs import get_config
     from gedepth_tpu_torch.eval import Evaluator
     from gedepth_tpu_torch.train.loop import build_eval_dataset
 
-    cfg = get_config(EXACT)
-    cfg = cfg.replace(data=dataclasses.replace(cfg.data, synthetic_size=16))
+    cfg = get_config(EXACT, data=synthetic_data(synthetic_size=16))
     dataset = build_eval_dataset(cfg)       # 4 synthetic 352x1216 frames
     runs = {}
     for label, kw in (
@@ -1737,7 +1793,7 @@ def phase_checkpoints(work):
     from gedepth_tpu_torch.train.optim import lr_schedule
     from gedepth_tpu_torch.train.steps import create_train_state
 
-    cfg = get_config(PRESET)
+    cfg = get_config(PRESET, data=synthetic_data())      # synthetic frames
     cfg = cfg.replace(train=dataclasses.replace(
         cfg.train, global_batch=2, eval_interval=2, checkpoint_interval=2,
         max_keep_ckpts=1))
@@ -1959,10 +2015,355 @@ def phase_compat_check(npz):
 
 
 
+KITTI_TREE_SIZE = (375, 1242)     # 2011_09_26; the second date 370x1224
+DDAD_TREE_SIZE = (1216, 1936)
+DDAD_LEVELS = ((96, 160), (48, 80), (24, 40), (12, 20))
+DDAD_STEM = ((192, 320),)
+DDAD_SELF, DDAD_CROSS, DDAD_EXACT_SELF = 5040, 61440, 20400
+
+
+def tree_data(preset, tree):
+    """The preset's DataConfig pointed at a tree of `phase_trees`."""
+    import dataclasses
+
+    from gedepth_tpu_torch.configs import get_config
+
+    return dataclasses.replace(get_config(preset).data,
+                               data_root=tree["root"],
+                               train_split=tree["train"],
+                               test_split=tree["test"])
+
+
+def median_ms(fn, n):
+    times = []
+    for i in range(n):
+        t0 = time.perf_counter()
+        fn(i)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_trees(work):
+    """Phase 23: a KITTI tree (two dates, 375x1242 and 370x1224, a `None`
+    pair) and a DDAD tree (CAMERA_01 and CAMERA_05 at 1216x1936, a line of
+    a filtered camera) written from seeded data by `tools.make_tree` with
+    `utils.png.write_png`, finished by the port's two preprocessing tools;
+    the host ms a sample of the PNG decode and of each whole train chain.
+    Returns {'kitti': tree, 'ddad': tree, 'host_ms': {...}}."""
+    import os.path as osp
+
+    from gedepth_tpu_torch.data import build_train_pipeline
+    from gedepth_tpu_torch.tools import (
+        preprocess_data_ddad, preprocess_data_kitti)
+    from gedepth_tpu_torch.tools.make_tree import (
+        make_ddad_tree, make_kitti_tree)
+    from gedepth_tpu_torch.train.loop import (
+        build_eval_dataset, build_train_dataset)
+    from gedepth_tpu_torch.utils.png import load_depth_png, read_rgb
+
+    t0 = time.perf_counter()
+    kroot, droot = osp.join(work, "kitti"), osp.join(work, "ddad")
+    kitti = dict(make_kitti_tree(kroot, KITTI_TREE_SIZE, frames=5,
+                                 seed=SEED), root=kroot)
+    ddad = dict(make_ddad_tree(droot, DDAD_TREE_SIZE, frames=4, seed=SEED),
+                root=droot)
+    made = time.perf_counter() - t0
+    preprocess_data_kitti.main(["--data-root", kroot, "--split",
+                                kitti["train"], "--workers", "1"])
+    preprocess_data_ddad.main(["--data-root", droot, "--calib-npz",
+                               ddad["calib"], "--split", ddad["train"],
+                               "--workers", "1"])
+    print(f"[trees] KITTI and DDAD trees written in {made:.1f} s, "
+          f"preprocessed in {time.perf_counter() - t0 - made:.1f} s",
+          flush=True)
+    host = {}
+    for name, preset, tree in (("kitti", PRESET, kitti),
+                               ("ddad", DDAD, ddad)):
+        from gedepth_tpu_torch.configs import get_config
+
+        cfg = get_config(preset, data=tree_data(preset, tree))
+        train, test = build_train_dataset(cfg), build_eval_dataset(cfg)
+        chain = build_train_pipeline(cfg.data, cfg.model.depth_scale)
+        info = (f"{len(train)} train, {len(test)} test frames"
+                + (f", {test.invalid_depth_num} None pair(s) filtered"
+                   if name == "kitti" else ""))
+        sample = chain(train[0], np.random.default_rng(0))
+        if sample["img"].shape != (*cfg.data.crop_size, 5) or not all(
+                np.isfinite(sample[k]).all() for k in ("img", "depth_gt")):
+            fail(f"{name} train chain: {sample['img'].shape}, non-finite")
+        frame = osp.join(getattr(train, "img_dir", tree["root"]),
+                         train.infos[0]["filename"])
+        host[f"{name}_decode_rgb"] = median_ms(lambda i: read_rgb(frame), 5)
+        if name == "kitti":
+            host["kitti_decode_gt"] = median_ms(
+                lambda i: load_depth_png(train.gt_path(0), 256.0), 5)
+        host[f"{name}_load"] = median_ms(lambda i: train[i % len(train)], 6)
+        host[f"{name}_load_and_chain"] = median_ms(
+            lambda i: chain(train[i % len(train)],
+                            np.random.default_rng(i)), 8)
+        print(f"[trees] {name}: {info}; train sample {sample['img'].shape}",
+              flush=True)
+    print("[trees] host ms a sample (median, torch "
+          f"{torch.get_num_threads()} threads): "
+          + " ".join(f"{k}={v:.1f}" for k, v in host.items()), flush=True)
+    return {"kitti": kitti, "ddad": ddad, "host_ms": host}
+
+
+def phase_kernels_ddad():
+    """Phase 24: kernels A, B, C and E at DDAD's 384x640 shapes against
+    their plain versions, timed as phase 3 (plain versions of B and C once),
+    A beside one `F.scaled_dot_product_attention` call."""
+    import torch.nn.functional as F
+
+    from gedepth_tpu_torch.models.swin import shifted_window_mask
+    from gedepth_tpu_torch.ops import msda as msda_ops
+    from gedepth_tpu_torch.ops import pe_fusion as pe_ops
+    from gedepth_tpu_torch.ops import window_attention as wa
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+
+    results = {}
+    # A: stage 1 of 96x160, padded to 98x161: 14x23 = 322 windows, the
+    # shift mask's period; batch 1 (serving) and 2 (training)
+    print("[kernels ddad] A window attention at stage 1 (rtol 2e-4, atol "
+          "2e-5)")
+    mask = torch.as_tensor(shifted_window_mask(98, 161, 7, 3), device="cuda")
+    for label, nWB in (("stage1_shifted", 322), ("train_stage1_shifted",
+                                                 644)):
+        qkv = randn(nWB, 49, 3, 6, 32)
+        q, k, v = qkv[:, :, 0] * 32 ** -0.5, qkv[:, :, 1], qkv[:, :, 2]
+        bias = randn(6, 49, 49)
+        want = wa.window_attention_plain(q, k, v, bias, mask)
+        err = compare(f"A ddad {label} ({nWB},49,6,32) mask "
+                      f"{tuple(mask.shape)}",
+                      wa.window_attention(q, k, v, bias, mask), want, 2e-4,
+                      2e-5)
+        attn_mask = bias[None] + mask.repeat(nWB // 322, 1, 1)[:, None]
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+
+        def library():
+            return F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=attn_mask, scale=1.0).transpose(1, 2)
+
+        compare(f"A ddad {label} library call", library(), want, 2e-4, 2e-5)
+        t = timed(lambda: wa.window_attention(q, k, v, bias, mask),
+                  lambda: wa.window_attention_plain(q, k, v, bias, mask),
+                  plain_reps=3, library=library)
+        t["bound_ms"], t["bound_by"] = bound(
+            n_bytes(q, k, v, bias, want, mask), nWB * 6 * 49 * 49 * (4 * 32
+                                                                      + 5))
+        show(t)
+        results[f"window_attention {label}"] = dict(t, max_abs_err=err)
+        del qkv, q, k, v, want, attn_mask
+    # B: HAHI over DDAD's levels (20,400 tokens): windowed self-attention
+    # from level 1 (5,040 queries) and cross-attention from the 192x320
+    # stem (61,440), batch 1 and 2; the exact rule's self-attention over
+    # all levels and its cross-attention, batch 1
+    print("[kernels ddad] B deformable sampling (rtol 2e-4, atol 2e-5)")
+    for label, B, rule, grids in (
+            ("windowed serving_self", 1, "windowed", DDAD_LEVELS[1:]),
+            ("windowed serving_cross", 1, "windowed", DDAD_STEM),
+            ("windowed train_self", 2, "windowed", DDAD_LEVELS[1:]),
+            ("windowed train_cross", 2, "windowed", DDAD_STEM),
+            ("exact serving_self", 1, "exact", DDAD_LEVELS),
+            ("exact serving_cross", 1, "exact", DDAD_STEM)):
+        value = randn(B, sum(a * b for a, b in DDAD_LEVELS), 8, 64)
+        if rule == "windowed":
+            pos, w = msda_inputs(randn, B, DDAD_LEVELS, grids)
+            hint = (grids, RADIUS)
+            n_touch = w.numel()
+        else:
+            pos, w, hint = rule_positions("exact", randn, g, B, DDAD_LEVELS,
+                                          grids, grids == DDAD_STEM)
+            n_touch = touching(pos, DDAD_LEVELS)
+        Nq = pos.shape[1]
+        want = msda_ops.msda_plain(value, DDAD_LEVELS, pos, w)
+        err = compare(f"B ddad {label} {B}x{Nq} queries",
+                      msda_ops.msda(value, DDAD_LEVELS, pos, w, *hint), want,
+                      2e-4, 2e-5)
+        t = timed(lambda: msda_ops.msda(value, DDAD_LEVELS, pos, w, *hint),
+                  lambda: msda_ops.msda_plain(value, DDAD_LEVELS, pos, w),
+                  plain_reps=1)
+        t["bound_ms"], t["bound_by"] = bound(n_bytes(value, pos, w, want),
+                                             9 * n_touch * 64)
+        show(t)
+        results[f"msda {label}"] = dict(t, max_abs_err=err, queries=Nq)
+        if label.startswith("windowed train"):
+            # C at the train shapes, on the same inputs
+            gout = randn(B, Nq, 512)
+            args = (value, DDAD_LEVELS, pos, w, gout)
+            got = msda_ops.msda_backward(*args, *hint)
+            want_c = msda_ops.msda_backward_plain(*args)
+            dv_atol = 1e-5 * want_c[0].abs().max().item()
+            err = max(compare(f"C ddad {label} d_value", got[0], want_c[0],
+                              2e-4, dv_atol),
+                      compare(f"C ddad {label} d_pos", got[1], want_c[1],
+                              2e-4, 2e-5),
+                      compare(f"C ddad {label} d_weights", got[2], want_c[2],
+                              2e-4, 2e-5))
+            n_out = n_bytes(*want_c)
+            del got, want_c
+            t = timed(lambda: msda_ops.msda_backward(*args, *hint),
+                      lambda: msda_ops.msda_backward_plain(*args),
+                      plain_reps=1)
+            t["bound_ms"], t["bound_by"] = bound(
+                n_bytes(value, pos, w, gout) + n_out, 17 * w.numel() * 64)
+            show(t)
+            results[f"msda_backward {label}"] = dict(t, max_abs_err=err,
+                                                     queries=Nq)
+            del gout, args
+        del value, pos, w, want
+        torch.cuda.empty_cache()
+    # E: four samples of 384x640 at DDAD's four camera heights, depth_scale
+    # 250 (the validity window (0, 250])
+    print("[kernels ddad] E PE fusion, heights 1.53-1.57 m, depth_scale 250 "
+          "(rtol 1e-4, atol 1e-4)")
+    logits = randn(4, 384, 640, 11)
+    pe = torch.rand(4, 384, 640, generator=g, device="cuda") * 240 + 2
+    y = torch.rand(4, 384, 640, generator=g, device="cuda")
+    cam = torch.tensor([1.56, 1.57, 1.53, 1.55], device="cuda")
+    want = pe_ops.pe_fusion_plain(logits, pe, y, cam, 250.0)
+    err = compare("E ddad (4,384,640,11)",
+                  pe_ops.pe_fusion(logits, pe, y, cam, 250.0), want, 1e-4,
+                  1e-4)
+    per_sample = pe_ops.pe_fusion_plain(logits[:1], pe[:1], y[:1], cam[:1],
+                                        250.0)
+    if not torch.equal(want[:1], per_sample):
+        fail("E's plain version is not per sample")
+    t = timed(lambda: pe_ops.pe_fusion(logits, pe, y, cam, 250.0),
+              lambda: pe_ops.pe_fusion_plain(logits, pe, y, cam, 250.0),
+              plain_reps=3)
+    t["bound_ms"], t["bound_by"] = bound(n_bytes(logits, pe, y, cam, want),
+                                         100 * pe.numel())
+    show(t)
+    results["pe_fusion heights"] = dict(t, max_abs_err=err)
+    return results
+
+
+def phase_ddad_serving(tree):
+    """Phase 25: `init_depther(pe_path=...)` and `inference_depther` on
+    PNG paths of the DDAD tree (CAMERA_01, 1.56 m): 3 requests of the
+    windowed preset, one each of the exact and the vanilla presets; depth
+    (384, 640), finite, in range; per forward exactly 24 A, B once at the
+    self-attention's queries and once at the cross-attention's, 1 E for the
+    adaptive presets and 0 for vanilla. Returns the launches by preset."""
+    import os.path as osp
+
+    from gedepth_tpu_torch.apis import inference_depther, init_depther
+    from gedepth_tpu_torch.utils.png import read_rgb
+
+    cam = "CAMERA_01"
+    pe_path = osp.join(tree["root"], "pe_public_debug", cam, "ddad_pe.npz")
+    images = [osp.join(tree["root"], "rgb", cam, f"{i:06d}.png")
+              for i in range(3)]
+    counters = _kernel_counters()
+    counted = {}
+    for preset, n, self_q in ((DDAD, 3, DDAD_SELF),
+                              ("gedepth_adaptive_ddad", 1, DDAD_EXACT_SELF),
+                              ("gedepth_vanilla_ddad", 1, DDAD_EXACT_SELF)):
+        handle = init_depther(preset, device="cuda", pe_path=pe_path,
+                              seed=SEED)
+        cfg = handle.cfg.model
+        inference_depther(handle, images[0], cam_height=1.56)   # warm-up
+        reset_counts(counters)
+        latencies, depths = [], []
+        for path in images[:n]:
+            t = time.perf_counter()
+            depths.append(inference_depther(handle, path, cam_height=1.56))
+            latencies.append((time.perf_counter() - t) * 1e3)
+        launches, by_queries = read_counts(counters)
+        for i, d in enumerate(depths):
+            if d.shape != (384, 640) or not np.isfinite(d).all():
+                fail(f"{preset} request {i}: depth {d.shape} not finite")
+            if d.min() < cfg.min_depth - 1e-6 \
+                    or d.max() > cfg.max_depth + 1e-4:
+                fail(f"{preset} request {i}: depth outside "
+                     f"[{cfg.min_depth}, {cfg.max_depth}]")
+        want = {"window_attention": 24 * n, "msda": 2 * n,
+                "msda_backward": 0,
+                "pe_fusion": n if cfg.pe_variant == "adaptive" else 0}
+        want_by = {"msda": {self_q: n, DDAD_CROSS: n}, "msda_backward": {}}
+        print(f"[ddad serve] {preset}: request latency ms (PNG decode, "
+              f"resize, forward, no flip) "
+              f"{[round(x, 3) for x in latencies]}; depth in "
+              f"[{min(d.min() for d in depths):.4f}, "
+              f"{max(d.max() for d in depths):.4f}] m; launches {launches}, "
+              f"by queries {by_queries}", flush=True)
+        if launches != want or by_queries != want_by:
+            fail(f"{preset}: launches {launches}, {by_queries}; expected "
+                 f"{want}, {want_by}")
+        counted[preset] = (launches, by_queries)
+        if preset == DDAD:
+            phase_whole_forward(handle, [(read_rgb(images[0]),
+                                          handle.pe_raw)], tag="[ddad serve]",
+                                cam_height=1.56)
+        del handle
+        torch.cuda.empty_cache()
+    return counted
+
+
+
+def ddad_rows(row, results, serving, launches, by_queries):
+    """The `kernels` rows of phase 24's DDAD shapes, each with the launches
+    that phase 25's windowed or exact preset (serving shapes) or phase 26's
+    steps and evaluation (train shapes; E both) made at its query count."""
+    served = {"windowed": serving[DDAD],
+              "exact": serving["gedepth_adaptive_ddad"]}
+    rows = []
+    for name, t in results.items():
+        kernel, label = name.split(" ", 1)
+        if kernel == "pe_fusion":
+            n_train = launches[kernel]
+            n_serving = served["windowed"][0][kernel]
+        elif kernel == "window_attention":
+            n_train, n_serving = (launches[kernel], 0) if "train" in label \
+                else (0, served["windowed"][0][kernel])
+        elif "train" in label:
+            n_train, n_serving = by_queries[kernel].get(t["queries"], 0), 0
+        else:
+            n_train = 0
+            n_serving = served[label.split()[0]][1][kernel].get(t["queries"],
+                                                                0)
+        rows.append(row(f"{kernel}[ddad {label}]", kernel, t, n_train,
+                        n_serving))
+    return rows
+
+
+def phase_tools_test(tree):
+    """`tools.test` of the main preset pointed at the KITTI tree by
+    --options: 2 images, KB crop, flip-TTA, nine finite metrics."""
+    import contextlib as cl
+    import io
+
+    from gedepth_tpu_torch.tools import test as test_cli
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with cl.redirect_stdout(out):
+        test_cli.main([PRESET, "--max-images", "2", "--options",
+                       f"data.data_root={tree['root']}",
+                       f"data.test_split={tree['test']}"])
+    line = json.loads(out.getvalue().strip().splitlines()[-1])
+    if line["images"] != 2 or not all(
+            np.isfinite(line[k]) for k in ("abs_rel", "rmse", "a1")):
+        fail(f"tools.test on the KITTI tree: {line}")
+    print(f"[tools.test] {PRESET} --options data.data_root=<KITTI tree>: "
+          f"{time.perf_counter() - t0:.1f} s; {json.dumps(line)}",
+          flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    with contextlib.ExitStack() as stack:
+        return run(stack)
+
+
+def run(stack):
     started = last = time.perf_counter()
 
     def lap(name):
@@ -1977,6 +2378,8 @@ def main():
     smi = phase_device()
     phase_build()
     lap("device, build")
+    trees = phase_trees(stack.enter_context(tempfile.TemporaryDirectory()))
+    lap("KITTI and DDAD trees (phase 23)")
     # every kernel against its plain version first, while the process is
     # young: `torch.profiler` loses device activities later on
     results = phase_kernels()
@@ -1986,14 +2389,19 @@ def main():
     lap("kernels bf16 (phase 13)")
     rule_results = phase_rule_kernels()
     lap("sampling rules (phase 9)")
+    ddad_results = phase_kernels_ddad()
+    lap("kernels at DDAD shapes (phase 24)")
     handle, requests, serving_launches = phase_main_path()
     phase_whole_forward(handle, requests)
     del handle
     torch.cuda.empty_cache()
     lap("serving, whole forward (phases 4, 5)")
-    launches, _, _, f32_peak = phase_train()
+    launches, _, _, f32_peak, kitti_step_ms = phase_train(
+        tree_data(PRESET, trees["kitti"]))
+    phase_tools_test(trees["kitti"])
     phase_whole_step()
-    lap("train, whole step (phases 7, 8)")
+    lap("train and evaluation from the KITTI tree, whole step (phases 7, "
+        "8)")
     # weights in and out, while cuDNN's choices for the train crop are warm
     with tempfile.TemporaryDirectory() as work:
         best_npz, best_weights = phase_checkpoints(work)
@@ -2003,9 +2411,24 @@ def main():
         lap("weights in: .npz and reference .pth (phase 21)")
         phase_compat_check(parity_npz)
         lap("compat_check (phase 22)")
+    ddad_serving = phase_ddad_serving(trees["ddad"])
+    ddad_launches, ddad_by_queries, _, ddad_peak, ddad_step_ms = phase_train(
+        tree_data(DDAD, trees["ddad"]), preset=DDAD, steps=3,
+        tag="[train ddad]", queries=(DDAD_SELF, DDAD_CROSS),
+        eval_forwards=EVAL_IMAGES, eval_queries=(DDAD_SELF, DDAD_CROSS))
+    host = trees["host_ms"]
+    for name, step_ms in (("kitti", kitti_step_ms), ("ddad", ddad_step_ms)):
+        need = 2 * host[f"{name}_load_and_chain"]
+        print(f"[loader] {name}: one prefetch thread prepares a batch of 2 "
+              f"in ~{need:.0f} ms against a {step_ms:.0f} ms step: "
+              + ("the loader bounds training" if need > step_ms else
+                 "the step bounds training"), flush=True)
+    lap("DDAD serving, training and evaluation from the tree (phases 25, "
+        "26)")
     exact, preset_launches = phase_presets(requests)
-    _, exact_train, _, _ = phase_train(
-        EXACT, steps=3, tag="[train exact]", queries=(20570, 61952),
+    _, exact_train, _, _, _ = phase_train(
+        synthetic_data(), preset=EXACT, steps=3, tag="[train exact]",
+        queries=(20570, 61952),
         nonzero=("neck.reference_points.weight",
                  "neck.multi_att.sampling_offsets.weight",
                  "neck.self_attn.sampling_offsets.weight"))
@@ -2022,8 +2445,8 @@ def main():
     lap("parity, scopes, accuracy, bf16 evaluation (phases 14-17)")
     del whole
     torch.cuda.empty_cache()
-    _, bf16_by_queries, bf16_dtypes, bf16_peak = phase_train(
-        steps=3, tag="[train bf16]", bf16=True,
+    _, bf16_by_queries, bf16_dtypes, bf16_peak, _ = phase_train(
+        synthetic_data(), steps=3, tag="[train bf16]", bf16=True,
         nonzero=TRAIN_GRADS + ("neck.multi_att.sampling_offsets.weight",
                                "neck.multi_att.attention_weights.weight"))
     print(f"[train bf16] peak device memory of a step {bf16_peak:.1f} MiB "
@@ -2105,6 +2528,11 @@ def main():
         r["against"] = "float64"
         r["f32_device_ms"], r["f32_event_ms"] = t["extra_ms"]["f32"]
         kernels.append(r)
+    kernels += ddad_rows(row, ddad_results, ddad_serving, ddad_launches,
+                         ddad_by_queries)
+    print(f"[train ddad] peak device memory of a batch-2 step {ddad_peak:.1f}"
+          f" MiB at 384x640 against {f32_peak:.1f} MiB at 352x704 (phase 7)",
+          flush=True)
     for k in kernels:
         if k["launches"] <= 0:
             fail(f"kernel row {k['name']} was launched on no main path")

@@ -5,7 +5,9 @@ ops, models, convert, apis, train, eval, tools) and imports neither JAX nor
 `gedepth_tpu`. It serves, trains and evaluates GEDepth on Swin-L, f32: the
 adaptive model with the exact (mmcv), nearest, windowed and windowed-compat
 deformable-attention necks, GEDepth-Vanilla and the DepthFormer baseline
-(`configs/presets.py`); it checkpoints and resumes training, reads and
+(`configs/presets.py`), on KITTI and DDAD trees read and augmented without
+PIL or cv2 (`utils/png.py`, `data/resample.py`) or on synthetic frames;
+it checkpoints and resumes training, reads and
 writes the JAX package's params-only `.npz` (`train/checkpoint.py`) and
 reads reference `.pth` files (`convert/from_pth.py`). Its hot ops (Swin
 window attention, multi-level deformable sampling forward and backward,

@@ -1,11 +1,12 @@
 """Single-image inference (the port of `gedepth_tpu.apis.inference`).
 
   handle = init_depther("gedepth_adaptive_kitti_tpu", device="cuda",
-                        pe_raw=pe)
-  depth = inference_depther(handle, rgb)   # (352, 1216) metres, numpy
+                        pe_path="input/2011_09_26/pe/pe_165.npy")
+  depth = inference_depther(handle, "frame.png")   # (352, 1216) metres
 
-A raw image goes through the KITTI test pipeline (KB crop, normalisation),
-then the eval step: forward, clamp to [min_depth, max_depth], resize to the
+A raw image (an RGB array, or a PNG path read by `utils.png`) goes through
+the preset's test pipeline (KITTI: KB crop, normalisation; DDAD: resize to
+384x640, normalisation), then the eval step: forward, clamp to [min_depth, max_depth], resize to the
 input size with align_corners=True, and with flip-TTA the mean of the
 prediction and the un-flipped prediction of the mirrored image
 (`train.steps.make_eval_step`). A model without ground embedding
@@ -29,6 +30,7 @@ from gedepth_tpu_torch.configs import get_config
 from gedepth_tpu_torch.data.transforms import build_test_pipeline
 from gedepth_tpu_torch.geometry.plane import clip_pe_for_input
 from gedepth_tpu_torch.train.checkpoint import load_params_only
+from gedepth_tpu_torch.utils.png import read_rgb
 from gedepth_tpu_torch.train.steps import make_eval_step  # noqa: F401
 
 
@@ -76,12 +78,23 @@ class DeptherHandle:
     pe_raw: Optional[np.ndarray] = None
 
 
+def load_pe(path: str) -> np.ndarray:
+    """A camera's raw plane embedding from an `.npy` array or the `pe` of an
+    `.npz` (`tools.preprocess_data_kitti`, `tools.preprocess_data_ddad`),
+    float32."""
+    with open(path, "rb") as f:
+        arr = np.load(f)
+        return (arr["pe"] if hasattr(arr, "files") else arr).astype(
+            np.float32)
+
+
 def init_depther(config: Union[str, object], device="cuda",
                  flip_tta: Optional[bool] = None,
                  pe_raw: Optional[np.ndarray] = None, seed: int = 0,
                  state_dict: Optional[dict] = None,
                  bf16: bool = False,
-                 checkpoint: Optional[str] = None) -> DeptherHandle:
+                 checkpoint: Optional[str] = None,
+                 pe_path: Optional[str] = None) -> DeptherHandle:
     """Build a model and its eval step for single-image inference.
 
     The weights are the port's seeded random initialisation, or
@@ -91,7 +104,8 @@ def init_depther(config: Union[str, object], device="cuda",
     `tools.convert_torch_checkpoint`'s output), loaded strictly before any
     bf16 cast. TF32 is left as the caller set it.
     pe_raw: the camera's raw plane embedding at the raw image size, needed
-    when feeding 3-channel images to a model with a PE variant.
+    when feeding 3-channel images to a model with a PE variant; or
+    pe_path, a file holding it (`load_pe`).
     bf16: serve the whole model in bf16 (cast once here; the eval step casts
     the input and returns f32 depth). Without it, a preset whose
     `bf16_scope` is not 'none' gets that scope's weights cast once.
@@ -109,6 +123,10 @@ def init_depther(config: Union[str, object], device="cuda",
     elif cfg.model.bf16_scope != "none":
         cast_params_bf16(model, cfg.model.bf16_scope)
     flip = cfg.data.eval_flip_tta if flip_tta is None else flip_tta
+    if pe_path is not None:
+        if pe_raw is not None:
+            raise ValueError("pass pe_raw or pe_path, not both")
+        pe_raw = load_pe(pe_path)
     if pe_raw is not None:
         pe_raw = np.asarray(pe_raw, dtype=np.float32)
     return DeptherHandle(cfg, model,
@@ -116,10 +134,14 @@ def init_depther(config: Union[str, object], device="cuda",
                          build_test_pipeline(cfg.data), device, pe_raw)
 
 
-def inference_depther(handle: DeptherHandle, image: np.ndarray,
+def inference_depther(handle: DeptherHandle,
+                      image: Union[str, np.ndarray],
                       cam_height: Optional[float] = None) -> np.ndarray:
-    """Depth of one image, (H, W, 3) RGB in 0..255 or an (H, W, 5) sample
-    image; returns an (H', W') depth map at the eval resolution."""
+    """Depth of one image: a PNG path, (H, W, 3) RGB in 0..255 or an
+    (H, W, 5) sample image; returns an (H', W') depth map at the eval
+    resolution."""
+    if isinstance(image, str):
+        image = read_rgb(image)
     image = np.asarray(image, dtype=np.float32)
     cfg = handle.cfg
     sample = {"img": image,
@@ -128,7 +150,8 @@ def inference_depther(handle: DeptherHandle, image: np.ndarray,
     if cfg.model.pe_variant != "none" and image.shape[-1] != 5:
         if handle.pe_raw is None:
             raise ValueError("PE variant needs a plane embedding: pass "
-                             "pe_raw to init_depther or a 5-channel image")
+                             "pe_path or pe_raw to init_depther or a "
+                             "5-channel image")
         if handle.pe_raw.shape != image.shape[:2]:
             raise ValueError(f"pe shape {handle.pe_raw.shape} != image "
                              f"{image.shape[:2]}")

@@ -7,14 +7,15 @@ counterpart. Left out on purpose: `swin_scan` (it changes only the JAX
 parameter layout, which `convert.from_jax` unstacks), the remat switches
 (memory only), `neck_value_bf16` (bf16 values in an f32 neck: the port's
 bf16 goes by `bf16_scope`, whole-model casts and `bf16_compute`), the zoo's
-fields, and the fields of modules not ported yet (real datasets,
+fields, and the fields of modules not ported yet (NYU's scene classes,
 multi-process loading).
 """
 from __future__ import annotations
 
+import ast
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -74,9 +75,15 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class DataConfig:
-    dataset: str = "kitti"                # 'kitti' | 'synthetic'
+    dataset: str = "kitti"                # 'kitti' | 'ddad' | 'synthetic'
+    data_root: str = "data/kitti"
+    train_split: str = "splits/kitti_eigen_train.txt"
+    test_split: str = "splits/kitti_eigen_test.txt"
+    gt_depth_scale: float = 256.0         # KITTI's 16-bit PNG divisor
     crop_size: Tuple[int, int] = (352, 704)
     eval_size: Tuple[int, int] = (352, 1216)
+    ratio_range: Tuple[float, float] = (0.5, 2.0)
+    rotate_degree: float = 2.5
     flip_prob: float = 0.5
     garg_crop: bool = True
     eigen_crop: bool = False
@@ -84,7 +91,11 @@ class DataConfig:
     # 'whole' or 'slide' (sliding-window inference; window and step default
     # to crop_size and half of it, see eval/evaluator.py)
     eval_mode: str = "whole"
-    # samples of the synthetic train set (and the stand-in for KITTI)
+    # DDAD: the (height, width) of DDADResize, (384, 640)
+    ddad_resize: Optional[Tuple[int, int]] = None
+    # the train set repeated this many times (data.wrappers.RepeatDataset)
+    repeat_times: int = 1
+    # samples of the synthetic train set
     synthetic_size: int = 64
 
 
@@ -131,3 +142,26 @@ class ExperimentConfig:
 
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)
+
+
+def apply_options(cfg, options):
+    """`key=value` overrides of dotted dataclass fields, as
+    tools/train.py's --options: `data.data_root=/data/kitti`,
+    `optim.max_lr=2e-4`, `data.crop_size=(384,640)`. A value is read by
+    `ast.literal_eval`, or kept as a string when it is not a literal."""
+    for opt in options or []:
+        key, _, raw = opt.partition("=")
+        parts = key.split(".")
+        try:
+            val = ast.literal_eval(raw)
+        except (ValueError, SyntaxError):
+            val = raw
+        path, obj = [], cfg
+        for p in parts[:-1]:
+            path.append((obj, p))
+            obj = getattr(obj, p)
+        obj = dataclasses.replace(obj, **{parts[-1]: val})
+        for parent, name in reversed(path):
+            obj = dataclasses.replace(parent, **{name: obj})
+        cfg = obj
+    return cfg

@@ -6,6 +6,32 @@ import dataclasses
 from gedepth_tpu_torch.configs.base import (
     DataConfig, ExperimentConfig, ModelConfig, OptimConfig, TrainConfig)
 
+def _ddad_data():
+    """DDAD (configs/depthformer/depthformer_{v,a}_ddad.py of the
+    reference): 384x640 crop and evaluation, no garg or eigen crop, no flip
+    and no flip-TTA."""
+    return DataConfig(
+        dataset="ddad", data_root="data/DDAD",
+        train_split="splits/ddad_train_split.txt",
+        test_split="splits/ddad_val_split.txt",
+        crop_size=(384, 640), eval_size=(384, 640),
+        garg_crop=False, eigen_crop=False, eval_flip_tta=False,
+        flip_prob=0.0, ddad_resize=(384, 640))
+
+
+def _ddad_model(variant, **kw):
+    return ModelConfig(pe_variant=variant, max_depth=200.0,
+                       depth_scale=250.0, default_cam_height=1.55, **kw)
+
+
+def _ddad(name, model):
+    # no warmup, 38,400 iterations at a global batch of 32
+    return ExperimentConfig(
+        name=name, model=model, data=_ddad_data(),
+        optim=OptimConfig(warmup_iters=0),
+        train=TrainConfig(max_iters=38400, global_batch=32))
+
+
 _PRESETS = {
     # DepthFormer Swin-L baseline (no ground embedding), KITTI
     "depthformer_baseline_kitti": lambda: ExperimentConfig(
@@ -46,6 +72,16 @@ _PRESETS = {
         model=ModelConfig(pe_variant="adaptive", neck_sampling="windowed",
                           neck_hi_min_level=1),
         data=DataConfig()),
+    # GEDepth-Vanilla and GEDepth-Adaptive on DDAD
+    "gedepth_vanilla_ddad": lambda: _ddad("gedepth_vanilla_ddad",
+                                          _ddad_model("vanilla")),
+    "gedepth_adaptive_ddad": lambda: _ddad("gedepth_adaptive_ddad",
+                                           _ddad_model("adaptive")),
+    # the windowed neck with HI queries from level 1, DDAD's constants
+    "gedepth_adaptive_ddad_tpu": lambda: _ddad(
+        "gedepth_adaptive_ddad_tpu",
+        _ddad_model("adaptive", neck_sampling="windowed",
+                    neck_hi_min_level=1)),
     # Swin-T-sized smoke config on synthetic data (tests)
     "smoke_synthetic": lambda: ExperimentConfig(
         name="smoke_synthetic",

@@ -30,17 +30,49 @@ def plane_embedding_from_projection(A: np.ndarray, height: int, width: int,
     return (RT[2] - camera_height) / denom
 
 
+def kitti_plane_embedding(A: np.ndarray, height: int, width: int,
+                          camera_height: float = 1.65) -> np.ndarray:
+    """KITTI PE: A = P2 @ R0_rect @ Tr_velo_to_cam, offset by the camera
+    height."""
+    return plane_embedding_from_projection(A, height, width, camera_height)
+
+
+def ddad_plane_embedding(K: np.ndarray, cam_pose: np.ndarray,
+                         lidar_pose: np.ndarray, height: int,
+                         width: int) -> np.ndarray:
+    """DDAD PE: A = K4 @ inv(cam_pose) @ lidar_pose with no height offset
+    (the lidar pose holds it). K is the 3x3 intrinsics, the poses 4x4."""
+    K4 = np.eye(4, dtype=np.float64)
+    K4[:3, :3] = np.asarray(K, dtype=np.float64)
+    A = K4 @ np.linalg.inv(np.asarray(cam_pose, dtype=np.float64)) @ \
+        np.asarray(lidar_pose, dtype=np.float64)
+    return plane_embedding_from_projection(A[:3, :4], height, width, 0.0)
+
+
 def slope_bin_gt(gt_depth: np.ndarray, pe: np.ndarray,
-                 camera_height: float = 1.65) -> np.ndarray:
-    """Per-pixel ground-slope GT in signed degrees, KITTI's rule: tan(k) =
-    h/gt − h/pe, rounded, clipped to [−5, 5], SLOPE_IGNORE_INDEX where
-    gt_depth == 0. Returns (H, W) float32."""
+                 camera_height: float = 1.65,
+                 rounding: str = "round") -> np.ndarray:
+    """Per-pixel ground-slope GT in signed degrees: tan(k) = h/gt − h/pe,
+    binned by `rounding`, clipped to [−5, 5], SLOPE_IGNORE_INDEX where
+    gt_depth == 0. Returns (H, W) float32.
+
+    rounding 'round' is KITTI's rule (to the nearest degree, half to even);
+    'trunc' is DDAD's (toward zero, an int64 cast): the NaNs of gt == 0 are
+    set to 0 before the cast, which cannot take them, and become the ignore
+    index after it."""
     gt = np.asarray(gt_depth, dtype=np.float64)
     pe = np.asarray(pe, dtype=np.float64)
     invalid = gt == 0
     with np.errstate(divide="ignore", invalid="ignore"):
         k = camera_height / gt - camera_height / pe
-    k = np.clip(np.around(np.rad2deg(np.arctan(k))), -5, 5)
+    k = np.rad2deg(np.arctan(k))
+    if rounding == "round":
+        k = np.around(k)
+    elif rounding == "trunc":
+        k = np.where(invalid, 0.0, k).astype(np.int64).astype(np.float64)
+    else:
+        raise ValueError(f"unknown rounding {rounding!r}")
+    k = np.clip(k, -5, 5)
     return np.where(invalid, float(SLOPE_IGNORE_INDEX), k).astype(np.float32)
 
 

@@ -6,10 +6,14 @@
         [--aug-test --aug-ratios 0.75,1.0,1.25]
         [--slide --slide-tile H,W --slide-stride H,W]
         [--device-metrics] [--bf16] [--device cuda]
+        [--options key=value ...]
 
-Runs the `Evaluator` over the preset's test split and prints the aggregate
-of the 9 metrics as one JSON line. The repository holds no KITTI data, so
-the split is synthetic (`train.loop.build_eval_dataset`). The weights come
+Runs the `Evaluator` over the preset's test split
+(`train.loop.build_eval_dataset`: KITTI or DDAD under data.data_root, or
+synthetic frames) and prints the aggregate of the 9 metrics as one JSON
+line. --options overrides dotted config fields (`configs.apply_options`),
+e.g. `data.data_root=/data/kitti data.test_split=/data/kitti/test.txt`.
+The weights come
 from `checkpoint`, a params-only `.npz` of either package (the train loop's
 `best_abs_rel.npz`, `tools.convert_torch_checkpoint`'s output), or from
 --state-dict, a file written by `torch.save(model.state_dict(), FILE)`;
@@ -28,7 +32,8 @@ def _pair(text):
 
 
 def main(argv=None):
-    from gedepth_tpu_torch.configs import get_config, list_configs
+    from gedepth_tpu_torch.configs import (
+        apply_options, get_config, list_configs)
 
     parser = argparse.ArgumentParser(description="Evaluate GEDepth (PyTorch)")
     parser.add_argument("config", choices=list_configs())
@@ -55,6 +60,8 @@ def main(argv=None):
                         "eval forward in bf16 (depth clamp and final resize "
                         "stay f32)")
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("--options", nargs="*", default=None,
+                        help="dotted config overrides key=value")
     args = parser.parse_args(argv)
 
     import torch
@@ -66,7 +73,7 @@ def main(argv=None):
     from gedepth_tpu_torch.utils.env import disable_tf32
 
     disable_tf32()
-    cfg = get_config(args.config)
+    cfg = apply_options(get_config(args.config), args.options)
     model = cfg.model.build(generator=torch.Generator().manual_seed(0))
     if args.state_dict:
         model.load_state_dict(torch.load(args.state_dict, map_location="cpu",

@@ -3,11 +3,10 @@
 eval_interval steps with save-best, keep-N checkpoints, resume, and a JSONL
 log.
 
-The repository holds no KITTI data, so a KITTI preset trains on
-`SyntheticGroundDataset` frames at its KB-cropped size (eval_size,
-352x1216), which the synthetic augmentation branch (flip, random crop to
-crop_size, colour, normalise) cuts to the training crop; a synthetic preset
-generates its frames at crop_size, as the JAX package does.
+A KITTI or DDAD preset reads its splits under cfg.data.data_root (the trees
+that `tools.preprocess_data_kitti` and `tools.preprocess_data_ddad` finish)
+and augments them by the dataset's chain (`data.transforms`); a synthetic
+data config generates its frames at crop_size, as the JAX package does.
 """
 from __future__ import annotations
 
@@ -19,9 +18,12 @@ from typing import Optional
 
 import torch
 
+from gedepth_tpu_torch.data.ddad import DDADDataset
+from gedepth_tpu_torch.data.kitti import KittiDataset
 from gedepth_tpu_torch.data.loader import TrainLoader
 from gedepth_tpu_torch.data.synthetic import SyntheticGroundDataset
 from gedepth_tpu_torch.data.transforms import build_train_pipeline
+from gedepth_tpu_torch.data.wrappers import RepeatDataset
 from gedepth_tpu_torch.eval.evaluator import Evaluator
 from gedepth_tpu_torch.train.checkpoint import (
     CheckpointKeeper, restore_checkpoint, save_params_only)
@@ -44,34 +46,60 @@ def cudnn_autotuner():
         torch.backends.cudnn.benchmark = saved
 
 
-def _synthetic_dataset(cfg, size, hw, seed):
-    m = cfg.model
-    return SyntheticGroundDataset(size=size, height=hw[0], width=hw[1],
-                                  depth_scale=m.depth_scale,
-                                  max_depth=m.max_depth,
-                                  use_pe=m.pe_variant != "none", seed=seed)
+def _require(path, what):
+    if not osp.exists(path):
+        raise FileNotFoundError(f"{what} not found: {path}")
 
 
-def _frame_size(cfg, synthetic_hw):
-    d = cfg.data
+def _dataset(cfg, train: bool):
+    """The train or the test split of cfg.data.dataset."""
+    d, m = cfg.data, cfg.model
+    use_pe = m.pe_variant != "none"
     if d.dataset == "synthetic":
-        return synthetic_hw
+        size = d.synthetic_size if train else max(d.synthetic_size // 4, 2)
+        h, w = d.crop_size if train else d.eval_size
+        return SyntheticGroundDataset(size=size, height=h, width=w,
+                                      depth_scale=m.depth_scale,
+                                      max_depth=m.max_depth, use_pe=use_pe,
+                                      seed=0 if train else 1)
+    if d.dataset not in ("kitti", "ddad"):
+        raise NotImplementedError(f"dataset {d.dataset!r} is not ported")
+    split = d.train_split if train else d.test_split
+    _require(d.data_root, f"{d.dataset} data root")
+    _require(split, f"{d.dataset} {'train' if train else 'test'} split")
+    kw = dict(use_pe=use_pe, pe_clip=m.depth_scale, min_depth=m.min_depth,
+              max_depth=m.max_depth, test_mode=not train,
+              load_slope_gt=train and m.pe_variant == "adaptive")
     if d.dataset == "kitti":
-        return d.eval_size       # synthetic stand-in for the KB-cropped frame
-    raise NotImplementedError(f"dataset {d.dataset!r} is not ported yet")
+        return KittiDataset(d.data_root, split, depth_scale=d.gt_depth_scale,
+                            garg_crop=d.garg_crop, eigen_crop=d.eigen_crop,
+                            **kw)
+    return DDADDataset(d.data_root, split, **kw)
 
 
 def build_train_dataset(cfg):
-    return _synthetic_dataset(cfg, cfg.data.synthetic_size,
-                              _frame_size(cfg, cfg.data.crop_size), seed=0)
+    """The train split (`gedepth_tpu.train.loop.build_datasets`): KITTI or
+    DDAD from cfg.data.data_root and cfg.data.train_split, or synthetic
+    frames at crop_size; wrapped in `RepeatDataset` when
+    cfg.data.repeat_times > 1. A missing root or split raises
+    FileNotFoundError."""
+    train = _dataset(cfg, True)
+    if cfg.data.repeat_times > 1:
+        train = RepeatDataset(train, cfg.data.repeat_times)
+    return train
 
 
 def build_eval_dataset(cfg):
-    """The test split of `gedepth_tpu.train.loop.build_datasets`: a quarter
-    as many synthetic frames as the train split (at least 2), at eval_size,
-    from other scenes (seed 1)."""
-    return _synthetic_dataset(cfg, max(cfg.data.synthetic_size // 4, 2),
-                              _frame_size(cfg, cfg.data.eval_size), seed=1)
+    """The test split: KITTI or DDAD from cfg.data.test_split in test mode
+    (the evaluator reloads the GT at full resolution), or a quarter as many
+    synthetic frames as the train split (at least 2) at eval_size, from
+    other scenes (seed 1)."""
+    return _dataset(cfg, False)
+
+
+def build_datasets(cfg):
+    """(train, test) of cfg.data."""
+    return build_train_dataset(cfg), build_eval_dataset(cfg)
 
 
 LESS_IS_BETTER = ("abs_rel", "sq_rel", "rmse", "rmse_log", "log_10", "silog")

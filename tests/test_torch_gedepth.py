@@ -189,10 +189,8 @@ LEFT_OUT = {
     "model": {"swin_scan", "swin_remat", "neck_msda_remat", "neck_value_bf16",
               "arch", "backbone_variant", "backbone_embed_dims",
               "backbone_depth", "n_bins"},
-    # real datasets and their augmentations are not ported yet
-    "data": {"data_root", "train_split", "test_split", "gt_depth_scale",
-             "ratio_range", "rotate_degree", "ddad_resize", "repeat_times",
-             "scene_classes"},
+    # NYU's scene classes (the zoo's BinsFormer)
+    "data": {"scene_classes"},
     # the zoo's loss composition
     "optim": {"aux_loss_indices", "aux_loss_weights", "class_ce_weight",
               "chamfer_weight"},
@@ -203,7 +201,9 @@ LEFT_OUT = {
 REFERENCE_PRESETS = ("gedepth_adaptive_kitti",
                      "gedepth_adaptive_kitti_compat",
                      "gedepth_adaptive_kitti_parity",
-                     "gedepth_vanilla_kitti", "depthformer_baseline_kitti")
+                     "gedepth_vanilla_kitti", "depthformer_baseline_kitti",
+                     "gedepth_vanilla_ddad", "gedepth_adaptive_ddad",
+                     "gedepth_adaptive_ddad_tpu")
 
 
 def _assert_preset_matches_jax(name):
@@ -244,14 +244,16 @@ def test_unsupported_modes_raise():
 
 
 def test_port_imports_neither_jax_nor_gedepth_tpu():
-    """`import gedepth_tpu_torch` and every submodule loads no JAX."""
+    """`import gedepth_tpu_torch` and every submodule loads no JAX, nothing
+    of `gedepth_tpu`, and none of PIL, cv2 and matplotlib (the card's
+    machine has none of them)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import gedepth_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
-        " or k == 'gedepth_tpu' or k.startswith('gedepth_tpu.')]\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'gedepth_tpu', 'PIL', 'cv2', 'matplotlib')]\n"
         "assert not bad, bad\n"
         "print(len([k for k in sys.modules "
         "if k.startswith('gedepth_tpu_torch')]))\n")

@@ -497,6 +497,88 @@ def test_msda_kernels_at_the_train_crop_with_the_hint():
         msda_ops.msda_backward_plain(value, levels, pos, w, gout))
 
 
+# --- DDAD's 384x640 shapes
+
+DDAD_LEVELS = ((96, 160), (48, 80), (24, 40), (12, 20))
+
+
+@pytest.mark.parametrize("nWB", [322, 644])
+def test_window_attention_kernel_at_ddad_stage1(nWB):
+    """Stage 1 of 96x160 padded to 98x161: 14x23 = 322 windows, the shift
+    mask's period; batch 1 and 2."""
+    g = torch.Generator(device="cuda").manual_seed(30)
+    q, k, v = (_randn(g, nWB, 49, 6, 32) for _ in range(3))
+    q = q * 32 ** -0.5
+    bias = _randn(g, 6, 49, 49)
+    mask = torch.as_tensor(shifted_window_mask(98, 161, 7, 3), device="cuda")
+    assert mask.shape[0] == 322
+    torch.testing.assert_close(wa.window_attention(q, k, v, bias, mask),
+                               wa.window_attention_plain(q, k, v, bias, mask),
+                               rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("query_shapes", [DDAD_LEVELS[1:], ((192, 320),)])
+def test_msda_kernels_at_ddad_shapes(query_shapes, B):
+    """B and C at DDAD's windowed self-attention (5,040 queries) and
+    cross-attention (61,440) over 20,400 value tokens, with the window hint
+    and without."""
+    g = torch.Generator(device="cuda").manual_seed(31)
+    Nq = sum(a * b for a, b in query_shapes)
+    value = _randn(g, B, sum(a * b for a, b in DDAD_LEVELS), 8, 64)
+    pos = msda_ops.windowed_positions(2.0 * _randn(g, B, Nq, 8, 4, 8, 2),
+                                      query_shapes, DDAD_LEVELS, 4)
+    w = _randn(g, B, Nq, 8, 32).softmax(-1).view(B, Nq, 8, 4, 8)
+    gout = _randn(g, B, Nq, 512)
+    want = msda_ops.msda_plain(value, DDAD_LEVELS, pos, w)
+    want_grads = msda_ops.msda_backward_plain(value, DDAD_LEVELS, pos, w,
+                                              gout)
+    for window in ((query_shapes, 4), ()):
+        torch.testing.assert_close(
+            msda_ops.msda(value, DDAD_LEVELS, pos, w, *window), want,
+            rtol=2e-4, atol=2e-5)
+        _assert_msda_grads(msda_ops.msda_backward(value, DDAD_LEVELS, pos, w,
+                                                  gout, *window), want_grads)
+
+
+def test_msda_kernel_at_ddad_exact_positions():
+    """The exact rule's self-attention over all of DDAD's levels (20,400
+    queries), a tenth of the offsets far out."""
+    g = torch.Generator(device="cuda").manual_seed(32)
+    Nq = sum(a * b for a, b in DDAD_LEVELS)
+    ref = msda_ops.center_reference_points(DDAD_LEVELS, "cuda")
+    off = 3.0 * _randn(g, 1, Nq, 8, 4, 8, 2)
+    far = torch.rand(off.shape, generator=g, device="cuda") < 0.1
+    off = torch.where(far, off * 1e6, off)
+    pos = msda_ops.exact_positions(ref, off, DDAD_LEVELS)
+    value = _randn(g, 1, Nq, 8, 64)
+    w = _randn(g, 1, Nq, 8, 32).softmax(-1).view(1, Nq, 8, 4, 8)
+    torch.testing.assert_close(
+        msda_ops.msda(value, DDAD_LEVELS, pos, w),
+        msda_ops.msda_plain(value, DDAD_LEVELS, pos, w), rtol=2e-4,
+        atol=2e-5)
+
+
+def test_pe_fusion_kernel_per_sample_heights_ddad():
+    """E at 384x640 with four camera heights in one batch and DDAD's
+    depth_scale 250: each sample as if it were alone."""
+    g = torch.Generator(device="cuda").manual_seed(33)
+    logits = _randn(g, 4, 384, 640, 11)
+    pe = torch.rand(4, 384, 640, generator=g, device="cuda") * 240 + 2
+    y = torch.rand(4, 384, 640, generator=g, device="cuda")
+    cam = torch.tensor([1.56, 1.57, 1.53, 1.55], device="cuda")
+    got = pe_ops.pe_fusion(logits, pe, y, cam, 250.0)
+    torch.testing.assert_close(
+        got, pe_ops.pe_fusion_plain(logits, pe, y, cam, 250.0), rtol=1e-4,
+        atol=1e-4)
+    for i in range(4):
+        torch.testing.assert_close(
+            got[i:i + 1], pe_ops.pe_fusion(logits[i:i + 1], pe[i:i + 1],
+                                           y[i:i + 1], cam[i:i + 1], 250.0))
+    # the validity window is (0, 250]: a prior past 200 survives
+    assert (got > 200).any()
+
+
 # --- the exact, nearest and compat position rules through kernels B and C
 
 RULE_SHAPES = {
