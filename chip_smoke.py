@@ -4,6 +4,9 @@ GPU.
 
     python3 chip_smoke.py
 
+(`python3 chip_smoke.py --rank-step SPEC` is one rank of phase 28, which
+the script starts itself.)
+
 Phases, each printing its lines (and, per group of phases, a `[time]` line
 with its host-clock seconds); any failure raises and exits non-zero:
   1. device: the card's name and power limit (nvidia-smi), CUDA version and
@@ -174,15 +177,41 @@ with its host-clock seconds); any failure raises and exits non-zero:
      forward exactly 24 A, B once at the self-attention's queries and once
      at the cross-attention's, 1 E (0 for vanilla); the windowed preset's
      whole forward with kernels against plain, rtol 1e-3, atol 1e-3 m;
- 26. DDAD training: `train("gedepth_adaptive_ddad_tpu")` for 3 steps at
+ 26. DDAD training: `train("gedepth_adaptive_ddad_tpu")` for 5 steps at
      384x640, batch 2, from the tree, checked as phase 7, then the loop's
      evaluation of the tree's 2 test frames (one forward each, the
      prediction upsampled to the 1216x1936 GT); whether one prefetch
      thread keeps up with a step, KITTI and DDAD.
+ 27. loader workers: `TrainLoader` over the KITTI and DDAD trees at 0, 2
+     and 4 workers (global batch 2, the presets' chains): the first 3
+     batches bit-identical for every count, and the samples a second
+     against the rate the f32 batch-2 step of phases 7 and 26 takes;
+ 28. two ranks on one card: two processes in one gloo group (gloo takes
+     CUDA tensors, NCCL refuses two ranks on one card), each at batch 1 of
+     the main preset at full width (352x704, f32, one step), beside one
+     process at batch 2 on the same weights and batch; cuDNN off on both
+     sides (ATen's im2col convolutions: no autotuner trials, no FFT
+     workspace) and each rank capped at 30% of the card. Loss, its parts
+     and grad_norm rtol 1e-4, every gradient within 1e-3 of its largest
+     magnitude (past it only the conv and BatchNorm in front of an
+     activation whose sign flipped, within 1e-3 in L2), the BatchNorm
+     running statistics rtol 1e-4; A, B, C and E launched in every
+     process; then the time and memory of a step's DropPath and dropout
+     draws for 2 rows of a global batch of 2, 16 and 32;
+ 29. a world of one over NCCL, as a multi-GPU user starts it:
+     `python -m torch.distributed.run --nproc_per_node 1 -m
+     gedepth_tpu_torch.tools.train <main preset> --multihost` for 2 steps
+     from the KITTI tree, then `tools.test --multihost` on its
+     best_abs_rel.npz; world 1, backend nccl, finite metrics;
+ 30. stage-1 pretraining: `tools.pretrain_pe_mask gedepth_adaptive_kitti`
+     from the KITTI tree, 3 steps at batch 2 (HAHI on the exact rule: B and
+     C at 20,570 and 61,952 queries a sample), the ground-mask IoU of 4
+     more batches, then one `tools.train` step with --load-backbone-from:
+     the backbone before the step equals the file, every gradient finite.
 The phases run in the order 1, 2, 23, 3, 6, 13, 9, 24, 4, 5, 7, 8, 20-22,
-25, 26, 10, 11, 12, 14-19: every kernel check comes before the first
-model, because `torch.profiler` loses device activities as a process ages,
-and all of them once it has trained.
+25, 26, 27, 10, 11, 12, 14-19, 28-30: every kernel check comes before the
+first model, because `torch.profiler` loses device activities as a
+process ages, and all of them once it has trained.
 A `device_ms` that is not within a tenth of its `event_ms` (kernels of
 0.5 ms and more) is printed, dropped and null in its row; `event_ms` is in
 every row. Then the kernels as one JSON line. The first four rows
@@ -206,9 +235,11 @@ Imports nothing of JAX. Exits non-zero without a CUDA device.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import functools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -550,6 +581,7 @@ def phase_kernels():
                 msda_ops.msda(value, levels, pos, w), want, 2e-4, 2e-5)
         t = timed(lambda: msda_ops.msda(value, levels, pos, w, grids, RADIUS),
                   lambda: msda_ops.msda_plain(value, levels, pos, w),
+                  plain_reps=1,
                   extra={"without_hint":
                          lambda: msda_ops.msda(value, levels, pos, w)})
         t["bound_ms"], t["bound_by"] = bound(
@@ -922,6 +954,7 @@ def phase_kernel_c():
         del got, want, again, hintless
         t = timed(lambda: msda_ops.msda_backward(*args, grids, RADIUS),
                   lambda: msda_ops.msda_backward_plain(*args),
+                  plain_reps=1,
                   extra={"without_hint":
                          lambda: msda_ops.msda_backward(*args)})
         t["bound_ms"], t["bound_by"] = bound(
@@ -2355,12 +2388,638 @@ def phase_tools_test(tree):
           flush=True)
 
 
+# ---- phases 27-30: loader workers, two ranks, NCCL, stage-1 pretraining ----
+
+LOADER_WORKERS = (0, 2, 4)
+LOADER_KEEP = 3           # batches held bit for bit across worker counts
+
+
+def phase_loader_workers(trees, step_ms):
+    """Phase 27: `TrainLoader` over the KITTI and DDAD trees of phase 23 at
+    0, 2 and 4 workers, global batch 2, the presets' chains: the first
+    LOADER_KEEP batches bit-identical for every worker count; samples a
+    second over `bench_loader.window_batches` (four times the batches in
+    flight, at least 16), timed after those in flight when the first came
+    (`bench_loader.warm_batches`), against what this run's f32 batch-2 step
+    (phases 7, 26) takes. Returns {(dataset, workers): samples a second}."""
+    from gedepth_tpu_torch.configs import get_config
+    from gedepth_tpu_torch.data import TrainLoader, build_train_pipeline
+    from gedepth_tpu_torch.tools.bench_loader import loader_rate
+    from gedepth_tpu_torch.train.loop import build_train_dataset
+
+    rates = {}
+    for name, preset in (("kitti", PRESET), ("ddad", DDAD)):
+        cfg = get_config(preset, data=tree_data(preset, trees[name]))
+        dataset = build_train_dataset(cfg)
+        chain = build_train_pipeline(cfg.data, cfg.model.depth_scale)
+        need = 2 / (step_ms[name] / 1e3)
+        first = None
+        for w in LOADER_WORKERS:
+            rate, kept = loader_rate(
+                TrainLoader(dataset, chain, 2, seed=SEED, num_workers=w,
+                            sampling=cfg.train.sampling),
+                keep=LOADER_KEEP)
+            kept = [{k: np.asarray(v) for k, v in b.items()} for b in kept]
+            if first is None:
+                first = kept
+            elif any(a.keys() != b.keys() or any(
+                    a[k].dtype != b[k].dtype
+                    or a[k].tobytes() != b[k].tobytes() for k in a)
+                    for a, b in zip(first, kept)):
+                fail(f"[loader] {name}: {w} workers gave other batches than "
+                     "one thread")
+            sps = rate["samples_per_s"]
+            rates[(name, w)] = sps
+            print(f"[loader] {name} {w} workers: {sps:.2f} samples/s "
+                  f"(first batch after {rate['first_batch_s']:.2f} s; "
+                  f"{rate['window_batches']} batches of 2 timed after "
+                  f"{rate['warm_batches']}) against "
+                  f"{need:.2f} samples/s for the {step_ms[name]:.1f} ms f32 "
+                  "batch-2 step: "
+                  + ("the loader keeps up" if sps >= need
+                     else "the loader bounds training"), flush=True)
+        print(f"[loader] {name}: the first {LOADER_KEEP} batches "
+              f"bit-identical at {LOADER_WORKERS} workers", flush=True)
+    return rates
+
+
+RANK_MEMORY_FRACTION = 0.3    # of the card, each of the two ranks
+
+
+@contextlib.contextmanager
+def cudnn_off():
+    """ATen's own convolutions (im2col and GEMM) in place of cuDNN's: no
+    workspace, and the same algorithms at any batch."""
+    saved = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.enabled = saved
+
+
+def activation_signs(model):
+    """Forward hooks that keep, in forward order, where every ReLU and
+    LeakyReLU of `model` sees a positive input (the ConvModules with an
+    activation, the stem's ReLU, the depth conv's ReLU). Returns (names,
+    signs, owners): the next forward fills `names` with each site's module
+    name and `signs` with its bool tensor; owners[name] are the prefixes of
+    the parameters that make that site's input (the conv and BatchNorm in
+    front of the activation), whose gradients a flipped sign there moves
+    by a step."""
+    from gedepth_tpu_torch.models.layers import ConvModule
+
+    names, signs = [], []
+    module_names = {m: n for n, m in model.named_modules()}
+
+    def keep(module, args, out):
+        names.append(module_names[module])
+        signs.append(out.detach() > 0)
+
+    owners = {n: (n + ".",) for n, m in model.named_modules()
+              if isinstance(m, ConvModule) and m.act is not None}
+    owners["backbone.bn1"] = ("backbone.bn1.", "backbone.conv1.")
+    owners["decode_head.conv_depth"] = ("decode_head.conv_depth.",)
+    for n, m in model.named_modules():
+        if n in owners:
+            m.register_forward_hook(keep)
+    return names, signs, owners
+
+
+def stochastic_draws(model):
+    """Forward pre-hooks that keep, in call order, the input shape of every
+    DropPath and Dropout of `model` that draws in training (rate > 0):
+    (kind, shape) pairs that the next forward fills."""
+    from gedepth_tpu_torch.models.layers import Stochastic
+
+    draws = []
+
+    def keep(module, args):
+        draws.append((type(module).__name__, tuple(args[0].shape)))
+
+    for m in model.modules():
+        if isinstance(m, Stochastic) and m.rate > 0:
+            m.register_forward_pre_hook(keep)
+    return draws
+
+
+def global_batch_step(tree):
+    """One f32 `make_train_step` of PRESET at full width, 352x704, on this
+    process's rows of global batch 0 of the KITTI tree (both rows without a
+    process group), from the seeded initialisation; the gradients, losses,
+    BatchNorm statistics, launches, activation signs (`activation_signs`,
+    bit-packed per sample) and random draws (`stochastic_draws`) on the
+    host."""
+    import dataclasses
+
+    from gedepth_tpu_torch import parallel
+    from gedepth_tpu_torch.configs import get_config
+    from gedepth_tpu_torch.data import TrainLoader, build_train_pipeline
+    from gedepth_tpu_torch.train.loop import build_train_dataset
+    from gedepth_tpu_torch.train.steps import (
+        batch_to_device, create_train_state, make_train_step)
+
+    cfg = get_config(PRESET, data=tree_data(PRESET, tree))
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, global_batch=2))
+    model = cfg.model.build(device="cuda",
+                            generator=torch.Generator().manual_seed(SEED))
+    state = create_train_state(model, cfg.optim, cfg.train.max_iters,
+                               seed=SEED + 1)
+    batch = TrainLoader(build_train_dataset(cfg),
+                        build_train_pipeline(cfg.data, cfg.model.depth_scale),
+                        2, seed=SEED, shard_index=parallel.rank(),
+                        shard_count=parallel.world()).make_batch(0)
+    sites, signs, owners = activation_signs(model)
+    draws = stochastic_draws(model)
+    counters = _kernel_counters()
+    reset_counts(counters)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    metrics = make_train_step()(state, batch_to_device(batch, "cuda"))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, _ = read_counts(counters)
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "signs": [[np.packbits(t[i].cpu().numpy()) for i in range(len(t))]
+                      for t in signs],
+            "sites": sites, "owners": owners, "draws": draws,
+            "grads": {n: p.grad.cpu() for n, p in model.named_parameters()},
+            "stats": {n: b.cpu() for n, b in model.named_buffers()
+                      if n.endswith(("running_mean", "running_var"))},
+            "launches": launches, "index": batch["index"].tolist(),
+            "seconds": seconds, "world": parallel.world(),
+            "backend": parallel.backend(),
+            "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
+
+
+def rank_step_worker(spec_path):
+    """One rank of phase 28 (`chip_smoke.py --rank-step SPEC`): joins the
+    gloo group of the environment on the card, capped at
+    RANK_MEMORY_FRACTION of it, and saves `global_batch_step`."""
+    from gedepth_tpu_torch import parallel
+    from gedepth_tpu_torch.utils.env import disable_tf32
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    disable_tf32()
+    torch.cuda.set_per_process_memory_fraction(RANK_MEMORY_FRACTION)
+    parallel.init_from_env("cuda", backend="gloo")
+    try:
+        with cudnn_off():
+            result = global_batch_step(spec["tree"])
+        torch.save(result, spec["out"].format(rank=parallel.rank()))
+    finally:
+        parallel.shutdown()
+    return 0
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _close(procs):
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def hold_two_ranks(ref, ranks):
+    """Phase 28's comparison of each rank's `global_batch_step` with one
+    process's (see `phase_two_ranks`); fails on the first miss. Returns
+    (worst relative errors, {site: flipped signs by rank}, gradients past
+    1e-3 of their maximum beside a flip at their site, tensors zero but for
+    rounding)."""
+    worst, flips, kinks = {}, {}, []
+    for r, got in enumerate(ranks):
+        if got["world"] != 2 or got["backend"] != "gloo" \
+                or got["index"] != ref["index"][r:r + 1]:
+            fail(f"[two ranks] rank {r}: world {got['world']}, backend "
+                 f"{got['backend']}, rows {got['index']} of {ref['index']}")
+        if got["sites"] != ref["sites"]:
+            fail(f"[two ranks] rank {r} ran other activation sites")
+        for name, n in got["launches"].items():
+            if n <= 0 or ref["launches"][name] <= 0:
+                fail(f"[two ranks] kernel {name} not launched: rank {r} "
+                     f"{got['launches']}, one process {ref['launches']}")
+        for key in ("loss", "loss_depth", "loss_slope", "grad_norm"):
+            rel = abs(got["metrics"][key] - ref["metrics"][key]) / abs(
+                ref["metrics"][key])
+            worst[key] = max(worst.get(key, 0.0), rel)
+            if not rel <= 1e-4:
+                fail(f"[two ranks] rank {r} {key} {got['metrics'][key]} "
+                     f"against {ref['metrics'][key]} (rel {rel:.2e})")
+        for site, a, b in zip(ref["sites"], (s[0] for s in got["signs"]),
+                              ref["signs"]):
+            n = int(np.unpackbits(a ^ b[r]).sum())
+            if n:
+                flips.setdefault(site, [0] * len(ranks))[r] += n
+    # the ranks average their gradients: a flip in either moves both
+    moved = tuple(p for site in flips for p in ref["owners"][site])
+    top = max(float(g.abs().max()) for g in ref["grads"].values())
+    zero = 0
+    for r, got in enumerate(ranks):
+        for name, g in got["grads"].items():
+            want = ref["grads"][name]
+            scale = float(want.abs().max())
+            if scale < 1e-6 * top:
+                zero += 1
+                if not float(g.abs().max()) < 1e-6 * top:
+                    fail(f"[two ranks] {name}: {float(g.abs().max())} where "
+                         f"one process has ~0 ({scale})")
+                continue
+            ratio = float((g - want).abs().max()) / scale
+            worst["grad"] = max(worst.get("grad", 0.0), ratio)
+            if ratio <= 1e-3:
+                continue
+            l2 = float((g - want).norm() / want.norm())
+            if not (name.startswith(moved) and l2 <= 1e-3):
+                fail(f"[two ranks] rank {r} gradient {name}: max |diff| "
+                     f"{ratio:.2e} of its max |g| {scale:.3e}, "
+                     f"||diff|| / ||g|| {l2:.2e}; activation signs that "
+                     f"differ, by site and rank: {flips}")
+            kinks.append((r, name, ratio, l2))
+        for name, v in got["stats"].items():
+            want = ref["stats"][name]
+            err = float(((v - want).abs() / (want.abs() + 1e-2)).max())
+            worst["stats"] = max(worst.get("stats", 0.0), err)
+            if not torch.allclose(v, want, rtol=1e-4, atol=1e-6):
+                fail(f"[two ranks] rank {r} {name} differs from one process")
+    zero //= len(ranks)
+    return worst, flips, kinks, zero
+
+
+def phase_two_ranks(tree):
+    """Phase 28: two processes in one gloo group on the one card (gloo
+    takes CUDA tensors; NCCL refuses two ranks on one card), each at batch
+    1 of PRESET at full width, f32, one step; one process at batch 2 on the
+    same weights and batch beside them. Both sides run ATen's convolutions
+    (cuDNN off: its autotuner peaks at ~77 GB a process and its heuristic
+    picks FFT workspaces of ~65 GiB at batch 2) and each rank is capped at
+    RANK_MEMORY_FRACTION of the card. Held: loss, its parts and grad_norm
+    rtol 1e-4; every gradient within 1e-3 of its largest magnitude (those
+    that are zero but for rounding, below 1e-6 of the model's largest
+    gradient, held below that on both sides); the BatchNorm running
+    statistics rtol 1e-4, atol 1e-6; the two ranks' gradients equal; A, B,
+    C and E launched in every process.
+
+    An f32 rounding that moves a ReLU or LeakyReLU input across 0 changes
+    that element's derivative by a step, not by a rounding: one of 371,712
+    LeakyReLU inputs at the decode head's coarsest block (11x22 pixels),
+    flipped by a 2e-6 difference in the neck's output, moved that block's
+    weight gradient by 4.8e-3 of its largest element in a CPU rehearsal at
+    smoke widths. So the activations' signs are compared too
+    (`hold_two_ranks`): a gradient past the 1e-3 bound passes only when it
+    belongs to a module in front of an activation whose sign differs
+    between the two runs (that site's conv and BatchNorm,
+    `activation_signs`'s owners) and it still holds the whole-step bound of phase 8, ||g - g_ref|| <= 1e-3
+    ||g_ref||; every other gradient is held to 1e-3 of its maximum. The
+    flips by site and such tensors are printed. Last, what the global
+    batch costs the ranks' random draws (`dropout_draw_cost`)."""
+    import os
+    import os.path as osp
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as work:
+        spec = osp.join(work, "spec.json")
+        with open(spec, "w") as f:
+            json.dump({"tree": tree, "out": osp.join(work, "rank{rank}.pt")},
+                      f)
+        env = dict(os.environ, WORLD_SIZE="2", LOCAL_RANK="0",
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()))
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, osp.abspath(__file__), "--rank-step", spec],
+            env=dict(env, RANK=str(r)), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        try:
+            with cudnn_off():
+                ref = global_batch_step(tree)
+            torch.cuda.empty_cache()
+            logs = [p.communicate(timeout=900)[0] for p in procs]
+        finally:
+            _close(procs)
+        wall = time.perf_counter() - t0
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                fail(f"[two ranks] rank {r} exited {p.returncode}:\n"
+                     f"{log[-3000:]}")
+        ranks = [torch.load(osp.join(work, f"rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+    worst, flips, kinks, zero = hold_two_ranks(ref, ranks)
+    a, b = (rk["grads"] for rk in ranks)
+    if not all(torch.equal(a[n], b[n]) for n in a):
+        fail("[two ranks] the ranks' averaged gradients differ")
+    print(f"[two ranks] {PRESET} 352x704 f32, TF32 and cuDNN off: 2 gloo "
+          f"ranks at batch 1 against 1 process at batch 2: loss "
+          f"{ref['metrics']['loss']:.6f}, worst relative errors "
+          + " ".join(f"{k}={v:.3e}" for k, v in worst.items())
+          + f" (gradients: max |diff| / max |g| per tensor; {zero} tensors "
+          f"zero but for rounding); activation signs that differ from one "
+          f"process's, by site and rank: {flips}; past 1e-3 of their max "
+          f"at a flipped site (rank, tensor, max ratio, L2 ratio): {kinks}; "
+          f"launches a rank {ranks[0]['launches']}, "
+          f"one process {ref['launches']}; first-step seconds: ranks "
+          f"{ranks[0]['seconds']:.2f}, {ranks[1]['seconds']:.2f} (sharing "
+          f"the card), one process {ref['seconds']:.2f}; peak MiB: ranks "
+          f"{ranks[0]['peak_mib']:.0f}, {ranks[1]['peak_mib']:.0f} (cap "
+          f"{RANK_MEMORY_FRACTION:.0%} of the card), one process "
+          f"{ref['peak_mib']:.0f}; {wall:.1f} s in all", flush=True)
+    dropout_draw_cost(ref["draws"])
+    return worst
+
+
+DRAW_GLOBAL_BATCHES = (2, 16, 32)   # one process; 8 cards x 2; DDAD's 32
+
+
+def dropout_draw_cost(draws, rows=2):
+    """The random draws of one f32 step of PRESET at 352x704 (`draws`, the
+    (kind, input shape) of each DropPath and Dropout call, from
+    `global_batch_step`) made by the layers' own code for a process that
+    keeps `rows` rows of a global batch of G (world G / rows, rank 0):
+    CUDA-event ms of the step's draws and the largest transient above the
+    inputs, for G in DRAW_GLOBAL_BATCHES on this one card. Every process
+    draws the global batch's masks and keeps its rows
+    (`layers.Stochastic._keep`), so the draw grows with the world."""
+    from gedepth_tpu_torch import parallel
+    from gedepth_tpu_torch.models import layers
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    calls = []
+    for kind, shape in draws:
+        layer = getattr(layers, kind)(0.1).cuda().train()
+        layer.generator = gen
+        calls.append((layer, torch.ones((rows,) + shape[1:], device="cuda")))
+
+    def step():
+        for layer, x in calls:
+            layer(x)
+
+    out = {}
+    for g in DRAW_GLOBAL_BATCHES:
+        with mock.patch.object(parallel, "world", lambda: g // rows):
+            ms = cuda_ms(step, reps=5, warmup=1)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            step()
+            torch.cuda.synchronize()
+            peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+        out[g] = (ms, peak)
+    kinds = collections.Counter(kind for kind, _ in draws)
+    big = max(draws, key=lambda d: math.prod(d[1]))
+    print(f"[dropout draw] {PRESET} 352x704 f32, {dict(kinds)} draws a step "
+          f"(largest: {big[0]} of {big[1]} at batch {rows}) made for {rows} "
+          "rows of a global batch of G: "
+          + "; ".join(f"G={g}: {ms:.3f} ms, {peak:.0f} MiB transient"
+                      for g, (ms, peak) in out.items()), flush=True)
+    del calls
+    torch.cuda.empty_cache()
+    return out
+
+
+def _json_tail(text):
+    return json.loads([line for line in text.splitlines()
+                       if line.startswith("{")][-1])
+
+
+def phase_nccl_world_one(tree):
+    """Phase 29: `python -m torch.distributed.run --nproc_per_node 1 -m
+    gedepth_tpu_torch.tools.train PRESET --multihost` for 2 steps from the
+    KITTI tree at global batch 2 (NCCL, a world of one), then
+    `tools.test --multihost` on its best_abs_rel.npz: both report world 1
+    over NCCL and finite metrics."""
+    import os.path as osp
+
+    here = osp.dirname(osp.abspath(__file__))
+    opts = ["--options", f"data.data_root={tree['root']}",
+            f"data.train_split={tree['train']}",
+            f"data.test_split={tree['test']}", "train.global_batch=2"]
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as work:
+        lines = {}
+        for tool, args in (
+                ("train", ["--max-iters", "2", "--eval-max-images", "1",
+                           "--work-dir", work]),
+                ("test", [osp.join(work, "best_abs_rel.npz"),
+                          "--max-images", "1"])):
+            cmd = [sys.executable, "-m", "torch.distributed.run",
+                   "--nproc_per_node", "1", "--master_addr", "127.0.0.1",
+                   "--master_port", str(_free_port()), "-m",
+                   f"gedepth_tpu_torch.tools.{tool}", PRESET, *args,
+                   "--multihost", *opts]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, capture_output=True, text=True,
+                                  timeout=900, cwd=here)
+            seconds = time.perf_counter() - t0
+            if proc.returncode != 0:
+                fail(f"[nccl] tools.{tool} --multihost exited "
+                     f"{proc.returncode}:\n{proc.stdout[-2000:]}\n"
+                     f"{proc.stderr[-3000:]}")
+            line = lines[tool] = _json_tail(proc.stdout)
+            if line["world"] != 1 or line["backend"] != "nccl" or not all(
+                    np.isfinite(line[k]) for k in ("abs_rel", "rmse", "a1")):
+                fail(f"[nccl] tools.{tool} --multihost: {line}")
+            print(f"[nccl] torchrun --nproc_per_node 1 tools.{tool} "
+                  f"--multihost: {seconds:.1f} s; {json.dumps(line)}",
+                  flush=True)
+        if lines["train"]["iter"] != 2 or lines["test"]["images"] != 1:
+            fail(f"[nccl] {lines}")
+
+
+PRETRAIN_STEPS = 3
+
+
+def phase_pretrain(tree):
+    """Phase 30: `tools.pretrain_pe_mask gedepth_adaptive_kitti` from the
+    KITTI tree, PRETRAIN_STEPS steps at batch 2 (352x704, the exact rule in
+    HAHI: B and C at the exact self-attention's 20,570 queries a sample
+    and the cross-attention's 61,952, no PE fusion), the ground-mask IoU
+    over 4 more batches, then one `tools.train` step of that preset with
+    --load-backbone-from: the backbone before the step equals the file,
+    every gradient after it is finite, and C ran at the exact rule's query
+    counts. Returns the pretraining's JSON line."""
+    import contextlib as cl
+    import io
+    import os.path as osp
+
+    from gedepth_tpu_torch.models import pretrain as tpre
+    from gedepth_tpu_torch.tools import pretrain_pe_mask
+    from gedepth_tpu_torch.tools import train as train_cli
+    import gedepth_tpu_torch.train.loop as loop
+
+    opts = ["--options", f"data.data_root={tree['root']}",
+            f"data.train_split={tree['train']}",
+            f"data.test_split={tree['test']}", "train.global_batch=2",
+            "train.log_interval=1"]
+    exact_q = (20570, 61952)
+    counters = _kernel_counters()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as work:
+        made = []
+        build = tpre.GroundMaskPretrain.from_config
+
+        def capture(*args, **kwargs):
+            made.append(build(*args, **kwargs))
+            return made[-1]
+
+        reset_counts(counters)
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with mock.patch.object(tpre.GroundMaskPretrain, "from_config",
+                               capture), cl.redirect_stdout(out):
+            pretrain_pe_mask.main([EXACT, "--max-iters", str(PRETRAIN_STEPS),
+                                   "--work-dir", osp.join(work, "pre")]
+                                  + opts)
+        seconds = time.perf_counter() - t0
+        line = _json_tail(out.getvalue())
+        launches, by_queries = read_counts(counters)
+        model = made[0]
+        forwards = PRETRAIN_STEPS + 4 * 1     # the IoU: 4 batches
+        want_b = {q: forwards for q in exact_q}
+        want_c = {q: PRETRAIN_STEPS for q in exact_q}
+        if (model.neck.self_attn.sampling, model.neck.multi_att.sampling) \
+                != ("bilinear", "bilinear") \
+                or by_queries["msda"] != want_b \
+                or by_queries["msda_backward"] != want_c \
+                or launches["window_attention"] != 24 * forwards \
+                or launches["pe_fusion"] != 0:
+            fail(f"[pretrain] sampling {model.neck.sampling}; launches "
+                 f"{launches}, by queries {by_queries}; expected B {want_b}, "
+                 f"C {want_c}, {24 * forwards} A, no E")
+        if line["n"] != 8 or not 0 <= line["miou"] <= 100:
+            fail(f"[pretrain] IoU summary {line}")
+        del made, model
+        print(f"[pretrain] tools.pretrain_pe_mask {EXACT}, {PRETRAIN_STEPS} "
+              f"steps at batch 2, 352x704, exact sampling: {seconds:.1f} s "
+              f"with the build; median step {line['step_ms']:.1f} ms (steps "
+              f"after the first); ground-mask IoU miou={line['miou']:.3f} "
+              f">=60: {line['frac_over_60']:.3f} >=75: "
+              f"{line['frac_over_75']:.3f} (n={line['n']}, seeded weights); "
+              f"launches {launches}, by queries {by_queries}", flush=True)
+        backbone = tpre.load_backbone(line["backbone"])
+        seen = {}
+        real = loop.make_train_step
+
+        def checked(*args, **kwargs):
+            step = real(*args, **kwargs)
+
+            def first(state, batch):
+                if not seen:
+                    own = tpre.extract_backbone(state.model)
+                    seen["keys"] = sorted(own) == sorted(backbone)
+                    seen["diff"] = max(float((own[k].cpu() - v).abs().max())
+                                       for k, v in backbone.items())
+                metrics = step(state, batch)
+                seen["bad"] = [n for n, p in state.model.named_parameters()
+                               if p.grad is None
+                               or not bool(torch.isfinite(p.grad).all())]
+                return metrics
+            return first
+
+        reset_counts(counters)
+        out = io.StringIO()
+        with mock.patch.object(loop, "make_train_step", checked), \
+                cl.redirect_stdout(out):
+            train_cli.main([EXACT, "--max-iters", "1", "--eval-max-images",
+                            "1", "--load-backbone-from", line["backbone"],
+                            "--work-dir", osp.join(work, "train")] + opts)
+        _, by_queries = read_counts(counters)
+        trained = _json_tail(out.getvalue())
+        if not seen.get("keys") or seen["diff"] != 0.0 or seen["bad"] \
+                or "overlaid the backbone" not in out.getvalue() \
+                or by_queries["msda_backward"] != {q: 1 for q in exact_q} \
+                or not np.isfinite(trained["abs_rel"]):
+            fail(f"[pretrain] the overlay step: {seen}, C by queries "
+                 f"{by_queries['msda_backward']}, {trained}")
+        print(f"[pretrain] tools.train {EXACT} --load-backbone-from "
+              f"pe_mask_backbone.npz: the backbone's {len(backbone)} "
+              "parameters before the step equal the file (max |diff| 0), "
+              "every gradient finite after it, C at the exact rule's "
+              f"{by_queries['msda_backward']}; eval abs_rel "
+              f"{trained['abs_rel']:.4f}", flush=True)
+    return line
+
+
+RUN_TAG = "CHIP_SMOKE_RUN"  # in the environment of each process a run starts
+
+
+def own_processes():
+    """(pid, command line) of every live process but this one whose
+    environment holds this run's RUN_TAG: each process the run started,
+    also one that left its process tree (torchrun's workers run in a
+    session of their own, a loader worker is the forkserver's child)."""
+    import os
+
+    tag = f"{RUN_TAG}={os.environ[RUN_TAG]}".encode()
+    found = []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit() or int(entry) == os.getpid():
+            continue
+        try:
+            with open(f"/proc/{entry}/environ", "rb") as f:
+                if tag not in f.read().split(b"\0"):
+                    continue
+            with open(f"/proc/{entry}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:         # gone meanwhile, or not ours to read
+            continue
+        found.append((int(entry), cmd.strip()))
+    return found
+
+
+def stop_processes(grace=10.0):
+    """Stop every process this run started that still runs: first the
+    loader's forkserver and resource tracker (`stop_worker_server`), then
+    whatever else `own_processes` finds, by SIGTERM and after `grace`
+    seconds SIGKILL; reaps this process's children. Returns what ran
+    before any was stopped."""
+    import os
+    import signal
+
+    running = own_processes()
+    with contextlib.suppress(ImportError):      # run alone, without the repo
+        from gedepth_tpu_torch.data.loader import stop_worker_server
+        stop_worker_server()
+    deadline = time.perf_counter() + grace
+    for sig in (signal.SIGTERM, signal.SIGKILL):
+        for pid, _ in own_processes():
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(pid, sig)
+        while own_processes() and time.perf_counter() < deadline:
+            time.sleep(0.1)
+        deadline = time.perf_counter() + grace
+    while True:                                 # reap the children
+        try:
+            if os.waitpid(-1, os.WNOHANG)[0] == 0:
+                break
+        except ChildProcessError:
+            break
+    return running
+
+
 def main():
+    import os
+
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    with contextlib.ExitStack() as stack:
-        return run(stack)
+    if sys.argv[1:2] == ["--rank-step"]:
+        return rank_step_worker(sys.argv[2])
+    os.environ[RUN_TAG] = f"{os.getpid()}-{time.time_ns()}"
+    try:
+        with contextlib.ExitStack() as stack:
+            return run(stack)
+    finally:
+        running = stop_processes()
+        if running:
+            print(f"chip_smoke: stopped the processes still running: "
+                  f"{running}", file=sys.stderr)
 
 
 def run(stack):
@@ -2413,18 +3072,22 @@ def run(stack):
         lap("compat_check (phase 22)")
     ddad_serving = phase_ddad_serving(trees["ddad"])
     ddad_launches, ddad_by_queries, _, ddad_peak, ddad_step_ms = phase_train(
-        tree_data(DDAD, trees["ddad"]), preset=DDAD, steps=3,
+        tree_data(DDAD, trees["ddad"]), preset=DDAD, steps=5,
         tag="[train ddad]", queries=(DDAD_SELF, DDAD_CROSS),
         eval_forwards=EVAL_IMAGES, eval_queries=(DDAD_SELF, DDAD_CROSS))
     host = trees["host_ms"]
     for name, step_ms in (("kitti", kitti_step_ms), ("ddad", ddad_step_ms)):
         need = 2 * host[f"{name}_load_and_chain"]
-        print(f"[loader] {name}: one prefetch thread prepares a batch of 2 "
-              f"in ~{need:.0f} ms against a {step_ms:.0f} ms step: "
-              + ("the loader bounds training" if need > step_ms else
-                 "the step bounds training"), flush=True)
+        print(f"[loader] {name}: one loader thread would prepare a batch "
+              f"of 2 in ~{need:.0f} ms against a {step_ms:.0f} ms step: "
+              + ("it would bound training" if need > step_ms else
+                 "the step bounds training")
+              + " (the presets load with 4 workers; phase 27 times them)",
+              flush=True)
     lap("DDAD serving, training and evaluation from the tree (phases 25, "
         "26)")
+    phase_loader_workers(trees, {"kitti": kitti_step_ms, "ddad": ddad_step_ms})
+    lap("loader workers (phase 27)")
     exact, preset_launches = phase_presets(requests)
     _, exact_train, _, _, _ = phase_train(
         synthetic_data(), preset=EXACT, steps=3, tag="[train exact]",
@@ -2455,6 +3118,12 @@ def run(stack):
     lap("bf16 training (phase 18)")
     phase_benchmark()
     lap("f32 beside bf16 (phase 19)")
+    phase_two_ranks(trees["kitti"])
+    lap("two ranks on one card (phase 28)")
+    phase_nccl_world_one(trees["kitti"])
+    lap("torchrun, NCCL, a world of one (phase 29)")
+    phase_pretrain(trees["kitti"])
+    lap("stage-1 pretraining and the backbone overlay (phase 30)")
 
     sources = {
         "window_attention": ("gedepth_tpu_torch/csrc/window_attention.cu",
@@ -2536,6 +3205,8 @@ def run(stack):
     for k in kernels:
         if k["launches"] <= 0:
             fail(f"kernel row {k['name']} was launched on no main path")
+    print("[processes] started by this run and still running, now stopped: "
+          f"{stop_processes() or 'none'}", flush=True)
     print(f"[power] {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,8 +7,7 @@ counterpart. Left out on purpose: `swin_scan` (it changes only the JAX
 parameter layout, which `convert.from_jax` unstacks), the remat switches
 (memory only), `neck_value_bf16` (bf16 values in an f32 neck: the port's
 bf16 goes by `bf16_scope`, whole-model casts and `bf16_compute`), the zoo's
-fields, and the fields of modules not ported yet (NYU's scene classes,
-multi-process loading).
+fields, and the fields of modules not ported yet (NYU's scene classes).
 """
 from __future__ import annotations
 
@@ -128,6 +127,14 @@ class TrainConfig:
     # (parameters and inputs cast at the apply boundary), master parameters,
     # gradients, optimizer state, losses and BatchNorm statistics f32
     bf16_compute: bool = False
+    # loader worker processes (the reference's workers_per_gpu); 0: one
+    # prefetch thread. The batches are the same for any count.
+    num_workers: int = 0
+    # 'epoch': a permutation of the train set each epoch (the reference's
+    # DistributedSampler); 'replacement': i.i.d. uniform draws each step.
+    # No preset of either package uses 'replacement': the field mirrors the
+    # JAX TrainConfig, and the loader tests hold both rules to the JAX ones
+    sampling: str = "epoch"
 
 
 @dataclass(frozen=True)

@@ -29,49 +29,46 @@ def _ddad(name, model):
     return ExperimentConfig(
         name=name, model=model, data=_ddad_data(),
         optim=OptimConfig(warmup_iters=0),
-        train=TrainConfig(max_iters=38400, global_batch=32))
+        train=TrainConfig(max_iters=38400, global_batch=32, num_workers=4))
+
+
+def _kitti(name, model):
+    # four loader workers for the KITTI chain, as the JAX presets have it
+    return ExperimentConfig(name=name, model=model, data=DataConfig(),
+                            train=TrainConfig(num_workers=4))
 
 
 _PRESETS = {
     # DepthFormer Swin-L baseline (no ground embedding), KITTI
-    "depthformer_baseline_kitti": lambda: ExperimentConfig(
-        name="depthformer_baseline_kitti",
-        model=ModelConfig(pe_variant="none"), data=DataConfig()),
+    "depthformer_baseline_kitti": lambda: _kitti(
+        "depthformer_baseline_kitti", ModelConfig(pe_variant="none")),
     # GEDepth-Vanilla: the ground prior times the ground mask
-    "gedepth_vanilla_kitti": lambda: ExperimentConfig(
-        name="gedepth_vanilla_kitti",
-        model=ModelConfig(pe_variant="vanilla"), data=DataConfig()),
+    "gedepth_vanilla_kitti": lambda: _kitti(
+        "gedepth_vanilla_kitti", ModelConfig(pe_variant="vanilla")),
     # GEDepth-Adaptive with the exact mmcv deformable sampling: the preset
     # that loads converted reference checkpoints
-    "gedepth_adaptive_kitti": lambda: ExperimentConfig(
-        name="gedepth_adaptive_kitti",
-        model=ModelConfig(pe_variant="adaptive"), data=DataConfig()),
+    "gedepth_adaptive_kitti": lambda: _kitti(
+        "gedepth_adaptive_kitti", ModelConfig(pe_variant="adaptive")),
     # the same parameter tree sampled inside a window of +-6 level pixels
     # around each query's grid centre (displacements clamped)
-    "gedepth_adaptive_kitti_compat": lambda: ExperimentConfig(
-        name="gedepth_adaptive_kitti_compat",
-        model=ModelConfig(pe_variant="adaptive",
-                          neck_sampling="windowed_compat",
-                          neck_window_radius=6),
-        data=DataConfig()),
+    "gedepth_adaptive_kitti_compat": lambda: _kitti(
+        "gedepth_adaptive_kitti_compat",
+        ModelConfig(pe_variant="adaptive", neck_sampling="windowed_compat",
+                    neck_window_radius=6)),
     # the parity serving preset: the compat tree at R = 5 with Swin and the
     # decode head's convs in bf16 and HAHI, the PE necks, the slope bins
     # and the fusion in f32 (the JAX package records a combined abs-rel
     # delta of 5.9e-4 against exact f32 on converted weights)
-    "gedepth_adaptive_kitti_parity": lambda: ExperimentConfig(
-        name="gedepth_adaptive_kitti_parity",
-        model=ModelConfig(pe_variant="adaptive",
-                          neck_sampling="windowed_compat",
-                          neck_window_radius=5,
-                          bf16_scope="backbone_head"),
-        data=DataConfig()),
+    "gedepth_adaptive_kitti_parity": lambda: _kitti(
+        "gedepth_adaptive_kitti_parity",
+        ModelConfig(pe_variant="adaptive", neck_sampling="windowed_compat",
+                    neck_window_radius=5, bf16_scope="backbone_head")),
     # GEDepth-Adaptive Swin-L with the windowed deformable-attention neck
     # and HI self-attention queries from transformer level 1 on
-    "gedepth_adaptive_kitti_tpu": lambda: ExperimentConfig(
-        name="gedepth_adaptive_kitti_tpu",
-        model=ModelConfig(pe_variant="adaptive", neck_sampling="windowed",
-                          neck_hi_min_level=1),
-        data=DataConfig()),
+    "gedepth_adaptive_kitti_tpu": lambda: _kitti(
+        "gedepth_adaptive_kitti_tpu",
+        ModelConfig(pe_variant="adaptive", neck_sampling="windowed",
+                    neck_hi_min_level=1)),
     # GEDepth-Vanilla and GEDepth-Adaptive on DDAD
     "gedepth_vanilla_ddad": lambda: _ddad("gedepth_vanilla_ddad",
                                           _ddad_model("vanilla")),

@@ -13,7 +13,9 @@ state_dict that the port's `GEDepth` loads with `strict=True`:
     per-block entries first, as `gedepth_tpu.models.swin.unstack_swin_params`
     does.
 
-The trees differ with the model: only the windowed neck lacks
+The same rules carry the stage-1 ground-mask model
+(`models.pretrain.GroundMaskPretrain`: `backbone`, `neck`, `fuse`,
+`classifier`). The trees differ with the model: only the windowed neck lacks
 `neck/reference_points` (the cross-attention's learned reference points,
 `neck.reference_points.{weight,bias}` in the reference), a model without
 ground embedding has no `pe_mask_neck` and a 3-channel patch embed, and only
@@ -121,6 +123,10 @@ def _torch_name(names):
     if top in ("pe_mask_neck", "dynamic_pe_neck"):
         conv = names[2] if names[1] == "fuse" else names[1]
         return f"{top}.{conv}.{leaf}"
+    if top == "fuse":           # the stage-1 ground-mask model
+        return f"fuse.{names[1]}.{leaf}"
+    if top == "classifier":
+        return f"classifier.{leaf}"
     if top == "decode_head":
         if names[1] == "conv0":
             return f"decode_head.conv_list.0.conv.{leaf}"
@@ -172,6 +178,10 @@ def _flax_module(key):
     if p[0] in ("pe_mask_neck", "dynamic_pe_neck"):
         return ((p[0], p[1]) if p[1] == "convfinal"
                 else (p[0], "fuse", p[1]))
+    if p[0] == "fuse":
+        return ("fuse", p[1])
+    if p[0] == "classifier":
+        return ("classifier",)
     if p[0] == "decode_head":
         if p[1] == "conv_list":
             if p[2] == "0":

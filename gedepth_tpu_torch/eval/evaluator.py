@@ -11,20 +11,52 @@ the full-resolution GT, range mask only. Synthetic frames carry their GT.
 The device side runs at fixed shapes (`EvalLoader` pads the last batch); the
 per-image metric arithmetic runs in numpy, or on the device with
 `device_metrics=True`.
+
+More than one process (`parallel`): each process evaluates its strided shard
+of the test split and the per-image metric rows are gathered from every
+process before the nanmean (`allgather_per_image`, the reference's
+collect_results_cpu), so every process returns the same aggregate.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from gedepth_tpu_torch import parallel
 from gedepth_tpu_torch.core.metrics import (
-    aggregate_metrics, batched_masked_metrics, calculate_metrics,
-    eval_crop_mask, eval_kb_crop)
+    METRIC_NAMES, aggregate_metrics, batched_masked_metrics,
+    calculate_metrics, eval_crop_mask, eval_kb_crop)
 from gedepth_tpu_torch.data.loader import EvalLoader
 from gedepth_tpu_torch.data.transforms import build_test_pipeline
 from gedepth_tpu_torch.ops.resize import resize_bilinear
 from gedepth_tpu_torch.train.steps import (
     make_eval_step, make_slide_eval_step)
+
+
+def allgather_per_image(per_image, device=torch.device("cpu")):
+    """The per-image metric rows of every process, in process order, on
+    every process: each process pads its (n, 9) rows with NaN rows to the
+    longest count, one all-gather moves them, and the padding is dropped
+    (`gedepth_tpu.eval.evaluator.allgather_per_image`). Rows go as float64;
+    `device` holds them for the collective (`parallel.comm_device`)."""
+    width = len(per_image[0]) if per_image else len(METRIC_NAMES)
+    rows = torch.tensor(np.asarray(per_image, np.float64).reshape(-1, width),
+                        device=device)
+    counts = [torch.zeros(1, dtype=torch.int64, device=device)
+              for _ in range(parallel.world())]
+    dist.all_gather(counts, torch.tensor([rows.shape[0]], device=device))
+    counts = [int(c.item()) for c in counts]
+    longest = max(counts)
+    if longest == 0:
+        return []
+    padded = torch.full((longest, width), float("nan"), dtype=torch.float64,
+                        device=device)
+    padded[:rows.shape[0]] = rows
+    gathered = [torch.empty_like(padded) for _ in counts]
+    dist.all_gather(gathered, padded)
+    return [tuple(float(x) for x in r)
+            for g, n in zip(gathered, counts) for r in g[:n].cpu().numpy()]
 
 
 class Evaluator:
@@ -33,7 +65,8 @@ class Evaluator:
 
     def __init__(self, model, dataset, data_cfg, batch_size=1, flip_tta=None,
                  ms_ratios=(), device_metrics=False, bf16=False, mode=None,
-                 slide_tile=None, slide_stride=None):
+                 slide_tile=None, slide_stride=None, process_index=None,
+                 process_count=None):
         """model: a `GEDepth` on its device, in eval mode.
 
         bf16=True runs every eval step in bf16 (`make_eval_step`: depth
@@ -53,8 +86,18 @@ class Evaluator:
         mode='slide' runs sliding-window inference with window `slide_tile`
         and step `slide_stride` (defaults: the config's train crop size and
         half of it); overlaps are averaged. It does not compose with
-        ms_ratios. Default: data_cfg.eval_mode."""
+        ms_ratios. Default: data_cfg.eval_mode.
+
+        process_index / process_count: this process's strided shard of the
+        dataset; `run` gathers the per-image rows of every process before
+        the aggregate. Defaults: `parallel.rank()` and `parallel.world()`,
+        so a multi-process run shards by itself; 0 and 1 evaluate the whole
+        split here."""
         self.model = model
+        self.process_index = (parallel.rank() if process_index is None
+                              else process_index)
+        self.process_count = (parallel.world() if process_count is None
+                              else process_count)
         self.dataset = dataset
         self.data_cfg = data_cfg
         self.batch_size = batch_size
@@ -130,8 +173,11 @@ class Evaluator:
         """Evaluate the dataset, or its first `max_images` images; returns
         (aggregate dict by metric name, per-image metric tuples).
         `on_prediction(index, pred)` sees every prediction (H, W) as numpy;
-        `progress` prints a line every that many images."""
-        loader = EvalLoader(self.dataset, self.pipeline, self.batch_size)
+        `progress` prints a line every that many images. With more than one
+        process: this process's shard, `max_images` of it at most, and the
+        rows of every process returned on every process."""
+        loader = EvalLoader(self.dataset, self.pipeline, self.batch_size,
+                            self.process_index, self.process_count)
         total = len(loader) * self.batch_size
         per_image, done = [], 0
         for batch, valid in loader:
@@ -158,4 +204,7 @@ class Evaluator:
                 per_image.extend(self._device_metrics_batch(device_rows))
             if max_images is not None and done >= max_images:
                 break
+        if self.process_count > 1:
+            per_image = allgather_per_image(
+                per_image, parallel.comm_device(torch.device("cpu")))
         return (aggregate_metrics(per_image) if per_image else {}), per_image

@@ -16,6 +16,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from gedepth_tpu_torch import parallel
+
 
 def linear(in_features, out_features, bias=True, init="trunc_normal"):
     m = nn.Linear(in_features, out_features, bias=bias)
@@ -82,7 +84,14 @@ class BatchNorm2d(nn.BatchNorm2d):
     In training it normalises with the biased batch variance, as torch does,
     but updates `running_var` with that same biased variance, as flax does;
     torch's own BatchNorm would store the unbiased one, n/(n−1) larger. This
-    follows the JAX package, not torch's BatchNorm. Eval mode is torch's."""
+    follows the JAX package, not torch's BatchNorm. Eval mode is torch's.
+
+    Inside a process group (`parallel`) the statistics are those of the
+    global batch, as under the JAX package's GSPMD: the counts, sums and
+    centred sums of every process go through `parallel.global_sum` (two
+    all-reduces a layer, the variance in two passes), and the running
+    statistics stay equal on every process. torch's `SyncBatchNorm` would
+    store the unbiased variance."""
 
     def __init__(self, num_features):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
@@ -90,18 +99,43 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if parallel.active():
+            return self._forward_global(x)
         with torch.no_grad():
             # f32 statistics of a bf16 activation, as flax computes them;
             # the running buffers keep their own (f32) dtype
             var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
                                        correction=0)
-            var, mean = (var.to(self.running_var.dtype),
-                         mean.to(self.running_mean.dtype))
-            self.running_mean.lerp_(mean, self.momentum)
-            self.running_var.lerp_(var, self.momentum)
-            self.num_batches_tracked += 1
+            self._update_running(mean, var)
         return F.batch_norm(x, None, None, self.weight, self.bias,
                             training=True, eps=self.eps)
+
+    def _update_running(self, mean, var):
+        with torch.no_grad():
+            self.running_mean.lerp_(mean.to(self.running_mean.dtype),
+                                    self.momentum)
+            self.running_var.lerp_(var.to(self.running_var.dtype),
+                                   self.momentum)
+            self.num_batches_tracked += 1
+
+    def _forward_global(self, x):
+        """Training over the global batch: mean and biased variance from
+        all-reduced sums, in f32, differentiable through the reductions."""
+        xf = x.float()
+        count = xf.new_full((1,), xf.numel() / xf.shape[1])
+        sums = parallel.global_sum(torch.cat([xf.sum(dim=(0, 2, 3)), count]))
+        n = sums[-1]
+        mean = sums[:-1] / n
+        centred = xf - mean[None, :, None, None]
+        var = parallel.global_sum(centred.square().sum(dim=(0, 2, 3))) / n
+        self._update_running(mean.detach(), var.detach())
+        scale = torch.rsqrt(var + self.eps)
+        if self.weight is not None:
+            scale = scale * self.weight.float()
+        y = centred * scale[None, :, None, None]
+        if self.bias is not None:
+            y = y + self.bias.float()[None, :, None, None]
+        return y.to(x.dtype)
 
 
 class ConvModule(nn.Module):
@@ -147,9 +181,15 @@ class Stochastic(nn.Module):
 
     def _keep(self, x, shape):
         """x / keep where a uniform draw of `shape` falls under keep, else
-        0; divides in f32 and returns x's dtype."""
+        0; divides in f32 and returns x's dtype. Inside a process group the
+        draw is the global batch's (`shape` with the world's rows, from the
+        generator every process seeds alike) and this process keeps its
+        rows, so the masks are those of one process over the whole batch."""
         keep = 1.0 - self.rate
-        mask = self._uniform(shape, x.device) < keep
+        rows, r = shape[0], parallel.rank()
+        draw = self._uniform((rows * parallel.world(),) + tuple(shape[1:]),
+                             x.device)
+        mask = draw[r * rows:(r + 1) * rows] < keep
         return torch.where(mask, x.float() / keep, 0.0).to(x.dtype)
 
 

@@ -6,11 +6,19 @@ torch.var's unbiased n − 1 variance, computed masked at fixed shapes.
 
 softmax_ce_ignore: the 11-way slope-bin cross entropy, mean over the
 pixels whose label is not 255.
+
+Both are over the global batch: inside a process group (`parallel`) their
+counts and sums go through `parallel.global_sum`, so every process gets the
+loss of the whole batch, as the JAX package's GSPMD step does.
+
+binary_ce: BCE with logits, mean-reduced (optionally masked), of the
+ground-mask pretraining path, over this process's rows.
 """
 from __future__ import annotations
 
 import torch
 
+from gedepth_tpu_torch import parallel
 from gedepth_tpu_torch.geometry.plane import SLOPE_IGNORE_INDEX
 
 SIG_EPS = 1e-3
@@ -22,11 +30,14 @@ def sigloss(pred, gt):
     pred = pred.reshape(pred.shape[0], -1)
     gt = gt.reshape(gt.shape[0], -1)
     mask = gt > 0
-    n = mask.sum().to(pred.dtype)
     g = torch.where(mask, torch.log(pred + SIG_EPS) - torch.log(gt + SIG_EPS),
                     0.0)
-    mean = g.sum() / n.clamp_min(1.0)
-    var = torch.where(mask, (g - mean) ** 2, 0.0).sum() / (n - 1.0).clamp_min(
+    # two passes: the mean, then the centred sum of squares
+    sum_g, n = parallel.global_sum(
+        torch.stack([g.sum(), mask.sum().to(pred.dtype)]))
+    mean = sum_g / n.clamp_min(1.0)
+    var = parallel.global_sum(
+        torch.where(mask, (g - mean) ** 2, 0.0).sum()) / (n - 1.0).clamp_min(
         1.0)
     return torch.sqrt(var + VARIANCE_FOCUS * mean ** 2)
 
@@ -39,4 +50,15 @@ def softmax_ce_ignore(logits, labels):
     nll = -torch.gather(logp, -1,
                         torch.where(valid, labels, 0)[..., None])[..., 0]
     m = valid.to(logits.dtype)
-    return (nll * m).sum() / m.sum().clamp_min(1.0)
+    total, n = parallel.global_sum(torch.stack([(nll * m).sum(), m.sum()]))
+    return total / n.clamp_min(1.0)
+
+
+def binary_ce(logits, targets, valid=None):
+    """BCE with logits, mean-reduced, or masked by `valid`."""
+    loss = (logits.clamp_min(0) - logits * targets
+            + torch.log1p(torch.exp(-logits.abs())))
+    if valid is not None:
+        m = valid.to(loss.dtype)
+        return (loss * m).sum() / m.sum().clamp_min(1.0)
+    return loss.mean()

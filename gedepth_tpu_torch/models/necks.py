@@ -17,16 +17,16 @@ from gedepth_tpu_torch.models.layers import conv2d
 from gedepth_tpu_torch.ops.resize import resize_bilinear_nchw
 
 
-class _ScaleFuseNeck(nn.Module):
-    def __init__(self, in_channels: Sequence[int], out_channels: int,
-                 channels: int = 64):
+class ScaleFuse(nn.Module):
+    """The fusion alone (`gedepth_tpu.models.necks._ScaleFuse`): the
+    stage-1 ground-mask model's `fuse`."""
+
+    def __init__(self, in_channels: Sequence[int], channels: int = 64):
         super().__init__()
         for i, c in enumerate(list(in_channels)[::-1]):
             self.add_module(f"conv{i}", conv2d(c, channels, 3, padding=1,
                                                init="xavier"))
         self.num_inputs = len(in_channels)
-        self.convfinal = conv2d(channels, out_channels, 3, padding=1,
-                                init="xavier")
 
     def fuse(self, inputs):
         target = inputs[0].shape[2:]
@@ -36,6 +36,17 @@ class _ScaleFuseNeck(nn.Module):
                                      align_corners=True)
             fused = y if fused is None else fused + y
         return fused
+
+    def forward(self, inputs):
+        return self.fuse(inputs)
+
+
+class _ScaleFuseNeck(ScaleFuse):
+    def __init__(self, in_channels: Sequence[int], out_channels: int,
+                 channels: int = 64):
+        super().__init__(in_channels, channels)
+        self.convfinal = conv2d(channels, out_channels, 3, padding=1,
+                                init="xavier")
 
 
 class LightPEMaskNeck(_ScaleFuseNeck):

@@ -5,8 +5,10 @@
         [--max-images N] [--batch-size B] [--no-tta]
         [--aug-test --aug-ratios 0.75,1.0,1.25]
         [--slide --slide-tile H,W --slide-stride H,W]
-        [--device-metrics] [--bf16] [--device cuda]
+        [--device-metrics] [--bf16] [--device cuda] [--multihost]
         [--options key=value ...]
+    python -m torch.distributed.run --nproc_per_node N \
+        -m gedepth_tpu_torch.tools.test <preset> ... --multihost
 
 Runs the `Evaluator` over the preset's test split
 (`train.loop.build_eval_dataset`: KITTI or DDAD under data.data_root, or
@@ -18,7 +20,11 @@ from `checkpoint`, a params-only `.npz` of either package (the train loop's
 `best_abs_rel.npz`, `tools.convert_torch_checkpoint`'s output), or from
 --state-dict, a file written by `torch.save(model.state_dict(), FILE)`;
 without either they are the port's seeded initialisation, and the numbers
-then show that the path runs, not how good a model is. f32 runs without
+then show that the path runs, not how good a model is. --multihost joins
+the process group that `torchrun` describes in the environment (NCCL; gloo
+with --device cpu): each process evaluates its strided shard of the split
+(--max-images of it at most), the per-image metrics of every process are
+gathered before the aggregate, and process 0 prints it. f32 runs without
 TF32.
 """
 from __future__ import annotations
@@ -60,27 +66,43 @@ def main(argv=None):
                         "eval forward in bf16 (depth clamp and final resize "
                         "stay f32)")
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("--multihost", action="store_true",
+                        help="join the torchrun process group first")
     parser.add_argument("--options", nargs="*", default=None,
                         help="dotted config overrides key=value")
     args = parser.parse_args(argv)
 
     import torch
 
-    from gedepth_tpu_torch.apis.inference import cast_params_bf16
-    from gedepth_tpu_torch.eval import Evaluator
-    from gedepth_tpu_torch.train.checkpoint import load_params_only
-    from gedepth_tpu_torch.train.loop import build_eval_dataset
+    from gedepth_tpu_torch import parallel
     from gedepth_tpu_torch.utils.env import disable_tf32
 
     disable_tf32()
     cfg = apply_options(get_config(args.config), args.options)
+    device = (parallel.init_from_env(args.device) if args.multihost
+              else torch.device(args.device))
+    try:
+        _evaluate(args, cfg, device)
+    finally:
+        parallel.shutdown()
+
+
+def _evaluate(args, cfg, device):
+    import torch
+
+    from gedepth_tpu_torch import parallel
+    from gedepth_tpu_torch.apis.inference import cast_params_bf16
+    from gedepth_tpu_torch.eval import Evaluator
+    from gedepth_tpu_torch.train.checkpoint import load_params_only
+    from gedepth_tpu_torch.train.loop import build_eval_dataset
+
     model = cfg.model.build(generator=torch.Generator().manual_seed(0))
     if args.state_dict:
         model.load_state_dict(torch.load(args.state_dict, map_location="cpu",
                                          weights_only=True), strict=True)
     if args.checkpoint:
         load_params_only(args.checkpoint, model)
-    model.to(torch.device(args.device))
+    model.to(device)
     if args.bf16:
         cast_params_bf16(model, "all")
     elif cfg.model.bf16_scope != "none":
@@ -96,8 +118,10 @@ def main(argv=None):
                           slide_tile=args.slide_tile,
                           slide_stride=args.slide_stride)
     agg, per_image = evaluator.run(max_images=args.max_images, progress=50)
-    print(json.dumps(dict(agg, images=len(per_image), config=cfg.name,
-                          bf16=args.bf16)))
+    if parallel.is_main():
+        print(json.dumps(dict(agg, images=len(per_image), config=cfg.name,
+                              bf16=args.bf16, world=parallel.world(),
+                              backend=parallel.backend())))
 
 
 if __name__ == "__main__":

@@ -101,9 +101,14 @@ def restore_checkpoint(ckpt_dir: str, state, step: Optional[int] = None):
 def save_params_only(path: str, model):
     """Write `model`'s weights and BatchNorm statistics to `path` as the JAX
     package's params-only `.npz` (f32), at exactly that path."""
-    params, stats = flax_variables_from_state_dict(model.state_dict())
+    write_flax_npz(path, *flax_variables_from_state_dict(model.state_dict()))
+
+
+def write_flax_npz(path: str, params: dict, stats: Optional[dict] = None):
+    """Nested (params, batch_stats) trees as the JAX package's `.npz` of
+    flat `params/...` and `batch_stats/...` keys, at exactly `path`."""
     flat = {}
-    for prefix, tree in (("params", params), ("batch_stats", stats)):
+    for prefix, tree in (("params", params), ("batch_stats", stats or {})):
         def walk(node, names):
             for k, v in node.items():
                 if isinstance(v, dict):
@@ -128,10 +133,13 @@ def _unflatten(data, prefix: str) -> dict:
     return tree
 
 
+def read_flax_npz(path: str):
+    """(params, batch_stats) nested trees of a params-only `.npz`."""
+    with np.load(path) as data:
+        return _unflatten(data, "params/"), _unflatten(data, "batch_stats/")
+
+
 def load_params_only(path: str, model):
     """Load a params-only `.npz` of either package (per-block or scanned Swin
     layout) into `model`, strictly; returns the model."""
-    with np.load(path) as data:
-        params = _unflatten(data, "params/")
-        stats = _unflatten(data, "batch_stats/")
-    return load_flax_variables(model, params, stats)
+    return load_flax_variables(model, *read_flax_npz(path))

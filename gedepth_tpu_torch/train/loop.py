@@ -1,7 +1,8 @@
-"""Iteration-based training on one device (the port of
-`gedepth_tpu.train.loop.train`, without DDP): evaluation every
-eval_interval steps with save-best, keep-N checkpoints, resume, and a JSONL
-log.
+"""Iteration-based training (the port of `gedepth_tpu.train.loop.train`):
+evaluation every eval_interval steps with save-best, keep-N checkpoints,
+resume, the stage-1 backbone overlay, and a JSONL log; on one device, or
+in every process of a `torch.distributed` group (`parallel`), each on its
+rows of the global batch.
 
 A KITTI or DDAD preset reads its splits under cfg.data.data_root (the trees
 that `tools.preprocess_data_kitti` and `tools.preprocess_data_ddad` finish)
@@ -18,6 +19,7 @@ from typing import Optional
 
 import torch
 
+from gedepth_tpu_torch import parallel
 from gedepth_tpu_torch.data.ddad import DDADDataset
 from gedepth_tpu_torch.data.kitti import KittiDataset
 from gedepth_tpu_torch.data.loader import TrainLoader
@@ -25,6 +27,7 @@ from gedepth_tpu_torch.data.synthetic import SyntheticGroundDataset
 from gedepth_tpu_torch.data.transforms import build_train_pipeline
 from gedepth_tpu_torch.data.wrappers import RepeatDataset
 from gedepth_tpu_torch.eval.evaluator import Evaluator
+from gedepth_tpu_torch.models.pretrain import load_backbone, overlay_backbone
 from gedepth_tpu_torch.train.checkpoint import (
     CheckpointKeeper, restore_checkpoint, save_params_only)
 from gedepth_tpu_torch.train.steps import (
@@ -132,7 +135,8 @@ def evaluate(evaluator, model, max_images=None):
 def train(cfg, work_dir: Optional[str] = None,
           max_iters: Optional[int] = None,
           eval_max_images: Optional[int] = None, resume_state=None,
-          resume_from: Optional[str] = None, device="cuda"):
+          resume_from: Optional[str] = None,
+          load_backbone_from: Optional[str] = None, device="cuda"):
     """Train `cfg` from the port's seeded initialisation, or from a
     checkpoint; returns (state, history, best).
 
@@ -144,9 +148,17 @@ def train(cfg, work_dir: Optional[str] = None,
     best: the 'val' record with the best value of the save-best metric
     (`best_rule(cfg.train.save_best)`), or {metric: ±inf} before any.
 
-    Each step takes cfg.train.global_batch samples on this one device; its
-    BatchNorm statistics span them all, as the reference's SyncBN spans the
-    global batch over its GPUs. cfg.train.bf16_compute runs forward and
+    Each step takes cfg.train.global_batch samples; its BatchNorm
+    statistics span them all, as the reference's SyncBN spans the global
+    batch over its GPUs. Inside a process group every process runs this
+    function on its rows of the global batch (which the world size must
+    divide), made by its own loader (cfg.train.num_workers workers,
+    cfg.train.sampling); the step is that of one process over the whole
+    batch (`train.steps`), the evaluation shards the test split and gathers
+    the per-image metrics (`eval_max_images` is then per process), and
+    `best` is the same record on every process. Only process 0 prints and
+    writes files; the others wait for each write at a barrier.
+    cfg.train.bf16_compute runs forward and
     backward in bf16 on f32 master weights (`train.steps.make_train_step`).
     The steps run from the state's step + 1 to max_iters (default
     cfg.train.max_iters, also the length of the LR schedule, as in the JAX
@@ -163,6 +175,11 @@ def train(cfg, work_dir: Optional[str] = None,
     start again from their beginning, so k steps and a resume for k more
     are not 2k steps.
 
+    `load_backbone_from`: a stage-1 backbone `.npz`
+    (`tools.pretrain_pe_mask`, either package) whose parameters replace
+    the backbone's after the state is built or restored and before the
+    first step (`models.pretrain.overlay_backbone`, shape-checked).
+
     work_dir=None writes nothing. With a work_dir: `train.log.jsonl` (an
     'env' record, then a 'train' record every log_interval steps and at the
     last, and every 'val' record), `best_{metric}.npz`
@@ -173,36 +190,53 @@ def train(cfg, work_dir: Optional[str] = None,
     TF32 is left as the caller set it (`utils.env.disable_tf32`)."""
     max_iters = max_iters or cfg.train.max_iters
     seed = cfg.train.seed
+    parallel.local_rows(cfg.train.global_batch)
+    main = parallel.is_main()
     if resume_state is not None:
-        state = resume_state
-        device = next(state.model.parameters()).device
+        device = next(resume_state.model.parameters()).device
     else:
         device = torch.device(device)
-        model = cfg.model.build(device=device,
-                                generator=torch.Generator().manual_seed(seed))
-        state = create_train_state(model, cfg.optim, max_iters, seed=seed + 1)
-    if resume_from:
-        restore_checkpoint(resume_from, state)
-        print(f"resumed from {resume_from} at iter {state.step}", flush=True)
-    state.generator.manual_seed(seed + 1)
-    train_step = make_train_step(cfg.optim.sig_loss_weight,
-                                 cfg.optim.slope_ce_weight,
-                                 bf16=cfg.train.bf16_compute)
     loader = TrainLoader(build_train_dataset(cfg),
                          build_train_pipeline(cfg.data, cfg.model.depth_scale),
-                         cfg.train.global_batch, seed=seed)
-    evaluator = Evaluator(state.model, build_eval_dataset(cfg), cfg.data)
-    key, sign = best_rule(cfg.train.save_best, evaluator.key_metric)
-    best = {key: sign * float("inf")}
-
+                         cfg.train.global_batch, seed=seed,
+                         shard_index=parallel.rank(),
+                         shard_count=parallel.world(),
+                         num_workers=cfg.train.num_workers,
+                         sampling=cfg.train.sampling,
+                         pin_memory=device.type == "cuda")
     history = []
-    batches = iter(loader)
     cuda = device.type == "cuda"
     with contextlib.ExitStack() as stack:
+        # the loader's workers start now, while the model is built
+        batches = stack.enter_context(contextlib.closing(iter(loader)))
+        if resume_state is not None:
+            state = resume_state
+        else:
+            model = cfg.model.build(
+                device=device, generator=torch.Generator().manual_seed(seed))
+            state = create_train_state(model, cfg.optim, max_iters,
+                                       seed=seed + 1)
+        if resume_from:
+            restore_checkpoint(resume_from, state)
+            if main:
+                print(f"resumed from {resume_from} at iter {state.step}",
+                      flush=True)
+        if load_backbone_from:
+            overlay_backbone(state.model, load_backbone(load_backbone_from))
+            if main:
+                print(f"overlaid the backbone from {load_backbone_from}",
+                      flush=True)
+        state.generator.manual_seed(seed + 1)
+        train_step = make_train_step(cfg.optim.sig_loss_weight,
+                                     cfg.optim.slope_ce_weight,
+                                     bf16=cfg.train.bf16_compute)
+        evaluator = Evaluator(state.model, build_eval_dataset(cfg), cfg.data)
+        key, sign = best_rule(cfg.train.save_best, evaluator.key_metric)
+        best = {key: sign * float("inf")}
+
         stack.enter_context(cudnn_autotuner())
-        stack.enter_context(contextlib.closing(batches))
         log = keeper = None
-        if work_dir is not None:
+        if work_dir is not None and main:
             keeper = CheckpointKeeper(osp.join(work_dir, "ckpts"),
                                       cfg.train.max_keep_ckpts)
             log = stack.enter_context(
@@ -235,8 +269,10 @@ def train(cfg, work_dir: Optional[str] = None,
             is_last = it + 1 == max_iters
             if (it + 1) % cfg.train.log_interval == 0 or is_last:
                 write(record)
-                print(f"iter {it + 1}/{max_iters} loss={record['loss']:.4f} "
-                      f"lr={record['lr']:.2e}", flush=True)
+                if main:
+                    print(f"iter {it + 1}/{max_iters} "
+                          f"loss={record['loss']:.4f} "
+                          f"lr={record['lr']:.2e}", flush=True)
 
             if (it + 1) % cfg.train.eval_interval == 0 or is_last:
                 agg, images, seconds = evaluate(evaluator, state.model,
@@ -244,18 +280,24 @@ def train(cfg, work_dir: Optional[str] = None,
                 val = {k: float(v) for k, v in agg.items()}
                 val.update(iter=it + 1, images=images, time=seconds,
                            mode="val")
+                # the metrics agree on every process; the time is process 0's
+                val = parallel.broadcast_object(val)
                 history.append(val)
                 write(val)
-                print(f"eval @ {it + 1}: " + " ".join(
-                    f"{k}={agg[k]:.4f}" for k in dict.fromkeys(
-                        (key, "rmse", "a1")) if k in agg), flush=True)
+                if main:
+                    print(f"eval @ {it + 1}: " + " ".join(
+                        f"{k}={agg[k]:.4f}" for k in dict.fromkeys(
+                            (key, "rmse", "a1")) if k in agg), flush=True)
                 if sign * val[key] < sign * best[key]:
                     best = val
-                    if work_dir is not None:
+                    if work_dir is not None and main:
                         save_params_only(osp.join(work_dir, f"best_{key}.npz"),
                                          state.model)
+                    parallel.barrier()
 
-            if keeper is not None and (
+            if work_dir is not None and (
                     (it + 1) % cfg.train.checkpoint_interval == 0 or is_last):
-                keeper.save(state, it + 1)
+                if keeper is not None:
+                    keeper.save(state, it + 1)
+                parallel.barrier()
     return state, history, best

@@ -8,6 +8,18 @@ the raw gradients, the clip, then one AdamW update at the LR the schedule
 gives for the updates done so far. PyTorch runs eagerly, so the step is a
 plain function that updates the state in place.
 
+More than one process (`parallel`): each process runs the step on its
+rows of the global batch. SigLoss, the slope cross entropy and every
+BatchNorm reduce their sums over the processes (`parallel.global_sum`, whose
+backward all-reduces the gradient), so the loss is the global batch's on
+every process and each process's gradient is the world size times its
+rows' share; `TrainState.apply_gradients` averages the gradients over the
+processes first, which leaves the gradient of the global loss everywhere.
+The two factors of the world size cancel only for terms that reach the loss
+through `global_sum`. The model is not wrapped in DDP: its keys, attributes
+and checkpoints stay those of one process, and the all-reduce runs after the
+backward rather than overlapping it.
+
 Eval steps: `make_eval_step` (whole image, flip-TTA, one multi-scale ratio
 with the PE channels resampled exactly: `resize_pe_exact`,
 `resize_img5_scaled`) and `make_slide_eval_step` (sliding window). They
@@ -33,6 +45,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from gedepth_tpu_torch import parallel
 from gedepth_tpu_torch.models.losses import sigloss, softmax_ce_ignore
 from gedepth_tpu_torch.ops.resize import resize_bilinear
 from gedepth_tpu_torch.train.optim import (
@@ -53,9 +66,11 @@ class TrainState:
     step: int = 0
 
     def apply_gradients(self):
-        """Clip the gradients in the parameters' `.grad`, then one AdamW
-        update at schedule(step); returns (the global gradient norm before
-        the clip, the LR used)."""
+        """Average the gradients in the parameters' `.grad` over the
+        processes (`parallel.average_gradients`; nothing in a world of
+        one), clip them, then one AdamW update at schedule(step); returns
+        (the global gradient norm before the clip, the LR used)."""
+        parallel.average_gradients(self.model.parameters())
         grads = [p.grad for p in self.model.parameters() if p.grad is not None]
         grad_norm = clip_by_global_norm(grads, self.grad_clip_norm)
         lr = self.schedule(self.step)
@@ -82,10 +97,14 @@ def create_train_state(model, optim_cfg, max_iters: int, seed: int = 0):
 
 
 def batch_to_device(batch, device):
-    """A loader batch (numpy) as the train step's tensors on `device`."""
+    """A loader batch (numpy arrays or CPU tensors, pinned or not) as the
+    train step's f32 tensors on `device`."""
+    def tensor(x):
+        return x if torch.is_tensor(x) else torch.from_numpy(
+            np.ascontiguousarray(x))
+
     keys = ("img", "depth_gt", "pe_k_gt", "cam_height")
-    return {k: torch.from_numpy(np.ascontiguousarray(batch[k],
-                                                     np.float32)).to(device)
+    return {k: tensor(batch[k]).to(device, torch.float32, non_blocking=True)
             for k in keys if k in batch}
 
 

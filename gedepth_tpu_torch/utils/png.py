@@ -19,9 +19,9 @@ The inflate is the standard library's zlib. Unfiltering is sequential along a
 row (the Sub, Average and Paeth filters read the byte one pixel to the
 left), so it runs in a small host C++ source (`csrc/png_unfilter.cpp`),
 built on first use with the host compiler into `_build/` under a name that
-carries a hash of the source, and bound through ctypes. A failed build
-raises. `unfilter_plain` is the numpy version, row by row, that the tests
-hold the C++ one against.
+carries a hash of the source, and bound through ctypes
+(`load_library`). A failed build raises. `unfilter_plain` is the numpy
+version, row by row, that the tests hold the C++ one against.
 """
 from __future__ import annotations
 
@@ -53,8 +53,10 @@ def library_path() -> Path:
     return BUILD_DIR / f"libpng_unfilter_{h.hexdigest()[:16]}.so"
 
 
-def _load():
-    """Build (if needed) and load the unfilter library; idempotent."""
+def load_library():
+    """Build (if needed) and load the unfilter library; idempotent. A
+    loader calls it before it starts its worker processes, so that they
+    find the library built and load it rather than each build it."""
     global _lib
     if _lib is not None:
         return _lib
@@ -86,8 +88,8 @@ def unfilter(data: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
                          f"of {stride} bytes ({bpp} a pixel)")
     src = np.frombuffer(data, np.uint8)
     out = np.empty((height, stride), np.uint8)
-    rc = _load().png_unfilter(src.ctypes.data, out.ctypes.data, height,
-                              stride, bpp)
+    rc = load_library().png_unfilter(src.ctypes.data, out.ctypes.data,
+                                     height, stride, bpp)
     if rc != 0:
         raise ValueError(f"unknown PNG filter type in row {rc - 1}")
     return out

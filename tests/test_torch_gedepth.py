@@ -194,8 +194,7 @@ LEFT_OUT = {
     # the zoo's loss composition
     "optim": {"aux_loss_indices", "aux_loss_weights", "class_ce_weight",
               "chamfer_weight"},
-    # multi-process loading is not ported yet
-    "train": {"num_workers", "sampling"},
+    "train": set(),
 }
 
 REFERENCE_PRESETS = ("gedepth_adaptive_kitti",

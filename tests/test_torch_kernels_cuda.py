@@ -1013,3 +1013,109 @@ def test_card_checkpoint_restores_bit_equal(tmp_path, restore_on):
         resumed.model.parameters()).device.type == restore_on
     assert [(r["mode"], r["iter"]) for r in history] == [("train", 3),
                                                          ("val", 3)]
+
+
+# ---- two ranks on one card (gloo on CUDA tensors) --------------------------
+
+def _global_batch_step(device):
+    """A kernel-free step over this process's rows of a global batch of 2:
+    conv (no bias: a train-mode BatchNorm follows, which would leave the
+    bias a gradient of pure rounding), the port's BatchNorm2d, DropPath from
+    a shared generator, SigLoss plus 0.08 slope cross entropy, backward and
+    the gradient average; ATen's convolutions, not cuDNN's, whose choice
+    may differ between batch 1 and 2. Returns (loss, {name: grad},
+    {name: statistic}) on the CPU."""
+    with torch.backends.cudnn.flags(enabled=False):
+        return _global_batch_step_body(device)
+
+
+def _global_batch_step_body(device):
+    from gedepth_tpu_torch import parallel
+    from gedepth_tpu_torch.models.layers import BatchNorm2d, DropPath
+    from gedepth_tpu_torch.models.losses import sigloss, softmax_ce_ignore
+
+    g = torch.Generator().manual_seed(0)
+    conv = torch.nn.Conv2d(3, 8, 3, padding=1, bias=False)
+    head = torch.nn.Conv2d(8, 12, 1)
+    for p in list(conv.parameters()) + list(head.parameters()):
+        torch.nn.init.normal_(p, std=0.3, generator=g)
+    bn = BatchNorm2d(8)
+    model = torch.nn.ModuleDict(dict(conv=conv, bn=bn, head=head)).to(device)
+    model.train()
+    drop = DropPath(0.5).train()
+    drop.generator = torch.Generator(device).manual_seed(1)
+    x = torch.randn(2, 3, 16, 24, generator=g)
+    gt = torch.rand(2, 16, 24, generator=g) * 70 + 1
+    gt[torch.rand(2, 16, 24, generator=g) < 0.4] = 0
+    labels = torch.randint(0, 11, (2, 16, 24), generator=g)
+    labels[torch.rand(2, 16, 24, generator=g) < 0.2] = 255
+    rows = slice(parallel.rank(), parallel.rank() + 1) if parallel.active() \
+        else slice(0, 2)
+    x, gt, labels = (t[rows].to(device) for t in (x, gt, labels))
+    out = head(drop(bn(conv(x))))
+    depth = torch.nn.functional.softplus(out[:, :1]) + 0.1
+    loss = sigloss(depth.permute(0, 2, 3, 1), gt) + 0.08 * softmax_ce_ignore(
+        out[:, 1:].permute(0, 2, 3, 1), labels)
+    loss.backward()
+    parallel.average_gradients(model.parameters())
+    return (loss.item(),
+            {n: p.grad.cpu() for n, p in model.named_parameters()},
+            {n: b.cpu() for n, b in model.named_buffers()
+             if n.endswith(("running_mean", "running_var"))})
+
+
+def test_two_ranks_on_one_card_equal_one_process(tmp_path):
+    """Two processes in one gloo group on CUDA tensors (NCCL refuses two
+    ranks on one card) equal one process at the whole batch: loss rtol
+    1e-5, gradients within 1e-4 of their largest magnitude, statistics
+    rtol 1e-5."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(port), LOCAL_RANK="0",
+               PYTHONPATH=os.pathsep.join(
+                   [repo, os.environ.get("PYTHONPATH", "")]))
+    procs = [subprocess.Popen(
+        [sys.executable, __file__, str(tmp_path / f"rank{r}.pt")],
+        env=dict(env, RANK=str(r)), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=180)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log[-3000:]
+    want_loss, want_grads, want_stats = _global_batch_step("cuda")
+    for r in range(2):
+        loss, grads, stats = torch.load(tmp_path / f"rank{r}.pt")
+        np.testing.assert_allclose(loss, want_loss, rtol=1e-5)
+        for n, g in grads.items():
+            scale = float(want_grads[n].abs().max())
+            assert float((g - want_grads[n]).abs().max()) <= 1e-4 * scale, n
+        for n, s in stats.items():
+            np.testing.assert_allclose(s.numpy(), want_stats[n].numpy(),
+                                       rtol=1e-5, atol=1e-7, err_msg=n)
+
+
+if __name__ == "__main__":
+    # one rank of test_two_ranks_on_one_card_equal_one_process
+    import sys
+
+    from gedepth_tpu_torch import parallel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    parallel.init_from_env("cuda", backend="gloo")
+    try:
+        torch.save(_global_batch_step("cuda"), sys.argv[1])
+    finally:
+        parallel.shutdown()
