@@ -4,8 +4,9 @@ GPU.
 
     python3 chip_smoke.py
 
-(`python3 chip_smoke.py --rank-step SPEC` is one rank of phase 28, which
-the script starts itself.)
+(`python3 chip_smoke.py --rank-step SPEC` is one rank of phase 28 and
+`python3 chip_smoke.py --serve-exported ART WORK` phase 31's serving
+process, which the script starts itself.)
 
 Phases, each printing its lines (and, per group of phases, a `[time]` line
 with its host-clock seconds); any failure raises and exits non-zero:
@@ -208,10 +209,28 @@ with its host-clock seconds); any failure raises and exits non-zero:
      C at 20,570 and 61,952 queries a sample), the ground-mask IoU of 4
      more batches, then one `tools.train` step with --load-backbone-from:
      the backbone before the step equals the file, every gradient finite.
-The phases run in the order 1, 2, 23, 3, 6, 13, 9, 24, 4, 5, 7, 8, 20-22,
-25, 26, 27, 10, 11, 12, 14-19, 28-30: every kernel check comes before the
-first model, because `torch.profiler` loses device activities as a
-process ages, and all of them once it has trained.
+ 31. serving export: `apis.export.export_depther` of the main preset at
+     full width (352x1216, batch 1, flip-TTA, f32, the seeded weights of
+     phase 4), saved (program, weights, meta.json) and loaded by
+     `load_exported` in a fresh process (`chip_smoke.py --serve-exported`)
+     that imports no model or config code, no JAX and nothing of the JAX
+     package: its depth of phase 4's 3 requests bit-equal to the eager
+     `inference_depther`'s, 48 A, 4 B and 2 E launches a request inside the
+     loaded program; the program's graph holds the port's ops as often, and
+     kernel A's k and v as views of the packed qkv; export, save and load
+     seconds, bytes, and the program against the eager eval step in turns
+     in this process (CUDA events and host ms);
+ 32. bf16 serving export: `export_depther(bf16=True)` run as exported, one
+     request bit-equal to the eager whole-model bf16 step, the bf16
+     instances of A and B launched inside the program;
+ 33. serving tools with phase 20's best weights: `tools.inference` on two
+     frames of the KITTI tree with --pe and --npy, `tools.test --show-dir
+     --format-only` on its test frames; every PNG read back equal to its
+     depth's colour render or to the prediction x 256 (uint16).
+The phases run in the order 1, 2, 23, 3, 6, 13, 9, 24, 4, 5, 31, 32, 7, 8,
+20, 21, 33, 22, 25, 26, 27, 10, 11, 12, 14-19, 28-30: every kernel check
+comes before the first model, because `torch.profiler` loses device
+activities as a process ages, and all of them once it has trained.
 A `device_ms` that is not within a tenth of its `event_ms` (kernels of
 0.5 ms and more) is printed, dropped and null in its row; `event_ms` is in
 every row. Then the kernels as one JSON line. The first four rows
@@ -227,7 +246,9 @@ error against float64 as `max_abs_err` and the launches of the bf16 paths:
 A from phase 14's requests and phase 18's steps, B from the forwards of
 phases 15 and 16, C from phase 18. The rows of phase 24 carry the launches
 of phase 25's requests (serving shapes) and of phase 26's steps and
-evaluation (train shapes; E both). Last the device as one JSON line.
+evaluation (train shapes; E both). The first four rows also carry the
+launches inside phase 31's loaded program (`launches_exported`). Last the
+device as one JSON line.
 To make room for phases 13-19, phase 9 times its plain versions once
 instead of twice and the nearest rule by events alone; every check of
 phases 1-12 stayed.
@@ -1467,6 +1488,7 @@ def phase_benchmark():
         (EXACT, False), (PARITY, False), (PRESET, False),
         (scoped(PRESET, "backbone_neck_head"), False), (PRESET, True))]
     take_turns(serving, rounds=2, iters=6, warmup=2)
+    binding_overhead(bench, serving[-1])
     del serving
     torch.cuda.empty_cache()
     training = [bench.build_runner(PRESET, batch=2, height=352, width=704,
@@ -1475,6 +1497,38 @@ def phase_benchmark():
     take_turns(training, rounds=2, iters=3, warmup=2)
     del training
     torch.cuda.empty_cache()
+
+
+BINDING_ITERS = 10
+
+
+def binding_overhead(bench, runner):
+    """The dispatcher ops' share of the host-bound whole-tree bf16 request
+    (`predict_depth`, no flip): host ms an iteration through the ops, and
+    with each wrapper calling its op's CUDA implementation straight (the
+    dispatcher left out, as the ctypes binding before the ops did), in
+    turns: ops, direct, direct, ops, ops, direct."""
+    from gedepth_tpu_torch.ops import msda as msda_ops
+    from gedepth_tpu_torch.ops import pe_fusion as pe_ops
+    from gedepth_tpu_torch.ops import window_attention as wa
+
+    straight = ((wa, "window_attention_op", wa._window_attention_cuda),
+                (msda_ops, "msda_op", msda_ops._msda_cuda),
+                (pe_ops, "pe_fusion_op", pe_ops._pe_fusion_cuda))
+    host = {"ops": [], "direct": []}
+    for name in ("ops", "direct", "direct", "ops", "ops", "direct"):
+        with contextlib.ExitStack() as stack:
+            if name == "direct":
+                for module, attr, impl in straight:
+                    stack.enter_context(mock.patch.object(module, attr, impl))
+            _, ms, _ = bench.time_iterations(runner, BINDING_ITERS)
+        host[name].append(round(ms / BINDING_ITERS, 3))
+    ops, direct = (statistics.median(host[k]) for k in ("ops", "direct"))
+    print(f"[binding] whole-tree bf16 request, host ms an iteration "
+          f"({BINDING_ITERS} a turn): through the ops {host['ops']}, the "
+          f"CUDA implementations called straight {host['direct']}; median "
+          f"{ops:.3f} against {direct:.3f} ({100 * (ops / direct - 1):+.1f}%)",
+          flush=True)
 
 
 def phase_whole_step():
@@ -2946,6 +3000,335 @@ def phase_pretrain(tree):
     return line
 
 
+# ---- phases 31-33: serving export, a bf16 export, the serving tools ----
+
+PORT_OPS = ["gedepth_torch::msda", "gedepth_torch::pe_fusion",
+            "gedepth_torch::window_attention"]
+# per flip-TTA forward pair of the main preset: 24 Swin blocks, the two
+# deformable attentions, one fusion, each twice
+EXPORT_NODES = {"gedepth_torch::window_attention": 48,
+                "gedepth_torch::msda": 4, "gedepth_torch::pe_fusion": 2}
+# what must not be loaded in a process that serves an artifact
+NO_MODEL_CODE = ("gedepth_tpu_torch.models", "gedepth_tpu_torch.configs",
+                 "jax", "gedepth_tpu")
+
+
+def served_inputs(handle, requests):
+    """The requests as the exported program takes them: each RGB with the
+    handle's plane embedding through the preset's test pipeline, as
+    `inference_depther` forms them, (1, 352, 1216, 5) f32."""
+    from gedepth_tpu_torch.geometry.plane import clip_pe_for_input
+
+    pe = handle.pe_raw
+    pe_in = clip_pe_for_input(pe, handle.cfg.model.depth_scale)
+    out = []
+    for rgb, _ in requests:
+        img = np.concatenate([rgb.astype(np.float32), pe_in[..., None],
+                              pe[..., None]], axis=-1)
+        img = handle.pipeline({"img": img, "cam_height": np.float32(
+            handle.cfg.model.default_cam_height)})["img"]
+        out.append(np.ascontiguousarray(img[None], np.float32))
+    return out
+
+
+def check_program(exported, meta, tag):
+    """The port's ops in an exported main-preset program: the op names, as
+    many nodes as the eager step's launches, and kernel A's k and v handed
+    over as views of the packed qkv (selects, no copies)."""
+    from gedepth_tpu_torch.apis.export import program_ops
+
+    names = [(n, n.target.name()) for n in exported.graph.nodes
+             if hasattr(n.target, "name")]
+    counts = {op: sum(name == op for _, name in names) for op in PORT_OPS}
+    if meta["ops"] != program_ops(exported) or meta["ops"] != PORT_OPS \
+            or counts != EXPORT_NODES:
+        fail(f"{tag} the program's ops {meta['ops']} {counts}, want "
+             f"{EXPORT_NODES}")
+    kv = {a.target.name() for n, name in names
+          if name == "gedepth_torch::window_attention" for a in n.args[1:3]}
+    if kv != {"aten::select.int"}:
+        fail(f"{tag} kernel A's k and v come from {kv}, not views")
+    return counts
+
+
+def serve_exported_worker(art, work):
+    """`chip_smoke.py --serve-exported ART WORK`, phase 31's fresh process:
+    load the artifact with `load_exported` (torch and the port's ops only),
+    serve WORK/request_*.npy, write WORK/depth_*.npy and print one JSON
+    line: the load seconds, the host ms of each request, the kernels'
+    launches over the requests and the modules of the port, JAX or the JAX
+    package this process loaded."""
+    import glob
+    import os.path as osp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    from gedepth_tpu_torch.apis.export import load_exported
+    from gedepth_tpu_torch.ops import msda as msda_ops
+    from gedepth_tpu_torch.ops import pe_fusion as pe_ops
+    from gedepth_tpu_torch.ops import window_attention as wa
+
+    served = load_exported(art)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    counters = {"window_attention": wa.window_attention,
+                "msda": msda_ops.msda, "pe_fusion": pe_ops.pe_fusion}
+    for c in counters.values():
+        c.launches = 0
+    host_ms = []
+    for i, path in enumerate(sorted(glob.glob(osp.join(work,
+                                                       "request_*.npy")))):
+        img = np.load(path)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        depth = served.predict(img)
+        host_ms.append((time.perf_counter() - t) * 1e3)
+        np.save(osp.join(work, f"depth_{i}.npy"), depth)
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "gedepth_tpu",
+                                           "gedepth_tpu_torch"))
+    print(json.dumps({"load_s": load_s, "host_ms": host_ms,
+                      "launches": {k: c.launches
+                                   for k, c in counters.items()},
+                      "modules": loaded}), flush=True)
+    return 0
+
+
+def _event_and_host_ms(fn, n):
+    """Median CUDA-event ms and median synchronised host ms of n calls."""
+    dev, host = [], []
+    for _ in range(n):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t) * 1e3)
+        dev.append(start.elapsed_time(end))
+    return statistics.median(dev), statistics.median(host)
+
+
+def phase_export(handle, requests, work):
+    """Phase 31: the main preset exported at full width (352x1216, batch 1,
+    flip-TTA, f32) by `apis.export.export_depther`, saved, and loaded in a
+    fresh process that imports no model or config code
+    (`--serve-exported`): its depth of each request bit-equal to the eager
+    `inference_depther` of the same weights, and kernels A, B and E
+    launched inside the loaded program (48, 4 and 2 a request). Then the
+    program, as exported here, timed against the eager eval step in turns.
+    Returns the launches counted in the fresh process."""
+    import os
+    import os.path as osp
+
+    from gedepth_tpu_torch.apis import inference_depther
+    from gedepth_tpu_torch.apis.export import export_depther, save_exported
+
+    art = osp.join(work, "art")
+    t0 = time.perf_counter()
+    exported, weights, meta = export_depther(PRESET, device="cuda")
+    export_s = time.perf_counter() - t0
+    counts = check_program(exported, meta, "[export]")
+    t0 = time.perf_counter()
+    save_exported(art, exported, weights, meta)
+    save_s = time.perf_counter() - t0
+    size = {f: os.path.getsize(osp.join(art, f)) for f in os.listdir(art)}
+    print(f"[export] export_depther({PRESET!r}): {export_s:.1f} s (the "
+          f"trace {meta['export_seconds']:.1f} s), save {save_s:.1f} s, "
+          f"bytes {size}; ops {counts}; kernel A's k and v are views of "
+          "the packed qkv", flush=True)
+    inputs = served_inputs(handle, requests)
+    want = [inference_depther(handle, rgb) for rgb, _ in requests]
+    for i, img in enumerate(inputs):
+        np.save(osp.join(work, f"request_{i}.npy"), img)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, osp.abspath(__file__), "--serve-exported", art,
+         work], capture_output=True, text=True, timeout=600)
+    worker_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"[export] the serving process exited {proc.returncode}:\n"
+             f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    line = _json_tail(proc.stdout)
+    banned = [m for m in line["modules"]
+              if any(m == b or m.startswith(b + ".") for b in NO_MODEL_CODE)]
+    if banned:
+        fail(f"[export] the serving process loaded {banned}")
+    n = len(requests)
+    if line["launches"] != {"window_attention": 24 * 2 * n, "msda": 4 * n,
+                            "pe_fusion": 2 * n}:
+        fail(f"[export] launches inside the loaded program: "
+             f"{line['launches']}")
+    worst = 0.0
+    for i, w in enumerate(want):
+        got = np.load(osp.join(work, f"depth_{i}.npy"))
+        if got.shape != (1, 352, 1216):
+            fail(f"[export] request {i}: depth shape {got.shape}")
+        worst = max(worst, float(np.abs(got[0] - w).max()))
+        if not np.array_equal(got[0], w):
+            fail(f"[export] request {i}: the loaded program's depth is not "
+                 f"the eager one's (max |diff| {worst})")
+    print(f"[export] fresh process ({worker_s:.1f} s): load_exported "
+          f"{line['load_s']:.1f} s, request host ms "
+          f"{[round(x, 1) for x in line['host_ms']]}, launches "
+          f"{line['launches']} over {n} requests; depth bit-equal to the "
+          f"eager inference_depther for all {n} (max |diff| {worst}); "
+          f"modules of the port it loaded: {len(line['modules'])}, none of "
+          f"{NO_MODEL_CODE}", flush=True)
+
+    # the program as exported (the one the fresh process loaded from
+    # model.pt2) against the eager step, in this process
+    x = torch.from_numpy(inputs[0]).cuda()
+    cam = torch.full((1,), handle.cfg.model.default_cam_height,
+                     device="cuda")
+    program = functools.partial(exported.module(), weights, x, cam)
+    eager = functools.partial(handle.eval_step, x, cam)
+    times = {"exported": [], "eager": []}
+    with torch.inference_mode():
+        for name in ("eager", "exported", "exported", "eager"):
+            times[name].append(_event_and_host_ms(
+                program if name == "exported" else eager, EXPORT_REPS))
+    record = {"export_s": export_s, "trace_s": meta["export_seconds"],
+              "save_s": save_s, "bytes": sum(size.values()),
+              "load_s_fresh": line["load_s"]}
+    for name, runs in times.items():
+        record[f"{name}_event_ms"] = [round(d, 3) for d, _ in runs]
+        record[f"{name}_host_ms"] = [round(h, 3) for _, h in runs]
+    print(f"[export] flip-TTA request, {EXPORT_REPS} calls a turn (median "
+          f"ms; eager, exported, exported, eager): {json.dumps(record)}",
+          flush=True)
+    del exported, weights, program
+    torch.cuda.empty_cache()
+    return line["launches"]
+
+
+EXPORT_REPS = 5
+
+
+def phase_export_bf16(requests):
+    """Phase 32: the main preset exported as a whole-model bf16 eval step
+    (`bf16=True`) and run as exported (phase 31 saved and loaded the f32
+    program): one request bit-equal to the eager bf16 step, and the bf16
+    instances of A and B (and E, f32, the wrapper lifting) launched inside
+    the program."""
+    from gedepth_tpu_torch.apis import init_depther
+    from gedepth_tpu_torch.apis.export import export_depther
+    from gedepth_tpu_torch.ops import msda as msda_ops
+    from gedepth_tpu_torch.ops import pe_fusion as pe_ops
+    from gedepth_tpu_torch.ops import window_attention as wa
+
+    t0 = time.perf_counter()
+    exported, weights, meta = export_depther(PRESET, bf16=True,
+                                             device="cuda")
+    export_s = time.perf_counter() - t0
+    check_program(exported, meta, "[export bf16]")
+    handle = init_depther(PRESET, device="cuda", bf16=True, seed=SEED,
+                          pe_raw=requests[0][1])
+    x = torch.from_numpy(served_inputs(handle, requests[:1])[0]).cuda()
+    cam = torch.full((1,), handle.cfg.model.default_cam_height,
+                     device="cuda")
+    counters = {"window_attention": wa.window_attention,
+                "msda": msda_ops.msda, "pe_fusion": pe_ops.pe_fusion}
+    reset_counts(counters)
+    with torch.inference_mode():
+        got = exported.module()(weights, x, cam)
+    torch.cuda.synchronize()
+    launches, _ = read_counts(counters)
+    dtypes = read_dtypes(counters)
+    want = handle.eval_step(x, cam)
+    if launches != {"window_attention": 48, "msda": 4, "pe_fusion": 2} or \
+            dtypes["window_attention"] != {"bf16": 48} or \
+            dtypes["msda"] != {"bf16": 4}:
+        fail(f"[export bf16] launches {launches}, instances {dtypes}")
+    if got.dtype != torch.float32 or not torch.equal(got, want):
+        fail(f"[export bf16] depth differs from the eager bf16 step: max "
+             f"|diff| {(got - want).abs().max().item()}")
+    size = sum(t.numel() * t.element_size() for t in weights.values())
+    print(f"[export bf16] export_depther({PRESET!r}, bf16=True): "
+          f"{export_s:.1f} s, weights {size} bytes; one request bit-equal "
+          f"to the eager bf16 step; launches {launches}, instances "
+          f"{dtypes}", flush=True)
+    del exported, weights, handle
+    torch.cuda.empty_cache()
+
+
+def phase_serving_tools(tree, npz):
+    """Phase 33: `tools.inference` (two frames of the KITTI tree's first
+    date with its plane embedding, --npy) and `tools.test --show-dir
+    --format-only` (the tree's 2 test frames) with the weights of `npz`:
+    each colour PNG equals `colorize_depth` of its depth, each 16-bit PNG
+    the prediction x 256 clipped and truncated, every depth finite and in
+    range."""
+    import contextlib as cl
+    import glob
+    import io
+    import os
+    import os.path as osp
+
+    from gedepth_tpu_torch.tools import inference as inference_cli
+    from gedepth_tpu_torch.tools import test as test_cli
+    from gedepth_tpu_torch.utils.color_depth import colorize_depth
+    from gedepth_tpu_torch.utils.png import read_png
+
+    date = sorted(os.listdir(osp.join(tree["root"], "input")))[0]
+    frames = sorted(glob.glob(osp.join(tree["root"], "input", date, "*",
+                                       "image_02", "data", "*.png")))[:2]
+    pe = osp.join(tree["root"], "input", date, "pe", "pe_165.npy")
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        with cl.redirect_stdout(io.StringIO()):
+            inference_cli.main([PRESET, npz, *frames, "--pe", pe,
+                                "--out-dir", out, "--npy"])
+        inference_s = time.perf_counter() - t0
+        for frame in frames:
+            stem = osp.join(out, osp.splitext(osp.basename(frame))[0])
+            depth = np.load(stem + "_depth.npy")
+            if depth.shape != (352, 1216) or not np.isfinite(depth).all() \
+                    or depth.min() < 1e-3 - 1e-6 or depth.max() > 80 + 1e-4:
+                fail(f"[serving tools] tools.inference {frame}: depth "
+                     f"{depth.shape} {depth.min()}..{depth.max()}")
+            if not np.array_equal(read_png(stem + "_depth.png"),
+                                  colorize_depth(depth)):
+                fail(f"[serving tools] {stem}_depth.png is not the depth's "
+                     "colour render")
+        preds = {}
+        real_write = test_cli.write_outputs
+
+        def recording(args, cfg, dataset, index, pred):
+            preds[test_cli.output_stem(dataset, index)] = pred
+            real_write(args, cfg, dataset, index, pred)
+
+        show, fmt = osp.join(out, "show"), osp.join(out, "fmt")
+        t0 = time.perf_counter()
+        with mock.patch.object(test_cli, "write_outputs", recording), \
+                cl.redirect_stdout(io.StringIO()):
+            test_cli.main([PRESET, npz, "--show-dir", show, "--format-only",
+                           "--format-dir", fmt, "--options",
+                           f"data.data_root={tree['root']}",
+                           f"data.test_split={tree['test']}"])
+        test_s = time.perf_counter() - t0
+        if len(preds) != 2 or sorted(os.listdir(fmt)) != sorted(
+                f"{s}.png" for s in preds):
+            fail(f"[serving tools] tools.test --format-only wrote "
+                 f"{os.listdir(fmt)} for {sorted(preds)}")
+        for stem, pred in preds.items():
+            out16 = read_png(osp.join(fmt, stem + ".png"))
+            if not np.array_equal(out16, np.clip(pred * 256.0, 0, 65535)
+                                  .astype(np.uint16)):
+                fail(f"[serving tools] {stem}.png is not pred x 256")
+            if not np.array_equal(read_png(osp.join(show,
+                                                    stem + "_depth.png")),
+                                  colorize_depth(pred)):
+                fail(f"[serving tools] {stem}_depth.png is not the "
+                     "prediction's colour render")
+    print(f"[serving tools] tools.inference {len(frames)} frames with --pe "
+          f"--npy: {inference_s:.1f} s; tools.test --show-dir --format-only "
+          f"on the KITTI tree's {len(preds)} test frames: {test_s:.1f} s; "
+          "every PNG read back equal to its depth", flush=True)
+
+
 RUN_TAG = "CHIP_SMOKE_RUN"  # in the environment of each process a run starts
 
 
@@ -3011,6 +3394,8 @@ def main():
         return 1
     if sys.argv[1:2] == ["--rank-step"]:
         return rank_step_worker(sys.argv[2])
+    if sys.argv[1:2] == ["--serve-exported"]:
+        return serve_exported_worker(*sys.argv[2:4])
     os.environ[RUN_TAG] = f"{os.getpid()}-{time.time_ns()}"
     try:
         with contextlib.ExitStack() as stack:
@@ -3052,9 +3437,14 @@ def run(stack):
     lap("kernels at DDAD shapes (phase 24)")
     handle, requests, serving_launches = phase_main_path()
     phase_whole_forward(handle, requests)
-    del handle
-    torch.cuda.empty_cache()
     lap("serving, whole forward (phases 4, 5)")
+    with tempfile.TemporaryDirectory() as work:
+        export_launches = phase_export(handle, requests, work)
+        del handle
+        torch.cuda.empty_cache()
+        lap("serving export, a fresh serving process (phase 31)")
+    phase_export_bf16(requests)
+    lap("bf16 serving export (phase 32)")
     launches, _, _, f32_peak, kitti_step_ms = phase_train(
         tree_data(PRESET, trees["kitti"]))
     phase_tools_test(trees["kitti"])
@@ -3068,6 +3458,9 @@ def run(stack):
         parity_npz = phase_weights_in(work, best_npz, best_weights, requests)
         del best_weights
         lap("weights in: .npz and reference .pth (phase 21)")
+        phase_serving_tools(trees["kitti"], best_npz)
+        lap("tools.inference, tools.test --show-dir --format-only (phase "
+            "33)")
         phase_compat_check(parity_npz)
         lap("compat_check (phase 22)")
     ddad_serving = phase_ddad_serving(trees["ddad"])
@@ -3160,6 +3553,8 @@ def run(stack):
                    serving_launches.get(name, 0))
                for name in ("window_attention", "msda", "msda_backward",
                             "pe_fusion")]
+    for k in kernels:           # inside the loaded program of phase 31
+        k["launches_exported"] = export_launches.get(k["name"], 0)
     # the shapes of the exact and compat presets: the launches that their
     # paths made at this shape's query count
     for name, t in rule_results.items():

@@ -15,6 +15,14 @@ adaptive PE fusion) are
 hand-written CUDA kernels in `csrc/`, built by `nvcc` on first use
 (`ops/_lib.py`), each with its plain PyTorch version beside it for CPU
 tensors; every sampling mode runs through the same pair of sampling
-kernels.
+kernels. A model exported by `apis.export` is served by `load_exported`
+without the model or config code, so nothing here imports it eagerly:
+`get_config` and `list_configs` load `configs` on first use.
 """
-from gedepth_tpu_torch.configs import get_config, list_configs  # noqa: F401
+
+
+def __getattr__(name):
+    if name in ("get_config", "list_configs"):
+        from gedepth_tpu_torch import configs
+        return getattr(configs, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

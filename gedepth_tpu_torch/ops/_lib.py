@@ -11,6 +11,13 @@ tests import every module of the port on machines without `nvcc`.
 Each C entry point launches on the stream it is given, allocates nothing,
 and returns `cudaGetLastError()` after the launch; `call` raises when it is
 not 0.
+
+The kernels reach PyTorch as dispatcher ops of one namespace (`NAMESPACE`,
+`define_op`, registered when their modules are imported): each op has the
+plain version as its CPU implementation, its kernel as its CUDA
+implementation, a fake implementation that gives the output's shape and
+dtype without touching data (so `torch.export` traces through it), and its
+backward registered with autograd.
 """
 from __future__ import annotations
 
@@ -44,8 +51,39 @@ _SIGNATURES = {
     "pe_fusion_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P],
 }
 
+NAMESPACE = "gedepth_torch"
+
 _lib = None
+_library = None  # the `torch.library.Library` that holds the ops
 build_seconds = None  # wall time of the build (or load) done by `load()`
+
+
+def define_op(name, schema, cpu, cuda, fake, backward=None,
+              setup_context=None):
+    """Define the dispatcher op `NAMESPACE::name` with `schema` ("(args) ->
+    returns"), its CPU and CUDA implementations, its fake implementation
+    and, where given, its backward (`torch.library.register_autograd`);
+    returns the op, `torch.ops.<NAMESPACE>.<name>.default`.
+
+    The dispatcher calls the implementations as they are
+    (`torch.library.Library.impl`). `torch.library.custom_op` would wrap
+    each call in more Python (an alias check and a `torch._dynamo.disable`
+    frame): a bf16 forward, bound by its host, makes 27 such calls."""
+    import torch
+
+    global _library
+    if _library is None:
+        _library = torch.library.Library(NAMESPACE, "DEF")
+    _library.define(name + schema)
+    _library.impl(name, cpu, "CPU")
+    _library.impl(name, cuda, "CUDA")
+    qualname = f"{NAMESPACE}::{name}"
+    torch.library.register_fake(qualname, fake, lib=_library)
+    if backward is not None:
+        torch.library.register_autograd(qualname, backward,
+                                        setup_context=setup_context,
+                                        lib=_library)
+    return getattr(getattr(torch.ops, NAMESPACE), name).default
 
 
 def _nvcc() -> str:

@@ -9,11 +9,13 @@ in level pixels and sums the weighted samples:
   weights  (B, Nq, heads, L, P)
   returns  (B, Nq, heads·d)
 
-On a CUDA tensor the wrapper runs `MSDAFunction`: the hand-written
-forward kernel of `csrc/msda.cu` (B) and, under autograd, the backward
-kernel of `csrc/msda_bwd.cu` (C), which emits d_value, d_pos and d_weights.
-On a CPU tensor it runs the plain per-level gather, which autograd
-differentiates; `msda_backward_plain` is kernel C's plain twin.
+The wrapper calls the dispatcher op `msda_op` (`gedepth_torch::msda`),
+whose backward is the op `msda_backward_op` (`gedepth_torch::msda_backward`):
+on a CUDA tensor the hand-written forward kernel of `csrc/msda.cu` (B) and,
+under autograd, the backward kernel of `csrc/msda_bwd.cu` (C), which emits
+d_value, d_pos and d_weights; on a CPU tensor the plain per-level gather
+(`msda_plain`) and its backward written out (`msda_backward_plain`, kernel
+C's plain twin, equal to autograd through `msda_plain` to the bit).
 
 The value is f32 or bf16, and each kernel has an instance for either. pos
 and weights are f32 at the kernels' boundary whatever the value: a bf16
@@ -525,24 +527,10 @@ def _launch_forward(value, spatial_shapes, pos, weights, window):
     return out
 
 
-def msda_backward(value, spatial_shapes, pos, weights, grad_out,
-                  query_shapes=None, window_radius=None):
-    """Kernel C: (d_value, d_pos, d_weights) of `msda` for the cotangent
-    grad_out (B, Nq, heads·d) in the value's dtype, CUDA tensors only.
-    `query_shapes` and `window_radius` as in `msda`. d_value comes in the
-    value's dtype (a bf16 one summed in f32 and rounded once), d_pos and
-    d_weights in f32. d_value is summed in an order that changes from run
-    to run, and its low bits with it; d_pos and d_weights are
-    deterministic."""
-    spatial_shapes = tuple((int(H_), int(W_)) for (H_, W_) in spatial_shapes)
-    _check(value, spatial_shapes, pos, weights)
+def _launch_backward(value, spatial_shapes, pos, weights, grad_out, window):
+    """Kernel C on CUDA tensors already checked."""
     B, S, h, d = value.shape
     Nq, L, P = pos.shape[1], pos.shape[3], pos.shape[4]
-    if tuple(grad_out.shape) != (B, Nq, h * d):
-        raise ValueError(f"grad_out shape {tuple(grad_out.shape)} != "
-                         f"{(B, Nq, h * d)}")
-    window = _normalise_window(query_shapes, window_radius, Nq)
-    _check_kernel_inputs(value, spatial_shapes, pos, weights, grad_out)
     d_value = torch.empty_like(value)
     # the f32 sums (zeroed by the C entry point): d_value itself when f32
     acc = (d_value if value.dtype == torch.float32
@@ -566,62 +554,194 @@ def msda_backward(value, spatial_shapes, pos, weights, grad_out,
     return d_value, d_pos, d_weights
 
 
+# the plain backward's corners in the order autograd through `msda_plain`
+# adds their gradients (the last one formed first): (dx, dy)
+_CORNERS_BACKWARD = ((1, 1), (0, 1), (1, 0), (0, 0))
+
+
 def msda_backward_plain(value, spatial_shapes, pos, weights, grad_out):
-    """Plain twin of `msda_backward`: autograd through `msda_plain`, one
-    query chunk at a time. Queries are independent, so d_pos and d_weights
-    come per chunk while d_value is summed over the chunks; autograd through
-    the whole `msda_plain` would keep every chunk's gathered corners alive
-    at once (~34 GB at the train crop's cross-attention)."""
+    """Plain twin of kernel C: (d_value, d_pos, d_weights) of `msda_plain`
+    for the cotangent grad_out, written out in tensor ops, one query chunk
+    at a time. It forms every product and sum that autograd through
+    `msda_plain` forms, in the same order (chunks, levels and corners from
+    the last, each corner's d_value scattered into zeros and then added), so
+    the two agree to the bit; it runs inside the dispatcher op, where
+    autograd is not available, and never holds more than one chunk's
+    corners (autograd through the whole `msda_plain` would keep every
+    chunk's gathered corners alive at once, ~34 GB at the train crop's
+    cross-attention)."""
     spatial_shapes = tuple((int(H_), int(W_)) for (H_, W_) in spatial_shapes)
     if value.dtype == torch.bfloat16:
         # as kernel C: f32 sums of the lifted inputs, d_value rounded once
         d_value, d_pos, d_weights = msda_backward_plain(
             value.float(), spatial_shapes, pos, weights, grad_out.float())
         return d_value.to(value.dtype), d_pos, d_weights
-    d_value = torch.zeros_like(value)
+    pos, weights = pos.float(), weights.float()
+    B, S, h, d = value.shape
+    Nq, P = pos.shape[1], pos.shape[4]
+    table = value.permute(0, 2, 1, 3).reshape(B * h, S, d)
+    grad_out = grad_out.view(B, Nq, h, d)
+    starts = np.cumsum([0] + [H_ * W_ for (H_, W_) in spatial_shapes])
+    d_table = None
     d_pos = torch.empty_like(pos)
     d_weights = torch.empty_like(weights)
-    v = value.detach().requires_grad_()
-    for q0 in range(0, pos.shape[1], PLAIN_QUERY_CHUNK):
-        q1 = q0 + PLAIN_QUERY_CHUNK
-        p = pos[:, q0:q1].detach().requires_grad_()
-        w = weights[:, q0:q1].detach().requires_grad_()
-        with torch.enable_grad():
-            out = msda_plain(v, spatial_shapes, p, w)
-            gv, gp, gw = torch.autograd.grad(out, (v, p, w),
-                                             grad_out[:, q0:q1])
-        d_value += gv
-        d_pos[:, q0:q1] = gp
-        d_weights[:, q0:q1] = gw
+
+    def heads_first(t):         # (B, n, h, P) -> (B·h, n·P, 1)
+        return t.permute(0, 2, 1, 3).reshape(B * h, -1, 1)
+
+    for q0 in reversed(range(0, Nq, PLAIN_QUERY_CHUNK)):
+        p = pos[:, q0:q0 + PLAIN_QUERY_CHUNK]
+        w = weights[:, q0:q0 + PLAIN_QUERY_CHUNK]
+        n = p.shape[1]
+        go = grad_out[:, q0:q0 + n].permute(0, 2, 1, 3).reshape(B * h, n, d)
+        # the sum over points, broadcast back: (B·h, n·P, d)
+        go = go[:, :, None].expand(B * h, n, P, d).reshape(B * h, n * P, d)
+        for l in reversed(range(len(spatial_shapes))):
+            Hl, Wl = spatial_shapes[l]
+            x, y = p[:, :, :, l, :, 0], p[:, :, :, l, :, 1]   # (B, n, h, P)
+            x0, y0 = torch.floor(x), torch.floor(y)
+            fx, fy = x - x0, y - y0
+            wl = w[:, :, :, l]
+            g_fx, g_fy, g_w = [], [], []
+            for dx, dy in _CORNERS_BACKWARD:
+                xi, yi = x0 + dx, y0 + dy
+                inb = ((xi >= 0) & (xi < Wl) & (yi >= 0)
+                       & (yi < Hl)).to(fx.dtype)
+                idx = (int(starts[l]) + yi.clamp(0, Hl - 1) * Wl
+                       + xi.clamp(0, Wl - 1)).long()
+                idx = idx.permute(0, 2, 1, 3).reshape(B * h, n * P, 1)
+                idx = idx.expand(-1, -1, d)
+                ax = fx if dx else 1 - fx          # the corner's weight
+                ay = fy if dy else 1 - fy          # cw = ax·ay
+                cw_in = ax * ay * inb
+                corner = torch.gather(table, 1, idx)
+                # d(Σ_d go·corner·cwt)/d cwt, back to (B, n, h, P)
+                dot = (go * corner).sum(-1, keepdim=True)
+                dot = dot.view(B, h, n, P).permute(0, 2, 1, 3)
+                d_cw = dot * wl * inb
+                g_w.append(dot * cw_in)
+                g_x, g_y = d_cw * ay, d_cw * ax
+                g_fx.append(g_x if dx else -g_x)
+                g_fy.append(g_y if dy else -g_y)
+                part = table.new_zeros(B * h, S, d).scatter_add_(
+                    1, idx, go * heads_first(cw_in * wl))
+                d_table = part if d_table is None else d_table + part
+            for g_list, out in ((g_fx, d_pos[:, q0:q0 + n, :, l, :, 0]),
+                                (g_fy, d_pos[:, q0:q0 + n, :, l, :, 1]),
+                                (g_w, d_weights[:, q0:q0 + n, :, l])):
+                out.copy_(((g_list[0] + g_list[1]) + g_list[2]) + g_list[3])
+    d_value = d_table.view(B, h, S, d).permute(0, 2, 1, 3).contiguous()
     return d_value, d_pos, d_weights
 
 
-class MSDAFunction(torch.autograd.Function):
-    """Kernel B forward, kernel C backward. The tanh of the windowed rule,
-    the anchor add and the weight softmax stay upstream in autograd.
-    `window` is the (query_shapes, radius) pair of `_normalise_window`."""
+def _pairs(flat):
+    """[H0, W0, H1, W1, ...] -> ((H0, W0), (H1, W1), ...)."""
+    return tuple(zip(flat[::2], flat[1::2]))
 
-    @staticmethod
-    def forward(ctx, value, spatial_shapes, pos, weights, window):
-        ctx.spatial_shapes, ctx.window = spatial_shapes, window
-        ctx.save_for_backward(value, pos, weights)
-        return _launch_forward(value, spatial_shapes, pos, weights, window)
 
-    @staticmethod
-    def backward(ctx, grad_out):
-        value, pos, weights = ctx.saved_tensors
-        query_shapes, radius = ctx.window
-        d_value, d_pos, d_weights = msda_backward(
-            value, ctx.spatial_shapes, pos, weights, grad_out.contiguous(),
-            None if radius is None else query_shapes, radius)
-        # each gradient in its input's dtype: pos and weights are f32
-        return d_value, None, d_pos, d_weights, None
+def _flat(pairs):
+    return [int(v) for pair in pairs for v in pair]
+
+
+def _window(query_shapes, window_radius, Nq):
+    """The (query grids, radius) plan key of an op's flat arguments."""
+    if window_radius is None:
+        return ((1, Nq),), None
+    return _pairs(query_shapes), float(window_radius)
+
+
+def _msda_cpu(value, spatial_shapes, pos, weights, query_shapes,
+              window_radius):
+    return msda_plain(value, _pairs(spatial_shapes), pos, weights)
+
+
+def _msda_cuda(value, spatial_shapes, pos, weights, query_shapes,
+               window_radius):
+    spatial_shapes = _pairs(spatial_shapes)
+    _check_kernel_inputs(value, spatial_shapes, pos, weights)
+    return _launch_forward(value, spatial_shapes, pos, weights,
+                           _window(query_shapes, window_radius, pos.shape[1]))
+
+
+def _msda_fake(value, spatial_shapes, pos, weights, query_shapes,
+               window_radius):
+    B, _, h, d = value.shape
+    return value.new_empty(B, pos.shape[1], h * d)
+
+
+def _msda_backward_cpu(value, spatial_shapes, pos, weights, grad_out,
+                       query_shapes, window_radius):
+    return msda_backward_plain(value, _pairs(spatial_shapes), pos, weights,
+                               grad_out)
+
+
+def _msda_backward_cuda(value, spatial_shapes, pos, weights, grad_out,
+                        query_shapes, window_radius):
+    spatial_shapes = _pairs(spatial_shapes)
+    _check_kernel_inputs(value, spatial_shapes, pos, weights, grad_out)
+    return _launch_backward(
+        value, spatial_shapes, pos, weights, grad_out,
+        _window(query_shapes, window_radius, pos.shape[1]))
+
+
+def _msda_backward_fake(value, spatial_shapes, pos, weights, grad_out,
+                        query_shapes, window_radius):
+    return (value.new_empty(value.shape), pos.new_empty(pos.shape),
+            weights.new_empty(weights.shape))
+
+
+def _setup_context(ctx, inputs, output):
+    value, spatial_shapes, pos, weights, query_shapes, window_radius = inputs
+    ctx.static = (spatial_shapes, query_shapes, window_radius)
+    ctx.save_for_backward(value, pos, weights)
+
+
+def _backward(ctx, grad_out):
+    """Kernel C (`msda_backward_op`) with the forward's window. The tanh of
+    the windowed rule, the anchor add and the weight softmax stay upstream
+    in autograd."""
+    value, pos, weights = ctx.saved_tensors
+    spatial_shapes, query_shapes, window_radius = ctx.static
+    d_value, d_pos, d_weights = msda_backward_op(
+        value, spatial_shapes, pos, weights, grad_out.contiguous(),
+        query_shapes, window_radius)
+    # each gradient in its input's dtype: pos and weights are f32
+    return d_value, None, d_pos, d_weights, None, None
+
+
+# the ops of kernels B and C: level shapes and query grids as flat
+# [H0, W0, H1, W1, ...] lists, no query grids and a None radius for
+# unbounded offsets; on CPU tensors `msda_plain` and `msda_backward_plain`
+_MSDA_ARGS = ("(Tensor value, int[] spatial_shapes, Tensor pos, "
+              "Tensor weights, ")
+_WINDOW_ARGS = "int[] query_shapes, float? window_radius)"
+msda_backward_op = _lib.define_op(
+    "msda_backward",
+    _MSDA_ARGS + "Tensor grad_out, " + _WINDOW_ARGS
+    + " -> (Tensor, Tensor, Tensor)",
+    _msda_backward_cpu, _msda_backward_cuda, _msda_backward_fake)
+msda_op = _lib.define_op(
+    "msda", _MSDA_ARGS + _WINDOW_ARGS + " -> Tensor", _msda_cpu,
+    _msda_cuda, _msda_fake, _backward, _setup_context)
+
+
+def _op_args(value, spatial_shapes, pos, weights, query_shapes,
+             window_radius):
+    """Check a call and give the ops' arguments: (level shapes, query
+    grids) flat, the radius or None."""
+    spatial_shapes = tuple((int(H_), int(W_)) for (H_, W_) in spatial_shapes)
+    _check(value, spatial_shapes, pos, weights)
+    query_shapes, radius = _normalise_window(query_shapes, window_radius,
+                                             pos.shape[1])
+    return (_flat(spatial_shapes),
+            [] if radius is None else _flat(query_shapes), radius)
 
 
 def msda(value, spatial_shapes, pos, weights, query_shapes=None,
          window_radius=None):
-    """Deformable sampling over all levels; kernels B (forward) and C
-    (backward) for CUDA tensors, the plain version for CPU tensors.
+    """Deformable sampling over all levels through `msda_op`: kernels B
+    (forward) and C (backward) for CUDA tensors, the plain versions for CPU
+    tensors.
 
     `query_shapes` (the row-major query grids, concatenated) and
     `window_radius` tell the kernels that every sample lies within the
@@ -629,13 +749,29 @@ def msda(value, spatial_shapes, pos, weights, query_shapes=None,
     `windowed_positions` forms them: the kernels then stage value windows
     in shared memory. They change no result: positions that leave the
     window, or a call without them, are sampled from device memory."""
-    spatial_shapes = tuple((int(H_), int(W_)) for (H_, W_) in spatial_shapes)
-    _check(value, spatial_shapes, pos, weights)
-    window = _normalise_window(query_shapes, window_radius, pos.shape[1])
-    if value.device.type == "cpu":
-        return msda_plain(value, spatial_shapes, pos, weights)
-    _check_kernel_inputs(value, spatial_shapes, pos, weights)
-    return MSDAFunction.apply(value, spatial_shapes, pos, weights, window)
+    shapes, grids, radius = _op_args(value, spatial_shapes, pos, weights,
+                                     query_shapes, window_radius)
+    return msda_op(value, shapes, pos, weights, grids, radius)
+
+
+def msda_backward(value, spatial_shapes, pos, weights, grad_out,
+                  query_shapes=None, window_radius=None):
+    """(d_value, d_pos, d_weights) of `msda` for the cotangent grad_out
+    (B, Nq, heads·d) in the value's dtype, through `msda_backward_op`:
+    kernel C for CUDA tensors, `msda_backward_plain` for CPU tensors.
+    `query_shapes` and `window_radius` as in `msda`. d_value comes in the
+    value's dtype (a bf16 one summed in f32 and rounded once), d_pos and
+    d_weights in f32. Kernel C sums d_value in an order that changes from
+    run to run, and its low bits with it; d_pos and d_weights are
+    deterministic."""
+    shapes, grids, radius = _op_args(value, spatial_shapes, pos, weights,
+                                     query_shapes, window_radius)
+    B, _, h, d = value.shape
+    if tuple(grad_out.shape) != (B, pos.shape[1], h * d):
+        raise ValueError(f"grad_out shape {tuple(grad_out.shape)} != "
+                         f"{(B, pos.shape[1], h * d)}")
+    return msda_backward_op(value, shapes, pos, weights, grad_out, grids,
+                            radius)
 
 
 msda.launches = 0

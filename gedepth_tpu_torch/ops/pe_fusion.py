@@ -6,9 +6,10 @@
 Shapes (the JAX package's layout): logits (B, H, W, 11); pe, y (B, H, W);
 cam_height (B,); returns (B, H, W).
 
-On a CUDA tensor the wrapper runs `PEFusionFunction`: the hand-written
-forward kernel of `csrc/pe_fusion.cu` (E) and the VJP of the plain version
-as its backward. On a CPU tensor it runs the plain version.
+The wrapper calls the dispatcher op `pe_fusion_op`
+(`gedepth_torch::pe_fusion`): on a CUDA tensor the hand-written forward
+kernel of `csrc/pe_fusion.cu` (E), with the VJP of the plain version as its
+backward; on a CPU tensor the plain version.
 
 Kernel E is f32. Inside every `bf16_scope` it sees f32 (the PE necks and the
 fusion are always f32); only a model cast to bf16 as a whole hands it bf16
@@ -60,6 +61,12 @@ def _check(slope_logits, pe_comput, y, cam_height):
             raise ValueError("pe_fusion: all inputs on one device")
 
 
+def _check_op_inputs(tensors):
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError("pe_fusion_op takes f32 inputs (kernel E's one "
+                        f"instance), got {[t.dtype for t in tensors]}")
+
+
 def _launch_forward(slope_logits, pe_comput, y, cam_height, depth_scale):
     """Kernel E on CUDA tensors already checked."""
     B, H, W, K = slope_logits.shape
@@ -71,33 +78,53 @@ def _launch_forward(slope_logits, pe_comput, y, cam_height, depth_scale):
     return out
 
 
-class PEFusionFunction(torch.autograd.Function):
-    """Kernel E forward; the backward is the VJP of the plain version, as
-    the JAX package's custom VJP differentiates `pe_fusion_xla`."""
+def _pe_fusion_cpu(slope_logits, pe_comput, y, cam_height, depth_scale):
+    _check_op_inputs((slope_logits, pe_comput, y, cam_height))
+    return pe_fusion_plain(slope_logits, pe_comput, y, cam_height,
+                           depth_scale)
 
-    @staticmethod
-    def forward(ctx, slope_logits, pe_comput, y, cam_height, depth_scale):
-        ctx.depth_scale = depth_scale
-        ctx.save_for_backward(slope_logits, pe_comput, y, cam_height)
-        return _launch_forward(slope_logits, pe_comput, y, cam_height,
-                               depth_scale)
 
-    @staticmethod
-    def backward(ctx, grad_out):
-        grads = _lib.plain_vjp(pe_fusion_plain, ctx.saved_tensors,
-                               ctx.needs_input_grad[:4], grad_out,
-                               ctx.depth_scale)
-        return (*grads, None)
+def _pe_fusion_cuda(slope_logits, pe_comput, y, cam_height, depth_scale):
+    tensors = (slope_logits, pe_comput, y, cam_height)
+    _check_op_inputs(tensors)
+    for t in tensors:
+        if not t.is_contiguous():
+            raise ValueError("pe_fusion kernel needs contiguous inputs")
+    return _launch_forward(*tensors, depth_scale)
+
+
+def _pe_fusion_fake(slope_logits, pe_comput, y, cam_height, depth_scale):
+    return pe_comput.new_empty(pe_comput.shape, dtype=torch.float32)
+
+
+def _setup_context(ctx, inputs, output):
+    ctx.depth_scale = inputs[4]
+    ctx.save_for_backward(*inputs[:4])
+
+
+def _backward(ctx, grad_out):
+    """The VJP of the plain version, as the JAX package's custom VJP
+    differentiates `pe_fusion_xla`."""
+    grads = _lib.plain_vjp(pe_fusion_plain, ctx.saved_tensors,
+                           ctx.needs_input_grad[:4], grad_out,
+                           ctx.depth_scale)
+    return (*grads, None)
+
+
+# kernel E's op, f32 in and out; on CPU tensors the plain version
+pe_fusion_op = _lib.define_op(
+    "pe_fusion",
+    "(Tensor slope_logits, Tensor pe_comput, Tensor y, Tensor cam_height, "
+    "float depth_scale) -> Tensor",
+    _pe_fusion_cpu, _pe_fusion_cuda, _pe_fusion_fake, _backward,
+    _setup_context)
 
 
 def pe_fusion(slope_logits, pe_comput, y, cam_height, depth_scale):
-    """Fused slope-bin softmax → prior; kernel E for CUDA tensors."""
+    """Fused slope-bin softmax → prior through `pe_fusion_op`: kernel E for
+    CUDA tensors, the plain version for CPU tensors. bf16 inputs are lifted
+    to f32 and the result rounded to bf16 once."""
     _check(slope_logits, pe_comput, y, cam_height)
-    if slope_logits.device.type == "cpu":
-        return pe_fusion_plain(slope_logits, pe_comput, y, cam_height,
-                               depth_scale)
-    if slope_logits.device.type != "cuda":
-        raise ValueError(f"pe_fusion: no kernel for {slope_logits.device}")
     tensors = (slope_logits, pe_comput, y, cam_height)
     dtype = slope_logits.dtype
     if dtype not in (torch.float32, torch.bfloat16) \
@@ -107,10 +134,7 @@ def pe_fusion(slope_logits, pe_comput, y, cam_height, depth_scale):
     if dtype == torch.bfloat16:
         # E keeps its one f32 instance: lifted in, rounded out once
         tensors = tuple(t.float() for t in tensors)
-    for t in tensors:
-        if not t.is_contiguous():
-            raise ValueError("pe_fusion kernel needs contiguous inputs")
-    return PEFusionFunction.apply(*tensors, depth_scale).to(dtype)
+    return pe_fusion_op(*tensors, float(depth_scale)).to(dtype)
 
 
 pe_fusion.launches = 0

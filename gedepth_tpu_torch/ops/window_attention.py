@@ -11,13 +11,14 @@ Shapes (the JAX package's layout):
            so row r uses mask[r % nW]
   returns  (nWB, N, heads, D)
 
-On a CUDA tensor the wrapper runs `WindowAttentionFunction`: the
-hand-written forward kernel (A) and the VJP of the plain version as its
-backward. Kernel A has two instances: `csrc/window_attention.cu` for f32
-q, k, v (f32 bias and mask) and `csrc/window_attention_bf16.cu`, on the
-tensor cores, for bf16 q, k, v (bias and mask each bf16 or f32: a model
-cast to bf16 holds its bias table in bf16 and builds its shift mask in
-f32). On a CPU tensor it runs the plain version. The kernels read q, k and
+The wrapper calls the dispatcher op `window_attention_op`
+(`gedepth_torch::window_attention`): on a CUDA tensor the hand-written
+forward kernel (A), with the VJP of the plain version as its backward; on a
+CPU tensor the plain version. Kernel A has two instances:
+`csrc/window_attention.cu` for f32 q, k, v (f32 bias and mask) and
+`csrc/window_attention_bf16.cu`, on the tensor cores, for bf16 q, k, v (bias
+and mask each bf16 or f32: a model cast to bf16 holds its bias table in
+bf16 and builds its shift mask in f32). The kernels read q, k and
 v through their window and row strides, so k and v may be views into a
 packed (nWB, N, 3, heads, D) qkv; what they do not take (see
 `check_kernel_inputs`) raises.
@@ -138,34 +139,48 @@ def _launch_forward(q, k, v, bias, mask):
     return out
 
 
-class WindowAttentionFunction(torch.autograd.Function):
-    """Kernel A forward; the backward is the VJP of the plain version on
-    the saved inputs, as the JAX package's custom VJP differentiates
-    `window_attention_xla` (no TPU backward kernel exists). The mask is a
-    constant and gets no gradient."""
+def _window_attention_cpu(q, k, v, bias, mask):
+    return window_attention_plain(q, k, v, bias, mask).contiguous()
 
-    @staticmethod
-    def forward(ctx, q, k, v, bias, mask):
-        ctx.save_for_backward(q, k, v, bias, mask)
-        return _launch_forward(q, k, v, bias, mask)
 
-    @staticmethod
-    def backward(ctx, grad_out):
-        q, k, v, bias, mask = ctx.saved_tensors
-        grads = _lib.plain_vjp(window_attention_plain, (q, k, v, bias),
-                               ctx.needs_input_grad[:4], grad_out, mask)
-        return (*grads, None)
+def _window_attention_cuda(q, k, v, bias, mask):
+    check_kernel_inputs(q, k, v, bias, mask)
+    return _launch_forward(q, k, v, bias, mask)
+
+
+def _window_attention_fake(q, k, v, bias, mask):
+    return q.new_empty(q.shape)
+
+
+def _setup_context(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _backward(ctx, grad_out):
+    """The VJP of the plain version on the saved inputs, as the JAX
+    package's custom VJP differentiates `window_attention_xla` (no TPU
+    backward kernel exists). The mask is a constant and gets no
+    gradient."""
+    q, k, v, bias, mask = ctx.saved_tensors
+    grads = _lib.plain_vjp(window_attention_plain, (q, k, v, bias),
+                           ctx.needs_input_grad[:4], grad_out, mask)
+    return (*grads, None)
+
+
+# kernel A's op: a contiguous (nWB, N, heads, D) in q's dtype; on CPU
+# tensors the plain version
+window_attention_op = _lib.define_op(
+    "window_attention",
+    "(Tensor q, Tensor k, Tensor v, Tensor bias, Tensor? mask) -> Tensor",
+    _window_attention_cpu, _window_attention_cuda, _window_attention_fake,
+    _backward, _setup_context)
 
 
 def window_attention(q, k, v, bias, mask=None):
-    """softmax(q kᵀ + bias + mask) v; kernel A for CUDA tensors."""
+    """softmax(q kᵀ + bias + mask) v through `window_attention_op`: kernel A
+    for CUDA tensors, the plain version for CPU tensors."""
     _check(q, k, v, bias, mask)
-    if q.device.type == "cpu":
-        return window_attention_plain(q, k, v, bias, mask)
-    if q.device.type != "cuda":
-        raise ValueError(f"window_attention: no kernel for {q.device}")
-    check_kernel_inputs(q, k, v, bias, mask)
-    return WindowAttentionFunction.apply(q, k, v, bias, mask)
+    return window_attention_op(q, k, v, bias, mask)
 
 
 window_attention.launches = 0

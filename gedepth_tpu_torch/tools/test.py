@@ -6,6 +6,7 @@
         [--aug-test --aug-ratios 0.75,1.0,1.25]
         [--slide --slide-tile H,W --slide-stride H,W]
         [--device-metrics] [--bf16] [--device cuda] [--multihost]
+        [--show-dir DIR] [--format-only [--format-dir DIR]]
         [--options key=value ...]
     python -m torch.distributed.run --nproc_per_node N \
         -m gedepth_tpu_torch.tools.test <preset> ... --multihost
@@ -26,11 +27,19 @@ with --device cpu): each process evaluates its strided shard of the split
 (--max-images of it at most), the per-image metrics of every process are
 gathered before the aggregate, and process 0 prints it. f32 runs without
 TF32.
+
+--show-dir writes each prediction coloured by `utils.color_depth` as
+`<name>_depth.png`; --format-only writes each as a 16-bit PNG of depth ×
+data.gt_depth_scale, clipped to 0..65535 (the reference's format_results),
+into --format-dir and computes no metrics. <name> is the image's path in
+the split with '/' turned into '_' and no extension (synthetic frames:
+`synthetic_<index>`); under --multihost each process writes its own shard.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 
 
 def _pair(text):
@@ -68,6 +77,11 @@ def main(argv=None):
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--multihost", action="store_true",
                         help="join the torchrun process group first")
+    parser.add_argument("--show-dir", default=None,
+                        help="write colourised depth maps here")
+    parser.add_argument("--format-only", action="store_true",
+                        help="write uint16 depth PNGs, no metrics")
+    parser.add_argument("--format-dir", default="format_results")
     parser.add_argument("--options", nargs="*", default=None,
                         help="dotted config overrides key=value")
     args = parser.parse_args(argv)
@@ -109,7 +123,8 @@ def _evaluate(args, cfg, device):
         cast_params_bf16(model, cfg.model.bf16_scope)
     ratios = (tuple(float(r) for r in args.aug_ratios.split(","))
               if args.aug_test else ())
-    evaluator = Evaluator(model, build_eval_dataset(cfg), cfg.data,
+    dataset = build_eval_dataset(cfg)
+    evaluator = Evaluator(model, dataset, cfg.data,
                           batch_size=args.batch_size,
                           flip_tta=False if args.no_tta else None,
                           ms_ratios=ratios,
@@ -117,11 +132,50 @@ def _evaluate(args, cfg, device):
                           mode="slide" if args.slide else None,
                           slide_tile=args.slide_tile,
                           slide_stride=args.slide_stride)
-    agg, per_image = evaluator.run(max_images=args.max_images, progress=50)
+    on_prediction = None
+    if args.format_only or args.show_dir:
+        def on_prediction(index, pred):
+            write_outputs(args, cfg, dataset, index, pred)
+
+    agg, per_image = evaluator.run(max_images=args.max_images, progress=50,
+                                   on_prediction=on_prediction,
+                                   compute_metrics=not args.format_only)
+    if args.format_only:
+        print(f"wrote formatted predictions to {args.format_dir}",
+              flush=True)
+        return
     if parallel.is_main():
         print(json.dumps(dict(agg, images=len(per_image), config=cfg.name,
                               bf16=args.bf16, world=parallel.world(),
                               backend=parallel.backend())))
+
+
+def output_stem(dataset, index):
+    """An image's name in the outputs: its path in the split, '/' as '_',
+    without extension."""
+    if hasattr(dataset, "infos"):
+        name = dataset.infos[index]["filename"].replace("/", "_")
+        return os.path.splitext(name)[0]
+    return f"synthetic_{index:05d}"
+
+
+def write_outputs(args, cfg, dataset, index, pred):
+    """The --format-only and --show-dir files of one prediction (H, W)."""
+    import numpy as np
+
+    from gedepth_tpu_torch.utils.color_depth import colorize_depth
+    from gedepth_tpu_torch.utils.png import write_png
+
+    stem = output_stem(dataset, index)
+    if args.format_only:
+        os.makedirs(args.format_dir, exist_ok=True)
+        out16 = np.clip(pred * cfg.data.gt_depth_scale, 0,
+                        65535).astype(np.uint16)
+        write_png(os.path.join(args.format_dir, stem + ".png"), out16)
+    if args.show_dir:
+        os.makedirs(args.show_dir, exist_ok=True)
+        write_png(os.path.join(args.show_dir, stem + "_depth.png"),
+                  colorize_depth(pred))
 
 
 if __name__ == "__main__":

@@ -171,19 +171,11 @@ def test_pe_fusion_plain_bf16():
                      np.asarray(want.astype(jnp.float32)), 1e-1) < 2e-2
 
 
-def test_function_wiring_bf16(monkeypatch):
-    """`MSDAFunction` and `WindowAttentionFunction` on bf16 tensors, their
-    launches swapped for the plain versions: every gradient comes back in
-    its input's dtype (bf16 value, q, k, v and bias; f32 pos and weights)."""
-    monkeypatch.setattr(
-        msda_ops, "_launch_forward",
-        lambda value, shapes, pos, weights, window:
-        msda_ops.msda_plain(value, shapes, pos, weights))
-    monkeypatch.setattr(
-        msda_ops, "msda_backward",
-        lambda value, shapes, pos, weights, grad_out, *window:
-        msda_ops.msda_backward_plain(value, shapes, pos, weights, grad_out))
-    monkeypatch.setattr(wa, "_launch_forward", wa.window_attention_plain)
+def test_function_wiring_bf16():
+    """`msda_op` and `window_attention_op` on bf16 CPU tensors, where they
+    run the plain versions in place of the launches: every gradient comes
+    back in its input's dtype (bf16 value, q, k, v and bias; f32 pos and
+    weights)."""
     rng = np.random.default_rng(3)
     levels, grids = ((4, 8), (2, 4)), ((4, 8),)
     value = torch.from_numpy(rng.standard_normal((1, 40, 2, 8)).astype(
@@ -192,7 +184,7 @@ def test_function_wiring_bf16(monkeypatch):
         0, 2, (1, 32, 2, 2, 3, 2)).astype(np.float32)), grids, levels, 4)
     pos = pos.requires_grad_()
     w = torch.rand(1, 32, 2, 2, 3).requires_grad_()
-    out = msda_ops.MSDAFunction.apply(value, levels, pos, w, (grids, 4.0))
+    out = msda_ops.msda_op(value, [4, 8, 2, 4], pos, w, [4, 8], 4.0)
     assert out.dtype == BF16
     out.float().square().sum().backward()
     assert (value.grad.dtype, pos.grad.dtype, w.grad.dtype) == (
@@ -206,7 +198,7 @@ def test_function_wiring_bf16(monkeypatch):
     q, k, v = (torch.randn(4, 9, 2, 8).to(BF16).requires_grad_()
                for _ in range(3))
     bias = torch.randn(2, 9, 9).to(BF16).requires_grad_()
-    out = wa.WindowAttentionFunction.apply(q, k, v, bias, None)
+    out = wa.window_attention_op(q, k, v, bias, None)
     assert out.dtype == BF16
     out.float().sum().backward()
     assert {t.grad.dtype for t in (q, k, v, bias)} == {BF16}

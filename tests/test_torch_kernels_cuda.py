@@ -243,10 +243,14 @@ def test_pe_fusion_kernel(B, H, W):
 
 
 def test_wrappers_raise_instead_of_falling_back():
-    z = torch.zeros(1, 6, 1, 1)
-    with pytest.raises(ValueError):   # kernel C has no CPU mode
-        msda_ops.msda_backward(z, [(2, 3)], torch.zeros(1, 2, 1, 1, 1, 2),
-                               torch.zeros(1, 2, 1, 1, 1), torch.zeros(1, 2, 1))
+    # kernel C takes a contiguous cotangent; its plain twin runs only for
+    # CPU tensors
+    z = torch.zeros(1, 6, 1, 2, device="cuda")
+    with pytest.raises(ValueError):
+        msda_ops.msda_backward(
+            z, [(2, 3)], torch.zeros(1, 2, 1, 1, 1, 2, device="cuda"),
+            torch.zeros(1, 2, 1, 1, 1, device="cuda"),
+            torch.zeros(1, 2, 2, device="cuda").transpose(1, 2))
     q = torch.zeros(2, 49, 1, 8, device="cuda", dtype=torch.float64)
     with pytest.raises(TypeError):
         wa.window_attention(q, q, q, torch.zeros(1, 49, 49, device="cuda",
@@ -1119,3 +1123,61 @@ if __name__ == "__main__":
         torch.save(_global_batch_step("cuda"), sys.argv[1])
     finally:
         parallel.shutdown()
+
+
+# ---- the kernels as dispatcher ops, and the exported program -------------
+
+from test_torch_ops_registration import (  # noqa: E402
+    CASES as OP_CASES, DIFFERENTIABLE, _op_case)
+
+
+@pytest.mark.parametrize("name", OP_CASES)
+def test_ops_opcheck_on_the_card(name):
+    """`torch.library.opcheck` of the four ops on CUDA tensors, where they
+    launch kernels A, B, C and E (f32 and bf16 instances): schema, autograd
+    registration, the fake implementation against the kernel's output, AOT
+    dispatch. Kernel C's d_value is summed by atomics, so its low bits
+    change between runs (within opcheck's tolerances)."""
+    op, args = _op_case(name, device="cuda")
+    wanted = DIFFERENTIABLE[name.split("-")[0]]
+    args = tuple(a.detach().requires_grad_() if i in wanted else a
+                 for i, a in enumerate(args))
+    counters = (wa.window_attention, msda_ops.msda, msda_ops.msda_backward,
+                pe_ops.pe_fusion)
+    before = [c.launches for c in counters]
+    torch.library.opcheck(op, args)
+    torch.cuda.synchronize()
+    assert [c.launches for c in counters] != before
+
+
+def test_exported_smoke_model_launches_the_kernels(tmp_path):
+    """A smoke-width model (windowed neck) exported on the card, saved and
+    loaded: its program launches A 10, B 4 and E 2 times a flip-TTA request
+    (5 Swin blocks, 2 deformable attentions, 1 fusion, twice) and its depth
+    equals the eager eval step's on the same weights, bit for bit."""
+    import dataclasses
+
+    from gedepth_tpu_torch.apis.export import (
+        export_depther, load_exported, save_exported)
+    from gedepth_tpu_torch.apis.inference import init_depther
+    from gedepth_tpu_torch.configs import get_config
+
+    cfg = get_config("smoke_synthetic")
+    cfg = cfg.replace(model=dataclasses.replace(
+        cfg.model, neck_sampling="windowed", neck_hi_min_level=1))
+    exported, weights, meta = export_depther(cfg, hw=(64, 128))
+    save_exported(str(tmp_path), exported, weights, meta)
+    served = load_exported(str(tmp_path))
+    rng = np.random.default_rng(0)
+    img = rng.standard_normal((1, 64, 128, 5)).astype(np.float32)
+    img[..., 4] = rng.uniform(2.0, 80.0, (1, 64, 128))
+    counters = (wa.window_attention, msda_ops.msda, pe_ops.pe_fusion)
+    before = [c.launches for c in counters]
+    got = served.predict(img)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [10, 4, 2]
+    handle = init_depther(cfg, device="cuda")
+    want = handle.eval_step(torch.from_numpy(img).cuda(),
+                            torch.full((1,), 1.65, device="cuda"))
+    # the same kernels and ops in the same order: the same bits
+    np.testing.assert_array_equal(got, want.cpu().numpy())

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 import jax
+from torch.utils._python_dispatch import TorchDispatchMode
 import jax.numpy as jnp
 
 from gedepth_tpu.models.hahi import HAHINeck as JaxHAHINeck
@@ -274,41 +275,44 @@ def test_windowed_sampler_grads_match_pallas_backward_interpret():
         np.testing.assert_allclose(g, w_, rtol=1e-4, atol=1e-5, err_msg=name)
 
 
-def test_msda_function_wiring(monkeypatch):
-    """`MSDAFunction` (kernel B forward, kernel C backward) with both
-    launches swapped for their plain versions: its gradients equal autograd
-    through `msda_plain` (saved tensors, argument order, the None slots of
-    the level shapes and the window, which reaches both launches)."""
+class _OpCalls(TorchDispatchMode):
+    """Records (op name, query grids, radius) of every call of the port's
+    MSDA ops below autograd."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.namespace == "gedepth_torch":
+            self.calls.append((func.name(), list(args[-2]), args[-1]))
+        return func(*args, **(kwargs or {}))
+
+
+def test_msda_function_wiring():
+    """`msda_op` (kernel B's op, with kernel C's op `msda_backward_op` as
+    its registered backward) on CPU tensors, where both ops run the plain
+    versions in place of the launches: its gradients equal autograd through
+    `msda_plain` (saved tensors, argument order, the None slots of the level
+    shapes and the window), and the window reaches both ops."""
     query_hw, levels, values, raw, w, cot = _msda_inputs(
         "coarse_grid_fine_level", seed=5)
-    windows = []
-
-    def forward(value, shapes, pos, weights, window):
-        windows.append(window)
-        return msda_ops.msda_plain(value, shapes, pos, weights)
-
-    def backward(value, shapes, pos, weights, grad_out, query_shapes=None,
-                 window_radius=None):
-        windows.append((query_shapes, window_radius))
-        return msda_ops.msda_backward_plain(value, shapes, pos, weights,
-                                            grad_out)
-
-    monkeypatch.setattr(msda_ops, "_launch_forward", forward)
-    monkeypatch.setattr(msda_ops, "msda_backward", backward)
+    flat_levels = [v for hw in levels for v in hw]
     want = _port_grads(msda_ops.msda_plain, query_hw, levels, values, raw, w,
                        cot)
-    for window in (((query_hw,), float(R)), (((1, 15),), None)):
-        def through_function(value, shapes, pos, weights):
-            return msda_ops.MSDAFunction.apply(value, shapes, pos, weights,
-                                               window)
+    for grids, radius in ((list(query_hw), float(R)), ([], None)):
+        def through_op(value, shapes, pos, weights):
+            return msda_ops.msda_op(value, flat_levels, pos, weights, grids,
+                                    radius)
 
-        del windows[:]
-        got = _port_grads(through_function, query_hw, levels, values, raw, w,
-                          cot)
+        with _OpCalls() as calls:
+            got = _port_grads(through_op, query_hw, levels, values, raw, w,
+                              cot)
         for g, w_ in zip(got, want):
             np.testing.assert_allclose(g, w_, rtol=1e-6, atol=1e-7)
-        # without a radius the backward is told of no grids either
-        assert windows == [window, window if window[1] else (None, None)]
+        assert calls.calls == [("gedepth_torch::msda", grids, radius),
+                               ("gedepth_torch::msda_backward", grids,
+                                radius)]
 
 # --- the tile plan of kernels B and C (host side; the kernels run on the card)
 

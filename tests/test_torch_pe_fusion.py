@@ -137,13 +137,12 @@ def test_pe_fusion_grads_match_xla():
                                    err_msg=name)
 
 
-def test_pe_fusion_function_wiring(monkeypatch):
-    """`PEFusionFunction` with kernel E's launch swapped for the plain
-    forward: its gradients equal autograd through the plain version."""
+def test_pe_fusion_function_wiring():
+    """`pe_fusion_op` (kernel E's op) on CPU tensors, where it runs the
+    plain forward in place of the launch: its gradients through the
+    registered backward equal autograd through the plain version."""
     logits, pe, y, h, cot = _fusion_inputs(seed=5)
-    monkeypatch.setattr(pe_ops, "_launch_forward", pe_ops.pe_fusion_plain)
-    got = _torch_fusion_grads(pe_ops.PEFusionFunction.apply, logits, pe, y,
-                              h, cot)
+    got = _torch_fusion_grads(pe_ops.pe_fusion_op, logits, pe, y, h, cot)
     want = _torch_fusion_grads(pe_ops.pe_fusion_plain, logits, pe, y, h, cot)
     for g, w_ in zip(got, want):
         np.testing.assert_allclose(g, w_, rtol=1e-6, atol=1e-7)

@@ -181,13 +181,13 @@ def _packed(fn):
     pytest.param(None, False, id="None"), pytest.param(6, False, id="6"),
     pytest.param(None, True, id="None-packed"),
     pytest.param(6, True, id="6-packed")])
-def test_window_attention_function_wiring(monkeypatch, nW, packed):
-    """`WindowAttentionFunction` with kernel A's launch swapped for the
-    plain forward: its gradients equal autograd through the plain version,
-    also through k and v that are views into a packed qkv."""
+def test_window_attention_function_wiring(nW, packed):
+    """`window_attention_op` (kernel A's op) on CPU tensors, where it runs
+    the plain forward in place of the launch: its gradients through the
+    registered backward equal autograd through the plain version, also
+    through k and v that are views into a packed qkv."""
     arrays, mask, cot = _attention_inputs(nW, seed=6)
-    monkeypatch.setattr(wa, "_launch_forward", wa.window_attention_plain)
-    fn, ref = wa.WindowAttentionFunction.apply, wa.window_attention_plain
+    fn, ref = wa.window_attention_op, wa.window_attention_plain
     if packed:
         arrays = (np.stack(arrays[:3], axis=2), arrays[3])
         fn, ref = _packed(fn), _packed(ref)
