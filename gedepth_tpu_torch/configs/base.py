@@ -4,8 +4,8 @@ The same frozen dataclasses as `gedepth_tpu.configs.base`, cut to the fields
 the serving, training and evaluation slices read. Field names and defaults
 are identical, so a preset compares equal field by field with its JAX
 counterpart. Left out on purpose: `swin_scan` (it changes only the JAX
-parameter layout, which `convert.from_jax` unstacks), the remat switches
-(memory only), `neck_value_bf16` (bf16 values in an f32 neck: the port's
+parameter layout, which `convert.from_jax` unstacks), `neck_value_bf16`
+(bf16 values in an f32 neck: the port's
 bf16 goes by `bf16_scope`, whole-model casts and `bf16_compute`), the zoo's
 fields, and the fields of modules not ported yet (NYU's scene classes).
 """
@@ -35,6 +35,12 @@ class ModelConfig:
     neck_sampling: str = "bilinear"
     neck_window_radius: int = 4
     neck_hi_min_level: int = 0
+    # remat in training: each Swin block is recomputed in the backward from
+    # its input (torch.utils.checkpoint; the DropPath draws replayed), and
+    # the deformable sampling keeps only its inputs for the backward, which
+    # the port's `msda` op does with either setting (models/hahi.py)
+    swin_remat: bool = True
+    neck_msda_remat: bool = True
     # mixed precision for serving: 'none' | 'backbone' | 'backbone_neck' |
     # 'backbone_head' | 'backbone_neck_head' run the named modules in bf16
     # and the rest (always the PE necks and the fusion) in f32; the caller
@@ -63,6 +69,8 @@ class ModelConfig:
             neck_sampling=self.neck_sampling,
             neck_window_radius=self.neck_window_radius,
             neck_hi_min_level=self.neck_hi_min_level,
+            swin_remat=self.swin_remat,
+            neck_msda_remat=self.neck_msda_remat,
             bf16_scope=self.bf16_scope,
             head_channels=self.head_channels,
             min_depth=self.min_depth, max_depth=self.max_depth,
@@ -151,11 +159,21 @@ class ExperimentConfig:
         return dataclasses.replace(self, **kw)
 
 
+def _boolean(key, val):
+    if isinstance(val, str) and val.lower() in ("true", "false"):
+        return val.lower() == "true"
+    if isinstance(val, bool):
+        return val
+    raise ValueError(f"{key} takes true or false, got {val!r}")
+
+
 def apply_options(cfg, options):
     """`key=value` overrides of dotted dataclass fields, as
     tools/train.py's --options: `data.data_root=/data/kitti`,
     `optim.max_lr=2e-4`, `data.crop_size=(384,640)`. A value is read by
-    `ast.literal_eval`, or kept as a string when it is not a literal."""
+    `ast.literal_eval`, or kept as a string when it is not a literal; a
+    boolean field also takes `true` and `false` in any case
+    (`model.swin_remat=false`)."""
     for opt in options or []:
         key, _, raw = opt.partition("=")
         parts = key.split(".")
@@ -167,6 +185,8 @@ def apply_options(cfg, options):
         for p in parts[:-1]:
             path.append((obj, p))
             obj = getattr(obj, p)
+        if isinstance(getattr(obj, parts[-1]), bool):
+            val = _boolean(key, val)
         obj = dataclasses.replace(obj, **{parts[-1]: val})
         for parent, name in reversed(path):
             obj = dataclasses.replace(parent, **{name: obj})

@@ -69,7 +69,8 @@ class GEDepth(nn.Module):
                  neck_channels: Sequence[int] = (64, 192, 384, 768, 1536),
                  neck_embed_dim: int = 512, neck_num_points: int = 8,
                  neck_sampling: str = "bilinear", neck_window_radius: int = 4,
-                 neck_hi_min_level: int = 0, bf16_scope: str = "none",
+                 neck_hi_min_level: int = 0, swin_remat: bool = True,
+                 neck_msda_remat: bool = True, bf16_scope: str = "none",
                  head_channels: int = 64,
                  min_depth: float = 1e-3, max_depth: float = 80.0,
                  pe_variant: str = "adaptive", depth_scale: float = 200.0,
@@ -90,12 +91,14 @@ class GEDepth(nn.Module):
             self.backbone = DepthFormerSwin(embed_dims, depths, num_heads,
                                             window,
                                             drop_path_rate=drop_path_rate,
-                                            use_pe=pe_variant != "none")
+                                            use_pe=pe_variant != "none",
+                                            remat=swin_remat)
             self.neck = HAHINeck(neck_channels, neck_channels, neck_embed_dim,
                                  num_points=neck_num_points,
                                  sampling=neck_sampling,
                                  window_radius=neck_window_radius,
-                                 hi_min_level=neck_hi_min_level)
+                                 hi_min_level=neck_hi_min_level,
+                                 msda_remat=neck_msda_remat)
             if pe_variant != "none":
                 self.pe_mask_neck = LightPEMaskNeck(neck_channels)
             if pe_variant == "adaptive":

@@ -15,6 +15,13 @@ are in `ops.msda`):
     displacement from the query's grid centre clamped to ±R level pixels.
 The sampling itself is `ops.msda.msda`, one launch per attention over all
 query grids and levels, whatever the mode.
+
+`msda_remat` (the JAX package's switch, True by default there and here):
+JAX's sampling under `jax.checkpoint` keeps only its inputs for the
+backward and gathers the corners again there. The port's `msda` op does
+that with either setting: it saves (value, pos, weights), and its backward
+(kernel C, or `msda_backward_plain` on the CPU) gathers the corners anew.
+The field is carried for the configuration and changes nothing.
 """
 from __future__ import annotations
 
@@ -58,13 +65,13 @@ class MSDeformAttention(nn.Module):
 
     def __init__(self, embed_dims=512, num_heads=8, num_levels=4,
                  num_points=8, window_radius=4, dropout=0.1,
-                 sampling="bilinear"):
+                 sampling="bilinear", msda_remat=True):
         super().__init__()
         if sampling not in SAMPLING_MODES:
             raise ValueError(f"sampling {sampling!r} not in {SAMPLING_MODES}")
         self.num_heads, self.num_levels = num_heads, num_levels
         self.num_points, self.window_radius = num_points, window_radius
-        self.sampling = sampling
+        self.sampling, self.msda_remat = sampling, msda_remat
         self.compat_clamp_mass = None
         n = num_heads * num_levels * num_points
         self.sampling_offsets = linear(embed_dims, 2 * n, init="zeros")
@@ -138,18 +145,28 @@ class HAHINeck(nn.Module):
     sampling: one of `SAMPLING_MODES`; every mode but 'windowed' has the
     `reference_points` layer of the reference parameter tree.
     hi_min_level: the first Swin level whose tokens query the HI
-    self-attention (all levels still serve as values)."""
+    self-attention (all levels still serve as values).
+    self_att, cross_att: without the HI self-attention the tokens go to the
+    fusion as projected; without the HA cross-attention the conv-stem
+    query does. A branch that is off has no parameters (`self_attn`,
+    `multi_att`); `reference_points` follows the sampling mode alone, as
+    in the JAX tree.
+    pos_num_feats: the sine encoding's features per axis, 0 for
+    embed_dim // 2.
+    msda_remat: see the module's docstring."""
 
     def __init__(self, in_channels: Sequence[int] = (64, 192, 384, 768, 1536),
                  out_channels: Sequence[int] = (64, 192, 384, 768, 1536),
                  embed_dim=512, num_heads=8, num_points=8, sampling="bilinear",
-                 window_radius=4, hi_min_level=0):
+                 window_radius=4, hi_min_level=0, self_att=True,
+                 cross_att=True, pos_num_feats=0, msda_remat=True):
         super().__init__()
         L = len(in_channels) - 1
         if not 0 <= hi_min_level < L:
             raise ValueError(f"hi_min_level {hi_min_level} not in [0, {L})")
         self.embed_dim, self.hi_min_level = embed_dim, hi_min_level
         self.sampling = sampling
+        self.num_feats = pos_num_feats or embed_dim // 2
         self.lateral_convs = nn.ModuleList([
             ConvModule(c_in, c_out, 1, use_norm=True, act=F.relu)
             for c_in, c_out in zip(in_channels, out_channels)])
@@ -157,18 +174,18 @@ class HAHINeck(nn.Module):
             ConvModule(c, embed_dim, 1, use_norm=True, act=F.relu)
             for c in out_channels[1:]])
         self.level_embed = nn.Parameter(torch.empty(L, embed_dim))
-        self.self_attn = MSDeformAttention(embed_dim, num_heads, L,
-                                           num_points, window_radius,
-                                           sampling=sampling)
+        self.self_attn = (MSDeformAttention(
+            embed_dim, num_heads, L, num_points, window_radius,
+            sampling=sampling, msda_remat=msda_remat) if self_att else None)
         self.conv_proj = nn.Sequential(
             ConvModule(out_channels[0], embed_dim, 1, use_norm=True,
                        act=F.relu))
         if sampling != "windowed":
             # cross-attention reference points sigmoid(Linear(query_pos))
             self.reference_points = linear(embed_dim, 2, init="xavier")
-        self.multi_att = MSDeformAttention(embed_dim, num_heads, L,
-                                           num_points, window_radius,
-                                           sampling=sampling)
+        self.multi_att = (MSDeformAttention(
+            embed_dim, num_heads, L, num_points, window_radius,
+            sampling=sampling, msda_remat=msda_remat) if cross_att else None)
         self.conv_fusion = nn.Sequential(
             ConvModule(embed_dim + out_channels[0], out_channels[0], 3,
                        use_norm=True, act=F.relu))
@@ -183,7 +200,7 @@ class HAHINeck(nn.Module):
         feats = [conv(x) for conv, x in zip(self.lateral_convs, inputs)]
         feat_conv, feats_trans = feats[0], feats[1:]
         spatial_shapes = tuple((f.shape[2], f.shape[3]) for f in feats_trans)
-        num_feats = self.embed_dim // 2
+        num_feats = self.num_feats
         windowed = self.sampling == "windowed"
 
         src, pos = [], []
@@ -196,15 +213,17 @@ class HAHINeck(nn.Module):
         src = torch.cat(src, dim=1)
         pos = torch.cat(pos, dim=1)
 
-        lo = self.hi_min_level
-        n0 = sum(h_ * w_ for (h_, w_) in spatial_shapes[:lo])
-        # the self-attention's reference points are the grid centres in
-        # every mode; the windowed rule implies them
-        ref_self = None if windowed else msda_ops.center_reference_points(
-            spatial_shapes, src.device)[n0:]
-        upd = self.self_attn(src[:, n0:], src, pos[:, n0:], spatial_shapes,
-                             spatial_shapes[lo:], ref_self)
-        src = torch.cat([src[:, :n0], upd], dim=1) if n0 else upd
+        if self.self_attn is not None:
+            lo = self.hi_min_level
+            n0 = sum(h_ * w_ for (h_, w_) in spatial_shapes[:lo])
+            # the self-attention's reference points are the grid centres in
+            # every mode; the windowed rule implies them
+            ref_self = None if windowed else msda_ops.center_reference_points(
+                spatial_shapes, src.device)[n0:]
+            upd = self.self_attn(src[:, n0:], src, pos[:, n0:],
+                                 spatial_shapes, spatial_shapes[lo:],
+                                 ref_self)
+            src = torch.cat([src[:, :n0], upd], dim=1) if n0 else upd
 
         B, _, Hc, Wc = feat_conv.shape
         query = self.conv_proj(feat_conv).flatten(2).transpose(1, 2)
@@ -216,8 +235,8 @@ class HAHINeck(nn.Module):
                 qpos.to(query.dtype)))                           # (1, Nq, 2)
             ref_q = ref_q[:, :, None, :].expand(-1, -1, len(spatial_shapes),
                                                 -1)
-        fused = self.multi_att(query, src, qpos, spatial_shapes,
-                               ((Hc, Wc),), ref_q)
+        fused = query if self.multi_att is None else self.multi_att(
+            query, src, qpos, spatial_shapes, ((Hc, Wc),), ref_q)
         fused = fused.transpose(1, 2).reshape(B, self.embed_dim, Hc, Wc)
         outs = [self.conv_fusion(torch.cat([fused, feat_conv], dim=1))]
         start = 0

@@ -1,8 +1,9 @@
 """Training losses (the port of `gedepth_tpu.models.losses`).
 
 sigloss: the scale-invariant log loss sqrt(Var(g) + 0.15·Mean(g)²) of
-g = log(pred + eps) − log(gt + eps) over the valid pixels (gt > 0), with
-torch.var's unbiased n − 1 variance, computed masked at fixed shapes.
+g = log(pred + eps) − log(gt + eps) over the valid pixels (gt > 0, and
+gt <= max_depth and valid > 0 where given), with torch.var's unbiased
+n − 1 variance, computed masked at fixed shapes.
 
 softmax_ce_ignore: the 11-way slope-bin cross entropy, mean over the
 pixels whose label is not 255.
@@ -25,13 +26,19 @@ SIG_EPS = 1e-3
 VARIANCE_FOCUS = 0.15
 
 
-def sigloss(pred, gt):
-    """pred, gt: (B, H, W, 1) or (B, H, W); returns a scalar."""
+def sigloss(pred, gt, valid=None, eps=SIG_EPS, max_depth=None,
+            variance_focus=VARIANCE_FOCUS):
+    """pred, gt: (B, H, W, 1) or (B, H, W); valid: None or the same layout,
+    a pixel counting where valid > 0; max_depth: None, or the largest gt
+    that counts. Returns a scalar."""
     pred = pred.reshape(pred.shape[0], -1)
     gt = gt.reshape(gt.shape[0], -1)
     mask = gt > 0
-    g = torch.where(mask, torch.log(pred + SIG_EPS) - torch.log(gt + SIG_EPS),
-                    0.0)
+    if max_depth is not None:
+        mask = mask & (gt <= max_depth)
+    if valid is not None:
+        mask = mask & (valid.reshape(valid.shape[0], -1) > 0)
+    g = torch.where(mask, torch.log(pred + eps) - torch.log(gt + eps), 0.0)
     # two passes: the mean, then the centred sum of squares
     sum_g, n = parallel.global_sum(
         torch.stack([g.sum(), mask.sum().to(pred.dtype)]))
@@ -39,7 +46,7 @@ def sigloss(pred, gt):
     var = parallel.global_sum(
         torch.where(mask, (g - mean) ** 2, 0.0).sum()) / (n - 1.0).clamp_min(
         1.0)
-    return torch.sqrt(var + VARIANCE_FOCUS * mean ** 2)
+    return torch.sqrt(var + variance_focus * mean ** 2)
 
 
 def softmax_ce_ignore(logits, labels):

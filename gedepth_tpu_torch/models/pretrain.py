@@ -72,7 +72,9 @@ class GroundMaskPretrain(nn.Module):
     """Swin-L -> HAHI (exact sampling) -> fuse -> classifier; forward(img
     (B, H, W, 5)) -> (B, H, W, num_classes) logits. Built and initialised as
     `GEDepth` is: on the meta device, allocated on the CPU, seeded from
-    `generator`, then moved to `device`; in eval mode."""
+    `generator`, then moved to `device`; in eval mode. Its Swin blocks
+    recompute in the backward (remat), as the JAX model's backbone does by
+    default."""
 
     def __init__(self, embed_dims: int = 192,
                  depths: Sequence[int] = (2, 2, 18, 2),

@@ -7,6 +7,16 @@ Module names follow the reference PyTorch keys (`backbone.conv1`,
 `backbone.stages.{i}.blocks.{d}.attn.w_msa.qkv`, `backbone.norm{i}`, ...).
 Outputs, NCHW: [stem (H/2, 64), stage1 (H/4, C), stage2 (H/8, 2C),
 stage3 (H/16, 4C), stage4 (H/32, 8C)], each stage through its LayerNorm.
+
+Remat (`remat=True`, in training only, as the JAX package's `nn.remat`):
+each Swin block keeps only its input for the backward and runs again there
+(`torch.utils.checkpoint`), so window attention launches once in the
+forward and once in the recompute. The block's DropPath draws from an
+explicit generator, which `checkpoint` does not save, so `remat_block`
+replays the generator's state for the recompute and puts it back after:
+the recompute sees the forward's masks and the generator advances once a
+forward, as without remat. The recompute also runs on the parameters the
+forward saw, which differ from the module's own in the bf16-compute step.
 """
 from __future__ import annotations
 
@@ -17,6 +27,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from gedepth_tpu_torch.models.layers import (
     BatchNorm2d, DropPath, FFN, conv2d, linear)
@@ -151,6 +162,34 @@ class SwinBlock(nn.Module):
         return x + self.drop_path(self.ffn(self.norm2(x)))
 
 
+def remat_block(block: SwinBlock, x, hw_shape):
+    """block(x, hw_shape), recomputed in the backward from x. The recompute
+    runs on the parameters the forward ran on (under
+    `torch.func.functional_call`, as the bf16-compute step calls the model,
+    those are the call's bf16 copies, no longer bound to the module when
+    the backward runs), and starts the block's generator (DropPath's) from
+    the state the forward started from, leaving it where it was."""
+    params = dict(block.named_parameters())
+    gen = block.drop_path.generator if block.drop_path.rate > 0 else None
+    start = None if gen is None else gen.get_state()
+    calls = []
+
+    def run(x):
+        if not calls:                    # the forward
+            calls.append(None)
+            return block(x, hw_shape)
+        if gen is None:                  # the recompute
+            return torch.func.functional_call(block, params, (x, hw_shape))
+        resume = gen.get_state()
+        gen.set_state(start)
+        try:
+            return torch.func.functional_call(block, params, (x, hw_shape))
+        finally:
+            gen.set_state(resume)
+
+    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
+
+
 class PatchMerging(nn.Module):
     """2x2 space-to-depth (channel-major like nn.Unfold) + LN + Linear."""
 
@@ -206,15 +245,17 @@ class SwinStage(nn.Module):
 
 class DepthFormerSwin(nn.Module):
     """Conv stem (RGB) + Swin stages (RGB+PE when use_pe, else RGB). Input
-    NCHW (B, ≥4, H, W), or (B, ≥3, H, W) without PE."""
+    NCHW (B, ≥4, H, W), or (B, ≥3, H, W) without PE. `remat`: recompute
+    each block in the backward (`remat_block`), in training only."""
 
     def __init__(self, embed_dims: int = 192,
                  depths: Sequence[int] = (2, 2, 18, 2),
                  num_heads: Sequence[int] = (6, 12, 24, 48), window: int = 7,
                  patch_size: int = 4, mlp_ratio: int = 4,
                  drop_path_rate: float = 0.3, stem_channels: int = 64,
-                 use_pe: bool = True):
+                 use_pe: bool = True, remat: bool = True):
         super().__init__()
+        self.remat = remat
         self.in_channels = 4 if use_pe else 3
         self.conv1 = conv2d(3, stem_channels, 7, stride=2, padding=3,
                             bias=False)
@@ -235,9 +276,10 @@ class DepthFormerSwin(nn.Module):
     def forward(self, img):
         outs = [F.relu(self.bn1(self.conv1(img[:, :3])))]
         x, hw = self.patch_embed(img[:, :self.in_channels])
+        use_remat = self.remat and self.training
         for i, stage in enumerate(self.stages):
             for block in stage.blocks:
-                x = block(x, hw)
+                x = remat_block(block, x, hw) if use_remat else block(x, hw)
             out = getattr(self, f"norm{i}")(x)
             B, _, C = out.shape
             outs.append(out.transpose(1, 2).reshape(B, C, hw[0], hw[1]))

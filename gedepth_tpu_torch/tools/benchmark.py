@@ -4,7 +4,7 @@ iterations, then timed iterations of `predict_depth` or of the train step.
     python -m gedepth_tpu_torch.tools.benchmark <preset> [--iters 200]
         [--warmup 5] [--batch 1] [--height 352] [--width 1216]
         [--train-step] [--bf16] [--no-autotuner] [--trace-dir DIR]
-        [--device cuda]
+        [--device cuda] [--options key=value ...]
 
 The input is the JAX tool's: `default_rng(0).standard_normal`, channel 4
 (the raw PE) as |x|·30 + 1. Serving times `GEDepth.predict_depth`; a preset
@@ -20,13 +20,16 @@ TF32 is switched off for matmuls and convolutions, so an f32 run is f32.
 On a CUDA device every iteration is timed with CUDA events (the device's
 time from the iteration's first kernel to its last, the gaps between kernels
 included) and the whole loop on a synchronised host clock; after the timed
-loop `torch.profiler` reads the summed kernel durations of single iterations
+loop `torch.profiler` reads the device's busy time in single iterations
 (`device_busy_ms`: the gaps left out). Before the summary line one JSON line
 gives the preset, shape, batch, dtype or scope, iterations, the median,
 minimum and maximum of the per-iteration device time, the host-clock ms per
-iteration, the busy time, the device-idle share (1 − busy / host; from the
-event times where the profiler saw nothing, `idle_from` says which), the
-peak device memory and the card's name and power limit. On the CPU only the
+iteration, the busy time (the union of the device's activity intervals),
+the device-idle share (1 − busy / host; from the event times where the
+profiler saw nothing, `idle_from` says which; not clamped, and
+`busy_over_events` beside it), the peak device memory, the remat switch
+and the card's name and power limit. `--options` overrides dotted config
+fields as `tools.train` does (`model.swin_remat=false`). On the CPU only the
 host clock is read and the device fields are null. `--trace-dir` writes a
 `torch.profiler` chrome trace of the timed loop.
 """
@@ -166,17 +169,40 @@ def time_iterations(runner: Runner, iters: int):
     return device_ms, host_ms, out
 
 
+def union_ms(intervals):
+    """The length in ms of the union of (start, end) intervals in µs: time
+    that two activities share counts once."""
+    total, reach = 0.0, None
+    for start, end in sorted(intervals):
+        if reach is None or start > reach:
+            total += end - start
+            reach = end
+        elif end > reach:
+            total += end - reach
+            reach = end
+    return total / 1e3
+
+
+def busy_ms_of(events):
+    """The device's busy ms in a profiler's events: the union of the
+    intervals of its device activities (kernels, copies, fills), so that
+    activities that overlap on the device (other streams, a profiler's
+    nested records) count once."""
+    from torch.autograd import DeviceType
+
+    return union_ms((e.time_range.start, e.time_range.end) for e in events
+                    if e.device_type == DeviceType.CUDA)
+
+
 def device_busy_ms(runner: Runner, traces: int = 3):
-    """The summed durations of the kernels, copies and fills of one
-    iteration, in ms, as `torch.profiler` sees them: the largest of
-    `traces` one-iteration traces (an ageing process's profiler drops
-    device activities, which can only lower a reading). None on the CPU and
-    where no trace saw the device."""
+    """The device's busy time in one iteration, in ms, as `torch.profiler`
+    sees it (`busy_ms_of`): the largest of `traces` one-iteration traces (an
+    ageing process's profiler drops device activities, which can only lower
+    a reading). None on the CPU and where no trace saw the device."""
     import torch
 
     if runner.device.type != "cuda":
         return None
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     best = 0.0
@@ -185,8 +211,7 @@ def device_busy_ms(runner: Runner, traces: int = 3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             runner.run()
             torch.cuda.synchronize(runner.device)
-        best = max(best, sum(e.time_range.elapsed_us() for e in prof.events()
-                             if e.device_type == DeviceType.CUDA) / 1e3)
+        best = max(best, busy_ms_of(prof.events()))
     return best or None
 
 
@@ -194,7 +219,9 @@ def summarise(runner: Runner, iters, device_ms, host_ms, warmup,
               first_step_ms=None, peak_mem_mib=None, busy_ms=None):
     """The JSON record of `iters` timed iterations: `device_ms` of each (or
     None on the CPU), `host_ms` for all of them, `busy_ms` of one
-    (`device_busy_ms`)."""
+    (`device_busy_ms`). The idle share 1 − busy / host is not clamped: a
+    negative share, or `busy_over_events` (busy over the median event time)
+    above 1, says the busy reading counted more than the device's time."""
     record = {
         "preset": runner.cfg.name, "mode": runner.mode,
         "shape": list(runner.shape), "batch": runner.batch,
@@ -202,16 +229,20 @@ def summarise(runner: Runner, iters, device_ms, host_ms, warmup,
         "device_ms_median": None, "device_ms_min": None,
         "device_ms_max": None, "host_ms_per_iter": host_ms / iters,
         "device_busy_ms": busy_ms, "device_idle_share": None,
-        "idle_from": None, "peak_mem_mib": peak_mem_mib,
-        "first_step_ms": first_step_ms, "device": str(runner.device),
-        "card": None}
+        "idle_from": None, "busy_over_events": None,
+        "peak_mem_mib": peak_mem_mib,
+        "first_step_ms": first_step_ms,
+        "swin_remat": runner.cfg.model.swin_remat,
+        "device": str(runner.device), "card": None}
     if device_ms is not None:
         record.update(
             device_ms_median=statistics.median(device_ms),
             device_ms_min=min(device_ms), device_ms_max=max(device_ms),
-            device_idle_share=max(0.0, 1.0 - (
-                busy_ms * iters if busy_ms else sum(device_ms)) / host_ms),
+            device_idle_share=1.0 - (
+                busy_ms * iters if busy_ms else sum(device_ms)) / host_ms,
             idle_from="profiler" if busy_ms else "events",
+            busy_over_events=(busy_ms / statistics.median(device_ms)
+                              if busy_ms else None),
             card=card_name_and_limit())
     return record
 
@@ -276,9 +307,14 @@ def main(argv=None):
                         help="with --train-step: cuDNN's default heuristic "
                         "instead of its autotuner")
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("--options", nargs="*", default=None,
+                        help="dotted config overrides key=value")
     args = parser.parse_args(argv)
 
-    record = run_benchmark(args.config, iters=args.iters, warmup=args.warmup,
+    from gedepth_tpu_torch.configs import apply_options, get_config
+
+    cfg = apply_options(get_config(args.config), args.options)
+    record = run_benchmark(cfg, iters=args.iters, warmup=args.warmup,
                            batch=args.batch, height=args.height,
                            width=args.width, train_step=args.train_step,
                            bf16=args.bf16, device=args.device,

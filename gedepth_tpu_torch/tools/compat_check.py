@@ -14,7 +14,7 @@ abs-rel budget).
 
     python -m gedepth_tpu_torch.tools.compat_check converted.npz \
         [--config gedepth_adaptive_kitti_parity] [--radii 4,5,6,8] \
-        [--budget 1e-3] [--images 2] [--seed 0] [--device cuda]
+        [--budget 1e-3] [--images 2] [--seed 0] [--device cuda | --cpu]
 
 The inputs are synthetic KITTI-shaped scenes made from --seed: where a
 checkpoint's offsets sample depends on the weights, the query grids and the
@@ -149,9 +149,9 @@ def format_table(rows, scope):
     return "\n".join(lines)
 
 
-def main(argv=None):
-    from gedepth_tpu_torch.configs import get_config, list_configs
-    from gedepth_tpu_torch.utils.env import disable_tf32
+def parse_args(argv=None):
+    """The command line as a namespace (`--cpu` is `--device cpu`)."""
+    from gedepth_tpu_torch.configs import list_configs
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("checkpoint", help="params-only .npz")
@@ -162,8 +162,17 @@ def main(argv=None):
     ap.add_argument("--images", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
-    args = ap.parse_args(argv)
+    ap.add_argument("--cpu", dest="device", action="store_const",
+                    const="cpu", help="--device cpu, as the JAX tool "
+                    "spells it")
+    return ap.parse_args(argv)
 
+
+def main(argv=None):
+    from gedepth_tpu_torch.configs import get_config
+    from gedepth_tpu_torch.utils.env import disable_tf32
+
+    args = parse_args(argv)
     disable_tf32()
     cfg = get_config(args.config)
     h, w = cfg.data.eval_size

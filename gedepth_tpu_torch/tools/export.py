@@ -4,6 +4,9 @@
         --output DIR [--batch B] [--height H --width W] [--bf16]
         [--no-flip-tta] [--self-check] [--device cuda]
 
+The checkpoint may also come as `--checkpoint checkpoint.npz`, the JAX
+tool's spelling.
+
 Writes the serving artifact of `apis.export` to DIR: the eval step traced by
 `torch.export` (model.pt2), the weights (weights.pt) and meta.json, from
 `checkpoint`, a params-only `.npz` of either package, or from the port's
@@ -34,13 +37,17 @@ def self_check_input(shape):
     return img
 
 
-def main(argv=None):
+def parse_args(argv=None):
+    """The command line as a namespace; the checkpoint positional or
+    `--checkpoint`, one of the two."""
     from gedepth_tpu_torch.configs import list_configs
 
     parser = argparse.ArgumentParser(description="Export GEDepth (PyTorch)")
     parser.add_argument("config", choices=list_configs())
     parser.add_argument("checkpoint", nargs="?", default=None,
                         help="params-only .npz")
+    parser.add_argument("--checkpoint", dest="checkpoint_flag", default=None,
+                        help="the same, as the JAX tool spells it")
     parser.add_argument("--output", required=True, help="artifact directory")
     parser.add_argument("--batch", type=int, default=1)
     parser.add_argument("--height", type=int, default=None)
@@ -55,6 +62,17 @@ def main(argv=None):
     args = parser.parse_args(argv)
     if (args.height is None) != (args.width is None):
         parser.error("--height and --width must be given together")
+    flag = args.__dict__.pop("checkpoint_flag")
+    if flag is not None:
+        if args.checkpoint is not None:
+            parser.error("give the checkpoint once: positional or "
+                         "--checkpoint")
+        args.checkpoint = flag
+    return args
+
+
+def main(argv=None):
+    args = parse_args(argv)
     hw = None if args.height is None else (args.height, args.width)
 
     import numpy as np

@@ -120,8 +120,11 @@ def _apply_bf16(model, img, cam_height):
 
 
 def make_train_step(sig_loss_weight: float = 1.0,
-                    slope_ce_weight: float = 0.08, bf16: bool = False):
+                    slope_ce_weight: float = 0.08,
+                    sig_max_depth: Optional[float] = None, bf16: bool = False):
     """train_step(state, batch) -> metrics, updating `state` in place.
+
+    sig_max_depth: None, or the largest ground truth SigLoss counts.
 
     bf16=True runs forward and backward in bf16 on f32 master weights
     (`_apply_bf16`); the losses are taken on f32 copies of the outputs.
@@ -145,7 +148,8 @@ def make_train_step(sig_loss_weight: float = 1.0,
         gt = batch["depth_gt"][..., None]
         depth = resize_bilinear(out["depth"].float(), gt.shape[1:3],
                                 align_corners=True)
-        loss = loss_depth = sig_loss_weight * sigloss(depth, gt)
+        loss = loss_depth = sig_loss_weight * sigloss(
+            depth, gt, max_depth=sig_max_depth)
         metrics = {"loss_depth": loss_depth.detach()}
         if model.pe_variant == "adaptive":
             loss_slope = slope_ce_weight * softmax_ce_ignore(

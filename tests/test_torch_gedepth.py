@@ -184,11 +184,10 @@ def test_port_init_matches_jax_init_rules():
 
 # fields of the JAX dataclasses that the port leaves out on purpose
 LEFT_OUT = {
-    # the JAX parameter layout, remat (memory only), a negative result, and
-    # the zoo's architecture fields
-    "model": {"swin_scan", "swin_remat", "neck_msda_remat", "neck_value_bf16",
-              "arch", "backbone_variant", "backbone_embed_dims",
-              "backbone_depth", "n_bins"},
+    # the JAX parameter layout, a negative result, and the zoo's
+    # architecture fields
+    "model": {"swin_scan", "neck_value_bf16", "arch", "backbone_variant",
+              "backbone_embed_dims", "backbone_depth", "n_bins"},
     # NYU's scene classes (the zoo's BinsFormer)
     "data": {"scene_classes"},
     # the zoo's loss composition

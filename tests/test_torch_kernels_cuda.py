@@ -23,6 +23,8 @@ image border and whose offsets may be ±1e9. The bf16 instances of A, B and
 C are held to float64 evaluations of their bf16 inputs (see the section at
 the end of the file).
 """
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -1181,3 +1183,146 @@ def test_exported_smoke_model_launches_the_kernels(tmp_path):
                             torch.full((1,), 1.65, device="cuda"))
     # the same kernels and ops in the same order: the same bits
     np.testing.assert_array_equal(got, want.cpu().numpy())
+
+
+# ---- the parity budget on the card (converted textbook weights) ----------
+#
+# The textbook GEDepth of tests/test_torch_textbook.py at its Swin-S-ish
+# SCALE (window 4: kernel A at N = 16, D = 32; the neck's heads at d = 32),
+# its state_dict converted by convert/from_pth.py into the port's models on
+# the card (f32 TF32 off). Each variant's mean abs-rel depth delta against
+# the exact f32 forward on the same weights, held to the JAX package's
+# gates as they are written (tests/test_composite_deltas.py,
+# tests/test_compat_stress.py). A gate the card misses stays asserted.
+
+
+def _textbook_at_scale(monkeypatch):
+    import test_torch_textbook as T
+
+    for k, v in T.SCALE.items():
+        monkeypatch.setattr(T, k, v)
+    return T
+
+
+def _launched(fn):
+    """fn()'s result and the launches of kernels A and B it made."""
+    before = (wa.window_attention.launches, msda_ops.msda.launches)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (wa.window_attention.launches - before[0],
+                 msda_ops.msda.launches - before[1])
+
+
+class _Variants:
+    """The converted textbook weights in the port's models on the card, one
+    model per sampling rule and precision, and their depth on one image."""
+
+    def __init__(self, T, tmp_path):
+        from gedepth_tpu_torch.apis.inference import cast_params_bf16
+        from gedepth_tpu_torch.configs import get_config
+
+        self.T, self.cast = T, cast_params_bf16
+        self.tm = T.textbook()
+        self.path = tmp_path / "textbook.pth"
+        img = T._rand_batch(np.random.default_rng(7))[:1]
+        self.img = torch.from_numpy(img).cuda()
+        self.ch = torch.full((1,), T.CAM_H, device="cuda")
+        self.parity = get_config("gedepth_adaptive_kitti_parity").model
+        self.launches = {}
+
+    def model(self, reach=1.0, **over):
+        m = self.T.load_converted(self.tm, self.T.port_model(**over),
+                                  self.path).cuda()
+        with torch.no_grad():
+            for name, p in m.named_parameters():
+                if ".sampling_offsets." in name:
+                    p.mul_(reach)
+        return m
+
+    def depth(self, name, model, bf16=False):
+        x = self.img.to(torch.bfloat16) if bf16 else self.img
+        with torch.no_grad():
+            d, self.launches[name] = _launched(
+                lambda: model.predict_depth(x, self.ch))
+        if self.launches[name][0] != sum(self.T.DEPTHS) or \
+                self.launches[name][1] != 2:
+            raise AssertionError(f"{name}: kernels A and B launched "
+                                 f"{self.launches[name]} times")
+        return d.float().cpu().numpy()
+
+    def exact(self, reach=1.0):
+        return self.depth("exact", self.model(reach))
+
+    def parity_preset(self, reach=1.0):
+        pm = self.parity
+        m = self.model(reach, neck_sampling=pm.neck_sampling,
+                       neck_window_radius=pm.neck_window_radius,
+                       bf16_scope=pm.bf16_scope)
+        self.cast(m, pm.bf16_scope)
+        return self.depth("parity_preset", m)
+
+    def compat(self, R, reach=1.0):
+        m = self.model(reach, neck_sampling="windowed_compat",
+                       neck_window_radius=R)
+        d = self.depth(f"windowed_compat_R{R}", m)
+        clamp = [float(a.compat_clamp_mass)
+                 for a in (m.neck.self_attn, m.neck.multi_att)]
+        return d, float(np.mean(clamp))
+
+
+def test_parity_budget_deltas_on_the_card(monkeypatch, tmp_path):
+    """tests/test_composite_deltas.py on the card: nearest, whole-tree
+    bf16, windowed_compat at R = 4, 5, 6, 8 and 16, and the parity preset
+    (compat R = 5 with its `backbone_head` bf16 scope) against exact f32.
+    Gates: parity < 1e-3, compat R8 < 1e-3, bf16 < 0.02, R16 <= R8 +
+    1e-3 (JAX on the CPU read parity 5.9e-4)."""
+    T = _textbook_at_scale(monkeypatch)
+    v = _Variants(T, tmp_path)
+    ref = v.exact()
+    deltas = {"nearest": T.abs_rel(ref, v.depth(
+        "nearest", v.model(neck_sampling="nearest")))}
+    whole = v.cast(v.model(), "all")
+    deltas["bf16"] = T.abs_rel(ref, v.depth("bf16", whole, bf16=True))
+    for R in (4, 5, 6, 8, 16):
+        deltas[f"windowed_compat_R{R}"] = T.abs_rel(ref, v.compat(R)[0])
+    deltas["parity_preset"] = T.abs_rel(ref, v.parity_preset())
+    print("[parity budget] " + json.dumps(
+        {"deltas": deltas, "launches_a_b": v.launches,
+         "card": torch.cuda.get_device_name(0)}))
+    assert all(np.isfinite(list(deltas.values())))
+    assert deltas["parity_preset"] < 1e-3, deltas
+    assert deltas["windowed_compat_R8"] < 1e-3, deltas
+    assert deltas["bf16"] < 0.02, deltas
+    assert (deltas["windowed_compat_R16"]
+            <= deltas["windowed_compat_R8"] + 1e-3), deltas
+
+
+def test_parity_budget_under_offset_reach_on_the_card(monkeypatch, tmp_path):
+    """tests/test_compat_stress.py on the card: the converted sampling
+    offsets (kernel and bias) scaled 1x, 4x and 8x; per reach the exact
+    f32 reference, compat R = 4, 8, 16 with their mean clamp mass, and the
+    parity preset. Gates: R16 <= R4 + 1e-3 at every reach, the clamp mass
+    at R = 4 not below its 1x value − 0.05, R8 at 8x < 1e-2, parity at 1x
+    and 4x < 1e-3 and at 8x < 5e-3 (JAX on the CPU read parity 5.9e-4 and
+    7.0e-4 at 1x and 4x)."""
+    T = _textbook_at_scale(monkeypatch)
+    v = _Variants(T, tmp_path)
+    table, parity = {}, {}
+    for reach in (1.0, 4.0, 8.0):
+        ref = v.exact(reach)
+        parity[reach] = T.abs_rel(ref, v.parity_preset(reach))
+        for R in (4, 8, 16):
+            d, clamp = v.compat(R, reach)
+            table[(reach, R)] = (T.abs_rel(ref, d), clamp)
+    print("[offset reach] " + json.dumps(
+        {"table": {f"x{k[0]:g} R={k[1]}": list(x) for k, x in table.items()},
+         "parity": {f"x{k:g}": x for k, x in parity.items()},
+         "card": torch.cuda.get_device_name(0)}))
+    for reach in (1.0, 4.0, 8.0):
+        assert table[(reach, 16)][0] <= table[(reach, 4)][0] + 1e-3, table
+        if reach > 1.0:
+            assert table[(reach, 4)][1] >= table[(1.0, 4)][1] - 0.05, table
+    assert table[(8.0, 8)][0] < 1e-2, table
+    assert parity[1.0] < 1e-3, parity
+    assert parity[4.0] < 1e-3, parity
+    assert parity[8.0] < 5e-3, parity
