@@ -245,8 +245,27 @@ with its host-clock seconds); any failure raises and exits non-zero:
      the parity preset (compat R = 5, its bf16 scope) and exact f32: depth
      (1, 352, 1216), finite, mean and p99 abs-rel, the mean below 5e-2
      (tests/test_dress_rehearsal.py's rail).
+ 36. the zoo's ResNet presets, `bts_kitti` (ResNet-50 + BTS) and
+     `densedepth_kitti` (ResNet-50 + DenseDepth), f32 with cuDNN's
+     autotuner, each with the port's kernel counts set to 0 before it and
+     read after (the zoo path runs none of them, as in JAX, where no
+     Pallas kernel lies on it): `init_depther` with a seeded
+     initialisation and 3 flip-TTA requests of phase 4 (375x1242, KB
+     crop), the first held against the same weights' forward on the CPU
+     (rtol 1e-3, atol 1e-3 m; and the head's last conv before its ReLU,
+     rtol 1e-3, atol 1e-3 of its largest value, since at seeded weights
+     the ReLU may zero the depth), the request latency, the eval step's
+     CUDA-event time and peak memory; `train()` for 3 steps at 352x704,
+     batch 2, from the KITTI tree of phase 23 with a work dir: finite
+     losses, the step's time and peak memory, the autotuner's seconds on
+     the first step (its time less a later step's), the evaluation at the
+     last step; the `tb/` events read back against the JSONL where the
+     `tensorboard` package imports (printed either way); `tools.test` on
+     the tree with the run's best `.npz`; then the train step timed as
+     `tools.benchmark --train-step` times it (10 steps by CUDA events
+     after the autotuned first and 3 more; peak memory).
 The phases run in the order 1, 2, 23, 3, 6, 13, 9, 24, 4, 5, 31, 32, 7, 8,
-34, 20, 21, 33, 22, 35, 25, 26, 27, 10, 11, 12, 14-19, 28-30: every kernel check
+34, 20, 21, 33, 22, 35, 25, 26, 27, 10, 11, 12, 14-19, 28-30, 36: every kernel check
 comes before the first model, because `torch.profiler` loses device
 activities as a process ages, and all of them once it has trained.
 A `device_ms` that is not within a tenth of its `event_ms` (kernels of
@@ -3276,6 +3295,225 @@ def phase_pretrain(tree):
     return line
 
 
+# ---- phase 36: the zoo's ResNet presets ----
+
+ZOO_PRESETS = ("bts_kitti", "densedepth_kitti")
+
+
+def tb_events(log_dir):
+    """{(tag, step): float32 value} of the scalar events in `log_dir`."""
+    import glob
+    import os.path as osp
+
+    from tensorboard.backend.event_processing.event_file_loader import (
+        EventFileLoader)
+    from tensorboard.util import tensor_util
+
+    out = {}
+    for path in sorted(glob.glob(osp.join(log_dir, "events.out.*"))):
+        for event in EventFileLoader(path).Load():
+            for v in event.summary.value:
+                out[(v.tag, event.step)] = float(
+                    tensor_util.make_ndarray(v.tensor))
+    return out
+
+
+def check_tb(tag, work):
+    """The run's `tb/` scalars equal every number of the JSONL's train and
+    val records, at their iters, in float32."""
+    import os.path as osp
+
+    with open(osp.join(work, "train.log.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    want = {(f"{r['mode']}/{k}", r["iter"]): float(np.float32(v))
+            for r in records if r["mode"] in ("train", "val")
+            for k, v in r.items() if isinstance(v, (int, float))}
+    got = tb_events(osp.join(work, "tb"))
+    if got != want:
+        fail(f"{tag} tb/ events differ from the JSONL: "
+             f"{sorted(set(got) ^ set(want))[:6]}")
+    print(f"{tag} tb/ holds the JSONL's {len(want)} scalars "
+          f"({sorted({t for t, _ in want})[:4]} ...)", flush=True)
+
+
+def served_with_head_output(handle, rgb):
+    """inference_depther(handle, rgb) and, on the CPU, the output of the
+    decode head's last conv before its ReLU in the first forward of the
+    flip-TTA pair (at seeded weights the ReLU can zero the whole depth,
+    which would hold nothing)."""
+    from gedepth_tpu_torch.apis import inference_depther
+
+    seen = []
+    hook = handle.model.decode_head.conv_depth.register_forward_hook(
+        lambda m, i, o: seen.append(o.detach().float().cpu()))
+    try:
+        depth = inference_depther(handle, rgb)
+    finally:
+        hook.remove()
+    return depth, seen[0]
+
+
+def zoo_serving(preset, requests):
+    """`init_depther(preset)` on the card: 3 flip-TTA requests, the first
+    against the CPU forward of the same seeded weights (the depth, and the
+    head's last conv before its ReLU). Returns its numbers."""
+    from gedepth_tpu_torch.apis import inference_depther, init_depther
+    from gedepth_tpu_torch.train.loop import cudnn_autotuner
+
+    tag = f"[zoo {preset}]"
+    pe = requests[0][1]
+    with cudnn_autotuner():
+        t0 = time.perf_counter()
+        handle = init_depther(preset, device="cuda", pe_raw=pe, seed=SEED)
+        first, head_out = served_with_head_output(handle, requests[0][0])
+        first_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        latencies, depths = [], []
+        for rgb, _ in requests:
+            t = time.perf_counter()
+            depths.append(inference_depther(handle, rgb))
+            latencies.append((time.perf_counter() - t) * 1e3)
+        img = torch.randn((1, 352, 1216, 5), device="cuda",
+                          generator=torch.Generator("cuda").manual_seed(SEED))
+        ch = torch.full((1,), 1.65, device="cuda")
+        step_ms = cuda_ms(lambda: handle.eval_step(img, ch), reps=5)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+    for i, d in enumerate(depths):
+        check_depth(f"{tag} request {i}", d, handle.cfg.model)
+    if not np.array_equal(first, depths[0]):
+        fail(f"{tag} the same request twice gave two depths")
+    n_params = sum(p.numel() for p in handle.model.parameters())
+    del handle
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cpu = init_depther(preset, device="cpu", pe_raw=pe, seed=SEED)
+    want, want_head = served_with_head_output(cpu, requests[0][0])
+    cpu_s = time.perf_counter() - t0
+    err = np.abs(depths[0] - want)
+    compare(f"{tag} depth, card against CPU", torch.from_numpy(depths[0]),
+            torch.from_numpy(want), rtol=1e-3, atol=1e-3)
+    scale = want_head.abs().max().item()
+    compare(f"{tag} head's last conv before its ReLU, card against CPU "
+            f"(max |x| {scale:.3g})", head_out, want_head, rtol=1e-3,
+            atol=1e-3 * scale)
+    print(f"{tag} {n_params} parameters; first request {first_s:.2f} s "
+          f"(init, cuDNN's search); request latency ms "
+          f"{[round(x, 3) for x in latencies]}; flip-TTA eval step "
+          f"{step_ms:.3f} ms (CUDA events, 352x1216); peak {peak:.1f} MiB; "
+          f"against the CPU ({cpu_s:.1f} s): max abs {err.max():.3e} m, "
+          f"mean rel {float(np.mean(err / want)):.3e}", flush=True)
+    return {"request_ms": statistics.median(latencies),
+            "eval_step_ms": step_ms, "serving_peak_mib": peak,
+            "cpu_max_abs_err": float(err.max())}
+
+
+def zoo_training(preset, tree, tb_ok):
+    """`train(preset)` for 3 steps from the KITTI tree into a work dir, its
+    tb/ events, then `tools.test` with its best `.npz`."""
+    import contextlib as cl
+    import dataclasses
+    import io
+    import os.path as osp
+
+    from gedepth_tpu_torch.configs import get_config
+    from gedepth_tpu_torch.tools import test as test_cli
+    from gedepth_tpu_torch.train.loop import train
+
+    tag, steps = f"[zoo {preset}]", 3
+    cfg = get_config(preset)
+    cfg = cfg.replace(data=tree_data(preset, tree), train=dataclasses.replace(
+        cfg.train, global_batch=2, log_interval=1))
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        _, history, best = train(cfg, work_dir=work, max_iters=steps,
+                                 eval_max_images=EVAL_IMAGES, device="cuda")
+        wall = time.perf_counter() - t0
+        vals = [r for r in history if r["mode"] == "val"]
+        history = [r for r in history if r["mode"] == "train"]
+        for r in history:
+            if not all(np.isfinite(r[k]) for k in ("loss", "grad_norm")):
+                fail(f"{tag} step {r['iter']}: {r}")
+            print(f"{tag} iter {r['iter']} loss={r['loss']:.6f} "
+                  f"grad_norm={r['grad_norm']:.6f} "
+                  f"step_ms={r['time'] * 1e3:.3f} "
+                  f"step_peak_mem_mib={r['peak_mem_mib']:.1f}", flush=True)
+        check_val(tag, vals, steps, best)
+        step_ms = statistics.median(r["time"] for r in history[1:]) * 1e3
+        autotune_s = history[0]["time"] - step_ms / 1e3
+        peak = max(r["peak_mem_mib"] for r in history[1:])
+        print(f"{tag} train({preset!r}, max_iters={steps}), global batch 2, "
+              f"crop {cfg.data.crop_size}, the KITTI tree: {wall:.1f} s with "
+              f"init and evaluation; step {step_ms:.3f} ms, peak "
+              f"{peak:.1f} MiB; cuDNN's autotuner ~{autotune_s:.1f} s on "
+              "the first step", flush=True)
+        if tb_ok:
+            check_tb(tag, work)
+        elif osp.exists(osp.join(work, "tb")):
+            fail(f"{tag} tb/ written without the tensorboard package")
+        out = io.StringIO()
+        with cl.redirect_stdout(out):
+            test_cli.main([preset, osp.join(work, "best_abs_rel.npz"),
+                           "--max-images", "2", "--options",
+                           f"data.data_root={tree['root']}",
+                           f"data.test_split={tree['test']}"])
+        line = json.loads(out.getvalue().strip().splitlines()[-1])
+        if line["images"] != 2 or not all(
+                np.isfinite(line[k]) for k in ("abs_rel", "rmse", "a1")):
+            fail(f"{tag} tools.test on the KITTI tree: {line}")
+        print(f"{tag} tools.test with the run's best_abs_rel.npz: "
+              f"{json.dumps(line)}", flush=True)
+    return {"loop_step_ms": step_ms, "loop_peak_mib": peak,
+            "autotune_s": autotune_s}
+
+
+def zoo_step_timing(preset):
+    """The f32 train step at 352x704, batch 2, timed as `tools.benchmark
+    --train-step` does (the autotuned first step apart, 3 warm-up steps,
+    10 timed by CUDA events; the profiler's busy time and the idle
+    share)."""
+    from gedepth_tpu_torch.tools.benchmark import run_benchmark
+
+    r = run_benchmark(preset, iters=10, warmup=3, batch=2, height=352,
+                      width=704, train_step=True, device="cuda", seed=SEED)
+    print(f"[zoo {preset}] tools.benchmark --train-step: {json.dumps(r)}",
+          flush=True)
+    if not r["device_ms_median"] > 0:
+        fail(f"[zoo {preset}] no step time: {r}")
+    return {"step_ms": r["device_ms_median"], "step_busy_ms":
+            r["device_busy_ms"], "step_idle_share": r["device_idle_share"],
+            "train_peak_mib": r["peak_mem_mib"],
+            "first_step_ms": r["first_step_ms"]}
+
+
+def phase_zoo(tree, requests):
+    """Phase 36: `bts_kitti` and `densedepth_kitti` served, trained and
+    evaluated; the port's kernel counts stay 0 over each preset's run."""
+    try:
+        import tensorboard  # noqa: F401
+        tb_ok = True
+    except ImportError:
+        tb_ok = False
+    print(f"[zoo] the tensorboard package imports here: {tb_ok}",
+          flush=True)
+    counters = _kernel_counters()
+    summary = {}
+    for preset in ZOO_PRESETS:
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        summary[preset] = dict(zoo_serving(preset, requests),
+                               **zoo_training(preset, tree, tb_ok),
+                               **zoo_step_timing(preset))
+        torch.cuda.empty_cache()
+        launches, _ = read_counts(counters)
+        if any(launches.values()):
+            fail(f"[zoo {preset}] launched the port's kernels: {launches}")
+        summary[preset]["seconds"] = time.perf_counter() - t0
+        print(f"[zoo {preset}] kernel launches over the preset's run "
+              f"{launches}; {summary[preset]['seconds']:.1f} s", flush=True)
+    print(f"[zoo] {json.dumps(summary)}", flush=True)
+
+
 # ---- phases 31-33: serving export, a bf16 export, the serving tools ----
 
 PORT_OPS = ["gedepth_torch::msda", "gedepth_torch::pe_fusion",
@@ -3797,6 +4035,8 @@ def run(stack):
     lap("torchrun, NCCL, a world of one (phase 29)")
     phase_pretrain(trees["kitti"])
     lap("stage-1 pretraining and the backbone overlay (phase 30)")
+    phase_zoo(trees["kitti"], requests)
+    lap("the zoo's bts_kitti and densedepth_kitti (phase 36)")
 
     sources = {
         "window_attention": ("gedepth_tpu_torch/csrc/window_attention.cu",

@@ -6,8 +6,9 @@ are identical, so a preset compares equal field by field with its JAX
 counterpart. Left out on purpose: `swin_scan` (it changes only the JAX
 parameter layout, which `convert.from_jax` unstacks), `neck_value_bf16`
 (bf16 values in an f32 neck: the port's
-bf16 goes by `bf16_scope`, whole-model casts and `bf16_compute`), the zoo's
-fields, and the fields of modules not ported yet (NYU's scene classes).
+bf16 goes by `bf16_scope`, whole-model casts and `bf16_compute`), and the
+fields of modules not ported yet (NYU's scene classes, BinsFormer's and
+AdaBins's loss terms).
 """
 from __future__ import annotations
 
@@ -19,6 +20,14 @@ from typing import Optional, Tuple
 
 @dataclass(frozen=True)
 class ModelConfig:
+    # architecture family: 'gedepth' (DepthFormer + HAHI + PE) or a zoo
+    # arch; 'bts' and 'densedepth' are ported ('adabins', 'dpt',
+    # 'binsformer' and 'seg' raise NotImplementedError)
+    arch: str = "gedepth"
+    backbone_variant: str = ""        # zoo: the ResNet depth ('50')
+    backbone_embed_dims: int = 0      # zoo: 0 = the arch's default
+    backbone_depth: int = 0           # zoo: 0 = the arch's default
+    n_bins: int = 256                 # zoo: adabins / binsformer bins
     # backbone (Swin-L defaults)
     embed_dims: int = 192
     depths: Tuple[int, ...] = (2, 2, 18, 2)
@@ -57,7 +66,22 @@ class ModelConfig:
     default_cam_height: float = 1.65
 
     def build(self, device=None, generator=None):
-        """The torch `GEDepth` for this configuration, in eval mode."""
+        """The torch model of this configuration, in eval mode: `GEDepth`,
+        or `ZooDepther` for a ported zoo arch ('bts', 'densedepth'); the
+        other zoo archs raise NotImplementedError. A zoo model takes the
+        RGB channels of its input and none of the GEDepth fields."""
+        if self.arch != "gedepth":
+            from gedepth_tpu_torch.models.zoo import ZooDepther
+            if self.bf16_scope != "none":
+                raise ValueError(f"bf16_scope {self.bf16_scope!r} names "
+                                 "GEDepth's modules; a zoo model takes "
+                                 "'none' (or a whole-model cast)")
+            return ZooDepther(
+                arch=self.arch, backbone_variant=self.backbone_variant,
+                min_depth=self.min_depth, max_depth=self.max_depth,
+                head_channels=self.head_channels,
+                default_cam_height=self.default_cam_height,
+                device=device, generator=generator).eval()
         from gedepth_tpu_torch.models.depther import GEDepth
         return GEDepth(
             embed_dims=self.embed_dims, depths=self.depths,

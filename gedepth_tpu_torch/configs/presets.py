@@ -79,6 +79,21 @@ _PRESETS = {
         "gedepth_adaptive_ddad_tpu",
         _ddad_model("adaptive", neck_sampling="windowed",
                     neck_hi_min_level=1)),
+    # the toolbox model zoo (the reference's configs/_base_/models/*.py).
+    # Both keep the default pe_variant 'adaptive', as the JAX presets do:
+    # the KITTI loader reads the PE channels and the model ignores them.
+    # BTS: ResNet-50 + local planar guidance (_base_/models/bts.py)
+    "bts_kitti": lambda: ExperimentConfig(
+        name="bts_kitti",
+        model=ModelConfig(arch="bts", backbone_variant="50",
+                          head_channels=128, max_depth=80.0),
+        data=DataConfig()),
+    # DenseDepth: ResNet-50 + the upsample chain (_base_/models/densedepth.py)
+    "densedepth_kitti": lambda: ExperimentConfig(
+        name="densedepth_kitti",
+        model=ModelConfig(arch="densedepth", backbone_variant="50",
+                          head_channels=128, max_depth=80.0),
+        data=DataConfig()),
     # Swin-T-sized smoke config on synthetic data (tests)
     "smoke_synthetic": lambda: ExperimentConfig(
         name="smoke_synthetic",

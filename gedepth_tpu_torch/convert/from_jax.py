@@ -13,7 +13,11 @@ state_dict that the port's `GEDepth` loads with `strict=True`:
     per-block entries first, as `gedepth_tpu.models.swin.unstack_swin_params`
     does.
 
-The same rules carry the stage-1 ground-mask model
+The same rules carry the zoo's `ZooDepther` (ResNet `backbone/conv1`,
+`bn1`, `layer{i}_block{b}/convbn{n}/{conv,bn}` and `.../downsample/{conv,
+bn}` to mmseg's `backbone.layer{i}.{b}.conv{n}` / `bn{n}` /
+`downsample.{0,1}`; the BTS head's flax modules to the reference
+bts_head.py names) and the stage-1 ground-mask model
 (`models.pretrain.GroundMaskPretrain`: `backbone`, `neck`, `fuse`,
 `classifier`). The trees differ with the model: only the windowed neck lacks
 `neck/reference_points` (the cross-attention's learned reference points,
@@ -75,9 +79,79 @@ def _convmodule(base, names):
     return f"{base}.{'conv' if names[0] == 'Conv_0' else 'bn'}.{_WB[names[-1]]}"
 
 
+# the BTS head's AtrousConv children inside `atrous_conv` (bts_head.py)
+_ATROUS = {"first_bn": "first_bn", "conv1x1": "aconv_sequence.1",
+           "bn": "aconv_sequence.2", "conv3x3": "aconv_sequence.4"}
+_ATROUS_INV = {v: k for k, v in _ATROUS.items()}
+
+
+def _zoo_torch_name(names, leaf):
+    """Reference key of a ResNet or BTS-head leaf path, or None."""
+    top, sub = names[0], names[1]
+    if top == "backbone":
+        if sub in ("conv1", "bn1"):
+            return f"backbone.{sub}.{leaf}"
+        m = re.fullmatch(r"layer(\d+)_block(\d+)", sub)
+        if m:
+            base = f"backbone.layer{m.group(1)}.{m.group(2)}"
+            if names[2] == "downsample":
+                idx = 0 if names[3] == "conv" else 1
+                return f"{base}.downsample.{idx}.{leaf}"
+            return f"{base}.{names[3]}{names[2][len('convbn'):]}.{leaf}"
+        return None
+    if top != "decode_head":
+        return None
+    if re.fullmatch(r"upconv\d", sub):
+        return f"decode_head.{sub}.conv.{leaf}"
+    if re.fullmatch(r"bn\d(_2)?", sub):
+        return f"decode_head.{sub}.{leaf}"
+    if re.fullmatch(r"conv[1-9]", sub) or sub == "daspp_conv":
+        return f"decode_head.{sub}.0.{leaf}"
+    if re.fullmatch(r"daspp_\d+", sub):
+        return f"decode_head.{sub}.atrous_conv.{_ATROUS[names[2]]}.{leaf}"
+    if re.fullmatch(r"reduc\d+x\d+", sub):
+        conv = names[2] + ("" if names[2] == "plane_params" else ".0")
+        return f"decode_head.{sub}.reduc.{conv}.{leaf}"
+    return None
+
+
+def _zoo_flax_module(p):
+    """Flax module path of a ResNet or BTS-head reference key without its
+    leaf, or None (the inverse of `_zoo_torch_name`)."""
+    if p[0] == "backbone":
+        if p[1] in ("conv1", "bn1"):
+            return ("backbone", p[1])
+        m = re.fullmatch(r"layer(\d+)", p[1])
+        if m:
+            block = ("backbone", f"layer{m.group(1)}_block{p[2]}")
+            if p[3] == "downsample":
+                return block + ("downsample",
+                                "conv" if p[4] == "0" else "bn")
+            kind, n = re.fullmatch(r"(conv|bn)(\d)", p[3]).groups()
+            return block + (f"convbn{n}", kind)
+        return None
+    if p[0] != "decode_head":
+        return None
+    if re.fullmatch(r"upconv\d", p[1]):
+        return ("decode_head", p[1], "conv")
+    if re.fullmatch(r"bn\d(_2)?", p[1]):
+        return ("decode_head", p[1])
+    if re.fullmatch(r"conv[1-9]", p[1]) or p[1] == "daspp_conv":
+        return ("decode_head", p[1])
+    if re.fullmatch(r"daspp_\d+", p[1]):
+        part = ".".join(p[3:-1])
+        return ("decode_head", p[1], _ATROUS_INV[part])
+    if re.fullmatch(r"reduc\d+x\d+", p[1]):
+        return ("decode_head", p[1], p[3])
+    return None
+
+
 def _torch_name(names):
     """Reference key of one flax leaf path (module names, then leaf)."""
     top, leaf = names[0], _WB.get(names[-1], names[-1])
+    zoo = _zoo_torch_name(names, leaf)
+    if zoo is not None:
+        return zoo
     if top == "backbone":
         sub = names[1]
         if sub == "patch_embed":
@@ -138,10 +212,16 @@ def _torch_name(names):
     raise KeyError(f"no port parameter for {'/'.join(names)}")
 
 
-def _flax_module(key):
+def _flax_module(key, zoo=False):
     """Flax module path of one reference key without its leaf (the inverse
-    of `_torch_name`'s module rules, per-block Swin layout)."""
+    of `_torch_name`'s module rules, per-block Swin layout). zoo: the key
+    is a `ZooDepther`'s, whose `backbone.conv1` is a ResNet stem and not
+    GEDepth's conv stem."""
     p = key.split(".")
+    if zoo:
+        path = _zoo_flax_module(p)
+        if path is not None:
+            return path
     if p[0] == "backbone":
         if p[1] == "patch_embed":
             return ("backbone", "patch_embed", p[2])
@@ -192,11 +272,12 @@ def _flax_module(key):
     raise KeyError(f"no flax path for {key}")
 
 
-def flax_path(key: str, ndim: int):
+def flax_path(key: str, ndim: int, zoo: bool = False):
     """(collection, flax path) of one port state_dict entry of `ndim`
     dimensions, the inverse of `_torch_name`; None for
     `num_batches_tracked`, which flax does not keep. A `weight` is a
-    `kernel` when it has two dimensions or more, else a norm's `scale`."""
+    `kernel` when it has two dimensions or more, else a norm's `scale`.
+    zoo: the entry is a `ZooDepther`'s (see `_flax_module`)."""
     leaf = key.rsplit(".", 1)[1]
     if leaf == "num_batches_tracked":
         return None
@@ -206,10 +287,15 @@ def flax_path(key: str, ndim: int):
         return "params", _flax_module(key) + (leaf,)
     stats = {"running_mean": "mean", "running_var": "var"}
     if leaf in stats:
-        return "batch_stats", _flax_module(key) + (stats[leaf],)
+        return "batch_stats", _flax_module(key, zoo) + (stats[leaf],)
     if leaf == "weight":
         leaf = "kernel" if ndim >= 2 else "scale"
-    return "params", _flax_module(key) + (leaf,)
+    return "params", _flax_module(key, zoo) + (leaf,)
+
+
+def is_zoo_state_dict(state_dict: Mapping) -> bool:
+    """Whether a state_dict is a `ZooDepther`'s (a ResNet backbone)."""
+    return any(k.startswith("backbone.layer") for k in state_dict)
 
 
 def flax_variables_from_state_dict(state_dict: Mapping):
@@ -218,8 +304,9 @@ def flax_variables_from_state_dict(state_dict: Mapping):
     kernels OIHW -> HWIO, dense kernels transposed, `num_batches_tracked`
     dropped. The inverse of `state_dict_from_flax`."""
     trees = {"params": {}, "batch_stats": {}}
+    zoo = is_zoo_state_dict(state_dict)
     for key, t in state_dict.items():
-        where = flax_path(key, t.dim())
+        where = flax_path(key, t.dim(), zoo)
         if where is None:
             continue
         collection, names = where
@@ -271,6 +358,9 @@ def load_flax_variables(model, params: Mapping, batch_stats: Mapping = None):
         if about(("pe_mask_neck", "dynamic_pe_neck",
                   "backbone.patch_embed.projection")):
             why.append("the PE variant")
+        if about(("backbone.layer", "backbone.patch_embed",
+                  "decode_head.upconv", "decode_head.conv_list")):
+            why.append("the architecture (arch, backbone_variant)")
         raise ValueError(
             "the JAX tree does not fit this model: it differs in "
             f"{' and '.join(why) or 'its layers'}; missing {missing[:4]}, "

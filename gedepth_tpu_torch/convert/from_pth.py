@@ -20,6 +20,17 @@ renames:
   * `convert_checkpoint_file`: all of it into a model, whose missing keys
     keep their seeded initialisation, with a report of the unmapped and
     missing keys.
+
+The zoo's BTS decode head maps as the JAX converter maps it
+(torch_to_jax.py's bts_head.py rules: `upconv{n}.conv`, `bn{n}`, `bn4_2`,
+`conv{n}.0`, `daspp_{d}.atrous_conv.{first_bn, aconv_sequence.{1,2,4}}`,
+`daspp_conv.0`, `reduc*.reduc.{inter_*.0, plane_params, final.0}`, and
+`conv_depth`); DenseDepth's head has GEDepth's keys. The JAX converter
+has no rule for a ResNet backbone: `backbone.conv1` and `bn1` go to
+GEDepth's conv stem, which a zoo model lacks, and `backbone.layer*` stay
+unmapped. So a zoo model takes its decode head from a reference file and
+keeps its seeded backbone, as in the JAX package, although its ResNet
+carries the reference's names: the stem keys are reported as unused.
 """
 from __future__ import annotations
 
@@ -39,6 +50,7 @@ _BLOCK_LEAVES = {
 _CONVMODULE_LEAVES = {"conv.weight", "conv.bias", "bn.weight", "bn.bias",
                       "bn.running_mean", "bn.running_var"}
 _WB = r"(weight|bias)"
+_BN = r"(weight|bias|running_mean|running_var)"
 # GEDepth's reference keys outside the Swin blocks and the ConvModules
 # (gedepth_tpu/convert/torch_to_jax.py `_map_torch_key`)
 _KEPT = [re.compile(p + "$") for p in (
@@ -47,7 +59,7 @@ _KEPT = [re.compile(p + "$") for p in (
     r"backbone\.stages\.\d+\.downsample\.(norm|reduction)\." + _WB,
     r"backbone\.norm\d\." + _WB,
     r"backbone\.conv1\.weight",
-    r"backbone\.bn1\.(weight|bias|running_mean|running_var)",
+    r"backbone\.bn1\." + _BN,
     r"neck\.reference_points\." + _WB,
     r"neck\.level_embed",
     r"neck\.(self_attn|multi_att)\.(sampling_offsets|attention_weights|"
@@ -55,7 +67,20 @@ _KEPT = [re.compile(p + "$") for p in (
     r"(pe_mask_neck|dynamic_pe_neck)\.(conv\d|convfinal)\." + _WB,
     r"decode_head\.conv_list\.0\.conv\." + _WB,
     r"decode_head\.conv_list\.\d+\.(convA|convB)\.conv\." + _WB,
-    r"decode_head\.conv_depth\." + _WB)]
+    r"decode_head\.conv_depth\." + _WB,
+    # the BTS head (bts_head.py names, torch_to_jax.py's BTS rules)
+    r"decode_head\.upconv\d\.conv\.weight",
+    r"decode_head\.bn\d(_2)?\." + _BN,
+    r"decode_head\.(conv\d|daspp_conv)\.0\.weight",
+    r"decode_head\.daspp_\d+\.atrous_conv\.first_bn\." + _BN,
+    r"decode_head\.daspp_\d+\.atrous_conv\.aconv_sequence\.[14]\.weight",
+    r"decode_head\.daspp_\d+\.atrous_conv\.aconv_sequence\.2\." + _BN,
+    r"decode_head\.reduc\d+x\d+\.reduc\.(inter_\d+_\d+\.0|plane_params|"
+    r"final\.0)\.weight")]
+# BatchNorms whose `num_batches_tracked` the converter drops
+_BN_TRACKED = re.compile(
+    r"(backbone\.bn1|decode_head\.bn\d(_2)?|decode_head\.daspp_\d+\."
+    r"atrous_conv\.(first_bn|aconv_sequence\.2))\.num_batches_tracked$")
 _CONVMODULE = re.compile(r"neck\.(lateral_convs\.\d+|trans_proj\.\d+|"
                          r"trans_fusion\.\d+|conv_proj\.0|conv_fusion\.0)\."
                          r"(.*)$")
@@ -122,7 +147,7 @@ def reference_key_rule(key: str):
         if m.group(2) in _CONVMODULE_LEAVES:
             return True
         return False if m.group(2) == "bn.num_batches_tracked" else None
-    if key == "backbone.bn1.num_batches_tracked":
+    if _BN_TRACKED.match(key):
         return False
     return True if any(p.match(key) for p in _KEPT) else None
 
@@ -177,14 +202,20 @@ def convert_checkpoint_file(pth_path: str, model, official_swin=False):
     tables of another window size are resized. Keys of the file that the
     model lacks (the windowed neck's `reference_points`, say) are ignored,
     as the JAX converter ignores them; model keys the file lacks keep their
-    values. report: `unmapped_torch_keys` (keys no GEDepth rule maps),
+    values. report: `unmapped_torch_keys` (keys no rule maps),
     `missing_params` and `missing_stats` (model parameters and BatchNorm
-    running statistics the file did not give)."""
+    running statistics the file did not give) and, for a zoo model,
+    `unused_torch_keys` (keys the JAX converter sends to GEDepth's conv
+    stem, which a zoo model lacks: `backbone.conv1`, `backbone.bn1`)."""
     sd = load_torch_checkpoint(pth_path)
     if official_swin:
         sd = {f"backbone.{k}": v
               for k, v in swin_official_to_gedepth(sd).items()}
     sd, unmapped = convert_state_dict(sd)
+    zoo = getattr(model, "arch", "gedepth") != "gedepth"
+    if zoo:
+        unused = sorted(k for k in sd if k.startswith("backbone."))
+        sd = {k: v for k, v in sd.items() if k not in unused}
     if model.pe_variant != "none":
         pad_patch_embed_for_pe(sd)
     merged = model.state_dict()
@@ -203,5 +234,8 @@ def convert_checkpoint_file(pth_path: str, model, official_swin=False):
         else:
             merged[k] = sd[k]
     model.load_state_dict(merged, strict=True)
-    return model, {"unmapped_torch_keys": unmapped,
-                   "missing_params": missing_p, "missing_stats": missing_s}
+    report = {"unmapped_torch_keys": unmapped,
+              "missing_params": missing_p, "missing_stats": missing_s}
+    if zoo:
+        report["unused_torch_keys"] = unused
+    return model, report

@@ -26,9 +26,9 @@ def linear(in_features, out_features, bias=True, init="trunc_normal"):
 
 
 def conv2d(in_ch, out_ch, kernel_size, stride=1, padding=0, bias=True,
-           init="torch"):
+           init="torch", dilation=1):
     m = nn.Conv2d(in_ch, out_ch, kernel_size, stride=stride, padding=padding,
-                  bias=bias)
+                  dilation=dilation, bias=bias)
     m.init = init
     return m
 
@@ -91,10 +91,14 @@ class BatchNorm2d(nn.BatchNorm2d):
     centred sums of every process go through `parallel.global_sum` (two
     all-reduces a layer, the variance in two passes), and the running
     statistics stay equal on every process. torch's `SyncBatchNorm` would
-    store the unbiased variance."""
+    store the unbiased variance.
 
-    def __init__(self, num_features):
-        super().__init__(num_features, eps=1e-5, momentum=0.1)
+    `eps` and `momentum` (torch's convention: the weight of the new batch)
+    default to the JAX package's ConvModule values; the BTS head takes
+    momentum 0.01 and eps 1.1e-5 (flax momentum 0.99)."""
+
+    def __init__(self, num_features, eps=1e-5, momentum=0.1):
+        super().__init__(num_features, eps=eps, momentum=momentum)
 
     def forward(self, x):
         if not self.training:

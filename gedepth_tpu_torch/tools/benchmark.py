@@ -106,14 +106,14 @@ def build_runner(config, batch=1, height=352, width=1216, train_step=False,
     context = contextlib.nullcontext
 
     if train_step:
-        from gedepth_tpu_torch.train.loop import cudnn_autotuner
-        from gedepth_tpu_torch.train.steps import (
-            create_train_state, make_train_step)
+        from gedepth_tpu_torch.train.loop import (
+            cudnn_autotuner, train_step_for)
+        from gedepth_tpu_torch.train.steps import create_train_state
 
         dtype = "bf16_compute" if bf16 else "f32"
         state = create_train_state(model, cfg.optim, 1000, seed=seed + 1)
-        step = make_train_step(cfg.optim.sig_loss_weight,
-                               cfg.optim.slope_ce_weight, bf16=bf16)
+        step = train_step_for(cfg.replace(train=dataclasses.replace(
+            cfg.train, bf16_compute=bf16)))
         data = {"img": img, "depth_gt": img[..., 0].abs() * 10,
                 "pe_k_gt": torch.zeros_like(img[..., 0]), "cam_height": ch}
         if autotuner:

@@ -15,6 +15,7 @@ abs-rel budget).
     python -m gedepth_tpu_torch.tools.compat_check converted.npz \
         [--config gedepth_adaptive_kitti_parity] [--radii 4,5,6,8] \
         [--budget 1e-3] [--images 2] [--seed 0] [--device cuda | --cpu]
+        [--options key=value ...]
 
 The inputs are synthetic KITTI-shaped scenes made from --seed: where a
 checkpoint's offsets sample depends on the weights, the query grids and the
@@ -165,16 +166,19 @@ def parse_args(argv=None):
     ap.add_argument("--cpu", dest="device", action="store_const",
                     const="cpu", help="--device cpu, as the JAX tool "
                     "spells it")
+    ap.add_argument("--options", nargs="*", default=None,
+                    help="dotted config overrides, e.g. "
+                    "model.embed_dims=32 data.eval_size=64,128")
     return ap.parse_args(argv)
 
 
 def main(argv=None):
-    from gedepth_tpu_torch.configs import get_config
+    from gedepth_tpu_torch.configs import apply_options, get_config
     from gedepth_tpu_torch.utils.env import disable_tf32
 
     args = parse_args(argv)
     disable_tf32()
-    cfg = get_config(args.config)
+    cfg = apply_options(get_config(args.config), args.options)
     h, w = cfg.data.eval_size
     print(f"config {args.config}  ckpt {args.checkpoint}  "
           f"{args.images}x{h}x{w}  budget {args.budget:g}", flush=True)

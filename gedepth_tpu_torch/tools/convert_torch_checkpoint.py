@@ -5,11 +5,13 @@ read (the counterpart of tools/convert_torch_checkpoint.py).
 
     python -m gedepth_tpu_torch.tools.convert_torch_checkpoint \
         <ckpt.pth> <preset> <out.npz> [--official-swin]
+        [--options key=value ...]
 
-The preset's model is built from its seeded initialisation and the file is
-loaded into it (`convert.from_pth.convert_checkpoint_file`); what the file
-does not give keeps that initialisation and is listed. --official-swin: the
-file holds an official Swin backbone only. Runs on the CPU.
+The preset's model (its fields overridden by --options) is built from its
+seeded initialisation and the file is loaded into it
+(`convert.from_pth.convert_checkpoint_file`); what the file does not give
+keeps that initialisation and is listed. --official-swin: the file holds an
+official Swin backbone only. Runs on the CPU.
 """
 from __future__ import annotations
 
@@ -17,7 +19,8 @@ import argparse
 
 
 def main(argv=None):
-    from gedepth_tpu_torch.configs import get_config, list_configs
+    from gedepth_tpu_torch.configs import (
+        apply_options, get_config, list_configs)
     from gedepth_tpu_torch.utils.env import disable_tf32
 
     parser = argparse.ArgumentParser(
@@ -29,6 +32,8 @@ def main(argv=None):
                         help="the file uses the official Swin key names "
                         "(backbone only; the rest keeps the seeded "
                         "initialisation)")
+    parser.add_argument("--options", nargs="*", default=None,
+                        help="dotted config overrides key=value")
     args = parser.parse_args(argv)
 
     import torch
@@ -37,16 +42,18 @@ def main(argv=None):
     from gedepth_tpu_torch.train.checkpoint import save_params_only
 
     disable_tf32()
-    cfg = get_config(args.config)
+    cfg = apply_options(get_config(args.config), args.options)
     model = cfg.model.build(generator=torch.Generator().manual_seed(0))
     _, report = convert_checkpoint_file(args.checkpoint, model,
                                         official_swin=args.official_swin)
     for name, what in (("unmapped_torch_keys", "torch keys had no mapping"),
+                       ("unused_torch_keys", "torch keys map to modules "
+                        "this model lacks"),
                        ("missing_params", "model parameters kept the "
                         "seeded initialisation"),
                        ("missing_stats", "BatchNorm statistics kept their "
                         "initial values")):
-        if report[name]:
+        if report.get(name):
             print(f"[warn] {len(report[name])} {what}, e.g. "
                   f"{report[name][:5]}")
     save_params_only(args.out, model)

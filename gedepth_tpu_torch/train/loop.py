@@ -31,8 +31,10 @@ from gedepth_tpu_torch.models.pretrain import load_backbone, overlay_backbone
 from gedepth_tpu_torch.train.checkpoint import (
     CheckpointKeeper, restore_checkpoint, save_params_only)
 from gedepth_tpu_torch.train.steps import (
-    batch_to_device, create_train_state, make_train_step)
+    batch_to_device, create_train_state, make_train_step,
+    make_zoo_train_step)
 from gedepth_tpu_torch.utils.env import collect_env
+from gedepth_tpu_torch.utils.tensorboard import TensorboardLogger
 
 
 @contextlib.contextmanager
@@ -105,6 +107,18 @@ def build_datasets(cfg):
     return build_train_dataset(cfg), build_eval_dataset(cfg)
 
 
+def train_step_for(cfg):
+    """The train step of an `ExperimentConfig`, chosen by cfg.model.arch
+    as the JAX loop chooses it: `make_train_step` for GEDepth,
+    `make_zoo_train_step` for a zoo arch; bf16 from
+    cfg.train.bf16_compute."""
+    o, bf16 = cfg.optim, cfg.train.bf16_compute
+    if cfg.model.arch == "gedepth":
+        return make_train_step(o.sig_loss_weight, o.slope_ce_weight,
+                               bf16=bf16)
+    return make_zoo_train_step(o.sig_loss_weight, bf16=bf16)
+
+
 LESS_IS_BETTER = ("abs_rel", "sq_rel", "rmse", "rmse_log", "log_10", "silog")
 GREATER_IS_BETTER = ("a1", "a2", "a3")
 
@@ -141,8 +155,8 @@ def train(cfg, work_dir: Optional[str] = None,
     checkpoint; returns (state, history, best).
 
     history: one dict per step, mode 'train': iter, lr, loss, loss_depth,
-    loss_slope (adaptive models), grad_norm, time (seconds of the step on a
-    synchronised host clock) and, on a CUDA device, peak_mem_mib (the
+    loss_slope (adaptive models), grad_norm, time (seconds of this one step
+    on a synchronised host clock) and, on a CUDA device, peak_mem_mib (the
     step's peak of allocated device memory); and one per evaluation, mode
     'val': iter, the nine metrics, images and time (seconds).
     best: the 'val' record with the best value of the save-best metric
@@ -183,9 +197,18 @@ def train(cfg, work_dir: Optional[str] = None,
     work_dir=None writes nothing. With a work_dir: `train.log.jsonl` (an
     'env' record, then a 'train' record every log_interval steps and at the
     last, and every 'val' record), `best_{metric}.npz`
-    (`checkpoint.save_params_only`) whenever the metric improves, and the
+    (`checkpoint.save_params_only`) whenever the metric improves, the
     newest cfg.train.max_keep_ckpts checkpoints under work_dir/ckpts, one
-    every cfg.train.checkpoint_interval steps and at the last.
+    every cfg.train.checkpoint_interval steps and at the last, and the
+    TensorBoard events under work_dir/tb (every number of each written
+    record as `train/<key>` or `val/<key>`; nothing without the
+    `tensorboard` package). A written train record's `time` is the JAX
+    loop's: seconds on the host clock since the previous written train
+    record, or since the loop started for the first, so it spans the
+    log_interval steps with their data waits and any evaluation between.
+
+    The step is `make_train_step` for GEDepth and `make_zoo_train_step`
+    for a zoo arch (cfg.model.arch), as in the JAX loop.
 
     TF32 is left as the caller set it (`utils.env.disable_tf32`)."""
     max_iters = max_iters or cfg.train.max_iters
@@ -227,15 +250,13 @@ def train(cfg, work_dir: Optional[str] = None,
                 print(f"overlaid the backbone from {load_backbone_from}",
                       flush=True)
         state.generator.manual_seed(seed + 1)
-        train_step = make_train_step(cfg.optim.sig_loss_weight,
-                                     cfg.optim.slope_ce_weight,
-                                     bf16=cfg.train.bf16_compute)
+        train_step = train_step_for(cfg)
         evaluator = Evaluator(state.model, build_eval_dataset(cfg), cfg.data)
         key, sign = best_rule(cfg.train.save_best, evaluator.key_metric)
         best = {key: sign * float("inf")}
 
         stack.enter_context(cudnn_autotuner())
-        log = keeper = None
+        log = keeper = tb = None
         if work_dir is not None and main:
             keeper = CheckpointKeeper(osp.join(work_dir, "ckpts"),
                                       cfg.train.max_keep_ckpts)
@@ -244,12 +265,16 @@ def train(cfg, work_dir: Optional[str] = None,
             log.write(json.dumps({"mode": "env", **{
                 k: str(v) for k, v in collect_env().items()}}) + "\n")
             log.flush()
+            tb = TensorboardLogger(osp.join(work_dir, "tb"))
+            stack.callback(tb.close)
 
-        def write(record):
+        def write(record, prefix):
             if log is not None:
                 log.write(json.dumps(record) + "\n")
                 log.flush()
+                tb.scalars(record["iter"], record, prefix=prefix)
 
+        t_last = time.time()
         for it in range(state.step, max_iters):
             batch = batch_to_device(next(batches), device)
             if cuda:
@@ -268,7 +293,9 @@ def train(cfg, work_dir: Optional[str] = None,
             history.append(record)
             is_last = it + 1 == max_iters
             if (it + 1) % cfg.train.log_interval == 0 or is_last:
-                write(record)
+                now = time.time()
+                write(dict(record, time=round(now - t_last, 3)), "train/")
+                t_last = now
                 if main:
                     print(f"iter {it + 1}/{max_iters} "
                           f"loss={record['loss']:.4f} "
@@ -283,7 +310,7 @@ def train(cfg, work_dir: Optional[str] = None,
                 # the metrics agree on every process; the time is process 0's
                 val = parallel.broadcast_object(val)
                 history.append(val)
-                write(val)
+                write(val, "val/")
                 if main:
                     print(f"eval @ {it + 1}: " + " ".join(
                         f"{k}={agg[k]:.4f}" for k in dict.fromkeys(

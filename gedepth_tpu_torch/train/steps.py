@@ -6,7 +6,8 @@ the GT size with align_corners=True, SigLoss (+ 0.08·slope CE on the f32
 logits when the model is adaptive), backward, the global gradient norm of
 the raw gradients, the clip, then one AdamW update at the LR the schedule
 gives for the updates done so far. PyTorch runs eagerly, so the step is a
-plain function that updates the state in place.
+plain function that updates the state in place. `make_zoo_train_step` is
+the zoo models' step: the same with SigLoss alone.
 
 More than one process (`parallel`): each process runs the step on its
 rows of the global batch. SigLoss, the slope cross entropy and every
@@ -119,6 +120,24 @@ def _apply_bf16(model, img, cam_height):
         model, params, (img.to(torch.bfloat16), cam_height))
 
 
+def _train_forward(state, batch, bf16):
+    """The model's forward in train mode on `batch`, its generator set and
+    the gradients zeroed: the first half of every train step."""
+    model = state.model
+    model.train()
+    model.set_generator(state.generator)
+    state.optimizer.zero_grad(set_to_none=True)
+    if bf16:
+        return _apply_bf16(model, batch["img"], batch.get("cam_height"))
+    return model(batch["img"], batch.get("cam_height"))
+
+
+def _resized_depth(out, gt):
+    """The f32 depth resized to the GT's size with align_corners=True."""
+    return resize_bilinear(out["depth"].float(), gt.shape[1:3],
+                           align_corners=True)
+
+
 def make_train_step(sig_loss_weight: float = 1.0,
                     slope_ce_weight: float = 0.08,
                     sig_max_depth: Optional[float] = None, bf16: bool = False):
@@ -137,19 +156,10 @@ def make_train_step(sig_loss_weight: float = 1.0,
 
     def train_step(state: TrainState, batch):
         model = state.model
-        model.train()
-        model.set_generator(state.generator)
-        state.optimizer.zero_grad(set_to_none=True)
-
-        if bf16:
-            out = _apply_bf16(model, batch["img"], batch.get("cam_height"))
-        else:
-            out = model(batch["img"], batch.get("cam_height"))
+        out = _train_forward(state, batch, bf16)
         gt = batch["depth_gt"][..., None]
-        depth = resize_bilinear(out["depth"].float(), gt.shape[1:3],
-                                align_corners=True)
         loss = loss_depth = sig_loss_weight * sigloss(
-            depth, gt, max_depth=sig_max_depth)
+            _resized_depth(out, gt), gt, max_depth=sig_max_depth)
         metrics = {"loss_depth": loss_depth.detach()}
         if model.pe_variant == "adaptive":
             loss_slope = slope_ce_weight * softmax_ce_ignore(
@@ -159,6 +169,39 @@ def make_train_step(sig_loss_weight: float = 1.0,
         loss.backward()
         grad_norm, lr = state.apply_gradients()
         return dict(metrics, loss=loss.detach(), grad_norm=grad_norm, lr=lr)
+
+    return train_step
+
+
+def make_zoo_train_step(sig_loss_weight: float = 10.0,
+                        aux_loss_indices=(), aux_loss_weights=(),
+                        class_ce_weight: float = 0.0,
+                        chamfer_weight: float = 0.0, bf16: bool = False):
+    """train_step(state, batch) -> metrics for a `ZooDepther` (the port of
+    `gedepth_tpu.train.steps.make_zoo_train_step`): the depth resized to
+    the GT with align_corners=True, then sig_loss_weight · SigLoss over
+    every GT > 0 (no max_depth); the gradient norm, the clip, AdamW, the
+    global batch's losses and BatchNorm statistics and `bf16` as in
+    `make_train_step`. metrics: loss, loss_depth, grad_norm, lr.
+
+    The auxiliary-layer, scene-class and bin-chamfer terms need
+    BinsFormer's and AdaBins's outputs, which are not ported: non-zero
+    weights for them raise NotImplementedError."""
+    if (tuple(aux_loss_indices) or tuple(aux_loss_weights)
+            or class_ce_weight or chamfer_weight):
+        raise NotImplementedError(
+            "the zoo's auxiliary, class-CE and chamfer losses come with "
+            "BinsFormer and AdaBins (ROADMAP.md Queue 1)")
+
+    def train_step(state: TrainState, batch):
+        out = _train_forward(state, batch, bf16)
+        gt = batch["depth_gt"][..., None]
+        loss = sig_loss_weight * sigloss(_resized_depth(out, gt), gt)
+        loss.backward()
+        grad_norm, lr = state.apply_gradients()
+        loss = loss.detach()
+        return {"loss_depth": loss, "loss": loss, "grad_norm": grad_norm,
+                "lr": lr}
 
     return train_step
 

@@ -235,7 +235,15 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
 
 def write_png(path, array: np.ndarray) -> None:
     """Write uint8 (H, W) gray or (H, W, 3) RGB, or uint16 (H, W) gray, with
-    filter type 0 on every row."""
+    filter type 0 on every row (`encode_png`)."""
+    body = encode_png(array)
+    with open(path, "wb") as f:
+        f.write(body)
+
+
+def encode_png(array: np.ndarray) -> bytes:
+    """The PNG file of uint8 (H, W) gray or (H, W, 3) RGB, or uint16 (H, W)
+    gray, with filter type 0 on every row, as bytes."""
     a = np.asarray(array)
     if a.dtype == np.uint8 and a.ndim == 2:
         ctype, depth = 0, 8
@@ -250,10 +258,8 @@ def write_png(path, array: np.ndarray) -> None:
     height, width = a.shape[:2]
     rows = np.ascontiguousarray(a).view(np.uint8).reshape(height, -1)
     raw = np.concatenate([np.zeros((height, 1), np.uint8), rows], axis=1)
-    body = (SIGNATURE
+    return (SIGNATURE
             + _chunk(b"IHDR", struct.pack(">IIBBBBB", width, height, depth,
                                           ctype, 0, 0, 0))
             + _chunk(b"IDAT", zlib.compress(raw.tobytes()))
             + _chunk(b"IEND", b""))
-    with open(path, "wb") as f:
-        f.write(body)

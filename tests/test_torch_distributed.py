@@ -26,6 +26,7 @@ environment (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT), each with its own
 timeout; they and the one-process references run on one torch thread.
 """
 import dataclasses
+import importlib.util
 import json
 import os
 import socket
@@ -367,8 +368,13 @@ def test_only_rank_zero_writes(runs):
         ("env", None), ("train", 3), ("val", 3)]
     assert sorted(os.listdir(work / "ckpts")) == ["ckpt_00000003.pt"]
     assert (work / "best_abs_rel.npz").exists()
-    assert sorted(os.listdir(work)) == ["best_abs_rel.npz", "ckpts",
-                                        "train.log.jsonl"]
+    # TensorBoard's events where the package imports: one file a train()
+    # call, process 0's
+    tb = importlib.util.find_spec("tensorboard") is not None
+    assert sorted(os.listdir(work)) == ["best_abs_rel.npz", "ckpts"] + (
+        ["tb"] if tb else []) + ["train.log.jsonl"]
+    if tb:
+        assert len(os.listdir(work / "tb")) == 2
     # process 0 alone prints
     assert "iter 1/2" in runs["logs"][0] and "iter 1/2" not in runs["logs"][1]
 

@@ -184,10 +184,8 @@ def test_port_init_matches_jax_init_rules():
 
 # fields of the JAX dataclasses that the port leaves out on purpose
 LEFT_OUT = {
-    # the JAX parameter layout, a negative result, and the zoo's
-    # architecture fields
-    "model": {"swin_scan", "neck_value_bf16", "arch", "backbone_variant",
-              "backbone_embed_dims", "backbone_depth", "n_bins"},
+    # the JAX parameter layout and a negative result
+    "model": {"swin_scan", "neck_value_bf16"},
     # NYU's scene classes (the zoo's BinsFormer)
     "data": {"scene_classes"},
     # the zoo's loss composition
@@ -201,7 +199,8 @@ REFERENCE_PRESETS = ("gedepth_adaptive_kitti",
                      "gedepth_adaptive_kitti_parity",
                      "gedepth_vanilla_kitti", "depthformer_baseline_kitti",
                      "gedepth_vanilla_ddad", "gedepth_adaptive_ddad",
-                     "gedepth_adaptive_ddad_tpu")
+                     "gedepth_adaptive_ddad_tpu", "bts_kitti",
+                     "densedepth_kitti")
 
 
 def _assert_preset_matches_jax(name):

@@ -78,6 +78,8 @@ COMPAT_ARGVS = (
     ["x.npz", "--config", "gedepth_adaptive_kitti_parity", "--radii", "5,6",
      "--images", "1", "--seed", "3", "--budget", "2e-3", "--cpu"],
     ["x.npz", "--radii", "4,8"],
+    ["x.npz", "--cpu", "--options", "model.embed_dims=32",
+     "data.eval_size=64,128"],
 )
 
 
@@ -89,7 +91,7 @@ def test_compat_check_takes_the_jax_tools_arguments(argv, monkeypatch):
     got = vars(port_compat_check.parse_args(argv))
     shared = set(want) & set(got)
     assert shared == {"checkpoint", "config", "radii", "budget", "images",
-                      "seed"}
+                      "seed", "options"}
     assert {k: got[k] for k in shared} == {k: want[k] for k in shared}
     assert got["device"] == ("cpu" if want["cpu"] else "cuda")
 
