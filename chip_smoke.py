@@ -245,25 +245,31 @@ with its host-clock seconds); any failure raises and exits non-zero:
      the parity preset (compat R = 5, its bf16 scope) and exact f32: depth
      (1, 352, 1216), finite, mean and p99 abs-rel, the mean below 5e-2
      (tests/test_dress_rehearsal.py's rail).
- 36. the zoo's ResNet presets, `bts_kitti` (ResNet-50 + BTS) and
-     `densedepth_kitti` (ResNet-50 + DenseDepth), f32 with cuDNN's
-     autotuner, each with the port's kernel counts set to 0 before it and
-     read after (the zoo path runs none of them, as in JAX, where no
+ 36. the zoo's presets, `bts_kitti` (ResNet-50 + BTS), `densedepth_kitti`
+     (ResNet-50 + DenseDepth) and `dpt_kitti` (ViT-B + DPT) from the KITTI
+     tree, and `adabins_nyu` (EfficientNet-b0 + AdaBins) from an NYU tree
+     of `tools.make_tree` (3 scenes of 4 frames at 480x640), f32 with
+     cuDNN's autotuner, each with the port's kernel counts set to 0 before
+     it and read after (the zoo path runs none of them, as in JAX, where no
      Pallas kernel lies on it): `init_depther` with a seeded
-     initialisation and 3 flip-TTA requests of phase 4 (375x1242, KB
-     crop), the first held against the same weights' forward on the CPU
-     (rtol 1e-3, atol 1e-3 m; and the head's last conv before its ReLU,
-     rtol 1e-3, atol 1e-3 of its largest value, since at seeded weights
-     the ReLU may zero the depth), the request latency, the eval step's
-     CUDA-event time and peak memory; `train()` for 3 steps at 352x704,
-     batch 2, from the KITTI tree of phase 23 with a work dir: finite
-     losses, the step's time and peak memory, the autotuner's seconds on
-     the first step (its time less a later step's), the evaluation at the
-     last step; the `tb/` events read back against the JSONL where the
-     `tensorboard` package imports (printed either way); `tools.test` on
-     the tree with the run's best `.npz`; then the train step timed as
-     `tools.benchmark --train-step` times it (10 steps by CUDA events
-     after the autotuned first and 3 more; peak memory).
+     initialisation and 3 flip-TTA requests (phase 4's 375x1242 frames, KB
+     crop, 352x1216; the NYU tree's test frames at 480x640, RGB alone),
+     the first held against the same weights' forward on the CPU (rtol
+     1e-3, atol 1e-3 m; and a decode-head module's output, rtol 1e-3, atol
+     1e-3 of its largest value: the last conv before the head's ReLU,
+     since at seeded weights the ReLU may zero the depth, or AdaBins'
+     decoder's last conv), the request latency, the eval step's CUDA-event
+     time and peak memory; `train()` for 3 steps at 352x704 (NYU: 416x544),
+     batch 2, from its tree with a work dir: finite losses, the step's time
+     and peak memory, the autotuner's seconds on the first step (its time
+     less a later step's), the evaluation at the last step; the `tb/`
+     events read back against the JSONL where the `tensorboard` package
+     imports (printed either way); `tools.test` on the tree with the run's
+     best `.npz`; then the train step timed as `tools.benchmark
+     --train-step` times it (10 steps by CUDA events after the autotuned
+     first and 3 more; peak memory); for `adabins_nyu` also one step with
+     chamfer_weight 0.1 (`[zoo adabins_nyu] chamfer`: its loss terms and
+     peak).
 The phases run in the order 1, 2, 23, 3, 6, 13, 9, 24, 4, 5, 31, 32, 7, 8,
 34, 20, 21, 33, 22, 35, 25, 26, 27, 10, 11, 12, 14-19, 28-30, 36: every kernel check
 comes before the first model, because `torch.profiler` loses device
@@ -1251,8 +1257,8 @@ def check_f32_state(state, steps, tag):
           "is f32 and finite; the statistics moved", flush=True)
 
 
-def check_depth(tag, d, cfg):
-    if d.shape != (352, 1216) or not np.isfinite(d).all():
+def check_depth(tag, d, cfg, shape=(352, 1216)):
+    if d.shape != shape or not np.isfinite(d).all():
         fail(f"{tag}: depth {d.shape} not finite")
     if d.min() < cfg.min_depth - 1e-6 or d.max() > cfg.max_depth + 1e-4:
         fail(f"{tag}: depth outside [{cfg.min_depth}, {cfg.max_depth}]: "
@@ -2423,7 +2429,7 @@ def phase_trees(work):
     a filtered camera) written from seeded data by `tools.make_tree` with
     `utils.png.write_png`, finished by the port's two preprocessing tools;
     the host ms a sample of the PNG decode and of each whole train chain.
-    Returns {'kitti': tree, 'ddad': tree, 'host_ms': {...}}."""
+    Returns {'kitti': tree, 'ddad': tree, 'host_ms': {...}, 'work': work}."""
     import os.path as osp
 
     from gedepth_tpu_torch.data import build_train_pipeline
@@ -2480,7 +2486,7 @@ def phase_trees(work):
     print("[trees] host ms a sample (median, torch "
           f"{torch.get_num_threads()} threads): "
           + " ".join(f"{k}={v:.1f}" for k, v in host.items()), flush=True)
-    return {"kitti": kitti, "ddad": ddad, "host_ms": host}
+    return {"kitti": kitti, "ddad": ddad, "host_ms": host, "work": work}
 
 
 def phase_kernels_ddad():
@@ -3295,9 +3301,25 @@ def phase_pretrain(tree):
     return line
 
 
-# ---- phase 36: the zoo's ResNet presets ----
+# ---- phase 36: the zoo's presets ----
 
-ZOO_PRESETS = ("bts_kitti", "densedepth_kitti")
+ZOO_PRESETS = ("bts_kitti", "densedepth_kitti", "dpt_kitti", "adabins_nyu")
+# per preset: its tree, the serving frame's size and channels, the decode
+# head's module held against the CPU, the train crop
+ZOO_SPECS = {
+    "bts_kitti": dict(tree="kitti", serve_hw=(352, 1216), channels=5,
+                      head="conv_depth", train_hw=(352, 704)),
+    "densedepth_kitti": dict(tree="kitti", serve_hw=(352, 1216), channels=5,
+                             head="conv_depth", train_hw=(352, 704)),
+    # the head's last conv before its ReLU (conv_depth.head)
+    "dpt_kitti": dict(tree="kitti", serve_hw=(352, 1216), channels=5,
+                      head="conv_depth", train_hw=(352, 704)),
+    # AdaBins' depth is a mean of bin centres, never cut by a ReLU; its
+    # decoder's last conv is held beside it
+    "adabins_nyu": dict(tree="nyu", serve_hw=(480, 640), channels=3,
+                        head="decode_final_conv", train_hw=(416, 544)),
+}
+NYU_TREE_SIZE = (480, 640)
 
 
 def tb_events(log_dir):
@@ -3336,15 +3358,17 @@ def check_tb(tag, work):
           f"({sorted({t for t, _ in want})[:4]} ...)", flush=True)
 
 
-def served_with_head_output(handle, rgb):
+def served_with_head_output(handle, rgb, head="conv_depth"):
     """inference_depther(handle, rgb) and, on the CPU, the output of the
-    decode head's last conv before its ReLU in the first forward of the
-    flip-TTA pair (at seeded weights the ReLU can zero the whole depth,
-    which would hold nothing)."""
+    decode head's module `head` (its last conv before its ReLU, or
+    AdaBins' decoder's last conv) in the first forward of the flip-TTA pair
+    (at seeded weights the ReLU can zero the whole depth, which would hold
+    nothing)."""
     from gedepth_tpu_torch.apis import inference_depther
 
     seen = []
-    hook = handle.model.decode_head.conv_depth.register_forward_hook(
+    module = getattr(handle.model.decode_head, head)
+    hook = module.register_forward_hook(
         lambda m, i, o: seen.append(o.detach().float().cpu()))
     try:
         depth = inference_depther(handle, rgb)
@@ -3356,16 +3380,18 @@ def served_with_head_output(handle, rgb):
 def zoo_serving(preset, requests):
     """`init_depther(preset)` on the card: 3 flip-TTA requests, the first
     against the CPU forward of the same seeded weights (the depth, and the
-    head's last conv before its ReLU). Returns its numbers."""
+    head's module of ZOO_SPECS). Returns its numbers."""
     from gedepth_tpu_torch.apis import inference_depther, init_depther
     from gedepth_tpu_torch.train.loop import cudnn_autotuner
 
-    tag = f"[zoo {preset}]"
+    tag, spec = f"[zoo {preset}]", ZOO_SPECS[preset]
+    h, w = spec["serve_hw"]
     pe = requests[0][1]
     with cudnn_autotuner():
         t0 = time.perf_counter()
         handle = init_depther(preset, device="cuda", pe_raw=pe, seed=SEED)
-        first, head_out = served_with_head_output(handle, requests[0][0])
+        first, head_out = served_with_head_output(handle, requests[0][0],
+                                                  spec["head"])
         first_s = time.perf_counter() - t0
         torch.cuda.reset_peak_memory_stats()
         latencies, depths = [], []
@@ -3373,13 +3399,13 @@ def zoo_serving(preset, requests):
             t = time.perf_counter()
             depths.append(inference_depther(handle, rgb))
             latencies.append((time.perf_counter() - t) * 1e3)
-        img = torch.randn((1, 352, 1216, 5), device="cuda",
+        img = torch.randn((1, h, w, spec["channels"]), device="cuda",
                           generator=torch.Generator("cuda").manual_seed(SEED))
         ch = torch.full((1,), 1.65, device="cuda")
         step_ms = cuda_ms(lambda: handle.eval_step(img, ch), reps=5)
         peak = torch.cuda.max_memory_allocated() / 2**20
     for i, d in enumerate(depths):
-        check_depth(f"{tag} request {i}", d, handle.cfg.model)
+        check_depth(f"{tag} request {i}", d, handle.cfg.model, (h, w))
     if not np.array_equal(first, depths[0]):
         fail(f"{tag} the same request twice gave two depths")
     n_params = sum(p.numel() for p in handle.model.parameters())
@@ -3388,19 +3414,20 @@ def zoo_serving(preset, requests):
 
     t0 = time.perf_counter()
     cpu = init_depther(preset, device="cpu", pe_raw=pe, seed=SEED)
-    want, want_head = served_with_head_output(cpu, requests[0][0])
+    want, want_head = served_with_head_output(cpu, requests[0][0],
+                                              spec["head"])
     cpu_s = time.perf_counter() - t0
     err = np.abs(depths[0] - want)
     compare(f"{tag} depth, card against CPU", torch.from_numpy(depths[0]),
             torch.from_numpy(want), rtol=1e-3, atol=1e-3)
     scale = want_head.abs().max().item()
-    compare(f"{tag} head's last conv before its ReLU, card against CPU "
+    compare(f"{tag} decode_head.{spec['head']}, card against CPU "
             f"(max |x| {scale:.3g})", head_out, want_head, rtol=1e-3,
             atol=1e-3 * scale)
     print(f"{tag} {n_params} parameters; first request {first_s:.2f} s "
           f"(init, cuDNN's search); request latency ms "
           f"{[round(x, 3) for x in latencies]}; flip-TTA eval step "
-          f"{step_ms:.3f} ms (CUDA events, 352x1216); peak {peak:.1f} MiB; "
+          f"{step_ms:.3f} ms (CUDA events, {h}x{w}); peak {peak:.1f} MiB; "
           f"against the CPU ({cpu_s:.1f} s): max abs {err.max():.3e} m, "
           f"mean rel {float(np.mean(err / want)):.3e}", flush=True)
     return {"request_ms": statistics.median(latencies),
@@ -3409,8 +3436,8 @@ def zoo_serving(preset, requests):
 
 
 def zoo_training(preset, tree, tb_ok):
-    """`train(preset)` for 3 steps from the KITTI tree into a work dir, its
-    tb/ events, then `tools.test` with its best `.npz`."""
+    """`train(preset)` for 3 steps from its tree (KITTI or NYU) into a work
+    dir, its tb/ events, then `tools.test` with its best `.npz`."""
     import contextlib as cl
     import dataclasses
     import io
@@ -3443,7 +3470,8 @@ def zoo_training(preset, tree, tb_ok):
         autotune_s = history[0]["time"] - step_ms / 1e3
         peak = max(r["peak_mem_mib"] for r in history[1:])
         print(f"{tag} train({preset!r}, max_iters={steps}), global batch 2, "
-              f"crop {cfg.data.crop_size}, the KITTI tree: {wall:.1f} s with "
+              f"crop {cfg.data.crop_size}, the {cfg.data.dataset} tree: "
+              f"{wall:.1f} s with "
               f"init and evaluation; step {step_ms:.3f} ms, peak "
               f"{peak:.1f} MiB; cuDNN's autotuner ~{autotune_s:.1f} s on "
               "the first step", flush=True)
@@ -3460,7 +3488,7 @@ def zoo_training(preset, tree, tb_ok):
         line = json.loads(out.getvalue().strip().splitlines()[-1])
         if line["images"] != 2 or not all(
                 np.isfinite(line[k]) for k in ("abs_rel", "rmse", "a1")):
-            fail(f"{tag} tools.test on the KITTI tree: {line}")
+            fail(f"{tag} tools.test on the {cfg.data.dataset} tree: {line}")
         print(f"{tag} tools.test with the run's best_abs_rel.npz: "
               f"{json.dumps(line)}", flush=True)
     return {"loop_step_ms": step_ms, "loop_peak_mib": peak,
@@ -3468,14 +3496,15 @@ def zoo_training(preset, tree, tb_ok):
 
 
 def zoo_step_timing(preset):
-    """The f32 train step at 352x704, batch 2, timed as `tools.benchmark
-    --train-step` does (the autotuned first step apart, 3 warm-up steps,
-    10 timed by CUDA events; the profiler's busy time and the idle
-    share)."""
+    """The f32 train step at the preset's crop, batch 2, timed as
+    `tools.benchmark --train-step` does (the autotuned first step apart, 3
+    warm-up steps, 10 timed by CUDA events; the profiler's busy time and
+    the idle share)."""
     from gedepth_tpu_torch.tools.benchmark import run_benchmark
 
-    r = run_benchmark(preset, iters=10, warmup=3, batch=2, height=352,
-                      width=704, train_step=True, device="cuda", seed=SEED)
+    h, w = ZOO_SPECS[preset]["train_hw"]
+    r = run_benchmark(preset, iters=10, warmup=3, batch=2, height=h,
+                      width=w, train_step=True, device="cuda", seed=SEED)
     print(f"[zoo {preset}] tools.benchmark --train-step: {json.dumps(r)}",
           flush=True)
     if not r["device_ms_median"] > 0:
@@ -3486,9 +3515,77 @@ def zoo_step_timing(preset):
             "first_step_ms": r["first_step_ms"]}
 
 
-def phase_zoo(tree, requests):
-    """Phase 36: `bts_kitti` and `densedepth_kitti` served, trained and
+def nyu_requests(tree):
+    """The NYU tree's test frames, RGB without a plane embedding, as
+    (rgb, None) requests."""
+    import os.path as osp
+
+    from gedepth_tpu_torch.utils.png import read_rgb
+
+    with open(tree["test"]) as f:
+        return [(read_rgb(osp.join(tree["root"], line.split()[0])), None)
+                for line in f if line.strip()]
+
+
+def zoo_chamfer_step(tree):
+    """One `adabins_nyu` train step with chamfer_weight 0.1 on a batch of 2
+    of the NYU tree at the 416x544 crop: the loss and its terms, finite,
+    and the step's peak (the (2, 256, 416·544) distance tensor of the
+    chamfer is formed whole)."""
+    import dataclasses
+
+    from gedepth_tpu_torch.configs import get_config
+    from gedepth_tpu_torch.data.loader import TrainLoader
+    from gedepth_tpu_torch.data.transforms import build_train_pipeline
+    from gedepth_tpu_torch.train.loop import (
+        build_train_dataset, cudnn_autotuner, train_step_for)
+    from gedepth_tpu_torch.train.steps import (
+        batch_to_device, create_train_state)
+
+    tag = "[zoo adabins_nyu] chamfer"
+    cfg = get_config("adabins_nyu")
+    cfg = cfg.replace(data=tree_data("adabins_nyu", tree),
+                      optim=dataclasses.replace(cfg.optim,
+                                                chamfer_weight=0.1))
+    model = cfg.model.build(device="cuda",
+                            generator=torch.Generator().manual_seed(SEED))
+    state = create_train_state(model, cfg.optim, cfg.train.max_iters, SEED)
+    step = train_step_for(cfg)
+    batch = TrainLoader(build_train_dataset(cfg),
+                        build_train_pipeline(cfg.data,
+                                             cfg.model.depth_scale),
+                        2, seed=SEED).make_batch(0)
+    batch = batch_to_device(batch, torch.device("cuda"))
+    with cudnn_autotuner():
+        step(state, batch)                 # cuDNN's search, then one timed
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        m = step(state, batch)
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    vals = {k: float(v) for k, v in m.items()}
+    if not (all(np.isfinite(v) for v in vals.values())
+            and vals["loss_chamfer"] > 0):
+        fail(f"{tag}: {vals}")
+    print(f"{tag} chamfer_weight=0.1, batch 2 at 416x544: loss="
+          f"{vals['loss']:.6f} loss_depth={vals['loss_depth']:.6f} "
+          f"loss_chamfer={vals['loss_chamfer']:.6f} "
+          f"grad_norm={vals['grad_norm']:.6f}; step {ms:.3f} ms (host "
+          f"clock, synchronised), peak {peak:.1f} MiB", flush=True)
+    del state, model
+    torch.cuda.empty_cache()
+    return {"chamfer_step_ms": ms, "chamfer_peak_mib": peak,
+            "chamfer_loss": vals["loss_chamfer"]}
+
+
+def phase_zoo(trees, requests):
+    """Phase 36: `bts_kitti`, `densedepth_kitti` and `dpt_kitti` from the
+    KITTI tree and `adabins_nyu` from an NYU tree served, trained and
     evaluated; the port's kernel counts stay 0 over each preset's run."""
+    from gedepth_tpu_torch.tools.make_tree import make_nyu_tree
+
     try:
         import tensorboard  # noqa: F401
         tb_ok = True
@@ -3496,14 +3593,22 @@ def phase_zoo(tree, requests):
         tb_ok = False
     print(f"[zoo] the tensorboard package imports here: {tb_ok}",
           flush=True)
+    nyu_root = tempfile.mkdtemp(dir=trees["work"])
+    trees = dict(trees, nyu=dict(make_nyu_tree(nyu_root, NYU_TREE_SIZE,
+                                               frames=4, seed=SEED),
+                                 root=nyu_root))
+    by_tree = {"kitti": requests, "nyu": nyu_requests(trees["nyu"])}
     counters = _kernel_counters()
     summary = {}
     for preset in ZOO_PRESETS:
         reset_counts(counters)
         t0 = time.perf_counter()
-        summary[preset] = dict(zoo_serving(preset, requests),
-                               **zoo_training(preset, tree, tb_ok),
-                               **zoo_step_timing(preset))
+        tree = trees[ZOO_SPECS[preset]["tree"]]
+        summary[preset] = dict(
+            zoo_serving(preset, by_tree[ZOO_SPECS[preset]["tree"]]),
+            **zoo_training(preset, tree, tb_ok), **zoo_step_timing(preset))
+        if preset == "adabins_nyu":
+            summary[preset].update(zoo_chamfer_step(tree))
         torch.cuda.empty_cache()
         launches, _ = read_counts(counters)
         if any(launches.values()):
@@ -4035,8 +4140,9 @@ def run(stack):
     lap("torchrun, NCCL, a world of one (phase 29)")
     phase_pretrain(trees["kitti"])
     lap("stage-1 pretraining and the backbone overlay (phase 30)")
-    phase_zoo(trees["kitti"], requests)
-    lap("the zoo's bts_kitti and densedepth_kitti (phase 36)")
+    phase_zoo(trees, requests)
+    lap("the zoo's bts_kitti, densedepth_kitti, dpt_kitti and adabins_nyu "
+        "(phase 36)")
 
     sources = {
         "window_attention": ("gedepth_tpu_torch/csrc/window_attention.cu",

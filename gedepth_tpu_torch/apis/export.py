@@ -97,13 +97,13 @@ def export_depther(config: Union[str, object],
     `bf16=True` exports the whole-model bf16 step. (H, W) defaults to the
     preset's eval size. TF32 is left as the caller set it."""
     from gedepth_tpu_torch.apis.inference import init_depther
+    from gedepth_tpu_torch.configs import image_channels
 
     handle = init_depther(config, device=device, flip_tta=flip_tta,
                           bf16=bf16, checkpoint=checkpoint)
     cfg, model, device = handle.cfg, handle.model, handle.device
     h, w = hw if hw is not None else cfg.data.eval_size
-    c = 5 if cfg.model.pe_variant != "none" else 3
-    img = torch.zeros((batch, h, w, c), device=device)
+    img = torch.zeros((batch, h, w, image_channels(cfg)), device=device)
     cam_height = torch.full((batch,), cfg.model.default_cam_height,
                             device=device)
     # one eager step first: the model's index tables, cached by shape and
@@ -122,7 +122,7 @@ def export_depther(config: Union[str, object],
     exported.example_inputs = None
     meta = {
         "config": cfg.name,
-        "input": {"img": [batch, h, w, c], "cam_height": [batch]},
+        "input": {"img": list(img.shape), "cam_height": [batch]},
         "output": "depth (B, H, W) float32 meters",
         "flip_tta": bool(cfg.data.eval_flip_tta if flip_tta is None
                          else flip_tta),

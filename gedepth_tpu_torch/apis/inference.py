@@ -10,7 +10,8 @@ the preset's test pipeline (KITTI: KB crop, normalisation; DDAD: resize to
 input size with align_corners=True, and with flip-TTA the mean of the
 prediction and the un-flipped prediction of the mirrored image
 (`train.steps.make_eval_step`). A model without ground embedding
-(pe_variant 'none') takes the RGB image alone.
+(pe_variant 'none'), or a preset of an RGB-only dataset (NYU), takes the
+RGB image alone.
 
 Precision: a preset with a `bf16_scope` (`gedepth_adaptive_kitti_parity`:
 Swin and the decode head in bf16, HAHI, the PE necks and the fusion in f32)
@@ -26,7 +27,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from gedepth_tpu_torch.configs import get_config
+from gedepth_tpu_torch.configs import get_config, image_channels
 from gedepth_tpu_torch.data.transforms import build_test_pipeline
 from gedepth_tpu_torch.geometry.plane import clip_pe_for_input
 from gedepth_tpu_torch.train.checkpoint import load_params_only
@@ -147,7 +148,7 @@ def inference_depther(handle: DeptherHandle,
     sample = {"img": image,
               "cam_height": np.float32(cam_height if cam_height is not None
                                        else cfg.model.default_cam_height)}
-    if cfg.model.pe_variant != "none" and image.shape[-1] != 5:
+    if image_channels(cfg) == 5 and image.shape[-1] != 5:
         if handle.pe_raw is None:
             raise ValueError("PE variant needs a plane embedding: pass "
                              "pe_path or pe_raw to init_depther or a "

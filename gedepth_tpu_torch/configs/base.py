@@ -7,8 +7,7 @@ counterpart. Left out on purpose: `swin_scan` (it changes only the JAX
 parameter layout, which `convert.from_jax` unstacks), `neck_value_bf16`
 (bf16 values in an f32 neck: the port's
 bf16 goes by `bf16_scope`, whole-model casts and `bf16_compute`), and the
-fields of modules not ported yet (NYU's scene classes, BinsFormer's and
-AdaBins's loss terms).
+fields of modules not ported yet (BinsFormer's loss terms).
 """
 from __future__ import annotations
 
@@ -21,10 +20,11 @@ from typing import Optional, Tuple
 @dataclass(frozen=True)
 class ModelConfig:
     # architecture family: 'gedepth' (DepthFormer + HAHI + PE) or a zoo
-    # arch; 'bts' and 'densedepth' are ported ('adabins', 'dpt',
-    # 'binsformer' and 'seg' raise NotImplementedError)
+    # arch; 'adabins', 'bts', 'dpt' and 'densedepth' are ported
+    # ('binsformer' and 'seg' raise NotImplementedError)
     arch: str = "gedepth"
-    backbone_variant: str = ""        # zoo: the ResNet depth ('50')
+    # zoo: the ResNet depth ('50') or the EfficientNet ('b0', 'tf_b5')
+    backbone_variant: str = ""
     backbone_embed_dims: int = 0      # zoo: 0 = the arch's default
     backbone_depth: int = 0           # zoo: 0 = the arch's default
     n_bins: int = 256                 # zoo: adabins / binsformer bins
@@ -67,9 +67,10 @@ class ModelConfig:
 
     def build(self, device=None, generator=None):
         """The torch model of this configuration, in eval mode: `GEDepth`,
-        or `ZooDepther` for a ported zoo arch ('bts', 'densedepth'); the
-        other zoo archs raise NotImplementedError. A zoo model takes the
-        RGB channels of its input and none of the GEDepth fields."""
+        or `ZooDepther` for a ported zoo arch ('adabins', 'bts', 'dpt',
+        'densedepth'); the other zoo archs raise NotImplementedError. A zoo
+        model takes the RGB channels of its input and none of the GEDepth
+        fields."""
         if self.arch != "gedepth":
             from gedepth_tpu_torch.models.zoo import ZooDepther
             if self.bf16_scope != "none":
@@ -80,6 +81,8 @@ class ModelConfig:
                 arch=self.arch, backbone_variant=self.backbone_variant,
                 min_depth=self.min_depth, max_depth=self.max_depth,
                 head_channels=self.head_channels,
+                backbone_embed_dims=self.backbone_embed_dims,
+                backbone_depth=self.backbone_depth, n_bins=self.n_bins,
                 default_cam_height=self.default_cam_height,
                 device=device, generator=generator).eval()
         from gedepth_tpu_torch.models.depther import GEDepth
@@ -106,7 +109,8 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class DataConfig:
-    dataset: str = "kitti"                # 'kitti' | 'ddad' | 'synthetic'
+    # 'kitti' | 'ddad' | 'nyu' | 'synthetic'
+    dataset: str = "kitti"
     data_root: str = "data/kitti"
     train_split: str = "splits/kitti_eigen_train.txt"
     test_split: str = "splits/kitti_eigen_test.txt"
@@ -126,6 +130,9 @@ class DataConfig:
     ddad_resize: Optional[Tuple[int, int]] = None
     # the train set repeated this many times (data.wrappers.RepeatDataset)
     repeat_times: int = 1
+    # NYU: per-sample scene classes from the split's paths (the zoo's
+    # BinsFormer reads them; data.nyu.NYUDataset)
+    scene_classes: bool = False
     # samples of the synthetic train set
     synthetic_size: int = 64
 
@@ -141,6 +148,9 @@ class OptimConfig:
     grad_clip_norm: float = 35.0
     sig_loss_weight: float = 1.0
     slope_ce_weight: float = 0.08
+    # the zoo's bin-centre chamfer (AdaBins' bin_edges;
+    # models.losses.bins_chamfer_loss): off in every preset
+    chamfer_weight: float = 0.0
 
 
 @dataclass(frozen=True)
@@ -181,6 +191,20 @@ class ExperimentConfig:
 
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)
+
+
+# datasets whose samples carry RGB alone (no plane embedding)
+RGB_DATASETS = ("nyu",)
+
+
+def image_channels(cfg) -> int:
+    """Channels of the model input a preset's data gives: 5 (RGB, clipped
+    and raw PE) for a model with a PE variant on KITTI, DDAD or synthetic
+    frames, 3 without a PE variant or on an RGB-only dataset (NYU: the
+    zoo model reads the RGB channels alone)."""
+    if cfg.model.pe_variant == "none" or cfg.data.dataset in RGB_DATASETS:
+        return 3
+    return 5
 
 
 def _boolean(key, val):

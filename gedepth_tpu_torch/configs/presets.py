@@ -19,6 +19,18 @@ def _ddad_data():
         flip_prob=0.0, ddad_resize=(384, 640))
 
 
+def _nyu_data():
+    """NYU Depth v2 (configs/_base_/datasets/nyu.py of the reference): GT
+    PNG / 1000, a 416x544 crop, the eigen crop in evaluation, flip and
+    flip-TTA."""
+    return DataConfig(
+        dataset="nyu", data_root="data/nyu",
+        train_split="splits/nyu_train.txt", test_split="splits/nyu_test.txt",
+        gt_depth_scale=1000.0, crop_size=(416, 544), eval_size=(416, 544),
+        garg_crop=False, eigen_crop=True, flip_prob=0.5,
+        eval_flip_tta=True)
+
+
 def _ddad_model(variant, **kw):
     return ModelConfig(pe_variant=variant, max_depth=200.0,
                        depth_scale=250.0, default_cam_height=1.55, **kw)
@@ -80,14 +92,31 @@ _PRESETS = {
         _ddad_model("adaptive", neck_sampling="windowed",
                     neck_hi_min_level=1)),
     # the toolbox model zoo (the reference's configs/_base_/models/*.py).
-    # Both keep the default pe_variant 'adaptive', as the JAX presets do:
-    # the KITTI loader reads the PE channels and the model ignores them.
+    # All keep the default pe_variant 'adaptive', as the JAX presets do:
+    # the KITTI loader reads the PE channels and the model ignores them;
+    # NYU frames carry RGB alone.
+    # AdaBins: EfficientNet + the mini-ViT's adaptive bins
+    # (_base_/models/adabins.py; SigLoss weight 10)
+    "adabins_nyu": lambda: ExperimentConfig(
+        name="adabins_nyu",
+        model=ModelConfig(arch="adabins", backbone_variant="b0",
+                          head_channels=128, n_bins=256, max_depth=10.0),
+        data=_nyu_data(),
+        optim=OptimConfig(sig_loss_weight=10.0),
+        train=TrainConfig(max_iters=38400, global_batch=16)),
     # BTS: ResNet-50 + local planar guidance (_base_/models/bts.py)
     "bts_kitti": lambda: ExperimentConfig(
         name="bts_kitti",
         model=ModelConfig(arch="bts", backbone_variant="50",
                           head_channels=128, max_depth=80.0),
         data=DataConfig()),
+    # DPT: ViT-Base + the reassemble and fusion head (_base_/models/dpt.py
+    # sets no loss: the base head's SigLoss weight 10)
+    "dpt_kitti": lambda: ExperimentConfig(
+        name="dpt_kitti",
+        model=ModelConfig(arch="dpt", head_channels=256, max_depth=80.0),
+        data=DataConfig(),
+        optim=OptimConfig(sig_loss_weight=10.0)),
     # DenseDepth: ResNet-50 + the upsample chain (_base_/models/densedepth.py)
     "densedepth_kitti": lambda: ExperimentConfig(
         name="densedepth_kitti",

@@ -27,6 +27,19 @@ the adaptive one has `dynamic_pe_neck`. `load_flax_variables` loads a tree
 into a model strictly and says which of the two, sampling mode or PE
 variant, does not match when the keys differ.
 
+The zoo's ViT, DPT head, EfficientNets and AdaBins head map leaf by leaf
+too (`_zoo2_torch_name`, `_zoo2_flax_module`), with two exceptions that map
+several leaves to one tensor (`_fuse_flax`, `_split_torch`): flax's
+attention keeps q, k, v and the output projection as kernels (C, heads,
+head dim) and (heads, head dim, C), where the port packs q, k and v into one
+(3C, C) weight (the ViT's `attn.qkv`, AdaBins' `self_attn.in_proj_weight`);
+and the DPT's `_Deconv` is a Dense (C, k·k·F) ordered (k_y, k_x, F) with a
+bias per sub-pixel, where the port's transposed conv keeps a weight (C, F,
+k, k) and a bias (F, k, k). Going back to flax needs the head count: 4 in
+AdaBins' encoder, max(1, C // 64) in the ViT (the zoo's rule).
+The DPT head's `conv_depth` is a leaf name of DenseDepth's head too: a tree
+whose decode head has `reassemble0` is read as DPT's.
+
 `flax_variables_from_state_dict` goes the other way, in the per-block Swin
 layout (the JAX package's `load_params_only` adapts it to either
 `swin_scan`); `train.checkpoint.save_params_only` writes it as the JAX
@@ -146,10 +159,265 @@ def _zoo_flax_module(p):
     return None
 
 
-def _torch_name(names):
-    """Reference key of one flax leaf path (module names, then leaf)."""
+_FFN = {"Dense_0": "layers.0.0", "Dense_1": "layers.1"}
+_DPT_HEAD = {"head_conv1": "0", "head_conv2": "2", "conv_depth": "4"}
+_REGRESSOR = {"regressor0": "0", "regressor1": "2", "regressor2": "4"}
+_TIMM = "backbone.original_model"
+_PT = "decode_head.adaptive_bins_layer.patch_transformer"
+# the transposed convs of the DPT reassemble blocks: layer index -> factor
+DECONV_FACTORS = {0: 4, 1: 2}
+ADABINS_HEADS = 4
+
+
+def _zoo2_torch_name(names, leaf, dpt=False):
+    """Port key of a ViT, DPT-head, EfficientNet or AdaBins-head leaf path,
+    or None (also for the leaves `_fuse_flax` takes)."""
+    top, sub = names[0], names[1]
+    if top == "backbone":
+        if sub in ("cls_token", "pos_embed"):
+            return f"backbone.{sub}"
+        if sub == "patch_embed" and len(names) == 3:
+            return f"backbone.patch_embed.{leaf}"
+        m = re.fullmatch(r"block(\d+)", sub)
+        if m:
+            base = f"backbone.blocks.{m.group(1)}"
+            if names[2] in ("ln1", "ln2"):
+                return f"{base}.{names[2]}.{leaf}"
+            if names[2] == "ffn":
+                return f"{base}.ffn.{_FFN[names[3]]}.{leaf}"
+            return None
+        if sub == "stem":
+            return f"backbone.stem.{names[2]}.{leaf}"
+        m = re.fullmatch(r"s(\d+)_b(\d+)", sub)
+        if m:
+            base = f"backbone.blocks.{m.group(1)}.{m.group(2)}"
+            if names[2] in ("se_reduce", "se_expand"):
+                return f"{base}.{names[2]}.{leaf}"
+            return f"{base}.{names[2]}.{names[3]}.{leaf}"
+        if sub in ("conv_stem", "conv_head") and names[2] == "conv":
+            return f"{_TIMM}.{sub}.{leaf}"
+        if sub == "bn1" and names[2] == "bn":
+            return f"{_TIMM}.bn1.{leaf}"
+        m = re.fullmatch(r"blocks(\d+)_(\d+)", sub)
+        if m:
+            base = f"{_TIMM}.blocks.{m.group(1)}.{m.group(2)}"
+            if names[2] == "se":
+                return f"{base}.se.{names[3]}.{leaf}"
+            return f"{base}.{names[2]}.{leaf}"
+        return None
+    if top != "decode_head":
+        return None
+    m = re.fullmatch(r"reassemble(\d)", sub)
+    if m:
+        base = "decode_head.reassemble_blocks"
+        if names[2] == "readout":
+            return f"{base}.readout_projects.{m.group(1)}.0.{leaf}"
+        if names[2] == "proj":
+            return f"{base}.projects.{m.group(1)}.conv.{leaf}"
+        if names[2] == "resize" and len(names) == 4:
+            return f"{base}.resize_layers.{m.group(1)}.{leaf}"
+        return None
+    m = re.fullmatch(r"channel_proj(\d)", sub)
+    if m:
+        return f"decode_head.convs.{m.group(1)}.conv.{leaf}"
+    m = re.fullmatch(r"fusion(\d)", sub)
+    if m:
+        # the reference counts the fusion blocks from the deepest map
+        base = f"decode_head.fusion_blocks.{3 - int(m.group(1))}"
+        if names[2] == "out":
+            return f"{base}.project.conv.{leaf}"
+        return f"{base}.res_conv_unit{names[2][-1]}.{names[3]}.conv.{leaf}"
+    if sub == "project":
+        return f"decode_head.project.conv.{leaf}"
+    if sub in ("head_conv1", "head_conv2") or (dpt and sub == "conv_depth"):
+        return f"decode_head.conv_depth.head.{_DPT_HEAD[sub]}.{leaf}"
+    if sub == "decode_final_conv":
+        return f"decode_head.decode_final_conv.{leaf}"
+    if sub == "conv_out":
+        return f"decode_head.conv_out.0.{leaf}"
+    if sub == "adaptive_bins_layer":
+        base = "decode_head.adaptive_bins_layer"
+        if names[2] == "conv3x3":
+            return f"{base}.conv3x3.{leaf}"
+        if names[2] in _REGRESSOR:
+            return f"{base}.regressor.{_REGRESSOR[names[2]]}.{leaf}"
+        if names[3] == "positional_encodings":
+            return f"{_PT}.positional_encodings"
+        if names[3] == "embedding_convPxP":
+            return f"{_PT}.embedding_convPxP.{leaf}"
+        m = re.fullmatch(r"layer(\d+)", names[3])
+        if m and names[4] != "self_attn":
+            return (f"{_PT}.transformer_encoder.layers.{m.group(1)}."
+                    f"{names[4]}.{leaf}")
+    return None
+
+
+def _zoo2_flax_module(p):
+    """Flax module path of a ViT, DPT-head, EfficientNet or AdaBins-head
+    port key without its leaf, or None (the inverse of
+    `_zoo2_torch_name`)."""
+    if p[0] == "backbone":
+        if p[1] in ("cls_token", "pos_embed"):
+            return ("backbone",)
+        if p[1] == "patch_embed" and len(p) == 3:
+            return ("backbone", "patch_embed")
+        if p[1] == "stem":
+            return ("backbone", "stem", p[2])
+        if p[1] == "blocks" and p[3].isdigit():          # EfficientNet
+            block = ("backbone", f"s{p[2]}_b{p[3]}")
+            if p[4] in ("se_reduce", "se_expand"):
+                return block + (p[4],)
+            return block + (p[4], p[5])
+        if p[1] == "blocks":                             # ViT
+            block = ("backbone", f"block{p[2]}")
+            if p[3] in ("ln1", "ln2"):
+                return block + (p[3],)
+            if p[3] == "ffn":
+                return block + ("ffn", "Dense_0" if p[5] == "0"
+                                else "Dense_1")
+            return None
+        if p[1] == "original_model":
+            q = p[2:]
+            if q[0] in ("conv_stem", "conv_head"):
+                return ("backbone", q[0], "conv")
+            if q[0] == "bn1":
+                return ("backbone", "bn1", "bn")
+            if q[0] == "blocks":
+                block = ("backbone", f"blocks{q[1]}_{q[2]}")
+                if q[3] == "se":
+                    return block + ("se", q[4])
+                return block + (q[3], "conv" if q[3].startswith("conv")
+                                else "bn")
+        return None
+    if p[0] != "decode_head":
+        return None
+    if p[1] == "reassemble_blocks":
+        block = ("decode_head", f"reassemble{p[3]}")
+        if p[2] == "readout_projects":
+            return block + ("readout",)
+        if p[2] == "projects":
+            return block + ("proj",)
+        if p[2] == "resize_layers" and p[3] == "3":
+            return block + ("resize",)
+        return None
+    if p[1] == "convs":
+        return ("decode_head", f"channel_proj{p[2]}")
+    if p[1] == "fusion_blocks":
+        block = ("decode_head", f"fusion{3 - int(p[2])}")
+        if p[3] == "project":
+            return block + ("out",)
+        return block + (f"rcu{p[3][-1]}", p[4])
+    if p[1] == "project":
+        return ("decode_head", "project")
+    if p[1] == "conv_depth" and p[2] == "head":
+        inverse = {v: k for k, v in _DPT_HEAD.items()}
+        return ("decode_head", inverse[p[3]])
+    if p[1] in ("decode_final_conv", "conv_out"):
+        return ("decode_head", p[1])
+    if p[1] == "adaptive_bins_layer":
+        base = ("decode_head", "adaptive_bins_layer")
+        if p[2] == "conv3x3":
+            return base + ("conv3x3",)
+        if p[2] == "regressor":
+            inverse = {v: k for k, v in _REGRESSOR.items()}
+            return base + (inverse[p[3]],)
+        base += ("patch_transformer",)
+        if p[3] == "positional_encodings":
+            return base
+        if p[3] == "embedding_convPxP":
+            return base + ("embedding_convPxP",)
+        if p[3] == "transformer_encoder" and p[6] != "self_attn":
+            return base + (f"layer{p[5]}", p[6])
+    return None
+
+
+def _fuse_flax(leaves):
+    """(port entries, the other leaves) of a flattened flax tree: the
+    attention leaves packed into the port's q/k/v weights and the DPT's
+    `_Deconv` Dense into its transposed conv's weight and bias."""
+    out, rest, groups = {}, [], {}
+    for names, arr in leaves:
+        if (len(names) >= 3 and names[-3] in ("attn", "self_attn")
+                and names[-2] in ("query", "key", "value", "out")):
+            groups.setdefault(names[:-2], {})[names[-2:]] = arr
+        elif (len(names) == 5 and names[0] == "decode_head"
+              and names[2:4] == ("resize", "dense")):
+            i = int(names[1][len("reassemble"):])
+            f = DECONV_FACTORS[i]
+            key = f"decode_head.reassemble_blocks.resize_layers.{i}."
+            if names[4] == "kernel":
+                c = arr.shape[0]
+                out[key + "weight"] = arr.reshape(c, f, f, -1).transpose(
+                    0, 3, 1, 2)
+            else:
+                out[key + "bias"] = arr.reshape(f, f, -1).transpose(2, 0, 1)
+        else:
+            rest.append((names, arr))
+    for prefix, g in groups.items():
+        c = g[("out", "bias")].shape[0]
+        qkv_w = np.concatenate([g[(n, "kernel")].reshape(c, c).T
+                                for n in ("query", "key", "value")])
+        qkv_b = np.concatenate([g[(n, "bias")].reshape(c)
+                                for n in ("query", "key", "value")])
+        out_w = g[("out", "kernel")].reshape(c, c).T
+        if prefix[0] == "backbone":                      # ViT block
+            base = f"backbone.blocks.{prefix[1][len('block'):]}.attn"
+            names = ("qkv.weight", "qkv.bias", "proj.weight", "proj.bias")
+        else:                                            # AdaBins encoder
+            base = (f"{_PT}.transformer_encoder.layers."
+                    f"{prefix[3][len('layer'):]}.self_attn")
+            names = ("in_proj_weight", "in_proj_bias", "out_proj.weight",
+                     "out_proj.bias")
+        for n, v in zip(names, (qkv_w, qkv_b, out_w, g[("out", "bias")])):
+            out[f"{base}.{n}"] = v
+    return out, rest
+
+
+def _split_torch(key, arr):
+    """[(flax path, array)] of a port entry that `_fuse_flax` packs, or
+    None for any other key (the inverse of `_fuse_flax`)."""
+    p = key.split(".")
+    m = re.fullmatch(r"decode_head\.reassemble_blocks\.resize_layers\."
+                     r"([01])\.(weight|bias)", key)
+    if m:
+        path = ("decode_head", f"reassemble{m.group(1)}", "resize", "dense")
+        if m.group(2) == "weight":
+            return [(path + ("kernel",), arr.transpose(0, 2, 3, 1).reshape(
+                arr.shape[0], -1))]
+        return [(path + ("bias",), arr.transpose(1, 2, 0).reshape(-1))]
+    if key.startswith("backbone.blocks.") and p[3] == "attn":
+        base = ("backbone", f"block{p[2]}", "attn")
+        leaf = ".".join(p[4:])
+    elif key.startswith(f"{_PT}.transformer_encoder.") and p[6] == "self_attn":
+        base = ("decode_head", "adaptive_bins_layer", "patch_transformer",
+                f"layer{p[5]}", "self_attn")
+        leaf = {"in_proj_weight": "qkv.weight", "in_proj_bias": "qkv.bias",
+                "out_proj.weight": "proj.weight",
+                "out_proj.bias": "proj.bias"}[".".join(p[7:])]
+    else:
+        return None
+    c = arr.shape[-1] if leaf != "qkv.bias" else arr.shape[0] // 3
+    heads = ADABINS_HEADS if base[0] == "decode_head" else max(1, c // 64)
+    hd = c // heads
+    if leaf == "qkv.weight":
+        return [(base + (n, "kernel"), w.T.reshape(c, heads, hd))
+                for n, w in zip(("query", "key", "value"),
+                                np.split(arr, 3))]
+    if leaf == "qkv.bias":
+        return [(base + (n, "bias"), b.reshape(heads, hd))
+                for n, b in zip(("query", "key", "value"), np.split(arr, 3))]
+    if leaf == "proj.weight":
+        return [(base + ("out", "kernel"), arr.T.reshape(heads, hd, c))]
+    return [(base + ("out", "bias"), arr)]
+
+
+def _torch_name(names, dpt=False):
+    """Reference key of one flax leaf path (module names, then leaf). dpt:
+    the leaf is a DPT model's (its `decode_head/conv_depth` is the head's
+    last conv)."""
     top, leaf = names[0], _WB.get(names[-1], names[-1])
-    zoo = _zoo_torch_name(names, leaf)
+    zoo = (_zoo2_torch_name(names, leaf, dpt)
+           or _zoo_torch_name(names, leaf))
     if zoo is not None:
         return zoo
     if top == "backbone":
@@ -219,7 +487,7 @@ def _flax_module(key, zoo=False):
     GEDepth's conv stem."""
     p = key.split(".")
     if zoo:
-        path = _zoo_flax_module(p)
+        path = _zoo2_flax_module(p) or _zoo_flax_module(p)
         if path is not None:
             return path
     if p[0] == "backbone":
@@ -293,30 +561,45 @@ def flax_path(key: str, ndim: int, zoo: bool = False):
     return "params", _flax_module(key, zoo) + (leaf,)
 
 
+# backbone keys only a zoo model has: ResNet, ViT, EfficientNet, timm's
+_ZOO_BACKBONES = ("backbone.layer", "backbone.cls_token", "backbone.stem.",
+                  "backbone.original_model.")
+
+
 def is_zoo_state_dict(state_dict: Mapping) -> bool:
-    """Whether a state_dict is a `ZooDepther`'s (a ResNet backbone)."""
-    return any(k.startswith("backbone.layer") for k in state_dict)
+    """Whether a state_dict is a `ZooDepther`'s (by its backbone)."""
+    return any(k.startswith(_ZOO_BACKBONES) for k in state_dict)
+
+
+def _put(tree, names, arr):
+    node = tree
+    for n in names[:-1]:
+        node = node.setdefault(n, {})
+    node[names[-1]] = np.ascontiguousarray(arr)
 
 
 def flax_variables_from_state_dict(state_dict: Mapping):
     """(params, batch_stats) of the JAX GEDepth, nested dicts of f32 numpy
     arrays in the per-block Swin layout, for the port's `state_dict`: conv
     kernels OIHW -> HWIO, dense kernels transposed, `num_batches_tracked`
-    dropped. The inverse of `state_dict_from_flax`."""
+    dropped; packed attention weights and the DPT's transposed convs split
+    as `_split_torch` says. The inverse of `state_dict_from_flax`."""
     trees = {"params": {}, "batch_stats": {}}
     zoo = is_zoo_state_dict(state_dict)
     for key, t in state_dict.items():
+        arr = t.detach().float().cpu().numpy()
+        split = _split_torch(key, arr) if zoo else None
+        if split is not None:
+            for names, part in split:
+                _put(trees["params"], names, part)
+            continue
         where = flax_path(key, t.dim(), zoo)
         if where is None:
             continue
         collection, names = where
-        arr = t.detach().float().cpu().numpy()
         if names[-1] == "kernel":
             arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
-        node = trees[collection]
-        for n in names[:-1]:
-            node = node.setdefault(n, {})
-        node[names[-1]] = np.ascontiguousarray(arr)
+        _put(trees[collection], names, arr)
     return trees["params"], trees["batch_stats"]
 
 
@@ -325,12 +608,14 @@ def state_dict_from_flax(params: Mapping, batch_stats: Mapping = None):
     params = dict(params)
     if "backbone" in params:
         params["backbone"] = unstack_swin_params(params["backbone"])
-    sd = {}
-    leaves = list(_flatten(params))
+    dpt = "reassemble0" in params.get("decode_head", {})
+    fused, leaves = _fuse_flax(list(_flatten(params)))
+    sd = {k: torch.from_numpy(np.array(v, np.float32, order="C"))
+          for k, v in fused.items()}
     if batch_stats:
         leaves += list(_flatten(batch_stats))
     for names, arr in leaves:
-        key = _torch_name(names)
+        key = _torch_name(names, dpt)
         if names[-1] == "kernel":
             arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
         sd[key] = torch.from_numpy(np.array(arr, np.float32, order="C"))
@@ -340,12 +625,24 @@ def state_dict_from_flax(params: Mapping, batch_stats: Mapping = None):
     return sd
 
 
+ADABINS_CONV_OUT = "decode_head.conv_out.0.weight"
+
+
 def load_flax_variables(model, params: Mapping, batch_stats: Mapping = None):
     """Load JAX GEDepth variables into the port's `model`, strictly. A tree
     of another sampling mode (with or without `neck/reference_points`) or
-    another PE variant (PE necks, patch-embed channels) is refused."""
+    another PE variant (PE necks, patch-embed channels) is refused. An
+    AdaBins `conv_out` that the JAX package built at an input with Q <
+    `channels` range queries takes the first Q of the port's inputs, the
+    others zero (`models.adabins`)."""
     sd = state_dict_from_flax(params, batch_stats)
     want = model.state_dict()
+    w = sd.get(ADABINS_CONV_OUT)
+    if (w is not None and ADABINS_CONV_OUT in want
+            and w.shape[1] < want[ADABINS_CONV_OUT].shape[1]):
+        sd[ADABINS_CONV_OUT] = torch.cat([w, w.new_zeros(
+            (w.shape[0], want[ADABINS_CONV_OUT].shape[1] - w.shape[1])
+            + w.shape[2:])], dim=1)
     missing, extra = sorted(set(want) - set(sd)), sorted(set(sd) - set(want))
     shapes = [k for k in sd if k in want and sd[k].shape != want[k].shape]
     if missing or extra or shapes:

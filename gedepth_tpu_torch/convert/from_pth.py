@@ -25,12 +25,25 @@ The zoo's BTS decode head maps as the JAX converter maps it
 (torch_to_jax.py's bts_head.py rules: `upconv{n}.conv`, `bn{n}`, `bn4_2`,
 `conv{n}.0`, `daspp_{d}.atrous_conv.{first_bn, aconv_sequence.{1,2,4}}`,
 `daspp_conv.0`, `reduc*.reduc.{inter_*.0, plane_params, final.0}`, and
-`conv_depth`); DenseDepth's head has GEDepth's keys. The JAX converter
-has no rule for a ResNet backbone: `backbone.conv1` and `bn1` go to
-GEDepth's conv stem, which a zoo model lacks, and `backbone.layer*` stay
-unmapped. So a zoo model takes its decode head from a reference file and
-keeps its seeded backbone, as in the JAX package, although its ResNet
-carries the reference's names: the stem keys are reported as unused.
+`conv_depth`); DenseDepth's head has GEDepth's keys; the DPT head
+(`reassemble_blocks.*`, `convs`, `fusion_blocks`, `project`,
+`conv_depth.head`) and the AdaBins head (`decode_final_conv`,
+`adaptive_bins_layer.*`, `conv_out.0`, and DenseDepth's `conv_list`) map as
+the JAX converter's dpt_head.py and adabins_head.py rules map them. Of the
+backbones, the JAX converter maps timm's EfficientNet under
+`backbone.original_model.` (the AdaBins reference's tf_efficientnet_b5_ap),
+which the port's `TimmEfficientNet` carries under the same names. It has no
+rule for a ResNet, a ViT or the compact EfficientNet: `backbone.conv1`,
+`bn1` and `patch_embed.projection` go to GEDepth's stems, which a zoo
+model lacks, and the rest stays unmapped. So a zoo model other than a tf_
+AdaBins takes its decode head from a reference file and keeps its seeded
+backbone, as in the JAX package, although the ResNet carries the
+reference's names: such backbone keys are reported as unused.
+
+A reference transposed conv of the DPT reassemble blocks has one bias a
+channel; the port's (and the JAX package's) has one a channel and
+sub-pixel, so the file's is spread over the sub-pixels (`np.tile` in the
+JAX converter).
 """
 from __future__ import annotations
 
@@ -76,7 +89,36 @@ _KEPT = [re.compile(p + "$") for p in (
     r"decode_head\.daspp_\d+\.atrous_conv\.aconv_sequence\.[14]\.weight",
     r"decode_head\.daspp_\d+\.atrous_conv\.aconv_sequence\.2\." + _BN,
     r"decode_head\.reduc\d+x\d+\.reduc\.(inter_\d+_\d+\.0|plane_params|"
-    r"final\.0)\.weight")]
+    r"final\.0)\.weight",
+    # timm's EfficientNet (torch_to_jax.py `_map_timm_effnet_key`)
+    r"backbone\.original_model\.(conv_stem|conv_head)\.weight",
+    r"backbone\.original_model\.bn1\." + _BN,
+    r"backbone\.original_model\.blocks\.\d+\.\d+\.(conv_pw|conv_dw|"
+    r"conv_pwl)\.weight",
+    r"backbone\.original_model\.blocks\.\d+\.\d+\.bn\d\." + _BN,
+    r"backbone\.original_model\.blocks\.\d+\.\d+\.se\.(conv_reduce|"
+    r"conv_expand)\." + _WB,
+    # the AdaBins head (adabins_head.py names)
+    r"decode_head\.(decode_final_conv|conv_out\.0)\." + _WB,
+    r"decode_head\.adaptive_bins_layer\.(conv3x3|regressor\.[024])\." + _WB,
+    r"decode_head\.adaptive_bins_layer\.patch_transformer\."
+    r"(positional_encodings|embedding_convPxP\.(weight|bias))",
+    r"decode_head\.adaptive_bins_layer\.patch_transformer\."
+    r"transformer_encoder\.layers\.\d+\.(self_attn\.in_proj_(weight|bias)|"
+    r"self_attn\.out_proj\.(weight|bias)|(linear|norm)\d\.(weight|bias))",
+    # the DPT head (dpt_head.py names)
+    r"decode_head\.reassemble_blocks\.(readout_projects\.\d\.0|"
+    r"projects\.\d\.conv|resize_layers\.[013])\." + _WB,
+    r"decode_head\.convs\.\d\.conv\.weight",
+    r"decode_head\.fusion_blocks\.\d\.project\.conv\." + _WB,
+    r"decode_head\.fusion_blocks\.\d\.res_conv_unit[12]\.conv[12]\.conv\."
+    r"weight",
+    r"decode_head\.project\.conv\." + _WB,
+    r"decode_head\.conv_depth\.head\.[024]\." + _WB)]
+# timm keys past the deepest endpoint, which the JAX converter drops
+_TIMM_DROPPED = re.compile(
+    r"backbone\.original_model\.((bn2|classifier|global_pool)\..*|"
+    r"(bn1|blocks\.\d+\.\d+\.bn\d)\.num_batches_tracked)$")
 # BatchNorms whose `num_batches_tracked` the converter drops
 _BN_TRACKED = re.compile(
     r"(backbone\.bn1|decode_head\.bn\d(_2)?|decode_head\.daspp_\d+\."
@@ -147,7 +189,7 @@ def reference_key_rule(key: str):
         if m.group(2) in _CONVMODULE_LEAVES:
             return True
         return False if m.group(2) == "bn.num_batches_tracked" else None
-    if _BN_TRACKED.match(key):
+    if _BN_TRACKED.match(key) or _TIMM_DROPPED.match(key):
         return False
     return True if any(p.match(key) for p in _KEPT) else None
 
@@ -184,6 +226,19 @@ def resize_swin_pos_tables(sd: Dict[str, torch.Tensor],
     return sd
 
 
+def spread_deconv_bias(sd: Dict[str, torch.Tensor],
+                       model_sd: Dict[str, torch.Tensor]):
+    """In place: a DPT transposed conv's bias of one value a channel (F,)
+    repeated over the (F, k, k) sub-pixels of the model's. Returns `sd`."""
+    for k, v in sd.items():
+        want = model_sd.get(k)
+        if (re.fullmatch(r"decode_head\.reassemble_blocks\.resize_layers\."
+                         r"[01]\.bias", k) and want is not None
+                and v.dim() == 1 and want.dim() == 3):
+            sd[k] = v[:, None, None].expand(want.shape).contiguous()
+    return sd
+
+
 def convert_state_dict(sd: Dict[str, torch.Tensor]):
     """(kept entries, unmapped keys) of a reference state dict, by
     `reference_key_rule`."""
@@ -205,8 +260,9 @@ def convert_checkpoint_file(pth_path: str, model, official_swin=False):
     values. report: `unmapped_torch_keys` (keys no rule maps),
     `missing_params` and `missing_stats` (model parameters and BatchNorm
     running statistics the file did not give) and, for a zoo model,
-    `unused_torch_keys` (keys the JAX converter sends to GEDepth's conv
-    stem, which a zoo model lacks: `backbone.conv1`, `backbone.bn1`)."""
+    `unused_torch_keys` (backbone keys the JAX converter sends to
+    GEDepth's stems, which a zoo model lacks: `backbone.conv1`,
+    `backbone.bn1`, `backbone.patch_embed.projection`)."""
     sd = load_torch_checkpoint(pth_path)
     if official_swin:
         sd = {f"backbone.{k}": v
@@ -214,11 +270,13 @@ def convert_checkpoint_file(pth_path: str, model, official_swin=False):
     sd, unmapped = convert_state_dict(sd)
     zoo = getattr(model, "arch", "gedepth") != "gedepth"
     if zoo:
-        unused = sorted(k for k in sd if k.startswith("backbone."))
+        unused = sorted(k for k in sd if k.startswith("backbone.") and
+                        not k.startswith("backbone.original_model."))
         sd = {k: v for k, v in sd.items() if k not in unused}
     if model.pe_variant != "none":
         pad_patch_embed_for_pe(sd)
     merged = model.state_dict()
+    spread_deconv_bias(sd, merged)
     resize_swin_pos_tables(sd, merged)
     params = dict(model.named_parameters())
     missing_p, missing_s = [], []

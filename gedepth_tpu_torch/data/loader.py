@@ -23,7 +23,8 @@ import threading
 import numpy as np
 import torch
 
-BATCH_KEYS = ("img", "depth_gt", "pe_k_gt", "cam_height", "index")
+BATCH_KEYS = ("img", "depth_gt", "pe_k_gt", "cam_height", "index",
+              "scene_class")
 EVAL_BATCH_KEYS = ("img", "cam_height", "index")
 PREFETCH = 2   # batches prepared ahead
 

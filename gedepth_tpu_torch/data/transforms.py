@@ -67,6 +67,18 @@ class KBCrop:
         return sample
 
 
+class NYUCrop:
+    """NYU's crop of img and the GT fields to rows 45:472 and columns
+    43:608 (427x565 of a 480x640 frame)."""
+
+    def __call__(self, sample, rng=None):
+        sample["img"] = sample["img"][45:472, 43:608]
+        for key in _DEPTH_FIELDS:
+            if key in sample:
+                sample[key] = sample[key][45:472, 43:608]
+        return sample
+
+
 class RandomRatioResize:
     """One draw r uniform in ratio_range; the frame becomes (int(W·r),
     int(H·r)): `img` bilinear, the GT fields nearest."""
@@ -272,8 +284,8 @@ class DDADResize:
 
 def build_train_pipeline(data_cfg, depth_scale=200.0):
     """The training chain of a DataConfig (`gedepth_tpu.train.loop`'s
-    chains for 'kitti', 'ddad' and 'synthetic'); Normalize divides the PE
-    channel by the model's depth_scale."""
+    chains for 'kitti', 'ddad', 'nyu' and 'synthetic'); Normalize divides
+    the PE channel by the model's depth_scale."""
     d = data_cfg
     tail = [RandomFlip(d.flip_prob), RandomCrop(d.crop_size), ColorAug(0.5),
             Normalize(depth_scale=depth_scale)]
@@ -287,6 +299,9 @@ def build_train_pipeline(data_cfg, depth_scale=200.0):
                         RandomRatioResize(d.ratio_range),
                         PadToSize(*d.crop_size),
                         RandomRotate(0.5, d.rotate_degree), *tail])
+    if d.dataset == "nyu":
+        return Compose([NYUCrop(), RandomRotate(0.5, d.rotate_degree),
+                        *tail])
     if d.dataset == "synthetic":
         return Compose(tail)
     raise NotImplementedError(f"dataset {d.dataset!r} is not ported")
@@ -294,7 +309,9 @@ def build_train_pipeline(data_cfg, depth_scale=200.0):
 
 def build_test_pipeline(data_cfg):
     """Deterministic test-time pipeline of a DataConfig
-    (`gedepth_tpu.eval.evaluator.build_test_pipeline`)."""
+    (`gedepth_tpu.eval.evaluator.build_test_pipeline`). NYU has no branch
+    there and takes its fall-through: normalisation at the frame's own
+    size, no crop."""
     if data_cfg.dataset == "ddad":
         return Compose([DDADResize(data_cfg.ddad_resize or (384, 640),
                                    resize_gt=False),
@@ -302,7 +319,7 @@ def build_test_pipeline(data_cfg):
     if data_cfg.dataset == "kitti":
         return Compose([KBCrop(*data_cfg.eval_size, crop_gt=False),
                         Normalize(depth_scale=200.0)])
-    if data_cfg.dataset == "synthetic":
+    if data_cfg.dataset in ("synthetic", "nyu"):
         return Compose([Normalize(depth_scale=200.0)])
     raise NotImplementedError(
         f"dataset {data_cfg.dataset!r} is not ported")

@@ -4,7 +4,8 @@ neck scale to the stem scale, then
   depth = relu(conv_depth(x)) · (1 − y) + pe + min_depth
 with pe and y resized to the head's resolution, or relu(conv_depth(x)) +
 min_depth for a model without ground embedding. align_corners=True
-throughout; LeakyReLU(0.01) in the upsample blocks.
+throughout; LeakyReLU(0.01) in the upsample blocks (`UpSampleBlock` takes
+another activation for AdaBins).
 """
 from __future__ import annotations
 
@@ -19,13 +20,16 @@ from gedepth_tpu_torch.ops.resize import resize_bilinear_nchw
 
 
 class UpSampleBlock(nn.Module):
-    """upsample -> concat skip -> two 3x3 convs with LeakyReLU, no norm."""
+    """upsample -> concat skip -> two 3x3 convs with `act`, no norm. act:
+    LeakyReLU(0.01), as the GEDepth configs have it, or the toolbox's ReLU
+    of AdaBins' `_base_` config."""
 
-    def __init__(self, in_channels, skip_channels, features):
+    def __init__(self, in_channels, skip_channels, features,
+                 act=leaky_relu):
         super().__init__()
         self.convA = ConvModule(in_channels + skip_channels, features, 3,
-                                act=leaky_relu, use_bias=True)
-        self.convB = ConvModule(features, features, 3, act=leaky_relu,
+                                act=act, use_bias=True)
+        self.convB = ConvModule(features, features, 3, act=act,
                                 use_bias=True)
 
     def forward(self, x, skip):

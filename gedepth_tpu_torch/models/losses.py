@@ -14,6 +14,10 @@ loss of the whole batch, as the JAX package's GSPMD step does.
 
 binary_ce: BCE with logits, mean-reduced (optionally masked), of the
 ground-mask pretraining path, over this process's rows.
+
+bins_chamfer_loss: AdaBins' chamfer distance between the bin centres and
+the valid GT depths, both directions, the mean over the global batch's
+rows.
 """
 from __future__ import annotations
 
@@ -69,3 +73,33 @@ def binary_ce(logits, targets, valid=None):
         m = valid.to(loss.dtype)
         return (loss * m).sum() / m.sum().clamp_min(1.0)
     return loss.mean()
+
+
+CHAMFER_FILL = 1e10
+
+
+def bins_chamfer_loss(bin_edges, target_depth, min_depth=1e-3,
+                      loss_weight=0.1):
+    """The bin-centre chamfer distance of the reference's chamferloss.py at
+    fixed shapes (`gedepth_tpu.models.losses_extra.bins_chamfer_loss`).
+
+    bin_edges (B, n_bins + 1); target_depth (B, H, W) or (B, H, W, 1). A
+    target counts where it is >= min_depth. Centre to target: the squared
+    distance to the nearest valid target (invalid ones filled with 1e10),
+    the mean over the centres, 0 for a row without a valid target. Target
+    to centre: the squared distance of each valid target to its nearest
+    centre, the mean over the valid targets. The (B, n_bins, H·W) distance
+    tensor is formed whole, as the JAX package forms it. Returns
+    loss_weight times the mean over the rows of the two terms' sum."""
+    centres = 0.5 * (bin_edges[:, 1:] + bin_edges[:, :-1])     # (B, P)
+    t = target_depth.reshape(target_depth.shape[0], -1)         # (B, T)
+    valid = t >= min_depth
+    d2 = (centres[:, :, None] - t[:, None, :]) ** 2             # (B, P, T)
+    x2y = torch.where(valid[:, None, :], d2, CHAMFER_FILL).amin(dim=2)
+    x2y = torch.where(valid.any(dim=1)[:, None], x2y, 0.0).mean(dim=1)
+    y2x = torch.where(valid, d2.amin(dim=1), 0.0).sum(dim=1) / \
+        valid.sum(dim=1).clamp_min(1).to(d2.dtype)
+    rows = x2y + y2x
+    total, n = parallel.global_sum(torch.stack(
+        [rows.sum(), rows.new_tensor(float(rows.shape[0]))]))
+    return loss_weight * total / n

@@ -1,9 +1,11 @@
-"""Seeded KITTI and DDAD trees on disk, in the datasets' layouts, for tests
-and for driving the data path where no real frames are at hand.
+"""Seeded KITTI, DDAD and NYU trees on disk, in the datasets' layouts, for
+tests and for driving the data path where no real frames are at hand.
 
     python -m gedepth_tpu_torch.tools.make_tree kitti ROOT [--seed S]
         [--frames N] [--size H,W]
     python -m gedepth_tpu_torch.tools.make_tree ddad ROOT [--seed S]
+        [--frames N] [--size H,W]
+    python -m gedepth_tpu_torch.tools.make_tree nyu ROOT [--seed S]
         [--frames N] [--size H,W]
 
 KITTI: two dates of different frame sizes (the second 5 rows and 18
@@ -22,8 +24,19 @@ frame size of all four shipped cameras, and splits whose depth paths say
 the dataset filters out. Then run `tools.preprocess_data_ddad --calib-npz
 ROOT/calib.npz` on it.
 
-The GT is the ground plane's depth, tilted by a slope that differs per
-frame, with boxes of constant depth, on every other row (lidar-sparse); the
+NYU: scene directories (`bedroom_0004`, `kitchen_0011`, `bedroom_0017`)
+of `frames` frames each, 480x640 by default: `rgb_<i>.png` and the 16-bit
+GT `sync_depth_<i>.png` (millimetres), and splits `splits/nyu_train.txt`
+and `splits/nyu_test.txt` (`rgb depth focal`, relative to ROOT, where the
+NYU presets look for them); the test split takes each scene's last frame,
+the train split the others and a `None` pair, which the dataset drops. The
+RGB is PNG: the toolbox's NYU frames are JPEG, which the port reads
+through PIL only.
+
+The KITTI and DDAD GT is the ground plane's depth, tilted by a slope that
+differs per frame, with boxes of constant depth, on every other row
+(lidar-sparse); the NYU GT is a room (a floor and a back wall, boxes)
+within 0.5-9.5 m, dense but for a few holes, as a Kinect leaves them; the
 RGB shades it. Frames are pure functions of the seed.
 """
 from __future__ import annotations
@@ -185,10 +198,65 @@ def make_ddad_tree(root, size=(1216, 1936), frames=3, seed=0):
     return splits
 
 
+NYU_SCENES = ("bedroom_0004", "kitchen_0011", "bedroom_0017")
+NYU_FOCAL = 518.8579
+
+
+def _room(rng, h, w):
+    """(rgb uint8, gt float32) of an indoor frame: a floor rising to a back
+    wall at 4-9 m, two boxes nearer, a few holes of 0."""
+    wall = rng.uniform(4.0, 9.0)
+    rows = np.arange(h, dtype=np.float64)[:, None]
+    horizon = rng.uniform(0.35, 0.55) * h
+    floor = 1.6 * NYU_FOCAL / np.maximum(rows - horizon, 1e-3) * (h / 480)
+    gt = np.where(rows > horizon, np.minimum(floor, wall), wall)
+    gt = np.broadcast_to(gt, (h, w)).copy()
+    for _ in range(2):
+        bh, bw = int(rng.integers(h // 6, h // 3)), int(rng.integers(
+            w // 8, w // 4))
+        y0, x0 = int(rng.integers(0, h - bh)), int(rng.integers(0, w - bw))
+        gt[y0:y0 + bh, x0:x0 + bw] = np.minimum(
+            gt[y0:y0 + bh, x0:x0 + bw], rng.uniform(0.8, 3.5))
+    gt = np.clip(gt, 0.5, 9.5)
+    for _ in range(3):
+        hh, hw = int(rng.integers(4, h // 10)), int(rng.integers(4, w // 10))
+        y0, x0 = int(rng.integers(0, h - hh)), int(rng.integers(0, w - hw))
+        gt[y0:y0 + hh, x0:x0 + hw] = 0.0
+    shade = np.where(gt > 0, gt / 10.0, 0.5)
+    cols = np.linspace(0, 1, w)[None, :]
+    base = np.stack([shade * 180 + 40, 200 - shade * 120 + 0 * cols,
+                     cols * 140 + 60 + 0 * shade], axis=-1)
+    rgb = np.clip(base + rng.normal(0, 5, base.shape), 0, 255)
+    return rgb.astype(np.uint8), gt.astype(np.float32)
+
+
+def make_nyu_tree(root, size=(480, 640), frames=4, seed=0):
+    """Write the NYU tree; returns {'train': split, 'test': split}."""
+    rng = np.random.default_rng(seed)
+    train, test = [], []
+    for scene in NYU_SCENES:
+        os.makedirs(osp.join(root, scene), exist_ok=True)
+        for i in range(frames):
+            rgb, gt = _room(rng, *size)
+            img, depth = f"{scene}/rgb_{i:05d}.png", \
+                f"{scene}/sync_depth_{i:05d}.png"
+            write_png(osp.join(root, img), rgb)
+            write_png(osp.join(root, depth),
+                      np.round(gt * 1000).astype(np.uint16))
+            line = f"{img} {depth} {NYU_FOCAL}"
+            (test if i == frames - 1 else train).append(line)
+    train.append(f"{NYU_SCENES[0]}/rgb_{0:05d}.png None {NYU_FOCAL}")
+    splits = {"train": osp.join(root, "splits", "nyu_train.txt"),
+              "test": osp.join(root, "splits", "nyu_test.txt")}
+    _write_split(splits["train"], train)
+    _write_split(splits["test"], test)
+    return splits
+
+
 def main(argv=None):
-    parser = argparse.ArgumentParser(description="Write a seeded KITTI or "
-                                     "DDAD tree")
-    parser.add_argument("dataset", choices=("kitti", "ddad"))
+    parser = argparse.ArgumentParser(description="Write a seeded KITTI, "
+                                     "DDAD or NYU tree")
+    parser.add_argument("dataset", choices=("kitti", "ddad", "nyu"))
     parser.add_argument("root")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--frames", type=int, default=None)
@@ -199,7 +267,8 @@ def main(argv=None):
         kw["frames"] = args.frames
     if args.size:
         kw["size"] = tuple(int(v) for v in args.size.split(","))
-    make = make_kitti_tree if args.dataset == "kitti" else make_ddad_tree
+    make = {"kitti": make_kitti_tree, "ddad": make_ddad_tree,
+            "nyu": make_nyu_tree}[args.dataset]
     for name, path in make(args.root, **kw).items():
         print(f"{name}: {path}")
 

@@ -4,10 +4,11 @@ resume, the stage-1 backbone overlay, and a JSONL log; on one device, or
 in every process of a `torch.distributed` group (`parallel`), each on its
 rows of the global batch.
 
-A KITTI or DDAD preset reads its splits under cfg.data.data_root (the trees
-that `tools.preprocess_data_kitti` and `tools.preprocess_data_ddad` finish)
-and augments them by the dataset's chain (`data.transforms`); a synthetic
-data config generates its frames at crop_size, as the JAX package does.
+A KITTI, DDAD or NYU preset reads its splits under cfg.data.data_root (the
+KITTI and DDAD trees that `tools.preprocess_data_kitti` and
+`tools.preprocess_data_ddad` finish) and augments them by the dataset's
+chain (`data.transforms`); a synthetic data config generates its frames at
+crop_size, as the JAX package does.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ from gedepth_tpu_torch import parallel
 from gedepth_tpu_torch.data.ddad import DDADDataset
 from gedepth_tpu_torch.data.kitti import KittiDataset
 from gedepth_tpu_torch.data.loader import TrainLoader
+from gedepth_tpu_torch.data.nyu import NYUDataset
 from gedepth_tpu_torch.data.synthetic import SyntheticGroundDataset
 from gedepth_tpu_torch.data.transforms import build_train_pipeline
 from gedepth_tpu_torch.data.wrappers import RepeatDataset
@@ -67,9 +69,16 @@ def _dataset(cfg, train: bool):
                                       depth_scale=m.depth_scale,
                                       max_depth=m.max_depth, use_pe=use_pe,
                                       seed=0 if train else 1)
+    split = d.train_split if train else d.test_split
+    if d.dataset == "nyu":
+        # RGB frames, the split relative to data_root or absolute
+        _require(d.data_root, "nyu data root")
+        return NYUDataset(d.data_root, split, depth_scale=d.gt_depth_scale,
+                          test_mode=not train, min_depth=m.min_depth,
+                          max_depth=m.max_depth,
+                          scene_classes=train and d.scene_classes)
     if d.dataset not in ("kitti", "ddad"):
         raise NotImplementedError(f"dataset {d.dataset!r} is not ported")
-    split = d.train_split if train else d.test_split
     _require(d.data_root, f"{d.dataset} data root")
     _require(split, f"{d.dataset} {'train' if train else 'test'} split")
     kw = dict(use_pe=use_pe, pe_clip=m.depth_scale, min_depth=m.min_depth,
@@ -83,9 +92,9 @@ def _dataset(cfg, train: bool):
 
 
 def build_train_dataset(cfg):
-    """The train split (`gedepth_tpu.train.loop.build_datasets`): KITTI or
-    DDAD from cfg.data.data_root and cfg.data.train_split, or synthetic
-    frames at crop_size; wrapped in `RepeatDataset` when
+    """The train split (`gedepth_tpu.train.loop.build_datasets`): KITTI,
+    DDAD or NYU from cfg.data.data_root and cfg.data.train_split, or
+    synthetic frames at crop_size; wrapped in `RepeatDataset` when
     cfg.data.repeat_times > 1. A missing root or split raises
     FileNotFoundError."""
     train = _dataset(cfg, True)
@@ -95,10 +104,10 @@ def build_train_dataset(cfg):
 
 
 def build_eval_dataset(cfg):
-    """The test split: KITTI or DDAD from cfg.data.test_split in test mode
-    (the evaluator reloads the GT at full resolution), or a quarter as many
-    synthetic frames as the train split (at least 2) at eval_size, from
-    other scenes (seed 1)."""
+    """The test split: KITTI, DDAD or NYU from cfg.data.test_split in test
+    mode (the evaluator reloads the GT at full resolution), or a quarter as
+    many synthetic frames as the train split (at least 2) at eval_size,
+    from other scenes (seed 1)."""
     return _dataset(cfg, False)
 
 
@@ -116,7 +125,8 @@ def train_step_for(cfg):
     if cfg.model.arch == "gedepth":
         return make_train_step(o.sig_loss_weight, o.slope_ce_weight,
                                bf16=bf16)
-    return make_zoo_train_step(o.sig_loss_weight, bf16=bf16)
+    return make_zoo_train_step(o.sig_loss_weight,
+                               chamfer_weight=o.chamfer_weight, bf16=bf16)
 
 
 LESS_IS_BETTER = ("abs_rel", "sq_rel", "rmse", "rmse_log", "log_10", "silog")
@@ -155,7 +165,8 @@ def train(cfg, work_dir: Optional[str] = None,
     checkpoint; returns (state, history, best).
 
     history: one dict per step, mode 'train': iter, lr, loss, loss_depth,
-    loss_slope (adaptive models), grad_norm, time (seconds of this one step
+    loss_slope (adaptive models), loss_chamfer (a zoo model with bin edges
+    and optim.chamfer_weight), grad_norm, time (seconds of this one step
     on a synchronised host clock) and, on a CUDA device, peak_mem_mib (the
     step's peak of allocated device memory); and one per evaluation, mode
     'val': iter, the nine metrics, images and time (seconds).
@@ -283,7 +294,7 @@ def train(cfg, work_dir: Optional[str] = None,
             t0 = time.perf_counter()
             metrics = train_step(state, batch)
             keys = [k for k in ("loss", "loss_depth", "loss_slope",
-                                "grad_norm") if k in metrics]
+                                "loss_chamfer", "grad_norm") if k in metrics]
             values = torch.stack([metrics[k] for k in keys]).tolist()
             record = dict(zip(keys, values), iter=it + 1, lr=metrics["lr"],
                           time=time.perf_counter() - t0, mode="train")

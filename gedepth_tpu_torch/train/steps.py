@@ -47,7 +47,8 @@ import numpy as np
 import torch
 
 from gedepth_tpu_torch import parallel
-from gedepth_tpu_torch.models.losses import sigloss, softmax_ce_ignore
+from gedepth_tpu_torch.models.losses import (
+    bins_chamfer_loss, sigloss, softmax_ce_ignore)
 from gedepth_tpu_torch.ops.resize import resize_bilinear
 from gedepth_tpu_torch.train.optim import (
     clip_by_global_norm, lr_schedule, make_optimizer)
@@ -180,28 +181,39 @@ def make_zoo_train_step(sig_loss_weight: float = 10.0,
     """train_step(state, batch) -> metrics for a `ZooDepther` (the port of
     `gedepth_tpu.train.steps.make_zoo_train_step`): the depth resized to
     the GT with align_corners=True, then sig_loss_weight · SigLoss over
-    every GT > 0 (no max_depth); the gradient norm, the clip, AdamW, the
-    global batch's losses and BatchNorm statistics and `bf16` as in
-    `make_train_step`. metrics: loss, loss_depth, grad_norm, lr.
+    every GT > 0 (no max_depth); with chamfer_weight and a model that gives
+    `bin_edges` (AdaBins), chamfer_weight · `bins_chamfer_loss` of the f32
+    edges against the GT (min_depth the model's), under
+    metrics["loss_chamfer"] and added to the loss; the gradient norm, the
+    clip, AdamW, the global batch's losses and BatchNorm statistics and
+    `bf16` as in `make_train_step`. metrics: loss, loss_depth,
+    [loss_chamfer,] grad_norm, lr.
 
-    The auxiliary-layer, scene-class and bin-chamfer terms need
-    BinsFormer's and AdaBins's outputs, which are not ported: non-zero
-    weights for them raise NotImplementedError."""
-    if (tuple(aux_loss_indices) or tuple(aux_loss_weights)
-            or class_ce_weight or chamfer_weight):
+    The auxiliary-layer and scene-class terms need BinsFormer's outputs,
+    which are not ported: non-zero weights for them raise
+    NotImplementedError."""
+    if tuple(aux_loss_indices) or tuple(aux_loss_weights) or class_ce_weight:
         raise NotImplementedError(
-            "the zoo's auxiliary, class-CE and chamfer losses come with "
-            "BinsFormer and AdaBins (ROADMAP.md Queue 1)")
+            "the zoo's auxiliary and class-CE losses come with BinsFormer "
+            "(ROADMAP.md Queue 1)")
 
     def train_step(state: TrainState, batch):
         out = _train_forward(state, batch, bf16)
         gt = batch["depth_gt"][..., None]
-        loss = sig_loss_weight * sigloss(_resized_depth(out, gt), gt)
+        loss = loss_depth = sig_loss_weight * sigloss(
+            _resized_depth(out, gt), gt)
+        metrics = {}
+        if chamfer_weight and out.get("bin_edges") is not None:
+            chamfer = chamfer_weight * bins_chamfer_loss(
+                out["bin_edges"].float(), batch["depth_gt"],
+                min_depth=state.model.min_depth, loss_weight=1.0)
+            metrics["loss_chamfer"] = chamfer.detach()
+            loss = loss + chamfer
         loss.backward()
         grad_norm, lr = state.apply_gradients()
-        loss = loss.detach()
-        return {"loss_depth": loss, "loss": loss, "grad_norm": grad_norm,
-                "lr": lr}
+        metrics.update(loss_depth=loss_depth.detach(), loss=loss.detach(),
+                       grad_norm=grad_norm, lr=lr)
+        return metrics
 
     return train_step
 

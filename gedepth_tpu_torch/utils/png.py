@@ -1,7 +1,8 @@
 """PNG without PIL: the reader of the port's data path and a plain writer.
 
   read_png(path_or_bytes)          -> uint8 (H, W) | (H, W, 3), uint16 (H, W)
-  read_rgb(path_or_bytes)          -> float32 (H, W, 3), 0..255
+  read_rgb(path_or_bytes)          -> float32 (H, W, 3), 0..255 (PNG, or
+                                      JPEG through PIL)
   load_depth_png(path, scale)      -> float32 (H, W) metres
   png_size(path)                   -> (height, width) from the header
   write_png(path, array)           -> 8-bit gray or RGB, 16-bit gray
@@ -13,7 +14,10 @@ from any number of IDAT chunks and with all five scanline filters.
 Adam7-interlaced files and other bit depths raise `ValueError` naming the
 file. `read_rgb` is
 `np.asarray(Image.open(p).convert("RGB"), np.float32)` of the JAX package's
-datasets: gray is replicated into three channels.
+datasets: gray is replicated into three channels. It tells the format by
+its magic bytes: a JPEG (NYU's RGB frames) goes to PIL, imported only then;
+without PIL it raises ImportError naming the file (the port has no JPEG
+decoder of its own yet: ROADMAP.md Queue 1).
 
 The inflate is the standard library's zlib. Unfiltering is sequential along a
 row (the Sub, Average and Paeth filters read the byte one pixel to the
@@ -41,6 +45,7 @@ SOURCE = _PKG / "csrc" / "png_unfilter.cpp"
 BUILD_DIR = _PKG / "_build"
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
+JPEG_SIGNATURE = b"\xff\xd8\xff"
 # colour type -> channels in the file
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 
@@ -174,7 +179,10 @@ def png_size(src) -> tuple:
 
 def read_png(src) -> np.ndarray:
     """Decode a PNG file (path) or its bytes; see the module docstring."""
-    data, name = _read_bytes(src)
+    return _decode_png(*_read_bytes(src))
+
+
+def _decode_png(data: bytes, name: str) -> np.ndarray:
     width, height, depth, ctype, _, _, interlace = _header(data, name)
     if interlace:
         raise ValueError(f"{name}: Adam7-interlaced PNG is not supported")
@@ -213,13 +221,30 @@ def read_png(src) -> np.ndarray:
 
 def read_rgb(src) -> np.ndarray:
     """(H, W, 3) float32 RGB in 0..255, gray replicated (PIL's
-    `convert("RGB")`)."""
-    px = read_png(src)
+    `convert("RGB")`), from a PNG or a JPEG."""
+    data, name = _read_bytes(src)
+    if data[:3] == JPEG_SIGNATURE:
+        return _read_jpeg(data, name)
+    px = _decode_png(data, name)
     if px.dtype != np.uint8:
         raise ValueError(f"{src}: a 16-bit PNG is not an RGB image")
     if px.ndim == 2:
         px = np.repeat(px[..., None], 3, axis=-1)
     return px.astype(np.float32)
+
+
+def _read_jpeg(data: bytes, name: str) -> np.ndarray:
+    try:
+        import io
+
+        from PIL import Image
+    except ImportError as err:
+        raise ImportError(
+            f"{name}: a JPEG needs PIL, which does not import here, or a "
+            "JPEG decoder of the port's own (not written yet: ROADMAP.md "
+            "Queue 1)") from err
+    with Image.open(io.BytesIO(data)) as im:
+        return np.asarray(im.convert("RGB"), dtype=np.float32)
 
 
 def load_depth_png(path, depth_scale: float = 256.0) -> np.ndarray:

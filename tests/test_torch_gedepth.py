@@ -186,11 +186,9 @@ def test_port_init_matches_jax_init_rules():
 LEFT_OUT = {
     # the JAX parameter layout and a negative result
     "model": {"swin_scan", "neck_value_bf16"},
-    # NYU's scene classes (the zoo's BinsFormer)
-    "data": {"scene_classes"},
-    # the zoo's loss composition
-    "optim": {"aux_loss_indices", "aux_loss_weights", "class_ce_weight",
-              "chamfer_weight"},
+    "data": set(),
+    # the zoo's loss composition of BinsFormer
+    "optim": {"aux_loss_indices", "aux_loss_weights", "class_ce_weight"},
     "train": set(),
 }
 
@@ -200,7 +198,7 @@ REFERENCE_PRESETS = ("gedepth_adaptive_kitti",
                      "gedepth_vanilla_kitti", "depthformer_baseline_kitti",
                      "gedepth_vanilla_ddad", "gedepth_adaptive_ddad",
                      "gedepth_adaptive_ddad_tpu", "bts_kitti",
-                     "densedepth_kitti")
+                     "densedepth_kitti", "dpt_kitti", "adabins_nyu")
 
 
 def _assert_preset_matches_jax(name):
