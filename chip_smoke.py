@@ -247,11 +247,13 @@ with its host-clock seconds); any failure raises and exits non-zero:
      (tests/test_dress_rehearsal.py's rail).
  36. the zoo's presets, `bts_kitti` (ResNet-50 + BTS), `densedepth_kitti`
      (ResNet-50 + DenseDepth) and `dpt_kitti` (ViT-B + DPT) from the KITTI
-     tree, and `adabins_nyu` (EfficientNet-b0 + AdaBins) from an NYU tree
-     of `tools.make_tree` (3 scenes of 4 frames at 480x640), f32 with
-     cuDNN's autotuner, each with the port's kernel counts set to 0 before
-     it and read after (the zoo path runs none of them, as in JAX, where no
-     Pallas kernel lies on it): `init_depther` with a seeded
+     tree, and `adabins_nyu` (EfficientNet-b0 + AdaBins) and
+     `binsformer_nyu` (Swin-T + BinsFormer) from an NYU tree of
+     `tools.make_tree` (3 scenes of 4 frames at 480x640), f32 with cuDNN's
+     autotuner, each with the port's kernel counts set to 0 before its
+     requests and before its training and read after (the first four run
+     none of them, as in JAX, where no Pallas kernel lies on the zoo's
+     path; BinsFormer as said below): `init_depther` with a seeded
      initialisation and 3 flip-TTA requests (phase 4's 375x1242 frames, KB
      crop, 352x1216; the NYU tree's test frames at 480x640, RGB alone),
      the first held against the same weights' forward on the CPU (rtol
@@ -269,9 +271,25 @@ with its host-clock seconds); any failure raises and exits non-zero:
      --train-step` times it (10 steps by CUDA events after the autotuned
      first and 3 more; peak memory); for `adabins_nyu` also one step with
      chamfer_weight 0.1 (`[zoo adabins_nyu] chamfer`: its loss terms and
-     peak).
-The phases run in the order 1, 2, 23, 3, 6, 13, 9, 24, 4, 5, 31, 32, 7, 8,
-34, 20, 21, 33, 22, 35, 25, 26, 27, 10, 11, 12, 14-19, 28-30, 36: every kernel check
+     peak). `binsformer_nyu` (Swin-T + BinsFormer, from the NYU tree) runs
+     the port's kernels: exactly 24 A and 12 B (at the encoder's 6,300
+     queries) a flip-TTA request, and 24 A, 6 B and 6 C (at 4,641 queries)
+     a train step, its own f32 step (batch 2 at 416x544 with scene
+     classes: loss, loss_depth, loss_ce, aux_loss_depth_2 and _5) counted
+     alone; the same step again from the same seed, the loss and the
+     DropPath generator's state equal to the bit and every gradient
+     within phase 8's bound; a bf16_compute step and a whole-model bf16
+     request, their bf16 launches counted as many. The other four presets
+     launch none.
+ 37. kernels at BinsFormer's shapes against their plain versions, timed
+     as phase 3 with the plain versions in the trace: A at Swin-T's stage 1
+     (3 heads of 32), served (414 windows) and at the train crop (2 x 300),
+     f32 and bf16 (bf16 held to float64 as phase 13), each beside one
+     `scaled_dot_product_attention` call; B under the exact rule at the
+     deformable encoder's 6,300 serving queries and 2 x 4,641 train queries
+     (3 levels, 8 heads of 8 channels); C at the train shape.
+The phases run in the order 1, 2, 23, 3, 6, 13, 9, 24, 37, 4, 5, 31, 32, 7,
+8, 34, 20, 21, 33, 22, 35, 25, 26, 27, 10, 11, 12, 14-19, 28-30, 36: every kernel check
 comes before the first model, because `torch.profiler` loses device
 activities as a process ages, and all of them once it has trained.
 A `device_ms` that is not within a tenth of its `event_ms` (kernels of
@@ -289,11 +307,16 @@ error against float64 as `max_abs_err` and the launches of the bf16 paths:
 A from phase 14's requests and phase 18's steps, B from the forwards of
 phases 15 and 16, C from phase 18. The rows of phase 24 carry the launches
 of phase 25's requests (serving shapes) and of phase 26's steps and
-evaluation (train shapes; E both). The first four rows also carry the
+evaluation (train shapes; E both). The rows of phase 37 carry the launches
+of phase 36's `binsformer_nyu`: its f32 requests (serving shapes) and its
+f32 step (train shapes), and for A's bf16 instance its bf16 request and
+bf16_compute step. The first four rows also carry the
 launches inside phase 31's loaded program (`launches_exported`). Last the
 device as one JSON line.
 To make room for phases 13-19, phase 9 times its plain versions once
-instead of twice and the nearest rule by events alone; every check of
+instead of twice and the nearest rule by events alone; to make room for
+phase 37 and BinsFormer, phases 3 and 6 trace the plain versions of B and
+C only for the shapes their rows keep (cross-attention); every check of
 phases 1-12 stayed.
 Imports nothing of JAX. Exits non-zero without a CUDA device.
 """
@@ -648,9 +671,11 @@ def phase_kernels():
                       want, 2e-4, 2e-5)
         compare(f"B {label} without the window hint",
                 msda_ops.msda(value, levels, pos, w), want, 2e-4, 2e-5)
+        # the plain version in the profiler's trace for the kept row only
+        # (the trace of its thousands of launches costs most)
         t = timed(lambda: msda_ops.msda(value, levels, pos, w, grids, RADIUS),
                   lambda: msda_ops.msda_plain(value, levels, pos, w),
-                  plain_reps=1,
+                  plain_reps=1, trace_plain=label == "cross_attn",
                   extra={"without_hint":
                          lambda: msda_ops.msda(value, levels, pos, w)})
         t["bound_ms"], t["bound_by"] = bound(
@@ -1023,7 +1048,7 @@ def phase_kernel_c():
         del got, want, again, hintless
         t = timed(lambda: msda_ops.msda_backward(*args, grids, RADIUS),
                   lambda: msda_ops.msda_backward_plain(*args),
-                  plain_reps=1,
+                  plain_reps=1, trace_plain=label == "cross_attn",
                   extra={"without_hint":
                          lambda: msda_ops.msda_backward(*args)})
         t["bound_ms"], t["bound_by"] = bound(
@@ -1069,6 +1094,15 @@ def read_counts(counters):
             {name: dict(c.launches_by_queries)
              for name, c in counters.items()
              if hasattr(c, "launches_by_queries")})
+
+
+def counts_since(before, after):
+    """The launches between two `read_counts`, in its form."""
+    def minus(a, b):
+        return {k: a[k] - b.get(k, 0) for k in a if a[k] != b.get(k, 0)}
+
+    return ({k: n - before[0][k] for k, n in after[0].items()},
+            {k: minus(by, before[1][k]) for k, by in after[1].items()})
 
 
 # kernel A a train step: 24 Swin blocks, each launching it in the forward
@@ -2712,6 +2746,186 @@ def ddad_rows(row, results, serving, launches, by_queries):
     return rows
 
 
+# ---- phase 37: the kernels at BinsFormer's shapes ----
+
+BINSFORMER = "binsformer_nyu"
+# BinsFormer's deformable encoder over the skip projections of Swin-T's
+# /8, /16 and /32 levels: the 480x640 NYU frame and the 416x544 train crop
+BINS_SERVE_LEVELS = ((60, 80), (30, 40), (15, 20))      # 6,300 queries
+BINS_TRAIN_LEVELS = ((52, 68), (26, 34), (13, 17))      # 4,641 a sample
+BINS_SERVE_Q, BINS_TRAIN_Q = 6300, 4641
+# Swin-T's stage 1 (3 heads of 32): 120x160 padded to 126x161 (414
+# windows) when served, 104x136 padded to 105x140 (300) a train sample
+BINS_WINDOWS = (("serving_stage1_shifted", 414, (126, 161)),
+                ("train_stage1_shifted", 600, (105, 140)))
+# launches: Swin-T's 12 blocks and 6 encoder layers a forward; a flip-TTA
+# request runs two forwards, a train step one and remat's recompute of the
+# blocks
+BINS_PER_REQUEST = {"window_attention": 24, "msda": 12, "msda_backward": 0,
+                    "pe_fusion": 0}
+BINS_PER_STEP = {"window_attention": 24, "msda": 6, "msda_backward": 6,
+                 "pe_fusion": 0}
+
+
+def phase_kernels_binsformer():
+    """Phase 37: kernels A (f32 and bf16), B and C at BinsFormer's shapes
+    against their plain versions, timed as phase 3 (the plain versions in
+    the trace too): A at Swin-T's stage 1, served and at the train crop
+    (3 heads of 32), beside one `F.scaled_dot_product_attention` call; B
+    under the exact rule at the encoder's 6,300 serving queries and 2 x
+    4,641 train queries (3 levels, 8 heads of 8 channels, 8 points; the
+    self-attention's grid-centre reference points, a twentieth of the
+    samples thrown far); C at the train shape."""
+    import torch.nn.functional as F
+
+    from gedepth_tpu_torch.models.swin import shifted_window_mask
+    from gedepth_tpu_torch.ops import msda as msda_ops
+    from gedepth_tpu_torch.ops import window_attention as wa
+
+    bf = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+
+    results = {}
+    print("[kernels binsformer] A window attention at Swin-T's stage 1 "
+          "(f32: rtol 2e-4, atol 2e-5; bf16: against float64, limit max(2 x "
+          "plain's error, 1 bf16 ulp))")
+    for label, nWB, grid in BINS_WINDOWS:
+        qkv = randn(nWB, 49, 3, 3, 32)
+        q, k, v = qkv[:, :, 0] * 32 ** -0.5, qkv[:, :, 1], qkv[:, :, 2]
+        bias = randn(3, 49, 49)
+        mask = torch.as_tensor(shifted_window_mask(*grid, 7, 3),
+                               device="cuda")
+        want = wa.window_attention_plain(q, k, v, bias, mask)
+        err = compare(f"A binsformer {label} ({nWB},49,3,32) mask "
+                      f"{tuple(mask.shape)}",
+                      wa.window_attention(q, k, v, bias, mask), want, 2e-4,
+                      2e-5)
+        attn_mask = bias[None] + mask.repeat(nWB // mask.shape[0], 1,
+                                             1)[:, None]
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+
+        def library():
+            return F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=attn_mask, scale=1.0).transpose(1, 2)
+
+        compare(f"A binsformer {label} library call", library(), want, 2e-4,
+                2e-5)
+        t = timed(lambda: wa.window_attention(q, k, v, bias, mask),
+                  lambda: wa.window_attention_plain(q, k, v, bias, mask),
+                  plain_reps=3, library=library)
+        t["bound_ms"], t["bound_by"] = bound(
+            n_bytes(q, k, v, bias, mask, want),
+            nWB * 3 * 49 * 49 * (4 * 32 + 5))
+        show(t)
+        results[f"window_attention {label}"] = dict(t, max_abs_err=err)
+
+        qkv_b, bias_b = qkv.to(bf), bias.to(bf)
+        qb, kb, vb = (qkv_b[:, :, 0] * 32 ** -0.5, qkv_b[:, :, 1],
+                      qkv_b[:, :, 2])
+        ref = wa.window_attention_plain(qb.double(), kb.double(),
+                                        vb.double(), bias_b.double(),
+                                        mask.double())
+        got = wa.window_attention(qb, kb, vb, bias_b, mask)
+        err = compare64(f"A bf16 binsformer {label}", got,
+                        wa.window_attention_plain(qb, kb, vb, bias_b, mask),
+                        ref)
+        attn_b = (bias_b.float()[None] + mask.repeat(
+            nWB // mask.shape[0], 1, 1)[:, None]).to(bf)
+        qbh, kbh, vbh = (t.transpose(1, 2) for t in (qb, kb, vb))
+
+        def library_b():
+            return F.scaled_dot_product_attention(
+                qbh, kbh, vbh, attn_mask=attn_b, scale=1.0).transpose(1, 2)
+
+        t = timed(lambda: wa.window_attention(qb, kb, vb, bias_b, mask),
+                  lambda: wa.window_attention_plain(qb, kb, vb, bias_b, mask),
+                  plain_reps=3, library=library_b,
+                  extra={"f32": lambda: wa.window_attention(q, k, v, bias,
+                                                            mask)})
+        t["bound_ms"], t["bound_by"] = bound(
+            n_bytes(qb, kb, vb, bias_b, mask, got),
+            nWB * 3 * 49 * 49 * 4 * 32, BF16_FLOP_PER_S)
+        show(t)
+        results[f"window_attention_bf16 {label}"] = dict(t, max_abs_err=err)
+        del qkv, q, k, v, want, attn_mask, qkv_b, qb, kb, vb, ref, got, attn_b
+
+    print("[kernels binsformer] B and C under the exact rule, 3 levels, 8 "
+          "heads of 8 channels (B: rtol 2e-4, atol 2e-5; C as phase 6)")
+    for label, B, levels in (("exact serving_self", 1, BINS_SERVE_LEVELS),
+                             ("exact train_self", 2, BINS_TRAIN_LEVELS)):
+        value = randn(B, sum(a * b for a, b in levels), 8, 8)
+        pos, w, _ = rule_positions("exact", randn, g, B, levels, levels,
+                                   False)
+        Nq, n_touch = pos.shape[1], touching(pos, levels)
+        want = msda_ops.msda_plain(value, levels, pos, w)
+        err = compare(f"B binsformer {label} {B}x{Nq} queries",
+                      msda_ops.msda(value, levels, pos, w), want, 2e-4, 2e-5)
+        t = timed(lambda: msda_ops.msda(value, levels, pos, w),
+                  lambda: msda_ops.msda_plain(value, levels, pos, w),
+                  plain_reps=1)
+        t["bound_ms"], t["bound_by"] = bound(n_bytes(value, pos, w, want),
+                                             9 * n_touch * 8)
+        show(t, touching=f"{n_touch / w.numel():.3f}")
+        results[f"msda {label}"] = dict(t, max_abs_err=err, queries=Nq)
+        del want
+        if B == 2:
+            gout = randn(B, Nq, 64)
+            args = (value, levels, pos, w, gout)
+            got = msda_ops.msda_backward(*args)
+            want = msda_ops.msda_backward_plain(*args)
+            dv_atol = 1e-5 * want[0].abs().max().item()
+            err = max(compare(f"C binsformer {label} d_value", got[0],
+                              want[0], 2e-4, dv_atol),
+                      compare(f"C binsformer {label} d_pos", got[1], want[1],
+                              2e-4, 2e-5),
+                      compare(f"C binsformer {label} d_weights", got[2],
+                              want[2], 2e-4, 2e-5))
+            n_out = n_bytes(*want)
+            del got, want
+            t = timed(lambda: msda_ops.msda_backward(*args),
+                      lambda: msda_ops.msda_backward_plain(*args),
+                      plain_reps=1)
+            t["bound_ms"], t["bound_by"] = bound(
+                n_bytes(value, pos, w, gout) + n_out, 17 * n_touch * 8)
+            show(t)
+            results[f"msda_backward {label}"] = dict(t, max_abs_err=err,
+                                                     queries=Nq)
+            del gout, args
+        del value, pos, w
+        torch.cuda.empty_cache()
+    return results
+
+
+def binsformer_rows(row, results, counted):
+    """The `kernels` rows of phase 37's shapes, each with the launches that
+    phase 36's `binsformer_nyu` run made there: A f32 and B from its f32
+    flip-TTA requests (serving shapes) and its f32 train step (train
+    shapes); A bf16 from its bf16 request and its bf16_compute step; C
+    from the f32 step."""
+    rows = []
+    for name, t in results.items():
+        kernel, label = name.split(" ", 1)
+        train = "train" in label
+        if kernel == "window_attention_bf16":
+            n = counted["bf16_step" if train else "bf16_request"].get(
+                "window_attention", 0)
+        elif kernel == "window_attention":
+            n = counted["step" if train else "requests"][0][kernel]
+        else:
+            n = counted["step" if train else "requests"][1][kernel].get(
+                t["queries"], 0)
+        r = row(f"{kernel}[binsformer {label}]", kernel, t,
+                n if train else 0, 0 if train else n)
+        if kernel == "window_attention_bf16":
+            r["against"] = "float64"
+            r["f32_device_ms"], r["f32_event_ms"] = t["extra_ms"]["f32"]
+        rows.append(r)
+    return rows
+
+
 def phase_tools_test(tree):
     """`tools.test` of the main preset pointed at the KITTI tree by
     --options: 2 images, KB crop, flip-TTA, nine finite metrics."""
@@ -3303,7 +3517,8 @@ def phase_pretrain(tree):
 
 # ---- phase 36: the zoo's presets ----
 
-ZOO_PRESETS = ("bts_kitti", "densedepth_kitti", "dpt_kitti", "adabins_nyu")
+ZOO_PRESETS = ("bts_kitti", "densedepth_kitti", "dpt_kitti", "adabins_nyu",
+               BINSFORMER)
 # per preset: its tree, the serving frame's size and channels, the decode
 # head's module held against the CPU, the train crop
 ZOO_SPECS = {
@@ -3318,6 +3533,11 @@ ZOO_SPECS = {
     # decoder's last conv is held beside it
     "adabins_nyu": dict(tree="nyu", serve_hw=(480, 640), channels=3,
                         head="decode_final_conv", train_hw=(416, 544)),
+    # BinsFormer's depth is a mean of bin centres too; the final decoder
+    # layer's normalised queries (through kernels A and B) beside it
+    BINSFORMER: dict(tree="nyu", serve_hw=(480, 640), channels=3,
+                     head="transformer_decoder.decoder_norm",
+                     train_hw=(416, 544)),
 }
 NYU_TREE_SIZE = (480, 640)
 
@@ -3360,14 +3580,14 @@ def check_tb(tag, work):
 
 def served_with_head_output(handle, rgb, head="conv_depth"):
     """inference_depther(handle, rgb) and, on the CPU, the output of the
-    decode head's module `head` (its last conv before its ReLU, or
-    AdaBins' decoder's last conv) in the first forward of the flip-TTA pair
-    (at seeded weights the ReLU can zero the whole depth, which would hold
-    nothing)."""
+    decode head's module `head` (a dotted path: its last conv before its
+    ReLU, AdaBins' decoder's last conv, BinsFormer's decoder_norm) in the
+    first forward of the flip-TTA pair (at seeded weights the ReLU can zero
+    the whole depth, which would hold nothing)."""
     from gedepth_tpu_torch.apis import inference_depther
 
     seen = []
-    module = getattr(handle.model.decode_head, head)
+    module = handle.model.decode_head.get_submodule(head)
     hook = module.register_forward_hook(
         lambda m, i, o: seen.append(o.detach().float().cpu()))
     try:
@@ -3377,10 +3597,12 @@ def served_with_head_output(handle, rgb, head="conv_depth"):
     return depth, seen[0]
 
 
-def zoo_serving(preset, requests):
+def zoo_serving(preset, requests, counters):
     """`init_depther(preset)` on the card: 3 flip-TTA requests, the first
     against the CPU forward of the same seeded weights (the depth, and the
-    head's module of ZOO_SPECS). Returns its numbers."""
+    head's module of ZOO_SPECS). Returns its numbers, and the kernel
+    launches of the requests after the first (`read_counts`' form); the
+    caller's counts go on over the whole call."""
     from gedepth_tpu_torch.apis import inference_depther, init_depther
     from gedepth_tpu_torch.train.loop import cudnn_autotuner
 
@@ -3395,10 +3617,12 @@ def zoo_serving(preset, requests):
         first_s = time.perf_counter() - t0
         torch.cuda.reset_peak_memory_stats()
         latencies, depths = [], []
+        before = read_counts(counters)
         for rgb, _ in requests:
             t = time.perf_counter()
             depths.append(inference_depther(handle, rgb))
             latencies.append((time.perf_counter() - t) * 1e3)
+        counted = counts_since(before, read_counts(counters))
         img = torch.randn((1, h, w, spec["channels"]), device="cuda",
                           generator=torch.Generator("cuda").manual_seed(SEED))
         ch = torch.full((1,), 1.65, device="cuda")
@@ -3432,7 +3656,7 @@ def zoo_serving(preset, requests):
           f"mean rel {float(np.mean(err / want)):.3e}", flush=True)
     return {"request_ms": statistics.median(latencies),
             "eval_step_ms": step_ms, "serving_peak_mib": peak,
-            "cpu_max_abs_err": float(err.max())}
+            "cpu_max_abs_err": float(err.max())}, counted
 
 
 def zoo_training(preset, tree, tb_ok):
@@ -3580,10 +3804,138 @@ def zoo_chamfer_step(tree):
             "chamfer_loss": vals["loss_chamfer"]}
 
 
+def binsformer_steps(tree, requests, counters):
+    """`binsformer_nyu` on its own kernels: one f32 train step on a batch
+    of 2 of the NYU tree at the 416x544 crop, with scene classes (A 24
+    times, B and C 6 each at 4,641 queries: `BINS_PER_STEP`), its loss
+    terms and peak memory; the same step again from the same seed (the
+    DropPath draws replayed under remat): the loss and the generator's
+    state equal to the bit, every gradient within 1e-3 of its norm in L2
+    (C sums d_value by atomics); one bf16_compute step (A, B and C in bf16,
+    as many times); one bf16 flip-TTA request (A 24 and B 12 in bf16).
+    Returns the launches of the f32 step (`read_counts`) and, by kernel,
+    the bf16 launches of the step and the request."""
+    import dataclasses
+
+    from gedepth_tpu_torch.apis import inference_depther, init_depther
+    from gedepth_tpu_torch.configs import get_config
+    from gedepth_tpu_torch.data.loader import TrainLoader
+    from gedepth_tpu_torch.data.transforms import build_train_pipeline
+    from gedepth_tpu_torch.train.loop import (
+        build_train_dataset, train_step_for)
+    from gedepth_tpu_torch.train.steps import (
+        batch_to_device, create_train_state)
+
+    tag = f"[zoo {BINSFORMER}]"
+    cfg = get_config(BINSFORMER)
+    cfg = cfg.replace(data=tree_data(BINSFORMER, tree))
+    batch = TrainLoader(build_train_dataset(cfg),
+                        build_train_pipeline(cfg.data,
+                                             cfg.model.depth_scale),
+                        2, seed=SEED).make_batch(0)
+    batch = batch_to_device(batch, torch.device("cuda"))
+    if batch["img"].shape != (2, 416, 544, 3) or "scene_class" not in batch:
+        fail(f"{tag} train batch {batch['img'].shape} {sorted(batch)}")
+
+    def step(bf16):
+        model = cfg.model.build(device="cuda",
+                                generator=torch.Generator().manual_seed(SEED))
+        state = create_train_state(model, cfg.optim, cfg.train.max_iters,
+                                   SEED)
+        run = train_step_for(cfg.replace(train=dataclasses.replace(
+            cfg.train, bf16_compute=bf16)))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        m = run(state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        out = ({k: float(v) for k, v in m.items()},
+               {n: p.grad.detach().clone() for n, p in
+                model.named_parameters()},
+               state.generator.get_state(), read_counts(counters),
+               read_dtypes(counters), ms,
+               torch.cuda.max_memory_allocated() / 2**20)
+        del state, model
+        torch.cuda.empty_cache()
+        return out
+
+    metrics, grads, gen, counted, _, ms, peak = step(False)
+    if not all(np.isfinite(v) for v in metrics.values()) or set(metrics) != {
+            "loss", "loss_depth", "loss_ce", "aux_loss_depth_2",
+            "aux_loss_depth_5", "grad_norm", "lr"}:
+        fail(f"{tag} step metrics {metrics}")
+    want_by = {"msda": {BINS_TRAIN_Q: 6}, "msda_backward": {BINS_TRAIN_Q: 6}}
+    if counted[0] != BINS_PER_STEP or counted[1] != want_by:
+        fail(f"{tag} step launches {counted}; expected {BINS_PER_STEP}, "
+             f"{want_by}")
+    print(f"{tag} f32 step, batch 2 at 416x544 with scene classes: "
+          + " ".join(f"{k}={v:.6f}" for k, v in metrics.items())
+          + f"; {ms:.3f} ms (host clock, synchronised, cuDNN's defaults), "
+          f"peak {peak:.1f} MiB; launches {counted[0]}, by queries "
+          f"{counted[1]}", flush=True)
+    again, grads2, gen2, _, _, _, _ = step(False)
+    if again["loss"] != metrics["loss"] or not torch.equal(gen, gen2):
+        fail(f"{tag} the same step from the same seed: loss "
+             f"{metrics['loss']!r} then {again['loss']!r}, generator "
+             f"{'equal' if torch.equal(gen, gen2) else 'different'}")
+    # phase 8's bound: ||g2 - g|| <= 1e-3 ||g|| + 1e-7 (a gradient that is
+    # 0 in exact arithmetic, a LayerNorm bias in front of a conv and a
+    # train-mode BatchNorm, holds rounding noise on both runs)
+    apart = sorted(((float((grads2[n] - g).norm()), float(g.norm()), n)
+                    for n, g in grads.items()),
+                   key=lambda e: -e[0] / max(e[1], 1e-30))
+    over = [e for e in apart if e[0] > 1e-3 * e[1] + 1e-7]
+    if over:
+        fail(f"{tag} the same step twice: gradients apart (L2 of the "
+             f"difference, L2, name) {over[:4]}")
+    print(f"{tag} the same step again from seed {SEED}: loss and the "
+          f"DropPath generator's state equal to the bit, gradients within "
+          f"1e-3 of their norm + 1e-7 (C sums d_value by atomics); the "
+          f"furthest relative (L2 of the difference, L2, name): "
+          f"{apart[:3]}", flush=True)
+    del grads, grads2
+    bf_metrics, _, _, bf_counted, bf_dtypes, bf_ms, bf_peak = step(True)
+    bf16_step = {k: v.get("bf16", 0) for k, v in bf_dtypes.items()}
+    want = {k: v for k, v in BINS_PER_STEP.items() if k != "pe_fusion"}
+    if bf16_step != want or not all(np.isfinite(v)
+                                    for v in bf_metrics.values()):
+        fail(f"{tag} bf16_compute step: bf16 launches {bf16_step} "
+             f"(expected {want}), metrics {bf_metrics}")
+    print(f"{tag} bf16_compute step: loss={bf_metrics['loss']:.6f} "
+          f"loss_ce={bf_metrics['loss_ce']:.6f}; {bf_ms:.3f} ms, peak "
+          f"{bf_peak:.1f} MiB; bf16 launches {bf16_step}", flush=True)
+
+    handle = init_depther(BINSFORMER, device="cuda", seed=SEED, bf16=True)
+    inference_depther(handle, requests[0][0])             # warm-up
+    reset_counts(counters)
+    depth = inference_depther(handle, requests[0][0])
+    bf16_request = {k: v.get("bf16", 0)
+                    for k, v in read_dtypes(counters).items()}
+    check_depth(f"{tag} bf16 request", depth, handle.cfg.model, (480, 640))
+    want = {"window_attention": 24, "msda": 12, "msda_backward": 0}
+    if bf16_request != want:
+        fail(f"{tag} bf16 request: bf16 launches {bf16_request}, expected "
+             f"{want}")
+    print(f"{tag} bf16 flip-TTA request (whole model cast): bf16 launches "
+          f"{bf16_request}", flush=True)
+    del handle
+    torch.cuda.empty_cache()
+    return {"step": counted, "bf16_step": bf16_step,
+            "bf16_request": bf16_request,
+            "summary": {"f32_step_ms": ms, "f32_step_peak_mib": peak,
+                        "bf16_step_ms": bf_ms, "bf16_step_peak_mib": bf_peak,
+                        **{k: metrics[k] for k in metrics if k != "lr"}}}
+
+
 def phase_zoo(trees, requests):
     """Phase 36: `bts_kitti`, `densedepth_kitti` and `dpt_kitti` from the
-    KITTI tree and `adabins_nyu` from an NYU tree served, trained and
-    evaluated; the port's kernel counts stay 0 over each preset's run."""
+    KITTI tree and `adabins_nyu` and `binsformer_nyu` from an NYU tree
+    served, trained and evaluated; the port's kernel counts stay 0 over
+    each preset's run but BinsFormer's, which launches A, B and C exactly
+    `BINS_PER_REQUEST` times a request and `BINS_PER_STEP` times a step.
+    Returns BinsFormer's launches for its `kernels` rows."""
     from gedepth_tpu_torch.tools.make_tree import make_nyu_tree
 
     try:
@@ -3599,24 +3951,41 @@ def phase_zoo(trees, requests):
                                  root=nyu_root))
     by_tree = {"kitti": requests, "nyu": nyu_requests(trees["nyu"])}
     counters = _kernel_counters()
-    summary = {}
+    summary, bins = {}, {}
     for preset in ZOO_PRESETS:
-        reset_counts(counters)
         t0 = time.perf_counter()
         tree = trees[ZOO_SPECS[preset]["tree"]]
-        summary[preset] = dict(
-            zoo_serving(preset, by_tree[ZOO_SPECS[preset]["tree"]]),
-            **zoo_training(preset, tree, tb_ok), **zoo_step_timing(preset))
+        reset_counts(counters)
+        served, requested = zoo_serving(
+            preset, by_tree[ZOO_SPECS[preset]["tree"]], counters)
+        summary[preset] = dict(served, **zoo_training(preset, tree, tb_ok),
+                               **zoo_step_timing(preset))
         if preset == "adabins_nyu":
             summary[preset].update(zoo_chamfer_step(tree))
         torch.cuda.empty_cache()
         launches, _ = read_counts(counters)
-        if any(launches.values()):
-            fail(f"[zoo {preset}] launched the port's kernels: {launches}")
+        n = len(by_tree[ZOO_SPECS[preset]["tree"]])
+        if preset == BINSFORMER:
+            want = {k: n * v for k, v in BINS_PER_REQUEST.items()}
+            want_by = {"msda": {BINS_SERVE_Q: n * 12}, "msda_backward": {}}
+            if requested != (want, want_by):
+                fail(f"[zoo {preset}] {n} requests launched {requested}; "
+                     f"expected {want}, {want_by}")
+            if not all(launches[k] for k in ("window_attention", "msda",
+                                             "msda_backward")):
+                fail(f"[zoo {preset}] its run launched {launches}")
+            bins = binsformer_steps(tree, by_tree["nyu"], counters)
+            bins["requests"] = requested
+            summary[preset].update(bins["summary"])
+        elif any(launches.values()) or any(requested[0].values()):
+            fail(f"[zoo {preset}] launched the port's kernels: {launches}, "
+                 f"{requested[0]}")
         summary[preset]["seconds"] = time.perf_counter() - t0
-        print(f"[zoo {preset}] kernel launches over the preset's run "
-              f"{launches}; {summary[preset]['seconds']:.1f} s", flush=True)
+        print(f"[zoo {preset}] kernel launches: {n} flip-TTA requests "
+              f"{requested[0]}, the whole run (serving, training, "
+              f"evaluation, tools.test) {launches}; {summary[preset]['seconds']:.1f} s", flush=True)
     print(f"[zoo] {json.dumps(summary)}", flush=True)
+    return bins
 
 
 # ---- phases 31-33: serving export, a bf16 export, the serving tools ----
@@ -4054,6 +4423,8 @@ def run(stack):
     lap("sampling rules (phase 9)")
     ddad_results = phase_kernels_ddad()
     lap("kernels at DDAD shapes (phase 24)")
+    bins_results = phase_kernels_binsformer()
+    lap("kernels at BinsFormer's shapes (phase 37)")
     handle, requests, serving_launches = phase_main_path()
     phase_whole_forward(handle, requests)
     lap("serving, whole forward (phases 4, 5)")
@@ -4140,9 +4511,9 @@ def run(stack):
     lap("torchrun, NCCL, a world of one (phase 29)")
     phase_pretrain(trees["kitti"])
     lap("stage-1 pretraining and the backbone overlay (phase 30)")
-    phase_zoo(trees, requests)
-    lap("the zoo's bts_kitti, densedepth_kitti, dpt_kitti and adabins_nyu "
-        "(phase 36)")
+    bins_counted = phase_zoo(trees, requests)
+    lap("the zoo's bts_kitti, densedepth_kitti, dpt_kitti, adabins_nyu and "
+        "binsformer_nyu (phase 36)")
 
     sources = {
         "window_attention": ("gedepth_tpu_torch/csrc/window_attention.cu",
@@ -4220,6 +4591,7 @@ def run(stack):
         kernels.append(r)
     kernels += ddad_rows(row, ddad_results, ddad_serving, ddad_launches,
                          ddad_by_queries)
+    kernels += binsformer_rows(row, bins_results, bins_counted)
     print(f"[train ddad] peak device memory of a batch-2 step {ddad_peak:.1f}"
           f" MiB at 384x640 against {f32_peak:.1f} MiB at 352x704 (phase 7)",
           flush=True)

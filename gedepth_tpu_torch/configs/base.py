@@ -6,8 +6,7 @@ are identical, so a preset compares equal field by field with its JAX
 counterpart. Left out on purpose: `swin_scan` (it changes only the JAX
 parameter layout, which `convert.from_jax` unstacks), `neck_value_bf16`
 (bf16 values in an f32 neck: the port's
-bf16 goes by `bf16_scope`, whole-model casts and `bf16_compute`), and the
-fields of modules not ported yet (BinsFormer's loss terms).
+bf16 goes by `bf16_scope`, whole-model casts and `bf16_compute`).
 """
 from __future__ import annotations
 
@@ -20,8 +19,8 @@ from typing import Optional, Tuple
 @dataclass(frozen=True)
 class ModelConfig:
     # architecture family: 'gedepth' (DepthFormer + HAHI + PE) or a zoo
-    # arch; 'adabins', 'bts', 'dpt' and 'densedepth' are ported
-    # ('binsformer' and 'seg' raise NotImplementedError)
+    # arch; 'adabins', 'bts', 'dpt', 'binsformer' and 'densedepth' are
+    # ported ('seg' raises NotImplementedError)
     arch: str = "gedepth"
     # zoo: the ResNet depth ('50') or the EfficientNet ('b0', 'tf_b5')
     backbone_variant: str = ""
@@ -68,9 +67,9 @@ class ModelConfig:
     def build(self, device=None, generator=None):
         """The torch model of this configuration, in eval mode: `GEDepth`,
         or `ZooDepther` for a ported zoo arch ('adabins', 'bts', 'dpt',
-        'densedepth'); the other zoo archs raise NotImplementedError. A zoo
-        model takes the RGB channels of its input and none of the GEDepth
-        fields."""
+        'binsformer', 'densedepth'); 'seg' raises NotImplementedError. A
+        zoo model takes the RGB channels of its input and none of the
+        GEDepth fields."""
         if self.arch != "gedepth":
             from gedepth_tpu_torch.models.zoo import ZooDepther
             if self.bf16_scope != "none":
@@ -148,7 +147,15 @@ class OptimConfig:
     grad_clip_norm: float = 35.0
     sig_loss_weight: float = 1.0
     slope_ce_weight: float = 0.08
-    # the zoo's bin-centre chamfer (AdaBins' bin_edges;
+    # BinsFormer's auxiliary supervision: SigLoss (and the chamfer when on)
+    # of decoder layers aux_loss_indices, times aux_loss_weights, on top of
+    # the final layer's loss
+    aux_loss_indices: Tuple[int, ...] = ()
+    aux_loss_weights: Tuple[float, ...] = ()
+    # BinsFormer's scene-class cross entropy on the class query's logits
+    # (the batch's `scene_class`; data.nyu.NYUDataset with scene_classes)
+    class_ce_weight: float = 0.0
+    # the zoo's bin-centre chamfer (AdaBins' and BinsFormer's bin_edges;
     # models.losses.bins_chamfer_loss): off in every preset
     chamfer_weight: float = 0.0
 

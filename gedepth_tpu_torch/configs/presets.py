@@ -104,6 +104,18 @@ _PRESETS = {
         data=_nyu_data(),
         optim=OptimConfig(sig_loss_weight=10.0),
         train=TrainConfig(max_iters=38400, global_batch=16)),
+    # BinsFormer: Swin-T + the bins transformer head
+    # (_base_/models/binsformer.py, configs/binsformer/*_nyu.py): 64 bins
+    # and the scene-class query, SigLoss 10, the auxiliary losses of
+    # decoder layers 2 and 5, the class CE 1e-2
+    "binsformer_nyu": lambda: ExperimentConfig(
+        name="binsformer_nyu",
+        model=ModelConfig(arch="binsformer", n_bins=64, max_depth=10.0),
+        data=dataclasses.replace(_nyu_data(), scene_classes=True),
+        optim=OptimConfig(sig_loss_weight=10.0, aux_loss_indices=(2, 5),
+                          aux_loss_weights=(0.25, 0.5),
+                          class_ce_weight=1e-2),
+        train=TrainConfig(max_iters=38400, global_batch=16)),
     # BTS: ResNet-50 + local planar guidance (_base_/models/bts.py)
     "bts_kitti": lambda: ExperimentConfig(
         name="bts_kitti",

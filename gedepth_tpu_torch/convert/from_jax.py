@@ -40,6 +40,22 @@ AdaBins' encoder, max(1, C // 64) in the ViT (the zoo's rule).
 The DPT head's `conv_depth` is a leaf name of DenseDepth's head too: a tree
 whose decode head has `reassemble0` is read as DPT's.
 
+BinsFormer's head maps as `_bins_torch_name` / `_bins_flax_module` say (its
+Swin is GEDepth's): the flax modules `skip_proj{i}`, `lateral{j}`,
+`output{j}` (ConvModules), `encoder{n}` (`self_attn`, `ffn1`, `ffn2`,
+`norm1`, `norm2`), `decoder{n}` (`cross_attn`, `self_attn`, `ffn1`, `ffn2`,
+`norm1`-`norm3`), `decoder_norm`, `bins_embed`, `mask_embed` and
+`class_embed` (`layers{k}`), and the tables `enc_level_embed`,
+`level_embed`, `query_feat` and `query_embed`, to the reference's
+`skip_proj.{i}`, `lateral_convs.{j}`, `output_convs.{j}`,
+`transformer_encoder.{level_embeds, encoder.layers.{n}.{attentions.0,
+ffns.0.layers.{0.0,1}, norms.{0,1}}}`, `transformer_decoder.{layers.{n}.
+{attentions.{0,1}.attn, ffns.0, norms.{0,1,2}}, decoder_norm, bins_embed,
+mask_embed.layers.{k}, class_embed.layers.{k}}`, `level_embed.weight`,
+`query_feat.weight` and `query_embed.weight`. The decoder's flax attention
+kernels (C, 8, C/8) and (8, C/8, C) are packed into torch's in_proj (3C, C)
+and out_proj as AdaBins' are, with BinsFormer's 8 heads going back.
+
 `flax_variables_from_state_dict` goes the other way, in the per-block Swin
 layout (the JAX package's `load_params_only` adapts it to either
 `swin_scan`); `train.checkpoint.save_params_only` writes it as the JAX
@@ -163,6 +179,82 @@ _FFN = {"Dense_0": "layers.0.0", "Dense_1": "layers.1"}
 _DPT_HEAD = {"head_conv1": "0", "head_conv2": "2", "conv_depth": "4"}
 _REGRESSOR = {"regressor0": "0", "regressor1": "2", "regressor2": "4"}
 _TIMM = "backbone.original_model"
+_BINS_ENC = "decode_head.transformer_encoder"
+_BINS_DEC = "decode_head.transformer_decoder"
+BINSFORMER_HEADS = 8
+# BinsFormer's tables: flax name -> port key
+_BINS_TABLES = {"enc_level_embed": f"{_BINS_ENC}.level_embeds",
+                "level_embed": "decode_head.level_embed.weight",
+                "query_feat": "decode_head.query_feat.weight",
+                "query_embed": "decode_head.query_embed.weight"}
+_BINS_TABLES_INV = {v: k for k, v in _BINS_TABLES.items()}
+_BINS_CONVS = {"skip_proj": "skip_proj", "lateral": "lateral_convs",
+               "output": "output_convs"}
+_BINS_CONVS_INV = {v: k for k, v in _BINS_CONVS.items()}
+_BINS_LAYER = {"ffn1": "ffns.0.layers.0.0", "ffn2": "ffns.0.layers.1",
+               "norm1": "norms.0", "norm2": "norms.1", "norm3": "norms.2"}
+_BINS_LAYER_INV = {v: k for k, v in _BINS_LAYER.items()}
+
+
+def _bins_torch_name(names, leaf):
+    """Port key of a BinsFormer-head leaf path, or None; a leaf of the
+    decoder's attention names the packed tensor that holds it (the packing
+    itself is `_fuse_flax`'s)."""
+    if names[0] != "decode_head":
+        return None
+    sub = names[1]
+    if sub in _BINS_TABLES and len(names) == 2:
+        return _BINS_TABLES[sub]
+    m = re.fullmatch(r"(skip_proj|lateral|output)(\d+)", sub)
+    if m:
+        return _convmodule(
+            f"decode_head.{_BINS_CONVS[m.group(1)]}.{m.group(2)}", names[2:])
+    m = re.fullmatch(r"(encoder|decoder)(\d+)", sub)
+    if m:
+        base = (f"{_BINS_ENC}.encoder.layers.{m.group(2)}"
+                if m.group(1) == "encoder"
+                else f"{_BINS_DEC}.layers.{m.group(2)}")
+        if names[2] in _BINS_LAYER:
+            return f"{base}.{_BINS_LAYER[names[2]]}.{leaf}"
+        if m.group(1) == "encoder" and names[2] == "self_attn":
+            return f"{base}.attentions.0.{names[3]}.{leaf}"
+        if names[2] in ("cross_attn", "self_attn"):
+            # the packed tensor that holds this leaf (`_fuse_flax`)
+            att = f"{base}.attentions.{int(names[2] == 'self_attn')}.attn"
+            if names[3] == "out":
+                return f"{att}.out_proj.{leaf}"
+            return f"{att}.in_proj_{leaf}"
+        return None
+    if sub in ("decoder_norm", "bins_embed"):
+        return f"{_BINS_DEC}.{sub}.{leaf}"
+    if sub in ("mask_embed", "class_embed"):
+        return f"{_BINS_DEC}.{sub}.layers.{names[2][len('layers'):]}.{leaf}"
+    return None
+
+
+def _bins_flax_module(p):
+    """Flax module path of a BinsFormer-head port key without its leaf, or
+    None (the inverse of `_bins_torch_name`)."""
+    if p[0] != "decode_head":
+        return None
+    if p[1] in _BINS_CONVS_INV:
+        return ("decode_head", f"{_BINS_CONVS_INV[p[1]]}{p[2]}",
+                "Conv_0" if p[3] == "conv" else "BatchNorm_0")
+    if p[1] == "transformer_encoder" and p[2] == "encoder":
+        block = ("decode_head", f"encoder{p[4]}")
+        if p[5] == "attentions":
+            return block + ("self_attn", p[7])
+        return block + (_BINS_LAYER_INV[".".join(p[5:-1])],)
+    if p[1] == "transformer_decoder":
+        if p[2] == "layers":
+            return ("decode_head", f"decoder{p[3]}",
+                    _BINS_LAYER_INV[".".join(p[4:-1])])
+        if p[2] in ("decoder_norm", "bins_embed"):
+            return ("decode_head", p[2])
+        if p[2] in ("mask_embed", "class_embed"):
+            return ("decode_head", p[2], f"layers{p[4]}")
+    return None
+
 _PT = "decode_head.adaptive_bins_layer.patch_transformer"
 # the transposed convs of the DPT reassemble blocks: layer index -> factor
 DECONV_FACTORS = {0: 4, 1: 2}
@@ -337,7 +429,8 @@ def _fuse_flax(leaves):
     `_Deconv` Dense into its transposed conv's weight and bias."""
     out, rest, groups = {}, [], {}
     for names, arr in leaves:
-        if (len(names) >= 3 and names[-3] in ("attn", "self_attn")
+        if (len(names) >= 3
+                and names[-3] in ("attn", "self_attn", "cross_attn")
                 and names[-2] in ("query", "key", "value", "out")):
             groups.setdefault(names[:-2], {})[names[-2:]] = arr
         elif (len(names) == 5 and names[0] == "decode_head"
@@ -363,6 +456,11 @@ def _fuse_flax(leaves):
         if prefix[0] == "backbone":                      # ViT block
             base = f"backbone.blocks.{prefix[1][len('block'):]}.attn"
             names = ("qkv.weight", "qkv.bias", "proj.weight", "proj.bias")
+        elif prefix[1].startswith("decoder"):           # BinsFormer decoder
+            base = (f"{_BINS_DEC}.layers.{prefix[1][len('decoder'):]}."
+                    f"attentions.{0 if prefix[2] == 'cross_attn' else 1}.attn")
+            names = ("in_proj_weight", "in_proj_bias", "out_proj.weight",
+                     "out_proj.bias")
         else:                                            # AdaBins encoder
             base = (f"{_PT}.transformer_encoder.layers."
                     f"{prefix[3][len('layer'):]}.self_attn")
@@ -388,6 +486,12 @@ def _split_torch(key, arr):
     if key.startswith("backbone.blocks.") and p[3] == "attn":
         base = ("backbone", f"block{p[2]}", "attn")
         leaf = ".".join(p[4:])
+    elif key.startswith(f"{_BINS_DEC}.layers.") and p[4] == "attentions":
+        base = ("decode_head", f"decoder{p[3]}",
+                "cross_attn" if p[5] == "0" else "self_attn")
+        leaf = {"in_proj_weight": "qkv.weight", "in_proj_bias": "qkv.bias",
+                "out_proj.weight": "proj.weight",
+                "out_proj.bias": "proj.bias"}[".".join(p[7:])]
     elif key.startswith(f"{_PT}.transformer_encoder.") and p[6] == "self_attn":
         base = ("decode_head", "adaptive_bins_layer", "patch_transformer",
                 f"layer{p[5]}", "self_attn")
@@ -397,7 +501,11 @@ def _split_torch(key, arr):
     else:
         return None
     c = arr.shape[-1] if leaf != "qkv.bias" else arr.shape[0] // 3
-    heads = ADABINS_HEADS if base[0] == "decode_head" else max(1, c // 64)
+    if base[0] == "backbone":
+        heads = max(1, c // 64)
+    else:
+        heads = (BINSFORMER_HEADS if base[1].startswith("decoder")
+                 else ADABINS_HEADS)
     hd = c // heads
     if leaf == "qkv.weight":
         return [(base + (n, "kernel"), w.T.reshape(c, heads, hd))
@@ -416,7 +524,8 @@ def _torch_name(names, dpt=False):
     the leaf is a DPT model's (its `decode_head/conv_depth` is the head's
     last conv)."""
     top, leaf = names[0], _WB.get(names[-1], names[-1])
-    zoo = (_zoo2_torch_name(names, leaf, dpt)
+    zoo = (_bins_torch_name(names, leaf)
+           or _zoo2_torch_name(names, leaf, dpt)
            or _zoo_torch_name(names, leaf))
     if zoo is not None:
         return zoo
@@ -486,6 +595,9 @@ def _flax_module(key, zoo=False):
     is a `ZooDepther`'s, whose `backbone.conv1` is a ResNet stem and not
     GEDepth's conv stem."""
     p = key.split(".")
+    path = _bins_flax_module(p)
+    if path is not None:
+        return path
     if zoo:
         path = _zoo2_flax_module(p) or _zoo_flax_module(p)
         if path is not None:
@@ -551,6 +663,8 @@ def flax_path(key: str, ndim: int, zoo: bool = False):
         return None
     if key == "neck.level_embed":
         return "params", ("neck", "level_embed")
+    if key in _BINS_TABLES_INV:
+        return "params", ("decode_head", _BINS_TABLES_INV[key])
     if leaf == "relative_position_bias_table":
         return "params", _flax_module(key) + (leaf,)
     stats = {"running_mean": "mean", "running_var": "var"}
@@ -588,7 +702,7 @@ def flax_variables_from_state_dict(state_dict: Mapping):
     zoo = is_zoo_state_dict(state_dict)
     for key, t in state_dict.items():
         arr = t.detach().float().cpu().numpy()
-        split = _split_torch(key, arr) if zoo else None
+        split = _split_torch(key, arr)
         if split is not None:
             for names, part in split:
                 _put(trees["params"], names, part)

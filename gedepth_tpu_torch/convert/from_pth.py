@@ -40,6 +40,20 @@ AdaBins takes its decode head from a reference file and keeps its seeded
 backbone, as in the JAX package, although the ResNet carries the
 reference's names: such backbone keys are reported as unused.
 
+BinsFormer's head (binsformer_head.py and transformer.py names:
+`skip_proj`, `lateral_convs` and `output_convs` ConvModules, the level
+embeds and queries, `transformer_encoder.encoder.layers.N.{attentions.0,
+ffns.0, norms}`, `transformer_decoder.layers.N.{attentions.{0,1}.attn,
+ffns.0, norms}`, `decoder_norm`, `bins_embed`, `mask_embed`,
+`class_embed`) keeps its keys: the JAX converter splits each decoder
+attention's packed `in_proj` into flax's query, key and value kernels of 8
+heads, and the port keeps torch's packing. The encoder's
+`transformer_encoder.reference_points` layer, which its encoder-only
+forward never reads, is dropped, as the JAX converter drops it. Its Swin
+backbone takes GEDepth's backbone keys. `binsformer_release_remap` is the
+released checkpoints' key fix (the reference's
+tools/model_converters/binsformer.py).
+
 A reference transposed conv of the DPT reassemble blocks has one bias a
 channel; the port's (and the JAX package's) has one a channel and
 sub-pixel, so the file's is spread over the sub-pixels (`np.tile` in the
@@ -114,7 +128,23 @@ _KEPT = [re.compile(p + "$") for p in (
     r"decode_head\.fusion_blocks\.\d\.res_conv_unit[12]\.conv[12]\.conv\."
     r"weight",
     r"decode_head\.project\.conv\." + _WB,
-    r"decode_head\.conv_depth\.head\.[024]\." + _WB)]
+    r"decode_head\.conv_depth\.head\.[024]\." + _WB,
+    # the BinsFormer head (binsformer_head.py and transformer.py names)
+    r"decode_head\.(level_embed|query_feat|query_embed)\.weight",
+    r"decode_head\.transformer_encoder\.level_embeds",
+    r"decode_head\.transformer_encoder\.encoder\.layers\.\d+\.attentions"
+    r"\.0\.(sampling_offsets|attention_weights|value_proj|output_proj)\."
+    + _WB,
+    r"decode_head\.transformer_(encoder\.encoder|decoder)\.layers\.\d+\."
+    r"(ffns\.0\.layers\.(0\.0|1)|norms\.\d)\." + _WB,
+    r"decode_head\.transformer_decoder\.layers\.\d+\.attentions\.[01]\."
+    r"attn\.(in_proj_(weight|bias)|out_proj\.(weight|bias))",
+    r"decode_head\.transformer_decoder\.(decoder_norm|bins_embed|"
+    r"(mask_embed|class_embed)\.layers\.\d)\." + _WB)]
+# keys the JAX converter drops: the BinsFormer encoder's unused learned
+# reference points
+_DROPPED = re.compile(
+    r"decode_head\.transformer_encoder\.reference_points\." + _WB + "$")
 # timm keys past the deepest endpoint, which the JAX converter drops
 _TIMM_DROPPED = re.compile(
     r"backbone\.original_model\.((bn2|classifier|global_pool)\..*|"
@@ -123,9 +153,10 @@ _TIMM_DROPPED = re.compile(
 _BN_TRACKED = re.compile(
     r"(backbone\.bn1|decode_head\.bn\d(_2)?|decode_head\.daspp_\d+\."
     r"atrous_conv\.(first_bn|aconv_sequence\.2))\.num_batches_tracked$")
-_CONVMODULE = re.compile(r"neck\.(lateral_convs\.\d+|trans_proj\.\d+|"
-                         r"trans_fusion\.\d+|conv_proj\.0|conv_fusion\.0)\."
-                         r"(.*)$")
+_CONVMODULE = re.compile(r"(neck\.(lateral_convs\.\d+|trans_proj\.\d+|"
+                         r"trans_fusion\.\d+|conv_proj\.0|conv_fusion\.0)|"
+                         r"decode_head\.(skip_proj|lateral_convs|"
+                         r"output_convs)\.\d+)\.(.*)$")
 _BLOCK = re.compile(r"backbone\.stages\.\d+\.blocks\.\d+\.(.*)$")
 
 
@@ -186,10 +217,12 @@ def reference_key_rule(key: str):
             else None
     m = _CONVMODULE.match(key)
     if m:
-        if m.group(2) in _CONVMODULE_LEAVES:
+        leaf = m.group(m.lastindex)
+        if leaf in _CONVMODULE_LEAVES:
             return True
-        return False if m.group(2) == "bn.num_batches_tracked" else None
-    if _BN_TRACKED.match(key) or _TIMM_DROPPED.match(key):
+        return False if leaf == "bn.num_batches_tracked" else None
+    if (_BN_TRACKED.match(key) or _TIMM_DROPPED.match(key)
+            or _DROPPED.match(key)):
         return False
     return True if any(p.match(key) for p in _KEPT) else None
 
@@ -239,6 +272,17 @@ def spread_deconv_bias(sd: Dict[str, torch.Tensor],
     return sd
 
 
+def binsformer_release_remap(sd: Dict[str, torch.Tensor]):
+    """The released BinsFormer checkpoints nest the pixel decoder one level
+    deeper than the model: `decode_head.transformer_decoder.decoder.X` ->
+    `decode_head.transformer_decoder.X` (the reference's
+    tools/model_converters/binsformer.py)."""
+    pre = "decode_head.transformer_decoder.decoder."
+    tgt = "decode_head.transformer_decoder."
+    return {(tgt + k[len(pre):]) if k.startswith(pre) else k: v
+            for k, v in sd.items()}
+
+
 def convert_state_dict(sd: Dict[str, torch.Tensor]):
     """(kept entries, unmapped keys) of a reference state dict, by
     `reference_key_rule`."""
@@ -247,7 +291,8 @@ def convert_state_dict(sd: Dict[str, torch.Tensor]):
             [k for k, r in rules.items() if r is None])
 
 
-def convert_checkpoint_file(pth_path: str, model, official_swin=False):
+def convert_checkpoint_file(pth_path: str, model, official_swin=False,
+                            binsformer_release=False):
     """Load a reference `.pth` into `model` (the port's `GEDepth`, on any
     device); returns (model, report).
 
@@ -262,16 +307,22 @@ def convert_checkpoint_file(pth_path: str, model, official_swin=False):
     running statistics the file did not give) and, for a zoo model,
     `unused_torch_keys` (backbone keys the JAX converter sends to
     GEDepth's stems, which a zoo model lacks: `backbone.conv1`,
-    `backbone.bn1`, `backbone.patch_embed.projection`)."""
+    `backbone.bn1`, `backbone.patch_embed.projection`; none for BinsFormer,
+    whose Swin takes them). binsformer_release: apply
+    `binsformer_release_remap` first."""
     sd = load_torch_checkpoint(pth_path)
+    if binsformer_release:
+        sd = binsformer_release_remap(sd)
     if official_swin:
         sd = {f"backbone.{k}": v
               for k, v in swin_official_to_gedepth(sd).items()}
     sd, unmapped = convert_state_dict(sd)
     zoo = getattr(model, "arch", "gedepth") != "gedepth"
     if zoo:
-        unused = sorted(k for k in sd if k.startswith("backbone.") and
-                        not k.startswith("backbone.original_model."))
+        swin = getattr(model, "arch", "") == "binsformer"
+        unused = [] if swin else sorted(
+            k for k in sd if k.startswith("backbone.") and
+            not k.startswith("backbone.original_model."))
         sd = {k: v for k, v in sd.items() if k not in unused}
     if model.pe_variant != "none":
         pad_patch_embed_for_pe(sd)

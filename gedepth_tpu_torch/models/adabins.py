@@ -51,7 +51,7 @@ class MultiheadAttention(nn.Module):
     def __init__(self, dim: int, num_heads: int):
         super().__init__()
         self.num_heads = num_heads
-        self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
+        self.in_proj_weight = nn.Parameter(torch.zeros(3 * dim, dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * dim))
         self.out_proj = linear(dim, dim, init="lecun")
 
@@ -62,14 +62,25 @@ class MultiheadAttention(nn.Module):
                               b=2 * std, generator=gen)
         nn.init.zeros_(self.in_proj_bias)
 
-    def forward(self, x):
+    def forward(self, x, key=None, value=None):
+        """Self-attention over x (B, N, E); with `key` and `value` (B, M,
+        E), the attention of the queries x over them (BinsFormer's
+        decoder): q, k and v are the three row blocks of in_proj applied to
+        x, key and value."""
         B, N, E = x.shape
         h = self.num_heads
-        qkv = F.linear(x, self.in_proj_weight, self.in_proj_bias)
-        qkv = qkv.view(B, N, 3, h, E // h).permute(2, 0, 3, 1, 4)
-        q = qkv[0] * (E // h) ** -0.5
-        attn = torch.softmax(q @ qkv[1].transpose(-2, -1), dim=-1)
-        return self.out_proj((attn @ qkv[2]).transpose(1, 2).reshape(B, N, E))
+        if key is None:
+            # one packed product in place of three: AdaBins' self-attention
+            qkv = F.linear(x, self.in_proj_weight, self.in_proj_bias)
+            q, k, v = qkv.view(B, N, 3, h, E // h).permute(2, 0, 3, 1, 4)
+        else:
+            q, k, v = (F.linear(t, w, b).view(B, -1, h, E // h).transpose(1, 2)
+                       for t, w, b in zip((x, key, value),
+                                          self.in_proj_weight.chunk(3),
+                                          self.in_proj_bias.chunk(3)))
+        attn = torch.softmax((q * (E // h) ** -0.5) @ k.transpose(-2, -1),
+                             dim=-1)
+        return self.out_proj((attn @ v).transpose(1, 2).reshape(B, N, E))
 
 
 class TransformerEncoderLayer(nn.Module):
@@ -107,7 +118,7 @@ class PatchTransformerEncoder(nn.Module):
         self.embedding_convPxP = conv2d(embed_dim, embed_dim, PATCH,
                                         stride=PATCH)
         self.positional_encodings = nn.Parameter(
-            torch.empty(MAX_TOKENS, embed_dim))
+            torch.zeros(MAX_TOKENS, embed_dim))
         self.transformer_encoder = _Encoder(embed_dim)
 
     def init_params(self, gen):

@@ -44,7 +44,7 @@ class Deconv(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, factor: int):
         super().__init__()
         self.factor = factor
-        self.weight = nn.Parameter(torch.empty(in_ch, out_ch, factor, factor))
+        self.weight = nn.Parameter(torch.zeros(in_ch, out_ch, factor, factor))
         self.bias = nn.Parameter(torch.zeros(out_ch, factor, factor))
 
     def init_params(self, gen):

@@ -173,7 +173,7 @@ class HAHINeck(nn.Module):
         self.trans_proj = nn.ModuleList([
             ConvModule(c, embed_dim, 1, use_norm=True, act=F.relu)
             for c in out_channels[1:]])
-        self.level_embed = nn.Parameter(torch.empty(L, embed_dim))
+        self.level_embed = nn.Parameter(torch.zeros(L, embed_dim))
         self.self_attn = (MSDeformAttention(
             embed_dim, num_heads, L, num_points, window_radius,
             sampling=sampling, msda_remat=msda_remat) if self_att else None)

@@ -18,6 +18,9 @@ ground-mask pretraining path, over this process's rows.
 bins_chamfer_loss: AdaBins' chamfer distance between the bin centres and
 the valid GT depths, both directions, the mean over the global batch's
 rows.
+
+class_ce: BinsFormer's scene-class cross entropy, the mean over the global
+batch's rows.
 """
 from __future__ import annotations
 
@@ -103,3 +106,13 @@ def bins_chamfer_loss(bin_edges, target_depth, min_depth=1e-3,
     total, n = parallel.global_sum(torch.stack(
         [rows.sum(), rows.new_tensor(float(rows.shape[0]))]))
     return loss_weight * total / n
+
+
+def class_ce(logits, labels):
+    """logits (B, K), labels (B,) class ids: the mean over the global
+    batch's rows of −log_softmax(logits)[label], in f32."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, 1, labels.long()[:, None])[:, 0]
+    total, n = parallel.global_sum(torch.stack(
+        [nll.sum(), nll.new_tensor(float(nll.shape[0]))]))
+    return total / n

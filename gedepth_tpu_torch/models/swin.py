@@ -95,7 +95,7 @@ class WindowMSA(nn.Module):
         self.qkv = linear(embed_dims, 3 * embed_dims)
         self.proj = linear(embed_dims, embed_dims)
         self.relative_position_bias_table = nn.Parameter(
-            torch.empty((2 * window - 1) ** 2, num_heads))
+            torch.zeros((2 * window - 1) ** 2, num_heads))
 
     def init_params(self, gen):
         nn.init.trunc_normal_(self.relative_position_bias_table, std=0.02,

@@ -10,9 +10,18 @@ Ported pairings:
   dpt        — ViT + DPTHead                 (_base_/models/dpt.py)
   densedepth — ResNet (+ the stem level) + DenseDepthHead
                (_base_/models/densedepth.py)
-'binsformer' (and the segmentation model 'seg') are not ported yet
-(ROADMAP Queue 1). AdaBins also returns its `bin_edges` (B, n_bins + 1),
-which the bin-chamfer loss reads.
+  binsformer — Swin (+ the conv stem) + BinsFormerHead
+               (_base_/models/binsformer.py)
+The segmentation model 'seg' is not ported yet (ROADMAP Queue 1). AdaBins
+and BinsFormer also return their `bin_edges` (B, n_bins + 1), which the
+bin-chamfer loss reads; BinsFormer its scene `class_logits` (B, 25) and, in
+training, the outputs of its other decoder layers (`aux_layer_outs`), which
+its auxiliary losses read.
+
+BinsFormer's Swin is the JAX zoo's: DropPath at rates up to 0.3 and remat in
+training (`models.swin`), whatever the config's `drop_path_rate` and
+`swin_remat` say, as in the JAX package; its DropPath draws from the
+generator of `set_generator`.
 
 A zoo model reads the RGB channels of its input only: a KITTI preset keeps
 the config's `pe_variant`, so the loader and the serving API hand it the
@@ -25,21 +34,24 @@ import torch
 import torch.nn as nn
 
 from gedepth_tpu_torch.models.adabins import AdabinsHead
+from gedepth_tpu_torch.models.binsformer import BinsFormerHead
 from gedepth_tpu_torch.models.bts import BTSHead
 from gedepth_tpu_torch.models.dpt import DPTHead
 from gedepth_tpu_torch.models.efficientnet import (
     EfficientNet, TimmEfficientNet)
 from gedepth_tpu_torch.models.heads import DenseDepthHead
-from gedepth_tpu_torch.models.layers import init_weights
+from gedepth_tpu_torch.models.layers import Stochastic, init_weights
 from gedepth_tpu_torch.models.resnet import ResNet
+from gedepth_tpu_torch.models.swin import DepthFormerSwin
 from gedepth_tpu_torch.models.vit import VisionTransformer, out_indices_for
 from gedepth_tpu_torch.ops.resize import resize_bilinear
 
 ZOO_ARCHS = ("adabins", "bts", "dpt", "binsformer", "densedepth")
-PORTED_ARCHS = ("adabins", "bts", "dpt", "densedepth")
+PORTED_ARCHS = ("adabins", "bts", "dpt", "binsformer", "densedepth")
 # where each arch that is not ported yet stands in ROADMAP.md Queue 1
-ZOO_ROADMAP = {"binsformer": "Zoo 4: BinsFormer",
-               "seg": "Zoo 5: HRNet and segmentation"}
+ZOO_ROADMAP = {"seg": "Zoo 5: HRNet and segmentation"}
+# BinsFormer's head caps the bins at 64 (the JAX zoo's rule)
+BINSFORMER_MAX_BINS = 64
 
 
 def not_ported(arch):
@@ -52,9 +64,12 @@ def not_ported(arch):
 class ZooDepther(nn.Module):
     """Backbone and decode head with the `GEDepth` contract: forward(img
     (B, H, W, C≥3) NHWC, cam_height) -> {"depth" (B, H', W', 1), "y": None,
-    "slope_logits": None, "pe_mask": None}, and for AdaBins "bin_edges"
-    (B, n_bins + 1). Built on the CPU from
-    `generator` (seed 0 when None), then moved to `device`."""
+    "slope_logits": None, "pe_mask": None}, and for AdaBins and
+    BinsFormer "bin_edges" (B, n_bins + 1), for BinsFormer "class_logits"
+    (B, 25) and, in training, "aux_layer_outs": the dicts of its decoder
+    layers but the last ("depth" NHWC, "bin_edges", "class_logits"). Built
+    on the CPU from `generator` (seed 0 when None), then moved to
+    `device`."""
 
     # interface of GEDepth that the steps read
     pe_variant = "none"
@@ -82,6 +97,19 @@ class ZooDepther(nn.Module):
             post = tuple(max(8, ed * m // 8) for m in (1, 2, 4, 8))
             self.decode_head = DPTHead(ed, post, channels=head_channels,
                                        min_depth=min_depth)
+        elif arch == "binsformer":
+            # Swin-T by default: 96 wide, heads of 32
+            ed = backbone_embed_dims or 96
+            self.backbone = DepthFormerSwin(
+                embed_dims=ed, depths=(2, 2, 6, 2),
+                num_heads=tuple(max(1, ed * m // 96) for m in (3, 6, 12, 24)),
+                use_pe=False)
+            chans = (self.backbone.conv1.out_channels,) + tuple(
+                ed * 2 ** i for i in range(4))
+            self.decode_head = BinsFormerHead(
+                chans, conv_dim=head_channels,
+                n_bins=min(n_bins, BINSFORMER_MAX_BINS),
+                min_depth=min_depth, max_depth=max_depth)
         elif arch == "adabins":
             variant = backbone_variant or "b0"
             self.backbone = (TimmEfficientNet(variant)
@@ -110,13 +138,24 @@ class ZooDepther(nn.Module):
             self.to(device)
 
     def set_generator(self, generator):
-        """Nothing draws random numbers in a zoo model (no DropPath, no
-        dropout); kept for the train step's contract."""
+        """Hand `generator` to every DropPath and Dropout (BinsFormer's
+        Swin; the other zoo models have none), as `GEDepth.set_generator`
+        does."""
+        for m in self.modules():
+            if isinstance(m, Stochastic):
+                m.generator = generator
 
     def forward(self, img, cam_height=None):
         rgb = img[..., :3].permute(0, 3, 1, 2).contiguous()
         depth = self.decode_head(self.backbone(rgb))
         out = {"y": None, "slope_logits": None, "pe_mask": None}
+        if self.arch == "binsformer":
+            layers = [dict(o, depth=o["depth"].permute(0, 2, 3, 1))
+                      for o in depth]
+            out.update(layers[-1])
+            if self.training:
+                out["aux_layer_outs"] = layers[:-1]
+            return out
         if self.arch == "adabins":
             depth, out["bin_edges"] = depth
         out["depth"] = depth.permute(0, 2, 3, 1)

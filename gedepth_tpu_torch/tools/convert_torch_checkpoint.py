@@ -5,23 +5,23 @@ read (the counterpart of tools/convert_torch_checkpoint.py).
 
     python -m gedepth_tpu_torch.tools.convert_torch_checkpoint \
         <ckpt.pth> <preset> <out.npz> [--official-swin]
-        [--options key=value ...]
+        [--binsformer-release] [--options key=value ...]
 
 The preset's model (its fields overridden by --options) is built from its
 seeded initialisation and the file is loaded into it
 (`convert.from_pth.convert_checkpoint_file`); what the file does not give
 keeps that initialisation and is listed. --official-swin: the file holds an
-official Swin backbone only. Runs on the CPU.
+official Swin backbone only. --binsformer-release: the file is a released
+BinsFormer checkpoint, whose pixel-decoder keys are nested one level deeper
+(`convert.from_pth.binsformer_release_remap`). Runs on the CPU.
 """
 from __future__ import annotations
 
 import argparse
 
 
-def main(argv=None):
-    from gedepth_tpu_torch.configs import (
-        apply_options, get_config, list_configs)
-    from gedepth_tpu_torch.utils.env import disable_tf32
+def parse_args(argv=None):
+    from gedepth_tpu_torch.configs import list_configs
 
     parser = argparse.ArgumentParser(
         description="Convert a reference .pth to a params-only .npz")
@@ -32,9 +32,20 @@ def main(argv=None):
                         help="the file uses the official Swin key names "
                         "(backbone only; the rest keeps the seeded "
                         "initialisation)")
+    parser.add_argument("--binsformer-release", action="store_true",
+                        help="apply the released-BinsFormer key fix "
+                        "(decode_head.transformer_decoder.decoder.X -> "
+                        "decode_head.transformer_decoder.X)")
     parser.add_argument("--options", nargs="*", default=None,
                         help="dotted config overrides key=value")
-    args = parser.parse_args(argv)
+    return parser.parse_args(argv)
+
+
+def main(argv=None):
+    from gedepth_tpu_torch.configs import apply_options, get_config
+    from gedepth_tpu_torch.utils.env import disable_tf32
+
+    args = parse_args(argv)
 
     import torch
 
@@ -44,8 +55,9 @@ def main(argv=None):
     disable_tf32()
     cfg = apply_options(get_config(args.config), args.options)
     model = cfg.model.build(generator=torch.Generator().manual_seed(0))
-    _, report = convert_checkpoint_file(args.checkpoint, model,
-                                        official_swin=args.official_swin)
+    _, report = convert_checkpoint_file(
+        args.checkpoint, model, official_swin=args.official_swin,
+        binsformer_release=args.binsformer_release)
     for name, what in (("unmapped_torch_keys", "torch keys had no mapping"),
                        ("unused_torch_keys", "torch keys map to modules "
                         "this model lacks"),

@@ -125,8 +125,9 @@ def train_step_for(cfg):
     if cfg.model.arch == "gedepth":
         return make_train_step(o.sig_loss_weight, o.slope_ce_weight,
                                bf16=bf16)
-    return make_zoo_train_step(o.sig_loss_weight,
-                               chamfer_weight=o.chamfer_weight, bf16=bf16)
+    return make_zoo_train_step(o.sig_loss_weight, o.aux_loss_indices,
+                               o.aux_loss_weights, o.class_ce_weight,
+                               o.chamfer_weight, bf16=bf16)
 
 
 LESS_IS_BETTER = ("abs_rel", "sq_rel", "rmse", "rmse_log", "log_10", "silog")
@@ -166,7 +167,9 @@ def train(cfg, work_dir: Optional[str] = None,
 
     history: one dict per step, mode 'train': iter, lr, loss, loss_depth,
     loss_slope (adaptive models), loss_chamfer (a zoo model with bin edges
-    and optim.chamfer_weight), grad_norm, time (seconds of this one step
+    and optim.chamfer_weight), loss_ce and aux_loss_depth_{idx}
+    (BinsFormer's scene-class and auxiliary terms), grad_norm, time
+    (seconds of this one step
     on a synchronised host clock) and, on a CUDA device, peak_mem_mib (the
     step's peak of allocated device memory); and one per evaluation, mode
     'val': iter, the nine metrics, images and time (seconds).
@@ -294,7 +297,9 @@ def train(cfg, work_dir: Optional[str] = None,
             t0 = time.perf_counter()
             metrics = train_step(state, batch)
             keys = [k for k in ("loss", "loss_depth", "loss_slope",
-                                "loss_chamfer", "grad_norm") if k in metrics]
+                                "loss_chamfer", "loss_ce") if k in metrics]
+            keys += sorted(k for k in metrics if k.startswith("aux_loss_"))
+            keys.append("grad_norm")
             values = torch.stack([metrics[k] for k in keys]).tolist()
             record = dict(zip(keys, values), iter=it + 1, lr=metrics["lr"],
                           time=time.perf_counter() - t0, mode="train")

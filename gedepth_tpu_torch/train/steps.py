@@ -7,7 +7,8 @@ logits when the model is adaptive), backward, the global gradient norm of
 the raw gradients, the clip, then one AdamW update at the LR the schedule
 gives for the updates done so far. PyTorch runs eagerly, so the step is a
 plain function that updates the state in place. `make_zoo_train_step` is
-the zoo models' step: the same with SigLoss alone.
+the zoo models' step: the same with SigLoss, and the bin-chamfer,
+scene-class and auxiliary-layer terms of AdaBins and BinsFormer.
 
 More than one process (`parallel`): each process runs the step on its
 rows of the global batch. SigLoss, the slope cross entropy and every
@@ -17,7 +18,8 @@ every process and each process's gradient is the world size times its
 rows' share; `TrainState.apply_gradients` averages the gradients over the
 processes first, which leaves the gradient of the global loss everywhere.
 The two factors of the world size cancel only for terms that reach the loss
-through `global_sum`. The model is not wrapped in DDP: its keys, attributes
+through `global_sum`, which every term does (the zoo's chamfer and class
+cross entropy too). The model is not wrapped in DDP: its keys, attributes
 and checkpoints stay those of one process, and the all-reduce runs after the
 backward rather than overlapping it.
 
@@ -48,7 +50,7 @@ import torch
 
 from gedepth_tpu_torch import parallel
 from gedepth_tpu_torch.models.losses import (
-    bins_chamfer_loss, sigloss, softmax_ce_ignore)
+    bins_chamfer_loss, class_ce, sigloss, softmax_ce_ignore)
 from gedepth_tpu_torch.ops.resize import resize_bilinear
 from gedepth_tpu_torch.train.optim import (
     clip_by_global_norm, lr_schedule, make_optimizer)
@@ -100,14 +102,19 @@ def create_train_state(model, optim_cfg, max_iters: int, seed: int = 0):
 
 def batch_to_device(batch, device):
     """A loader batch (numpy arrays or CPU tensors, pinned or not) as the
-    train step's f32 tensors on `device`."""
+    train step's f32 tensors on `device`, and `scene_class` (NYU with
+    scene classes) as int64."""
     def tensor(x):
         return x if torch.is_tensor(x) else torch.from_numpy(
             np.ascontiguousarray(x))
 
     keys = ("img", "depth_gt", "pe_k_gt", "cam_height")
-    return {k: tensor(batch[k]).to(device, torch.float32, non_blocking=True)
-            for k in keys if k in batch}
+    out = {k: tensor(batch[k]).to(device, torch.float32, non_blocking=True)
+           for k in keys if k in batch}
+    if "scene_class" in batch:
+        out["scene_class"] = tensor(batch["scene_class"]).to(
+            device, torch.int64, non_blocking=True)
+    return out
 
 
 def _apply_bf16(model, img, cam_height):
@@ -137,6 +144,13 @@ def _resized_depth(out, gt):
     """The f32 depth resized to the GT's size with align_corners=True."""
     return resize_bilinear(out["depth"].float(), gt.shape[1:3],
                            align_corners=True)
+
+
+def _chamfer(out, batch, min_depth):
+    """The bin-chamfer distance of `out`'s f32 edges against the GT, at
+    weight 1."""
+    return bins_chamfer_loss(out["bin_edges"].float(), batch["depth_gt"],
+                             min_depth=min_depth, loss_weight=1.0)
 
 
 def make_train_step(sig_loss_weight: float = 1.0,
@@ -181,34 +195,53 @@ def make_zoo_train_step(sig_loss_weight: float = 10.0,
     """train_step(state, batch) -> metrics for a `ZooDepther` (the port of
     `gedepth_tpu.train.steps.make_zoo_train_step`): the depth resized to
     the GT with align_corners=True, then sig_loss_weight · SigLoss over
-    every GT > 0 (no max_depth); with chamfer_weight and a model that gives
-    `bin_edges` (AdaBins), chamfer_weight · `bins_chamfer_loss` of the f32
-    edges against the GT (min_depth the model's), under
-    metrics["loss_chamfer"] and added to the loss; the gradient norm, the
-    clip, AdamW, the global batch's losses and BatchNorm statistics and
-    `bf16` as in `make_train_step`. metrics: loss, loss_depth,
-    [loss_chamfer,] grad_norm, lr.
-
-    The auxiliary-layer and scene-class terms need BinsFormer's outputs,
-    which are not ported: non-zero weights for them raise
-    NotImplementedError."""
-    if tuple(aux_loss_indices) or tuple(aux_loss_weights) or class_ce_weight:
-        raise NotImplementedError(
-            "the zoo's auxiliary and class-CE losses come with BinsFormer "
-            "(ROADMAP.md Queue 1)")
+    every GT > 0 (no max_depth); and, added to the loss:
+      * with chamfer_weight and a model that gives `bin_edges` (AdaBins,
+        BinsFormer), chamfer_weight · `bins_chamfer_loss` of the f32 edges
+        against the GT (min_depth the model's): metrics["loss_chamfer"];
+      * with class_ce_weight, a model that gives `class_logits`
+        (BinsFormer) and a batch that carries `scene_class`,
+        class_ce_weight · the cross entropy of the f32 logits of the final
+        layer (`losses.class_ce`): metrics["loss_ce"];
+      * for each (idx, w) of (aux_loss_indices, aux_loss_weights) with idx
+        below the count of the model's `aux_layer_outs` (BinsFormer's
+        decoder layers but the last), w · the depth term of that layer,
+        plus w · chamfer_weight · the chamfer of its edges when the chamfer
+        is on: metrics[f"aux_loss_depth_{idx}"].
+    Then the gradient norm, the clip, AdamW, the global batch's losses and
+    BatchNorm statistics and `bf16` as in `make_train_step`. metrics: loss,
+    loss_depth, [loss_chamfer, loss_ce, aux_loss_depth_*,] grad_norm, lr."""
 
     def train_step(state: TrainState, batch):
         out = _train_forward(state, batch, bf16)
         gt = batch["depth_gt"][..., None]
-        loss = loss_depth = sig_loss_weight * sigloss(
-            _resized_depth(out, gt), gt)
+        min_depth = state.model.min_depth
+
+        def depth_loss(layer):
+            return sig_loss_weight * sigloss(_resized_depth(layer, gt), gt)
+
+        loss = loss_depth = depth_loss(out)
         metrics = {}
         if chamfer_weight and out.get("bin_edges") is not None:
-            chamfer = chamfer_weight * bins_chamfer_loss(
-                out["bin_edges"].float(), batch["depth_gt"],
-                min_depth=state.model.min_depth, loss_weight=1.0)
+            chamfer = chamfer_weight * _chamfer(out, batch, min_depth)
             metrics["loss_chamfer"] = chamfer.detach()
             loss = loss + chamfer
+        if (class_ce_weight and out.get("class_logits") is not None
+                and "scene_class" in batch):
+            ce = class_ce_weight * class_ce(out["class_logits"],
+                                            batch["scene_class"])
+            metrics["loss_ce"] = ce.detach()
+            loss = loss + ce
+        aux = out.get("aux_layer_outs") or []
+        for idx, w in zip(aux_loss_indices, aux_loss_weights):
+            if idx >= len(aux):
+                continue
+            term = w * depth_loss(aux[idx])
+            if chamfer_weight and aux[idx].get("bin_edges") is not None:
+                term = term + w * chamfer_weight * _chamfer(aux[idx], batch,
+                                                            min_depth)
+            metrics[f"aux_loss_depth_{idx}"] = term.detach()
+            loss = loss + term
         loss.backward()
         grad_norm, lr = state.apply_gradients()
         metrics.update(loss_depth=loss_depth.detach(), loss=loss.detach(),

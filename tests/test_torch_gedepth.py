@@ -187,8 +187,7 @@ LEFT_OUT = {
     # the JAX parameter layout and a negative result
     "model": {"swin_scan", "neck_value_bf16"},
     "data": set(),
-    # the zoo's loss composition of BinsFormer
-    "optim": {"aux_loss_indices", "aux_loss_weights", "class_ce_weight"},
+    "optim": set(),
     "train": set(),
 }
 
@@ -198,7 +197,8 @@ REFERENCE_PRESETS = ("gedepth_adaptive_kitti",
                      "gedepth_vanilla_kitti", "depthformer_baseline_kitti",
                      "gedepth_vanilla_ddad", "gedepth_adaptive_ddad",
                      "gedepth_adaptive_ddad_tpu", "bts_kitti",
-                     "densedepth_kitti", "dpt_kitti", "adabins_nyu")
+                     "densedepth_kitti", "dpt_kitti", "adabins_nyu",
+                     "binsformer_nyu")
 
 
 def _assert_preset_matches_jax(name):

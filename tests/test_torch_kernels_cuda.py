@@ -1326,3 +1326,54 @@ def test_parity_budget_under_offset_reach_on_the_card(monkeypatch, tmp_path):
     assert parity[1.0] < 1e-3, parity
     assert parity[4.0] < 1e-3, parity
     assert parity[8.0] < 5e-3, parity
+
+
+# ---- BinsFormer's shapes (binsformer_nyu) ----------------------------------
+
+@pytest.mark.parametrize("B,levels", [
+    (1, ((60, 80), (30, 40), (15, 20))), (2, ((52, 68), (26, 34), (13, 17)))])
+def test_msda_kernels_at_binsformer_shapes(B, levels):
+    """B and C under the exact rule at BinsFormer's deformable encoder (3
+    levels, 8 heads of 8 channels, 8 points): the 480x640 NYU frame's 6,300
+    queries and the 416x544 train crop's 2 x 4,641, every token's grid
+    centre as its reference point, offsets of a few level pixels."""
+    g = torch.Generator(device="cuda").manual_seed(31)
+    Nq = sum(a * b for a, b in levels)
+    ref = msda_ops.center_reference_points(levels, "cuda")
+    pos = msda_ops.exact_positions(ref, 3.0 * _randn(g, B, Nq, 8, 3, 8, 2),
+                                   levels)
+    value = _randn(g, B, Nq, 8, 8)
+    w = _randn(g, B, Nq, 8, 24).softmax(-1).view(B, Nq, 8, 3, 8)
+    gout = _randn(g, B, Nq, 64)
+    torch.testing.assert_close(msda_ops.msda(value, levels, pos, w),
+                               msda_ops.msda_plain(value, levels, pos, w),
+                               rtol=2e-4, atol=2e-5)
+    _assert_msda_grads(
+        msda_ops.msda_backward(value, levels, pos, w, gout),
+        msda_ops.msda_backward_plain(value, levels, pos, w, gout))
+
+
+def test_binsformer_textbook_on_the_card(tmp_path):
+    """The textbook BinsFormer of tests/test_torch_binsformer_textbook.py,
+    on the CPU, against the port's `ZooDepther` 'binsformer' on the card
+    with its weights (through `convert/from_pth.py`): every decoder layer's
+    depth, bin edges and class logits on two 224x224 frames, kernel A
+    launched 12 times and B 6 times by the forward. Tolerance as on the
+    CPU."""
+    import test_torch_binsformer_textbook as T
+
+    tm = T.textbook()
+    model = T.load_converted(tm, tmp_path / "binsformer.pth").cuda()
+    img = T.frames().permute(0, 3, 1, 2).contiguous()
+    before = wa.window_attention.launches, msda_ops.msda.launches
+    with torch.no_grad():
+        want = tm.decode_head(tm.backbone(img))
+        got = model.decode_head(model.backbone(img.cuda()), all_layers=True)
+    torch.cuda.synchronize()
+    assert (wa.window_attention.launches - before[0],
+            msda_ops.msda.launches - before[1]) == (12, 6)
+    assert len(got) == len(want) == T.DEC_L
+    for i, (g, (d, e, c)) in enumerate(zip(got, want)):
+        T.close(g["depth"].cpu(), d, f"layer {i} depth")
+        T.close(g["bin_edges"].cpu(), e, f"layer {i} edges")
+        T.close(g["class_logits"].cpu(), c, f"layer {i} class logits")

@@ -15,6 +15,12 @@ train-mode BatchNorm that takes a constant shift out again, so both sides
 hold rounding noise of ~5e-8 there; the other tensors agree to ~3e-5).
 Evaluation and the exported program never reach the checkpoint.
 
+The tables a module makes itself (Swin's relative-position bias, the
+HAHI and BinsFormer level embeds, the DPT deconv, AdaBins' attention and
+positional table, BinsFormer's queries) start as zeros, never as
+uninitialised memory: a fresh module is finite before its initialisation,
+and a seeded model is what it was when they were `torch.empty`.
+
 `neck_msda_remat`: the `msda` op saves its three inputs (value, pos,
 weights) and nothing else for the backward on every sampling rule, with
 the switch on or off, and the two settings give the same numbers.
@@ -107,8 +113,11 @@ def test_remat_draws_replayed_not_advanced():
     """A block under `remat_block` with DropPath: its backward leaves the
     generator where the forward left it, and the gradient is that of the
     forward's masks."""
+    from gedepth_tpu_torch.models.layers import init_weights
+
     torch.manual_seed(0)
     block = tswin.SwinBlock(16, 2, 2, shift=True, drop_path=0.5).train()
+    init_weights(block, torch.Generator().manual_seed(4))
     x = torch.randn(4, 16, 16, requires_grad=True)
     gen = torch.Generator().manual_seed(3)
     block.drop_path.generator = gen
@@ -124,6 +133,105 @@ def test_remat_draws_replayed_not_advanced():
     assert torch.equal(gen.get_state(), after)
     assert torch.equal(got, want)
     assert torch.equal(x.grad, want_grad)
+
+
+def _fresh_modules():
+    """Every module of the port that makes a parameter of its own (not an
+    nn.Linear's, nn.Conv2d's or a norm's), constructed without `init_weights`
+    or `init_params`: (name, module)."""
+    from gedepth_tpu_torch.models import adabins, binsformer, dpt, hahi
+
+    chans = (8, 8, 16, 32, 64)
+    return [
+        ("SwinBlock", tswin.SwinBlock(16, 2, 7, shift=True)),
+        ("WindowMSA", tswin.WindowMSA(16, 2, 7)),
+        ("HAHINeck", hahi.HAHINeck(chans, chans, 16, num_heads=2,
+                                   num_points=2)),
+        ("Deconv", dpt.Deconv(8, 4, 4)),
+        ("MultiheadAttention", adabins.MultiheadAttention(16, 4)),
+        ("PatchTransformerEncoder", adabins.PatchTransformerEncoder(16)),
+        ("BinsFormerHead", binsformer.BinsFormerHead(
+            chans, conv_dim=16, n_bins=8, num_encoder_layers=1,
+            num_decoder_layers=1)),
+        ("binsformer._EncoderLayer", binsformer._EncoderLayer(16, 8, 3, 32,
+                                                              2)),
+        ("binsformer._DecoderLayer", binsformer._DecoderLayer(16, 8, 32)),
+    ]
+
+
+def _non_finite(modules):
+    return [f"{name}.{k}" for name, m in modules
+            for k, t in m.state_dict().items()
+            if t.is_floating_point() and not torch.isfinite(t).all()]
+
+
+def test_fresh_modules_hold_no_uninitialised_memory(monkeypatch):
+    """A module's parameters and buffers are finite before any
+    initialisation: first after large and small blocks filled with NaN
+    were freed (the allocator may hand them back), then with `torch.empty`
+    itself returning NaN while the modules are built (torch's own layers
+    fill what they take from it in their constructors)."""
+    for n in (1 << 22, 1 << 18, 1 << 14, 1 << 12, 1 << 10, 1 << 8):
+        blocks = [torch.full((n,), float("nan")) for _ in range(16)]
+        del blocks
+    assert _non_finite(_fresh_modules()) == []
+
+    real_empty = torch.empty
+
+    def nan_empty(*args, **kwargs):
+        return real_empty(*args, **kwargs).fill_(float("nan"))
+
+    monkeypatch.setattr(torch, "empty", nan_empty)
+    assert _non_finite(_fresh_modules()) == []
+
+
+# sha256 over the sorted (key, bytes) of each model's state_dict, built from
+# seed 0, as the port built them while its tables were made by torch.empty:
+# the zeros that replaced it are all overwritten by the initialisation
+SEEDED_DIGESTS = {
+    "smoke_synthetic": (
+        {}, "06d26a0033867cebe48002fb0febd03aeeaa2575bddc841292ed31ea641f0139"),
+    "bts_kitti": (
+        dict(backbone_variant="18", head_channels=32),
+        "972cc44fd32ef84c60a62be883516ec0b18d7275ffa5f04e1ec5ef861ee29a50"),
+    "densedepth_kitti": (
+        dict(backbone_variant="18", head_channels=16),
+        "76c2794ce2089951b472053c76b773f973674ef382e18d044f30d8a4b607ed99"),
+    "dpt_kitti": (
+        dict(head_channels=16, backbone_embed_dims=32, backbone_depth=4),
+        "3ff460795e1f4d18d179dfaa01b0a7560880b01a7431d030b4fb43b5ea00bf1d"),
+    "adabins_nyu": (
+        dict(head_channels=8, n_bins=16),
+        "9b188c9fe467c2b3e8867af154ec31b90acf4935a7591f2f8276858a45e1ea12"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SEEDED_DIGESTS))
+def test_seeded_models_unchanged_by_the_zero_tables(name):
+    """A GEDepth and each zoo model built from seed 0 have the state_dict
+    they had before their tables were made with zeros (the digests above),
+    and the same when every parameter and buffer is NaN before the seeded
+    initialisation runs again."""
+    import hashlib
+
+    from gedepth_tpu_torch.models.layers import init_weights
+
+    over, digest = SEEDED_DIGESTS[name]
+    cfg = dataclasses.replace(get_config(name).model, **over)
+    model = cfg.build(generator=torch.Generator().manual_seed(0))
+    sd = model.state_dict()
+    h = hashlib.sha256()
+    for k in sorted(sd):
+        h.update(k.encode())
+        h.update(sd[k].contiguous().numpy().tobytes())
+    assert h.hexdigest() == digest
+    with torch.no_grad():
+        for t in model.state_dict().values():
+            if t.is_floating_point():
+                t.fill_(float("nan"))
+    init_weights(model, torch.Generator().manual_seed(0))
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, sd[k]), k
 
 
 def _jax_grads(jmodel, variables, batch):

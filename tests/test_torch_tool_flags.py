@@ -4,7 +4,8 @@ time of `tools.benchmark`, on the CPU.
 Each JAX tool's argument list goes through the JAX tool's own parser (its
 `main` stopped at `parse_args`) and through the port's: every option both
 have comes out equal, and the JAX spellings (`tools/export.py --checkpoint`,
-`tools/compat_check.py --cpu`) land where the port keeps them. `tools.train
+`tools/compat_check.py --cpu`) land where the port keeps them;
+`tools/convert_torch_checkpoint.py` with `--binsformer-release` too. `tools.train
 --options model.swin_remat=false` turns Swin remat off. `tools.benchmark`
 takes the device's busy time as the union of its activity intervals, and
 reports a busy reading past the event time instead of clamping the idle
@@ -20,6 +21,7 @@ import torch
 
 from gedepth_tpu_torch.tools import benchmark as bench
 from gedepth_tpu_torch.tools import compat_check as port_compat_check
+from gedepth_tpu_torch.tools import convert_torch_checkpoint as port_convert
 from gedepth_tpu_torch.tools import export as port_export
 
 
@@ -94,6 +96,27 @@ def test_compat_check_takes_the_jax_tools_arguments(argv, monkeypatch):
                       "seed", "options"}
     assert {k: got[k] for k in shared} == {k: want[k] for k in shared}
     assert got["device"] == ("cpu" if want["cpu"] else "cuda")
+
+
+CONVERT_ARGVS = (
+    ["ref.pth", "binsformer_nyu", "out.npz", "--binsformer-release"],
+    ["ref.pth", "gedepth_adaptive_kitti", "out.npz", "--official-swin",
+     "--options", "model.embed_dims=32"],
+)
+
+
+@pytest.mark.parametrize("argv", CONVERT_ARGVS)
+def test_convert_takes_the_jax_tools_arguments(argv, monkeypatch):
+    """tools/convert_torch_checkpoint.py's arguments: every option the port
+    has comes out equal, `--binsformer-release` among them; only the JAX
+    tool's `--simipu` (SimIPU's backbone extraction) is not ported."""
+    import tools.convert_torch_checkpoint as jax_convert
+
+    want = _jax_namespace(jax_convert, argv, monkeypatch)
+    got = vars(port_convert.parse_args(argv))
+    assert set(want) - set(got) == {"simipu"}
+    assert set(got) <= set(want)
+    assert got == {k: v for k, v in want.items() if k in got}
 
 
 @pytest.mark.parametrize("raw,want", [("false", False), ("False", False),

@@ -273,7 +273,7 @@ def test_zoo_reads_rgb_only():
     assert torch.equal(a, b) and torch.equal(a, c)
 
 
-@pytest.mark.parametrize("arch", ["binsformer", "seg"])
+@pytest.mark.parametrize("arch", ["seg"])
 def test_unported_archs_raise(arch):
     _, tcfg = _model_configs("bts_kitti")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -386,20 +386,13 @@ def test_zoo_train_step_matches_jax(name):
     assert moved > 0.5 * total
 
 
-def test_zoo_step_refuses_the_binsformer_terms():
-    from gedepth_tpu_torch.train.steps import make_zoo_train_step
-
-    for kw in (dict(aux_loss_indices=(2,), aux_loss_weights=(0.25,)),
-               dict(class_ce_weight=1e-2)):
-        with pytest.raises(NotImplementedError):
-            make_zoo_train_step(10.0, **kw)
-    make_zoo_train_step(10.0, chamfer_weight=0.1)   # AdaBins' term
-
-
-@pytest.mark.parametrize("name", ["bts_kitti", "densedepth_kitti"])
+@pytest.mark.parametrize("name", ["bts_kitti", "densedepth_kitti",
+                                  "binsformer_nyu"])
 def test_zoo_decay_mask_matches_jax(name):
     """`optim.decays` over the zoo's parameter names equals the JAX
-    `decay_mask` over the bridged tree (every BatchNorm decays)."""
+    `decay_mask` over the bridged tree (every BatchNorm decays; in
+    BinsFormer its Swin's and transformers' LayerNorms and bias tables do
+    not, its `decoder_norm` does)."""
     from gedepth_tpu.train import optim as joptim
     from gedepth_tpu_torch.convert.from_jax import _torch_name
     from gedepth_tpu_torch.train import optim as toptim
@@ -414,7 +407,19 @@ def test_zoo_decay_mask_matches_jax(name):
         seen[name_] = bool(decayed)
         assert toptim.decays(name_) == bool(decayed), name_
     assert set(seen) == {n for n, _ in tcfg.build().named_parameters()}
-    assert all(seen.values())
+    assert all(seen.values()) == (name != "binsformer_nyu")
+    if name == "binsformer_nyu":
+        # the encoder's and decoder's norm1-norm3 (the port's `norms.N`)
+        # go without decay; `decoder_norm`, the level embeds and the
+        # queries decay
+        dec = "decode_head.transformer_decoder."
+        for key in (dec + "decoder_norm.weight",
+                    "decode_head.level_embed.weight",
+                    "decode_head.transformer_encoder.level_embeds",
+                    "decode_head.query_feat.weight",
+                    "decode_head.query_embed.weight"):
+            assert seen[key], key
+        assert not seen[dec + "layers.0.norms.2.weight"]
 
 
 @pytest.mark.parametrize("name", ["bts_kitti", "densedepth_kitti"])
