@@ -288,8 +288,35 @@ with its host-clock seconds); any failure raises and exits non-zero:
      `scaled_dot_product_attention` call; B under the exact rule at the
      deformable encoder's 6,300 serving queries and 2 x 4,641 train queries
      (3 levels, 8 heads of 8 channels); C at the train shape.
+ 38. the seg preset `ocrnet_hr18_kitti` (HRNet-W18 + the FCN/OCR cascade,
+     OCR widths 512 and 256, the PE ground-mask task), f32 with cuDNN's
+     autotuner, the port's kernel counts set to 0 before it and read after
+     (the seg model reaches none of them: all stay 0): `train()` for 3
+     steps at 352x704, batch 2, from phase 23's KITTI tree into a work dir,
+     with the loop's `SegEvaluator` at the last step (the tree's 2 test
+     frames KB-cropped to 352x1216): finite losses (loss_seg0 and _1),
+     every gradient of the last step present and finite, a `val` record
+     with miou, acc and iou_cls0/1 in [0, 1], `best_miou.npz` written and
+     read back by `load_params_only` bit for bit; then from the trained
+     weights one train step on the card and one on the CPU on the centre
+     176x352 of the tree's first batch (loss rtol 1e-4, grad_norm rtol
+     5e-3: f32 keeps it to ~1e-3 on either side; every gradient finite,
+     within 0.1 of the CPU's in L2 plus 1e-5
+     of the largest gradient's norm: two f32 runs part by up to ~3% on the
+     BatchNorm biases, sums of ~1e4 terms of both signs, and a gradient
+     that is 0 in exact arithmetic, such as the OCR head's key_proj.bias,
+     holds rounding noise; non-zero wherever the CPU's norm is above that
+     floor) and one eval forward of
+     a KB-cropped test frame at 352x1216 on both (both stages' logits rtol
+     1e-3, atol 1e-3 of their largest magnitude), TF32 off; the
+     evaluator's ms an image on a second run (the first carries cuDNN's
+     search at 352x1216), its metrics within 1e-3 of the loop's; the train
+     step timed as phase 36 times the zoo's (`tools.benchmark
+     --train-step`: CUDA events, busy, idle share, peak, the autotuned
+     first step).
 The phases run in the order 1, 2, 23, 3, 6, 13, 9, 24, 37, 4, 5, 31, 32, 7,
-8, 34, 20, 21, 33, 22, 35, 25, 26, 27, 10, 11, 12, 14-19, 28-30, 36: every kernel check
+8, 34, 20, 21, 33, 22, 35, 25, 26, 27, 10, 11, 12, 14-19, 28-30, 36, 38:
+every kernel check
 comes before the first model, because `torch.profiler` loses device
 activities as a process ages, and all of them once it has trained.
 A `device_ms` that is not within a tenth of its `event_ms` (kernels of
@@ -3719,20 +3746,21 @@ def zoo_training(preset, tree, tb_ok):
             "autotune_s": autotune_s}
 
 
-def zoo_step_timing(preset):
+def zoo_step_timing(preset, tag=None, train_hw=None):
     """The f32 train step at the preset's crop, batch 2, timed as
     `tools.benchmark --train-step` does (the autotuned first step apart, 3
     warm-up steps, 10 timed by CUDA events; the profiler's busy time and
     the idle share)."""
     from gedepth_tpu_torch.tools.benchmark import run_benchmark
 
-    h, w = ZOO_SPECS[preset]["train_hw"]
+    tag = tag or f"[zoo {preset}]"
+    h, w = train_hw or ZOO_SPECS[preset]["train_hw"]
     r = run_benchmark(preset, iters=10, warmup=3, batch=2, height=h,
                       width=w, train_step=True, device="cuda", seed=SEED)
-    print(f"[zoo {preset}] tools.benchmark --train-step: {json.dumps(r)}",
+    print(f"{tag} tools.benchmark --train-step: {json.dumps(r)}",
           flush=True)
     if not r["device_ms_median"] > 0:
-        fail(f"[zoo {preset}] no step time: {r}")
+        fail(f"{tag} no step time: {r}")
     return {"step_ms": r["device_ms_median"], "step_busy_ms":
             r["device_busy_ms"], "step_idle_share": r["device_idle_share"],
             "train_peak_mib": r["peak_mem_mib"],
@@ -3986,6 +4014,231 @@ def phase_zoo(trees, requests):
               f"evaluation, tools.test) {launches}; {summary[preset]['seconds']:.1f} s", flush=True)
     print(f"[zoo] {json.dumps(summary)}", flush=True)
     return bins
+
+
+# ---- phase 38: the seg preset (HRNet-W18 + the FCN/OCR cascade) ----
+
+SEG = "ocrnet_hr18_kitti"
+SEG_STEPS = 3
+
+
+def seg_batch(cfg, device):
+    """The first batch of 2 that `train()` draws from the preset's tree
+    (its loader's seed, the KITTI chain at the 352x704 crop)."""
+    from gedepth_tpu_torch.data.loader import TrainLoader
+    from gedepth_tpu_torch.data.transforms import build_train_pipeline
+    from gedepth_tpu_torch.train.loop import build_train_dataset
+    from gedepth_tpu_torch.train.steps import batch_to_device
+
+    loader = TrainLoader(build_train_dataset(cfg),
+                         build_train_pipeline(cfg.data,
+                                              cfg.model.depth_scale),
+                         2, seed=cfg.train.seed)
+    return batch_to_device(loader.make_batch(0), device)
+
+
+def seg_step_on(weights, cfg, batch, device):
+    """One `make_seg_train_step` on `device` from `weights`: (metrics,
+    {name: gradient on the CPU})."""
+    from gedepth_tpu_torch.train.steps import (
+        create_train_state, make_seg_train_step)
+
+    model = cfg.model.build(device=device)
+    model.load_state_dict(weights, strict=True)
+    state = create_train_state(model, cfg.optim, 10)
+    metrics = make_seg_train_step(cfg.model.depth_scale)(
+        state, {k: v.to(device) for k, v in batch.items()})
+    return ({k: float(v) for k, v in metrics.items()},
+            {n: p.grad.detach().cpu() for n, p in model.named_parameters()})
+
+
+def seg_against_cpu(tag, state, cfg):
+    """The trained weights on the card and on the CPU: one train step on
+    the centre 176x352 of the tree's first batch (batch 2; loss rtol 1e-4,
+    grad_norm rtol 5e-3, every gradient finite, within 0.1 of the CPU's in
+    L2 plus 1e-5 of the largest gradient's norm, and non-zero wherever the
+    CPU's norm is above that), and one eval forward of a KB-cropped
+    352x1216 test
+    frame (both stages' logits rtol 1e-3, atol 1e-3 of their largest
+    magnitude), TF32 off."""
+    from gedepth_tpu_torch.data.transforms import build_test_pipeline
+    from gedepth_tpu_torch.train.loop import build_eval_dataset
+
+    weights = {k: v.detach().cpu().clone()
+               for k, v in state.model.state_dict().items()}
+    # the centre 176x352 of the batch: a quarter of the CPU's step
+    batch = {k: v[:, 88:264, 176:528] if v.dim() >= 3 else v
+             for k, v in seg_batch(cfg, "cpu").items()}
+    t0 = time.perf_counter()
+    card, g_card = seg_step_on(weights, cfg, batch, "cuda")
+    cpu, g_cpu = seg_step_on(weights, cfg, batch, "cpu")
+    for key in ("loss", "loss_seg0", "loss_seg1"):
+        if not math.isclose(card[key], cpu[key], rel_tol=1e-4):
+            fail(f"{tag} {key} on the card {card[key]} against the CPU "
+                 f"{cpu[key]}")
+    # each gradient within 0.1 of the CPU's in L2 plus 1e-5 of the largest
+    # gradient's norm: two f32 runs part by up to ~3% on the BatchNorm
+    # biases, whose gradients are sums of ~1e4 terms of both signs (a card
+    # step with cuDNN off parts from the CPU's as much), and a gradient
+    # that is 0 in exact arithmetic holds rounding noise on both sides
+    # (the OCR head's key_proj.bias adds q·b to every region's logit,
+    # which the softmax over the regions takes out)
+    top = max(float(g.norm()) for g in g_cpu.values())
+    worst, small = ("", 0.0), []
+    for name, want in g_cpu.items():
+        got = g_card[name]
+        if not torch.isfinite(got).all():
+            fail(f"{tag} gradient of {name} not finite on the card")
+        err, size = float((got - want).norm()), float(want.norm())
+        if err > 0.1 * size + 1e-5 * top:
+            fail(f"{tag} gradient of {name}: {err:.3e} from the CPU's "
+                 f"(norm {size:.3e}, the largest {top:.3e})")
+        if size < 1e-5 * top:
+            small.append(name)
+            continue
+        if not got.abs().max() > 0:
+            fail(f"{tag} gradient of {name} is 0 on the card, not on the CPU")
+        worst = max(worst, (name, err / size), key=lambda x: x[1])
+    total = float(torch.cat([(g_card[n] - g).flatten() for n, g in
+                             g_cpu.items()]).norm() / torch.cat(
+        [g.flatten() for g in g_cpu.values()]).norm())
+    # f32 keeps this norm to ~1e-3 on either side (the stem's weight
+    # gradients sum ~1e4 positions of a BatchNorm's centred gradient times
+    # a non-negative input), so two f32 runs may part by a few 1e-3
+    if not math.isclose(card["grad_norm"], cpu["grad_norm"], rel_tol=5e-3):
+        fail(f"{tag} grad_norm on the card {card['grad_norm']} against the "
+             f"CPU {cpu['grad_norm']}")
+    step_s = time.perf_counter() - t0
+    data = build_eval_dataset(cfg)
+    img = torch.from_numpy(np.ascontiguousarray(build_test_pipeline(
+        cfg.data)(data[0])["img"], np.float32))[None]
+    logits = {}
+    for device in ("cuda", "cpu"):
+        model = cfg.model.build(device=device)
+        model.load_state_dict(weights, strict=True)
+        with torch.no_grad():
+            logits[device] = [x.cpu() for x in
+                              model(img.to(device))["seg_logits"]]
+    for i, (got, want) in enumerate(zip(logits["cuda"], logits["cpu"])):
+        if got.shape != (1, 352, 1216, 2):
+            fail(f"{tag} stage {i} logits of shape {tuple(got.shape)}")
+        scale = want.abs().max().item()
+        compare(f"{tag} stage {i} logits at 352x1216, card against CPU "
+                f"(max |x| {scale:.3g}; argmax differs at "
+                f"{(got.argmax(-1) != want.argmax(-1)).float().mean():.2e} "
+                "of the pixels)", got, want, rtol=1e-3, atol=1e-3 * scale)
+    print(f"{tag} one step from the trained weights, card against CPU: "
+          f"loss {card['loss']:.6f} / {cpu['loss']:.6f}, grad_norm "
+          f"{card['grad_norm']:.6f} / {cpu['grad_norm']:.6f}, the largest "
+          f"gradient distance {worst[1]:.3e} of its norm ({worst[0]}), "
+          f"all gradients {total:.3e}, {len(small)} below 1e-5 of the "
+          f"largest norm ({small[:5]}); {step_s:.1f} s", flush=True)
+
+
+def phase_seg(trees):
+    """Phase 38: `train(ocrnet_hr18_kitti)` for 3 steps from the KITTI
+    tree with evaluation in the loop, the weights against the CPU, the
+    train step timed, the evaluator's ms an image; none of the port's
+    kernels launched (the seg model reaches none of them)."""
+    import dataclasses
+    import os.path as osp
+
+    from gedepth_tpu_torch.configs import get_config
+    from gedepth_tpu_torch.eval import SegEvaluator
+    from gedepth_tpu_torch.train.checkpoint import load_params_only
+    from gedepth_tpu_torch.train.loop import (
+        build_eval_dataset, cudnn_autotuner, train)
+
+    tag = "[seg]"
+    t0 = time.perf_counter()
+    counters = _kernel_counters()
+    reset_counts(counters)
+    cfg = get_config(SEG)
+    cfg = cfg.replace(data=tree_data(SEG, trees["kitti"]),
+                      train=dataclasses.replace(cfg.train, global_batch=2,
+                                                log_interval=1))
+    with tempfile.TemporaryDirectory() as work:
+        state, history, best = train(cfg, work_dir=work,
+                                     max_iters=SEG_STEPS,
+                                     eval_max_images=EVAL_IMAGES,
+                                     device="cuda")
+        train_s = time.perf_counter() - t0
+        steps = [r for r in history if r["mode"] == "train"]
+        vals = [r for r in history if r["mode"] == "val"]
+        for r in steps:
+            if not all(np.isfinite(r[k]) for k in ("loss", "loss_seg0",
+                                                    "loss_seg1",
+                                                    "grad_norm")):
+                fail(f"{tag} step {r['iter']}: {r}")
+            print(f"{tag} iter {r['iter']} loss={r['loss']:.6f} "
+                  f"(seg0 {r['loss_seg0']:.6f}, seg1 {r['loss_seg1']:.6f}) "
+                  f"grad_norm={r['grad_norm']:.6f} "
+                  f"step_ms={r['time'] * 1e3:.3f} "
+                  f"peak_mem_mib={r['peak_mem_mib']:.1f}", flush=True)
+        grads = {n: p.grad for n, p in state.model.named_parameters()}
+        if any(g is None or not torch.isfinite(g).all()
+               for g in grads.values()):
+            fail(f"{tag} a gradient of the last step is missing or not "
+                 "finite")
+        keys = {"miou", "acc", "iou_cls0", "iou_cls1"}
+        if (len(vals) != 1 or vals[0]["iter"] != SEG_STEPS
+                or vals[0]["images"] != EVAL_IMAGES
+                or not keys <= set(vals[0])
+                or not all(0 <= vals[0][k] <= 1 for k in keys)):
+            fail(f"{tag} val records {vals}")
+        npz = osp.join(work, "best_miou.npz")
+        if best.get("miou") != vals[0]["miou"] or not osp.exists(npz):
+            fail(f"{tag} best {best}, best_miou.npz written: "
+                 f"{osp.exists(npz)}")
+        back = load_params_only(npz, cfg.model.build(device="cuda"))
+        theirs = back.state_dict()
+        for k, v in state.model.state_dict().items():
+            if not k.endswith("num_batches_tracked") and not torch.equal(
+                    theirs[k], v):
+                fail(f"{tag} best_miou.npz gives back another {k}")
+        print(f"{tag} train({SEG!r}, max_iters={SEG_STEPS}), global batch "
+              f"2, crop {cfg.data.crop_size}, the KITTI tree: {train_s:.1f}"
+              f" s with init and evaluation; val {json.dumps(vals[0])}; "
+              "best_miou.npz read back bit for bit", flush=True)
+    t1 = time.perf_counter()
+    seg_against_cpu(tag, state, cfg)
+    t2 = time.perf_counter()
+    state.model.eval()
+    evaluator = SegEvaluator(state.model, build_eval_dataset(cfg), cfg.data)
+    with cudnn_autotuner():
+        evaluator.run()                 # the search at 352x1216, then timed
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        agg, _ = evaluator.run()
+        torch.cuda.synchronize()
+        eval_ms = (time.perf_counter() - t) * 1e3 / evaluator.images
+    if set(agg) != keys or any(abs(agg[k] - vals[0][k]) > 1e-3
+                               for k in keys):
+        fail(f"{tag} SegEvaluator {agg} against the loop's {vals[0]}")
+    t3 = time.perf_counter()
+    timing = zoo_step_timing(SEG, "[seg]", (352, 704))
+    launches, _ = read_counts(counters)
+    if any(launches.values()):
+        fail(f"{tag} launched the port's kernels: {launches}")
+    seconds = time.perf_counter() - t0
+    loop_step_ms = statistics.median(r["time"] for r in steps[1:]) * 1e3
+    # the loop's first step carries cuDNN's search (and its workspace
+    # trials' peak); the benchmark's first step finds its choices cached
+    summary = dict(timing, eval_ms_per_image=eval_ms,
+                   eval_images=evaluator.images,
+                   autotune_s=steps[0]["time"] - loop_step_ms / 1e3,
+                   autotune_peak_mib=steps[0]["peak_mem_mib"],
+                   loop_step_ms=loop_step_ms,
+                   loop_peak_mib=max(r["peak_mem_mib"] for r in steps[1:]),
+                   n_params=sum(p.numel()
+                                for p in state.model.parameters()),
+                   seconds=seconds, seconds_train=t1 - t0,
+                   seconds_against_cpu=t2 - t1, seconds_eval=t3 - t2,
+                   seconds_timing=seconds - (t3 - t0))
+    print(f"{tag} SegEvaluator {eval_ms:.3f} ms an image (352x1216, host "
+          f"clock, {evaluator.images} images); kernel launches over the "
+          f"phase {launches}; {seconds:.1f} s", flush=True)
+    print(f"{tag} {json.dumps(summary)}", flush=True)
 
 
 # ---- phases 31-33: serving export, a bf16 export, the serving tools ----
@@ -4514,6 +4767,8 @@ def run(stack):
     bins_counted = phase_zoo(trees, requests)
     lap("the zoo's bts_kitti, densedepth_kitti, dpt_kitti, adabins_nyu and "
         "binsformer_nyu (phase 36)")
+    phase_seg(trees)
+    lap("the seg preset ocrnet_hr18_kitti: training, evaluation (phase 38)")
 
     sources = {
         "window_attention": ("gedepth_tpu_torch/csrc/window_attention.cu",

@@ -18,11 +18,12 @@ from typing import Optional, Tuple
 
 @dataclass(frozen=True)
 class ModelConfig:
-    # architecture family: 'gedepth' (DepthFormer + HAHI + PE) or a zoo
-    # arch; 'adabins', 'bts', 'dpt', 'binsformer' and 'densedepth' are
-    # ported ('seg' raises NotImplementedError)
+    # architecture family: 'gedepth' (DepthFormer + HAHI + PE), a zoo
+    # arch ('adabins', 'bts', 'dpt', 'binsformer', 'densedepth') or 'seg'
+    # (HRNet + the FCN/OCR cascade on the PE ground mask)
     arch: str = "gedepth"
-    # zoo: the ResNet depth ('50') or the EfficientNet ('b0', 'tf_b5')
+    # zoo: the ResNet depth ('50'), the EfficientNet ('b0', 'tf_b5') or
+    # the HRNet ('w18', the default of 'seg')
     backbone_variant: str = ""
     backbone_embed_dims: int = 0      # zoo: 0 = the arch's default
     backbone_depth: int = 0           # zoo: 0 = the arch's default
@@ -66,16 +67,27 @@ class ModelConfig:
 
     def build(self, device=None, generator=None):
         """The torch model of this configuration, in eval mode: `GEDepth`,
-        or `ZooDepther` for a ported zoo arch ('adabins', 'bts', 'dpt',
-        'binsformer', 'densedepth'); 'seg' raises NotImplementedError. A
-        zoo model takes the RGB channels of its input and none of the
+        `ZooDepther` for a zoo arch ('adabins', 'bts', 'dpt',
+        'binsformer', 'densedepth'), or `SegOCRNet` for 'seg' (OCR widths
+        8 and 4 times head_channels: 512 and 256 at the default 64). A zoo
+        or seg model takes the RGB channels of its input and none of the
         GEDepth fields."""
+        if self.arch != "gedepth" and self.bf16_scope != "none":
+            raise ValueError(f"bf16_scope {self.bf16_scope!r} names "
+                             "GEDepth's modules; a zoo model takes "
+                             "'none' (or a whole-model cast)")
+        if self.arch == "seg":
+            from gedepth_tpu_torch.models.segmentation import SegOCRNet
+            return SegOCRNet(
+                backbone_arch=self.backbone_variant or "w18",
+                ocr_channels=8 * self.head_channels,
+                ocr_key_channels=4 * self.head_channels,
+                pe_variant=self.pe_variant, min_depth=self.min_depth,
+                max_depth=self.max_depth,
+                default_cam_height=self.default_cam_height,
+                device=device, generator=generator).eval()
         if self.arch != "gedepth":
             from gedepth_tpu_torch.models.zoo import ZooDepther
-            if self.bf16_scope != "none":
-                raise ValueError(f"bf16_scope {self.bf16_scope!r} names "
-                                 "GEDepth's modules; a zoo model takes "
-                                 "'none' (or a whole-model cast)")
             return ZooDepther(
                 arch=self.arch, backbone_variant=self.backbone_variant,
                 min_depth=self.min_depth, max_depth=self.max_depth,

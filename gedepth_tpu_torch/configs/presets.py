@@ -135,6 +135,15 @@ _PRESETS = {
         model=ModelConfig(arch="densedepth", backbone_variant="50",
                           head_channels=128, max_depth=80.0),
         data=DataConfig()),
+    # OCRNet-HR18 (_base_/models/ocrnet_hr18.py): HRNet-W18 + the FCN/OCR
+    # cascade on the PE ground-mask segmentation task, scored by mIoU
+    # (`eval.SegEvaluator`); pe_variant 'vanilla' makes the data layer
+    # load the PE channel the labels come from
+    "ocrnet_hr18_kitti": lambda: ExperimentConfig(
+        name="ocrnet_hr18_kitti",
+        model=ModelConfig(arch="seg", backbone_variant="w18",
+                          head_channels=64, pe_variant="vanilla"),
+        data=DataConfig()),
     # Swin-T-sized smoke config on synthetic data (tests)
     "smoke_synthetic": lambda: ExperimentConfig(
         name="smoke_synthetic",

@@ -56,6 +56,16 @@ mask_embed.layers.{k}, class_embed.layers.{k}}`, `level_embed.weight`,
 kernels (C, 8, C/8) and (8, C/8, C) are packed into torch's in_proj (3C, C)
 and out_proj as AdaBins' are, with BinsFormer's 8 heads going back.
 
+The seg model's HRNet maps to mmcv's names (`_seg_torch_name`,
+`_seg_flax_module`): `stem{n}` to `conv{n}`/`bn{n}`, `t{s}_adapt{i}` and
+`t{s}_new{i}` to `transition{s-1}.{i}` and `.{i}.0`,
+`stage{s}_module{m}/branch{i}_block{b}` to `stage{s}.{m}.branches.{i}.{b}`,
+`fuse/up{i}_{j}` and `fuse/down{i}_{j}_{k}` to `fuse_layers.{i}.{j}` and
+`.{i}.{j}.{k}`; its heads' `conv{i}` ConvModules to `convs.{i}`. A DDRNet
+tree (one with `backbone/spp`) maps to the reference's ddrnet.py names;
+going back, `backbone_kind` tells HRNet and DDRNet keys apart as the JAX
+converter does.
+
 `flax_variables_from_state_dict` goes the other way, in the per-block Swin
 layout (the JAX package's `load_params_only` adapts it to either
 `swin_scan`); `train.checkpoint.save_params_only` writes it as the JAX
@@ -519,12 +529,139 @@ def _split_torch(key, arr):
     return [(base + ("out", "bias"), arr)]
 
 
-def _torch_name(names, dpt=False):
+_CB = {"conv": "0", "bn": "1"}
+_CB_INV = {v: k for k, v in _CB.items()}
+# DDRNet's conv-BN Sequentials (ddrnet.py names), and its stem and `down4`
+# Sequentials: flax module -> (Sequential, index of the conv, of the BN)
+_DDR_SEQ = ("compression3_1", "compression3_2", "compression4", "down3_1",
+            "down3_2", "out_conv")
+_DDR_PAIRS = {"stem1": ("conv1", "0", "1"), "stem2": ("conv1", "3", "4"),
+              "down4_a": ("down4", "0", "1"), "down4_b": ("down4", "3", "4")}
+_DDR_LAYER = r"(layer\d(?:_\d)?_?)"
+
+
+def _block_leaf(base, names, leaf):
+    """A residual block's leaf (`convbn{n}/{conv,bn}` or
+    `downsample/{conv,bn}`) under the port key `base`."""
+    if names[0] == "downsample":
+        return f"{base}.downsample.{_CB[names[1]]}.{leaf}"
+    return f"{base}.{names[1]}{names[0][len('convbn'):]}.{leaf}"
+
+
+def _seg_torch_name(names, leaf, ddr=False):
+    """Port key of a leaf of the seg heads (`aux_head`, `ocr_head`), of an
+    HRNet (`stem{n}`, `t{s}_adapt{i}`, `t{s}_new{i}`, `stage{s}_module{m}`)
+    or, with ddr, of a DDRNet backbone; None for any other leaf (an
+    HRNet's or DDRNet's `layer1_block{b}` is the ResNet rule's)."""
+    top, sub = names[0], names[1]
+    if top in ("aux_head", "ocr_head"):
+        if sub == "conv_seg" or sub.endswith("_proj"):
+            return f"{top}.{sub}.{leaf}"
+        m = re.fullmatch(r"conv(\d+)", sub)
+        return _convmodule(f"{top}.convs.{m.group(1)}" if m
+                           else f"{top}.{sub}", names[2:])
+    if top != "backbone":
+        return None
+    if ddr:
+        if sub in _DDR_PAIRS:
+            seq, conv, bn = _DDR_PAIRS[sub]
+            return f"backbone.{seq}.{conv if names[2] == 'conv' else bn}.{leaf}"
+        if sub in _DDR_SEQ:
+            return f"backbone.{sub}.{_CB[names[2]]}.{leaf}"
+        if sub == "spp":
+            pooled = re.fullmatch(r"scale[1-9]", names[2]) is not None
+            idx = (3 if names[3] == "conv" else 1) if pooled else (
+                2 if names[3] == "conv" else 0)
+            return f"backbone.spp.{names[2]}.{idx}.{leaf}"
+        m = re.fullmatch(_DDR_LAYER + r"_block(\d+)", sub)
+        if m and not re.fullmatch(r"layer\d", m.group(1)):
+            return _block_leaf(f"backbone.{m.group(1)}.{m.group(2)}",
+                               names[2:], leaf)
+        return None
+    m = re.fullmatch(r"stem(\d)", sub)
+    if m:
+        return f"backbone.{names[2]}{m.group(1)}.{leaf}"
+    m = re.fullmatch(r"t(\d)_(adapt|new)(\d+)", sub)
+    if m:
+        base = f"backbone.transition{int(m.group(1)) - 1}.{m.group(3)}"
+        if m.group(2) == "new":
+            base += ".0"
+        return f"{base}.{_CB[names[2]]}.{leaf}"
+    m = re.fullmatch(r"stage(\d)_module(\d+)", sub)
+    if m:
+        base = f"backbone.stage{m.group(1)}.{m.group(2)}"
+        b = re.fullmatch(r"branch(\d+)_block(\d+)", names[2])
+        if b:
+            return _block_leaf(f"{base}.branches.{b.group(1)}.{b.group(2)}",
+                               names[3:], leaf)
+        f = re.fullmatch(r"(up|down)(\d+)_(\d+)(?:_(\d+))?", names[3])
+        base += f".fuse_layers.{f.group(2)}.{f.group(3)}"
+        if f.group(1) == "down":
+            base += f".{f.group(4)}"
+        return f"{base}.{_CB[names[4]]}.{leaf}"
+    return None
+
+
+def _seg_flax_module(p, backbone=None):
+    """Flax module path of a seg-head key, or of an HRNet (backbone
+    'hrnet') or DDRNet ('ddrnet') backbone key, without its leaf; None
+    for any other key (the inverse of `_seg_torch_name`)."""
+    if p[0] in ("aux_head", "ocr_head"):
+        if p[1] == "conv_seg" or p[1].endswith("_proj"):
+            return (p[0], p[1])
+        sub, rest = (f"conv{p[2]}", p[3]) if p[1] == "convs" else (p[1],
+                                                                 p[2])
+        return (p[0], sub, "Conv_0" if rest == "conv" else "BatchNorm_0")
+    if p[0] != "backbone" or backbone not in ("hrnet", "ddrnet"):
+        return None
+
+    def block(base, q):
+        if q[0] == "downsample":
+            return base + ("downsample", _CB_INV[q[1]])
+        kind, n = re.fullmatch(r"(conv|bn)(\d)", q[0]).groups()
+        return base + (f"convbn{n}", kind)
+
+    if backbone == "ddrnet":
+        for flax_name, (seq, conv, bn) in _DDR_PAIRS.items():
+            if p[1] == seq and p[2] in (conv, bn):
+                return ("backbone", flax_name,
+                        "conv" if p[2] == conv else "bn")
+        if p[1] in _DDR_SEQ:
+            return ("backbone", p[1], _CB_INV[p[2]])
+        if p[1] == "spp":
+            return ("backbone", "spp", p[2],
+                    "conv" if p[3] in "23" else "bn")
+        if re.fullmatch(_DDR_LAYER, p[1]) and not re.fullmatch(r"layer\d",
+                                                               p[1]):
+            return block(("backbone", f"{p[1]}_block{p[2]}"), p[3:])
+        return None
+    m = re.fullmatch(r"(conv|bn)([12])", p[1])
+    if m:
+        return ("backbone", f"stem{m.group(2)}", m.group(1))
+    m = re.fullmatch(r"transition(\d)", p[1])
+    if m:
+        new = len(p) == 6
+        return ("backbone", f"t{int(m.group(1)) + 1}_"
+                f"{'new' if new else 'adapt'}{p[2]}", _CB_INV[p[-2]])
+    m = re.fullmatch(r"stage(\d)", p[1])
+    if m:
+        base = ("backbone", f"stage{m.group(1)}_module{p[2]}")
+        if p[3] == "branches":
+            return block(base + (f"branch{p[4]}_block{p[5]}",), p[6:])
+        i, j = p[4], p[5]
+        name = f"up{i}_{j}" if len(p) == 8 else f"down{i}_{j}_{p[6]}"
+        return base + ("fuse", name, _CB_INV[p[-2]])
+    return None
+
+
+def _torch_name(names, dpt=False, ddr=False):
     """Reference key of one flax leaf path (module names, then leaf). dpt:
     the leaf is a DPT model's (its `decode_head/conv_depth` is the head's
-    last conv)."""
+    last conv); ddr: a DDRNet backbone's (its `stem{n}` are the biased
+    `conv1` Sequential's, not HRNet's `conv{n}`/`bn{n}`)."""
     top, leaf = names[0], _WB.get(names[-1], names[-1])
-    zoo = (_bins_torch_name(names, leaf)
+    zoo = (_seg_torch_name(names, leaf, ddr)
+           or _bins_torch_name(names, leaf)
            or _zoo2_torch_name(names, leaf, dpt)
            or _zoo_torch_name(names, leaf))
     if zoo is not None:
@@ -589,13 +726,14 @@ def _torch_name(names, dpt=False):
     raise KeyError(f"no port parameter for {'/'.join(names)}")
 
 
-def _flax_module(key, zoo=False):
+def _flax_module(key, zoo=False, backbone=None):
     """Flax module path of one reference key without its leaf (the inverse
     of `_torch_name`'s module rules, per-block Swin layout). zoo: the key
-    is a `ZooDepther`'s, whose `backbone.conv1` is a ResNet stem and not
-    GEDepth's conv stem."""
+    is a `ZooDepther`'s or a `SegOCRNet`'s, whose `backbone.conv1` is a
+    ResNet or HRNet stem and not GEDepth's conv stem; backbone: 'hrnet' or
+    'ddrnet' for those backbones' keys (`backbone_kind`)."""
     p = key.split(".")
-    path = _bins_flax_module(p)
+    path = _seg_flax_module(p, backbone) or _bins_flax_module(p)
     if path is not None:
         return path
     if zoo:
@@ -652,12 +790,12 @@ def _flax_module(key, zoo=False):
     raise KeyError(f"no flax path for {key}")
 
 
-def flax_path(key: str, ndim: int, zoo: bool = False):
+def flax_path(key: str, ndim: int, zoo: bool = False, backbone=None):
     """(collection, flax path) of one port state_dict entry of `ndim`
     dimensions, the inverse of `_torch_name`; None for
     `num_batches_tracked`, which flax does not keep. A `weight` is a
     `kernel` when it has two dimensions or more, else a norm's `scale`.
-    zoo: the entry is a `ZooDepther`'s (see `_flax_module`)."""
+    zoo, backbone: see `_flax_module`."""
     leaf = key.rsplit(".", 1)[1]
     if leaf == "num_batches_tracked":
         return None
@@ -669,10 +807,11 @@ def flax_path(key: str, ndim: int, zoo: bool = False):
         return "params", _flax_module(key) + (leaf,)
     stats = {"running_mean": "mean", "running_var": "var"}
     if leaf in stats:
-        return "batch_stats", _flax_module(key, zoo) + (stats[leaf],)
+        return "batch_stats", _flax_module(key, zoo, backbone) + (
+            stats[leaf],)
     if leaf == "weight":
         leaf = "kernel" if ndim >= 2 else "scale"
-    return "params", _flax_module(key, zoo) + (leaf,)
+    return "params", _flax_module(key, zoo, backbone) + (leaf,)
 
 
 # backbone keys only a zoo model has: ResNet, ViT, EfficientNet, timm's
@@ -681,8 +820,24 @@ _ZOO_BACKBONES = ("backbone.layer", "backbone.cls_token", "backbone.stem.",
 
 
 def is_zoo_state_dict(state_dict: Mapping) -> bool:
-    """Whether a state_dict is a `ZooDepther`'s (by its backbone)."""
+    """Whether a state_dict is a `ZooDepther`'s or a `SegOCRNet`'s (by its
+    backbone)."""
     return any(k.startswith(_ZOO_BACKBONES) for k in state_dict)
+
+
+def backbone_kind(keys):
+    """'hrnet' or 'ddrnet' when the keys hold those backbones' structural
+    keys (the JAX converter's detection: `.fuse_layers.` or
+    `backbone.transition`; `backbone.spp.scale` or
+    `backbone.compression3_1.`), else None."""
+    keys = list(keys)
+    if any(k.startswith(("backbone.spp.scale", "backbone.compression3_1."))
+           for k in keys):
+        return "ddrnet"
+    if any(".fuse_layers." in k or k.startswith("backbone.transition")
+           for k in keys):
+        return "hrnet"
+    return None
 
 
 def _put(tree, names, arr):
@@ -700,6 +855,7 @@ def flax_variables_from_state_dict(state_dict: Mapping):
     as `_split_torch` says. The inverse of `state_dict_from_flax`."""
     trees = {"params": {}, "batch_stats": {}}
     zoo = is_zoo_state_dict(state_dict)
+    kind = backbone_kind(state_dict)
     for key, t in state_dict.items():
         arr = t.detach().float().cpu().numpy()
         split = _split_torch(key, arr)
@@ -707,7 +863,7 @@ def flax_variables_from_state_dict(state_dict: Mapping):
             for names, part in split:
                 _put(trees["params"], names, part)
             continue
-        where = flax_path(key, t.dim(), zoo)
+        where = flax_path(key, t.dim(), zoo, kind)
         if where is None:
             continue
         collection, names = where
@@ -723,13 +879,15 @@ def state_dict_from_flax(params: Mapping, batch_stats: Mapping = None):
     if "backbone" in params:
         params["backbone"] = unstack_swin_params(params["backbone"])
     dpt = "reassemble0" in params.get("decode_head", {})
+    ddr = any("spp" in tree.get("backbone", {})
+              for tree in (params, batch_stats or {}))
     fused, leaves = _fuse_flax(list(_flatten(params)))
     sd = {k: torch.from_numpy(np.array(v, np.float32, order="C"))
           for k, v in fused.items()}
     if batch_stats:
         leaves += list(_flatten(batch_stats))
     for names, arr in leaves:
-        key = _torch_name(names, dpt)
+        key = _torch_name(names, dpt, ddr)
         if names[-1] == "kernel":
             arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
         sd[key] = torch.from_numpy(np.array(arr, np.float32, order="C"))

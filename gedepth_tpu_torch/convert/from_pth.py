@@ -54,6 +54,16 @@ backbone takes GEDepth's backbone keys. `binsformer_release_remap` is the
 released checkpoints' key fix (the reference's
 tools/model_converters/binsformer.py).
 
+An HRNet or DDRNet backbone (mmcv's HRNet names, the reference's
+ddrnet.py names) is detected as the JAX converter detects it, by its
+structural keys (`from_jax.backbone_kind`); then its backbone keys follow
+that converter's HRNet or DDRNet rules (`hrnet_key_rule`,
+`ddrnet_key_rule`): the keys they map load as they are into the seg
+model's HRNet (or a `DualResNet`), `num_batches_tracked` is dropped, and a
+key they do not map (a deeper transition chain, a diagonal fuse layer, a
+conv bias) is reported as unmapped. The JAX converter has no rule for the
+seg model's decode heads: they keep their seeded initialisation.
+
 A reference transposed conv of the DPT reassemble blocks has one bias a
 channel; the port's (and the JAX package's) has one a channel and
 sub-pixel, so the file's is spread over the sub-pixels (`np.tile` in the
@@ -66,6 +76,8 @@ from typing import Dict
 
 import torch
 import torch.nn.functional as F
+
+from gedepth_tpu_torch.convert.from_jax import backbone_kind
 
 _BLOCK_LEAVES = {
     "norm1.weight", "norm1.bias", "norm2.weight", "norm2.bias",
@@ -205,10 +217,102 @@ def swin_official_to_gedepth(sd: Dict[str, torch.Tensor]):
     return out
 
 
-def reference_key_rule(key: str):
+def _conv_bn_leaf(kind, leaf):
+    """The rule of a conv's or a BatchNorm's leaf in the JAX converter's
+    `_hrnet_cbn`: a conv keeps its weight only, a BatchNorm its affine
+    parameters and statistics and drops `num_batches_tracked`."""
+    if kind == "conv":
+        return True if leaf == "weight" else None
+    if leaf == "num_batches_tracked":
+        return False
+    return True if leaf in ("weight", "bias", "running_mean",
+                            "running_var") else None
+
+
+def _block_rule(rest):
+    """A residual block's `conv{n}.weight`, `bn{n}.*`, `downsample.{0,1}.*`."""
+    m = re.fullmatch(r"(conv|bn)\d\.(\w+)", rest)
+    if m:
+        return _conv_bn_leaf(m.group(1), m.group(2))
+    m = re.fullmatch(r"downsample\.([01])\.(\w+)", rest)
+    if m:
+        return _conv_bn_leaf("conv" if m.group(1) == "0" else "bn",
+                             m.group(2))
+    return None
+
+
+def hrnet_key_rule(key: str):
+    """`reference_key_rule` for an mmcv HRNet backbone key
+    (`gedepth_tpu.convert.torch_to_jax._map_hrnet_key`): the stems
+    `conv{1,2}`/`bn{1,2}`, `layer1` and branch blocks, the transitions (a
+    new branch's first step only) and the fuse layers (up above the
+    diagonal, down chains below it)."""
+    k = key[len("backbone."):]
+    m = re.fullmatch(r"(conv|bn)[12]\.(\w+)", k)
+    if m:
+        return _conv_bn_leaf(m.group(1), m.group(2))
+    m = re.fullmatch(r"(?:layer1\.\d+|stage\d\.\d+\.branches\.\d+\.\d+)"
+                     r"\.(.*)", k)
+    if m:
+        return _block_rule(m.group(1))
+    m = re.fullmatch(r"transition\d\.\d+\.(?:(\d+)\.)?([01])\.(\w+)", k)
+    if m:
+        if m.group(1) not in (None, "0"):
+            return None
+        return _conv_bn_leaf("conv" if m.group(2) == "0" else "bn",
+                             m.group(3))
+    m = re.fullmatch(r"stage\d\.\d+\.fuse_layers\.(\d+)\.(\d+)\."
+                     r"(?:(\d+)\.)?([01])\.(\w+)", k)
+    if m:
+        i, j = int(m.group(1)), int(m.group(2))
+        if (j <= i) if m.group(3) is None else (j >= i):
+            return None
+        return _conv_bn_leaf("conv" if m.group(4) == "0" else "bn",
+                             m.group(5))
+    return None
+
+
+def ddrnet_key_rule(key: str):
+    """`reference_key_rule` for a DDRNet backbone key
+    (`gedepth_tpu.convert.torch_to_jax._map_ddrnet_key`): the biased stem
+    Sequential `conv1`, the layers' blocks, the fusion Sequentials,
+    `down4` and DAPPM's pre-activation Sequentials."""
+    k = key[len("backbone."):]
+    m = re.fullmatch(r"conv1\.([0134])\.(\w+)", k)
+    if m:
+        if m.group(1) in "03":
+            return True if m.group(2) in ("weight", "bias") else None
+        return _conv_bn_leaf("bn", m.group(2))
+    m = re.fullmatch(r"layer\d(?:_\d)?_?\.\d+\.(.*)", k)
+    if m:
+        return _block_rule(m.group(1))
+    m = re.fullmatch(r"(?:compression3_1|compression3_2|compression4|"
+                     r"down3_1|down3_2|out_conv)\.([01])\.(\w+)", k)
+    if m:
+        return _conv_bn_leaf("conv" if m.group(1) == "0" else "bn",
+                             m.group(2))
+    m = re.fullmatch(r"down4\.([0134])\.(\w+)", k)
+    if m:
+        return _conv_bn_leaf("conv" if m.group(1) in "03" else "bn",
+                             m.group(2))
+    m = re.fullmatch(r"spp\.(?:scale\d|process\d|compression|shortcut)\."
+                     r"(\d)\.(\w+)", k)
+    if m:
+        return _conv_bn_leaf("conv" if m.group(1) in "23" else "bn",
+                             m.group(2))
+    return None
+
+
+def reference_key_rule(key: str, backbone=None):
     """True for a GEDepth reference key the port keeps, False for one it
     drops (`attn.w_msa.relative_position_index`, computed by the model;
-    BatchNorm's `num_batches_tracked`), None for a key no rule maps."""
+    BatchNorm's `num_batches_tracked`), None for a key no rule maps.
+    backbone: 'hrnet' or 'ddrnet' when the state dict holds that backbone
+    (`from_jax.backbone_kind`); its `backbone.` keys then follow
+    `hrnet_key_rule` or `ddrnet_key_rule`."""
+    if backbone is not None and key.startswith("backbone."):
+        return (hrnet_key_rule if backbone == "hrnet"
+                else ddrnet_key_rule)(key)
     m = _BLOCK.match(key)
     if m:
         if m.group(1) in _BLOCK_LEAVES:
@@ -285,8 +389,9 @@ def binsformer_release_remap(sd: Dict[str, torch.Tensor]):
 
 def convert_state_dict(sd: Dict[str, torch.Tensor]):
     """(kept entries, unmapped keys) of a reference state dict, by
-    `reference_key_rule`."""
-    rules = {k: reference_key_rule(k) for k in sd}
+    `reference_key_rule` (an HRNet's or DDRNet's backbone by its rule)."""
+    kind = backbone_kind(sd)
+    rules = {k: reference_key_rule(k, kind) for k in sd}
     return ({k: v for k, v in sd.items() if rules[k]},
             [k for k, r in rules.items() if r is None])
 
@@ -304,11 +409,12 @@ def convert_checkpoint_file(pth_path: str, model, official_swin=False,
     as the JAX converter ignores them; model keys the file lacks keep their
     values. report: `unmapped_torch_keys` (keys no rule maps),
     `missing_params` and `missing_stats` (model parameters and BatchNorm
-    running statistics the file did not give) and, for a zoo model,
-    `unused_torch_keys` (backbone keys the JAX converter sends to
-    GEDepth's stems, which a zoo model lacks: `backbone.conv1`,
+    running statistics the file did not give) and, for a zoo or seg
+    model, `unused_torch_keys` (backbone keys the JAX converter sends to
+    GEDepth's stems, which such a model lacks: `backbone.conv1`,
     `backbone.bn1`, `backbone.patch_embed.projection`; none for BinsFormer,
-    whose Swin takes them). binsformer_release: apply
+    whose Swin takes them, or for a file of an HRNet or DDRNet, whose
+    rules keep them). binsformer_release: apply
     `binsformer_release_remap` first."""
     sd = load_torch_checkpoint(pth_path)
     if binsformer_release:
@@ -316,11 +422,12 @@ def convert_checkpoint_file(pth_path: str, model, official_swin=False,
     if official_swin:
         sd = {f"backbone.{k}": v
               for k, v in swin_official_to_gedepth(sd).items()}
+    kept = backbone_kind(sd) is not None
     sd, unmapped = convert_state_dict(sd)
     zoo = getattr(model, "arch", "gedepth") != "gedepth"
     if zoo:
-        swin = getattr(model, "arch", "") == "binsformer"
-        unused = [] if swin else sorted(
+        kept = kept or getattr(model, "arch", "") == "binsformer"
+        unused = [] if kept else sorted(
             k for k in sd if k.startswith("backbone.") and
             not k.startswith("backbone.original_model."))
         sd = {k: v for k, v in sd.items() if k not in unused}

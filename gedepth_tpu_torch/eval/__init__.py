@@ -1,1 +1,2 @@
-from gedepth_tpu_torch.eval.evaluator import Evaluator  # noqa: F401
+from gedepth_tpu_torch.eval.evaluator import (  # noqa: F401
+    Evaluator, SegEvaluator)

@@ -16,6 +16,10 @@ More than one process (`parallel`): each process evaluates its strided shard
 of the test split and the per-image metric rows are gathered from every
 process before the nanmean (`allgather_per_image`, the reference's
 collect_results_cpu), so every process returns the same aggregate.
+
+`SegEvaluator` scores the seg model (`SegOCRNet`) by the ground mask's
+mIoU, pixel accuracy and per-class IoU; across processes it sums its
+integer counts.
 """
 from __future__ import annotations
 
@@ -208,3 +212,108 @@ class Evaluator:
             per_image = allgather_per_image(
                 per_image, parallel.comm_device(torch.device("cpu")))
         return (aggregate_metrics(per_image) if per_image else {}), per_image
+
+
+class SegEvaluator:
+    """The ground-mask segmentation evaluation of the seg model (the port of
+    `gedepth_tpu.eval.evaluator.SegEvaluator`): the argmax of the final
+    stage's logits against the PE ground mask of each test image, formed
+    from the test pipeline's PE channel and the lidar GT by the training
+    labels' 3% rule (at full resolution the KITTI GT is KB-cropped first);
+    only pixels with lidar (GT > 0) count. Per class the intersection and
+    the union are counted over the images, and the correct pixels; the
+    aggregate is {"miou", "acc", "iou_cls{c}"} (IoU = intersection /
+    max(union, 1)).
+
+    More than one process: each scores its strided shard and the counts,
+    integers, are summed over the processes (an all-reduce, as the JAX
+    package's process_allgather), so every process returns the same
+    aggregate. `images` is the count scored by the last `run` over all
+    processes."""
+
+    key_metric = "miou"
+    rule = "greater"
+
+    def __init__(self, model, dataset, data_cfg, batch_size=1,
+                 process_index=None, process_count=None):
+        """model: a `SegOCRNet` on its device, in eval mode.
+        process_index / process_count: as `Evaluator`'s."""
+        self.model = model
+        self.dataset = dataset
+        self.data_cfg = data_cfg
+        self.batch_size = batch_size
+        self.pipeline = build_test_pipeline(data_cfg)
+        self.depth_scale = 250.0 if data_cfg.dataset == "ddad" else 200.0
+        self.device = next(model.parameters()).device
+        self.process_index = (parallel.rank() if process_index is None
+                              else process_index)
+        self.process_count = (parallel.world() if process_count is None
+                              else process_count)
+        self.images = 0
+
+    @torch.inference_mode()
+    def _predict(self, batch):
+        img = torch.from_numpy(np.ascontiguousarray(
+            batch["img"], np.float32)).to(self.device)
+        logits = self.model(img)["seg_logits"][-1]
+        return logits.argmax(dim=-1).cpu().numpy()
+
+    def _gt_for(self, index):
+        if hasattr(self.dataset, "load_gt"):
+            return self.dataset.load_gt(index)
+        return self.dataset[index].get("depth_gt")
+
+    def run(self, max_images=None, progress=None, on_prediction=None,
+            compute_metrics=True):
+        """Score the dataset, or its first `max_images` images with GT
+        (this process's shard); returns (aggregate, []).
+        `on_prediction(index, classes)` sees every prediction (H, W)."""
+        n_cls = self.model.num_classes
+        # intersection and union per class, then correct and total pixels
+        counts = np.zeros(2 * n_cls + 2, np.int64)
+        done = 0
+        loader = EvalLoader(self.dataset, self.pipeline, self.batch_size,
+                            self.process_index, self.process_count)
+        for batch, valid in loader:
+            preds = self._predict(batch)
+            for row in range(preds.shape[0]):
+                if not valid[row]:
+                    continue
+                index = int(batch["index"][row])
+                if on_prediction is not None:
+                    on_prediction(index, preds[row])
+                gt = self._gt_for(index)
+                if gt is None or not compute_metrics:
+                    continue
+                if gt.shape != preds[row].shape:    # KITTI's full-res GT
+                    gt = eval_kb_crop(gt, *self.data_cfg.eval_size)
+                pe = batch["img"][row][..., 3] * self.depth_scale
+                label = (np.abs(pe - gt) <= 0.03 * gt) & (gt > 0)
+                scored = gt > 0
+                p, lab = preds[row][scored], label[scored].astype(np.int64)
+                for c in range(n_cls):
+                    counts[c] += np.sum((p == c) & (lab == c))
+                    counts[n_cls + c] += np.sum((p == c) | (lab == c))
+                counts[-2] += np.sum(p == lab)
+                counts[-1] += p.size
+                done += 1
+                if progress is not None and done % progress == 0:
+                    print(f"  eval {done}/{len(self.dataset)}", flush=True)
+                if max_images is not None and done >= max_images:
+                    break
+            if max_images is not None and done >= max_images:
+                break
+        counts = np.append(counts, done)
+        if self.process_count > 1:
+            summed = torch.from_numpy(counts).to(
+                parallel.comm_device(torch.device("cpu")))
+            dist.all_reduce(summed)
+            counts = summed.cpu().numpy()
+        inter, union = counts[:n_cls], counts[n_cls:2 * n_cls]
+        correct, total, self.images = counts[-3], counts[-2], int(counts[-1])
+        iou = inter / np.maximum(union, 1)
+        agg = {"miou": float(iou.mean()),
+               "acc": float(correct / max(total, 1))}
+        for c in range(n_cls):
+            agg[f"iou_cls{c}"] = float(iou[c])
+        return agg, []

@@ -21,6 +21,10 @@ rows.
 
 class_ce: BinsFormer's scene-class cross entropy, the mean over the global
 batch's rows.
+
+weighted_ce_ignore: torch's CrossEntropyLoss(weight, ignore_index) over
+the global batch's pixels, the ground-mask classes' loss (class weights
+0.2 and 1.0) of the stage-1 pretraining and of the seg train step.
 """
 from __future__ import annotations
 
@@ -116,3 +120,22 @@ def class_ce(logits, labels):
     total, n = parallel.global_sum(torch.stack(
         [nll.sum(), nll.new_tensor(float(nll.shape[0]))]))
     return total / n
+
+
+CLASS_WEIGHTS = (0.2, 1.0)
+
+
+def weighted_ce_ignore(logits, labels, class_weights=CLASS_WEIGHTS,
+                       ignore_index: int = 255):
+    """torch's CrossEntropyLoss(weight=w, ignore_index) on NHWC logits:
+    sum(w_y · nll) / sum(w_y) over the pixels whose label is not ignored."""
+    labels = labels.long()
+    valid = labels != ignore_index
+    safe = torch.where(valid, labels, 0)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    w = torch.as_tensor(class_weights, dtype=logits.dtype,
+                        device=logits.device)[safe] * valid.to(logits.dtype)
+    total, weight = parallel.global_sum(torch.stack([(nll * w).sum(),
+                                                     w.sum()]))
+    return total / weight.clamp_min(1e-8)

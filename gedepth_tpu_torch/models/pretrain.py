@@ -27,13 +27,13 @@ from gedepth_tpu_torch.convert.from_jax import (
     flax_variables_from_state_dict, state_dict_from_flax)
 from gedepth_tpu_torch.models.hahi import HAHINeck
 from gedepth_tpu_torch.models.layers import Stochastic, conv2d, init_weights
+from gedepth_tpu_torch.models.losses import weighted_ce_ignore  # noqa: F401
 from gedepth_tpu_torch.models.necks import ScaleFuse
 from gedepth_tpu_torch.models.swin import DepthFormerSwin
 from gedepth_tpu_torch.ops.resize import resize_bilinear_nchw
 from gedepth_tpu_torch.train.checkpoint import read_flax_npz, write_flax_npz
 
 MASK_REL_TOL = 0.03       # the training labels' agreement of prior and lidar
-CLASS_WEIGHTS = (0.2, 1.0)
 
 
 def ground_mask_gt(pe: np.ndarray, gt: np.ndarray,
@@ -52,20 +52,6 @@ def mask_labels(img, depth_gt, rel_tol: float = MASK_REL_TOL):
     pe = img[..., 4]
     err = (pe - depth_gt).abs() / depth_gt.clamp_min(1e-6)
     return ((depth_gt > 0) & (err <= rel_tol)).to(img.dtype)
-
-
-def weighted_ce_ignore(logits, labels, class_weights=CLASS_WEIGHTS,
-                       ignore_index: int = 255):
-    """torch's CrossEntropyLoss(weight=w, ignore_index) on NHWC logits:
-    sum(w_y · nll) / sum(w_y) over the pixels whose label is not ignored."""
-    labels = labels.long()
-    valid = labels != ignore_index
-    safe = torch.where(valid, labels, 0)
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
-    w = torch.as_tensor(class_weights, dtype=logits.dtype,
-                        device=logits.device)[safe] * valid.to(logits.dtype)
-    return (nll * w).sum() / w.sum().clamp_min(1e-8)
 
 
 class GroundMaskPretrain(nn.Module):

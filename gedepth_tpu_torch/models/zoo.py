@@ -12,7 +12,7 @@ Ported pairings:
                (_base_/models/densedepth.py)
   binsformer — Swin (+ the conv stem) + BinsFormerHead
                (_base_/models/binsformer.py)
-The segmentation model 'seg' is not ported yet (ROADMAP Queue 1). AdaBins
+The segmentation arch 'seg' is `models.segmentation.SegOCRNet`. AdaBins
 and BinsFormer also return their `bin_edges` (B, n_bins + 1), which the
 bin-chamfer loss reads; BinsFormer its scene `class_logits` (B, 25) and, in
 training, the outputs of its other decoder layers (`aux_layer_outs`), which
@@ -49,7 +49,7 @@ from gedepth_tpu_torch.ops.resize import resize_bilinear
 ZOO_ARCHS = ("adabins", "bts", "dpt", "binsformer", "densedepth")
 PORTED_ARCHS = ("adabins", "bts", "dpt", "binsformer", "densedepth")
 # where each arch that is not ported yet stands in ROADMAP.md Queue 1
-ZOO_ROADMAP = {"seg": "Zoo 5: HRNet and segmentation"}
+ZOO_ROADMAP = {}
 # BinsFormer's head caps the bins at 64 (the JAX zoo's rule)
 BINSFORMER_MAX_BINS = 64
 

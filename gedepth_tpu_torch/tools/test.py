@@ -26,7 +26,8 @@ the process group that `torchrun` describes in the environment (NCCL; gloo
 with --device cpu): each process evaluates its strided shard of the split
 (--max-images of it at most), the per-image metrics of every process are
 gathered before the aggregate, and process 0 prints it. f32 runs without
-TF32.
+TF32. The seg preset, which predicts no depth, is refused (its evaluation
+is `eval.SegEvaluator` in `tools.train`'s loop, as in the JAX package).
 
 --show-dir writes each prediction coloured by `utils.color_depth` as
 `<name>_depth.png`; --format-only writes each as a 16-bit PNG of depth ×
@@ -93,6 +94,9 @@ def main(argv=None):
 
     disable_tf32()
     cfg = apply_options(get_config(args.config), args.options)
+    if cfg.model.arch == "seg":
+        parser.error("the seg preset predicts no depth: tools.train "
+                     "evaluates it in its loop (eval.SegEvaluator)")
     device = (parallel.init_from_env(args.device) if args.multihost
               else torch.device(args.device))
     try:

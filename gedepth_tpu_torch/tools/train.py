@@ -12,7 +12,8 @@ Trains the preset on one device at the preset's global batch, from the
 port's seeded initialisation or from the latest checkpoint in
 --resume-from (a `ckpts` directory of an earlier run), and writes to
 --work-dir (default work_dirs/<preset>): `train.log.jsonl`, the best
-weights as `best_abs_rel.npz` and the newest checkpoints under `ckpts/`
+weights as `best_abs_rel.npz` (`best_miou.npz` for the seg preset
+`ocrnet_hr18_kitti`) and the newest checkpoints under `ckpts/`
 (`train.loop.train`). It evaluates every eval_interval steps and at the
 last, on the first --eval-max-images images of the test split when given,
 prints a line every log_interval steps and at each evaluation, and ends

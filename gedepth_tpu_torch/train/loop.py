@@ -28,13 +28,13 @@ from gedepth_tpu_torch.data.nyu import NYUDataset
 from gedepth_tpu_torch.data.synthetic import SyntheticGroundDataset
 from gedepth_tpu_torch.data.transforms import build_train_pipeline
 from gedepth_tpu_torch.data.wrappers import RepeatDataset
-from gedepth_tpu_torch.eval.evaluator import Evaluator
+from gedepth_tpu_torch.eval.evaluator import Evaluator, SegEvaluator
 from gedepth_tpu_torch.models.pretrain import load_backbone, overlay_backbone
 from gedepth_tpu_torch.train.checkpoint import (
     CheckpointKeeper, restore_checkpoint, save_params_only)
 from gedepth_tpu_torch.train.steps import (
-    batch_to_device, create_train_state, make_train_step,
-    make_zoo_train_step)
+    batch_to_device, create_train_state, make_seg_train_step,
+    make_train_step, make_zoo_train_step)
 from gedepth_tpu_torch.utils.env import collect_env
 from gedepth_tpu_torch.utils.tensorboard import TensorboardLogger
 
@@ -119,9 +119,12 @@ def build_datasets(cfg):
 def train_step_for(cfg):
     """The train step of an `ExperimentConfig`, chosen by cfg.model.arch
     as the JAX loop chooses it: `make_train_step` for GEDepth,
-    `make_zoo_train_step` for a zoo arch; bf16 from
-    cfg.train.bf16_compute."""
+    `make_seg_train_step` for 'seg' (f32 whatever cfg.train.bf16_compute
+    says, as in the JAX loop), `make_zoo_train_step` for a zoo arch; bf16
+    from cfg.train.bf16_compute."""
     o, bf16 = cfg.optim, cfg.train.bf16_compute
+    if cfg.model.arch == "seg":
+        return make_seg_train_step(cfg.model.depth_scale)
     if cfg.model.arch == "gedepth":
         return make_train_step(o.sig_loss_weight, o.slope_ce_weight,
                                bf16=bf16)
@@ -132,15 +135,19 @@ def train_step_for(cfg):
 
 LESS_IS_BETTER = ("abs_rel", "sq_rel", "rmse", "rmse_log", "log_10", "silog")
 GREATER_IS_BETTER = ("a1", "a2", "a3")
+# what `SegEvaluator` publishes that save-best may name
+SEG_METRICS = ("miou", "acc")
 
 
 def best_rule(save_best: str, key_metric: str = Evaluator.key_metric):
     """(metric, sign) of the save-best rule: `save_best` when the evaluator
-    publishes it, else the evaluator's `key_metric`; sign 1 where less is
-    better (the six error metrics), -1 where greater is (a1-a3), so that
-    sign·value falls as the model improves."""
-    key = (save_best if save_best in LESS_IS_BETTER + GREATER_IS_BETTER
-           else key_metric)
+    publishes it (`SegEvaluator`, key 'miou': miou and acc; `Evaluator`:
+    the nine depth metrics), else the evaluator's `key_metric`; sign 1
+    where less is better (the six error metrics), -1 where greater is
+    (a1-a3, miou, acc), so that sign·value falls as the model improves."""
+    published = (SEG_METRICS if key_metric == SegEvaluator.key_metric
+                 else LESS_IS_BETTER + GREATER_IS_BETTER)
+    key = save_best if save_best in published else key_metric
     return key, 1.0 if key in LESS_IS_BETTER else -1.0
 
 
@@ -152,7 +159,9 @@ def evaluate(evaluator, model, max_images=None):
     try:
         t0 = time.perf_counter()
         agg, per_image = evaluator.run(max_images=max_images)
-        return agg, len(per_image), time.perf_counter() - t0
+        images = getattr(evaluator, "images", None)
+        return (agg, len(per_image) if images is None else images,
+                time.perf_counter() - t0)
     finally:
         model.train(was_training)
 
@@ -168,11 +177,13 @@ def train(cfg, work_dir: Optional[str] = None,
     history: one dict per step, mode 'train': iter, lr, loss, loss_depth,
     loss_slope (adaptive models), loss_chamfer (a zoo model with bin edges
     and optim.chamfer_weight), loss_ce and aux_loss_depth_{idx}
-    (BinsFormer's scene-class and auxiliary terms), grad_norm, time
+    (BinsFormer's scene-class and auxiliary terms), loss_seg{i} (the seg
+    model's stages, without loss_depth), grad_norm, time
     (seconds of this one step
     on a synchronised host clock) and, on a CUDA device, peak_mem_mib (the
     step's peak of allocated device memory); and one per evaluation, mode
-    'val': iter, the nine metrics, images and time (seconds).
+    'val': iter, the nine metrics (the seg model: miou, acc and
+    iou_cls{c} of `SegEvaluator`), images and time (seconds).
     best: the 'val' record with the best value of the save-best metric
     (`best_rule(cfg.train.save_best)`), or {metric: ±inf} before any.
 
@@ -221,8 +232,11 @@ def train(cfg, work_dir: Optional[str] = None,
     record, or since the loop started for the first, so it spans the
     log_interval steps with their data waits and any evaluation between.
 
-    The step is `make_train_step` for GEDepth and `make_zoo_train_step`
-    for a zoo arch (cfg.model.arch), as in the JAX loop.
+    The step and the evaluator are `make_train_step` and `Evaluator` for
+    GEDepth, `make_zoo_train_step` and `Evaluator` for a zoo arch, and
+    `make_seg_train_step` and `SegEvaluator` for 'seg' (cfg.model.arch), as
+    in the JAX loop; the seg step is f32 whatever cfg.train.bf16_compute
+    says, as the JAX loop's is, and says so when the flag is set.
 
     TF32 is left as the caller set it (`utils.env.disable_tf32`)."""
     max_iters = max_iters or cfg.train.max_iters
@@ -265,7 +279,12 @@ def train(cfg, work_dir: Optional[str] = None,
                       flush=True)
         state.generator.manual_seed(seed + 1)
         train_step = train_step_for(cfg)
-        evaluator = Evaluator(state.model, build_eval_dataset(cfg), cfg.data)
+        seg = cfg.model.arch == "seg"
+        evaluator = (SegEvaluator if seg else Evaluator)(
+            state.model, build_eval_dataset(cfg), cfg.data)
+        if seg and cfg.train.bf16_compute and main:
+            print("train.bf16_compute is set: the seg step runs in f32, as "
+                  "the JAX package's", flush=True)
         key, sign = best_rule(cfg.train.save_best, evaluator.key_metric)
         best = {key: sign * float("inf")}
 
@@ -298,7 +317,8 @@ def train(cfg, work_dir: Optional[str] = None,
             metrics = train_step(state, batch)
             keys = [k for k in ("loss", "loss_depth", "loss_slope",
                                 "loss_chamfer", "loss_ce") if k in metrics]
-            keys += sorted(k for k in metrics if k.startswith("aux_loss_"))
+            keys += sorted(k for k in metrics
+                           if k.startswith(("aux_loss_", "loss_seg")))
             keys.append("grad_norm")
             values = torch.stack([metrics[k] for k in keys]).tolist()
             record = dict(zip(keys, values), iter=it + 1, lr=metrics["lr"],
@@ -330,7 +350,8 @@ def train(cfg, work_dir: Optional[str] = None,
                 if main:
                     print(f"eval @ {it + 1}: " + " ".join(
                         f"{k}={agg[k]:.4f}" for k in dict.fromkeys(
-                            (key, "rmse", "a1")) if k in agg), flush=True)
+                            (key, "rmse", "a1", "acc")) if k in agg),
+                        flush=True)
                 if sign * val[key] < sign * best[key]:
                     best = val
                     if work_dir is not None and main:

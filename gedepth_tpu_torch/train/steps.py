@@ -8,7 +8,10 @@ the raw gradients, the clip, then one AdamW update at the LR the schedule
 gives for the updates done so far. PyTorch runs eagerly, so the step is a
 plain function that updates the state in place. `make_zoo_train_step` is
 the zoo models' step: the same with SigLoss, and the bin-chamfer,
-scene-class and auxiliary-layer terms of AdaBins and BinsFormer.
+scene-class and auxiliary-layer terms of AdaBins and BinsFormer;
+`make_seg_train_step` the seg model's (`SegOCRNet`): the weighted cross
+entropy of each stage of its cascade against the PE ground mask that
+`ground_mask_labels` forms from the batch.
 
 More than one process (`parallel`): each process runs the step on its
 rows of the global batch. SigLoss, the slope cross entropy and every
@@ -50,7 +53,8 @@ import torch
 
 from gedepth_tpu_torch import parallel
 from gedepth_tpu_torch.models.losses import (
-    bins_chamfer_loss, class_ce, sigloss, softmax_ce_ignore)
+    bins_chamfer_loss, class_ce, sigloss, softmax_ce_ignore,
+    weighted_ce_ignore)
 from gedepth_tpu_torch.ops.resize import resize_bilinear
 from gedepth_tpu_torch.train.optim import (
     clip_by_global_norm, lr_schedule, make_optimizer)
@@ -246,6 +250,51 @@ def make_zoo_train_step(sig_loss_weight: float = 10.0,
         grad_norm, lr = state.apply_gradients()
         metrics.update(loss_depth=loss_depth.detach(), loss=loss.detach(),
                        grad_norm=grad_norm, lr=lr)
+        return metrics
+
+    return train_step
+
+
+MASK_REL_TOL = 0.03
+
+
+def ground_mask_labels(img, depth_gt, depth_scale: float):
+    """The PE ground mask of a batch: class 1 where the prior, channel 3
+    times depth_scale (the clipped PE input, pe / depth_scale after the
+    loader's normalisation), lies within 3% of the lidar depth and the
+    depth is > 0, else 0; int64 (B, H, W)."""
+    pe = img[..., 3] * depth_scale
+    err = torch.where(depth_gt > 0,
+                      (pe - depth_gt).abs() / depth_gt.clamp_min(1e-6),
+                      torch.inf)
+    return (err <= MASK_REL_TOL).long()
+
+
+def make_seg_train_step(depth_scale: float = 200.0, aux_weight: float = 0.4):
+    """train_step(state, batch) -> metrics for a `SegOCRNet` (the port of
+    `gedepth_tpu.train.steps.make_seg_train_step`): the cascade's cross
+    entropy against `ground_mask_labels(img, depth_gt, depth_scale)`,
+    stage weights aux_weight for every stage but the last and 1.0 for the
+    last (0.4 and 1.0: the reference's ocrnet_hr18 loss weights), each a
+    `weighted_ce_ignore` of the stage's f32 logits at class weights (0.2,
+    1.0), over the global batch. Then the gradient norm, the clip and
+    AdamW as in `make_train_step`. The step is f32, as the JAX package's
+    seg step is. metrics: loss_seg{i} (weighted), loss, grad_norm, lr."""
+
+    def train_step(state: TrainState, batch):
+        out = _train_forward(state, batch, False)
+        labels = ground_mask_labels(batch["img"], batch["depth_gt"],
+                                    depth_scale)
+        logits = out["seg_logits"]
+        weights = [aux_weight] * (len(logits) - 1) + [1.0]
+        loss, metrics = 0.0, {}
+        for i, (w, lg) in enumerate(zip(weights, logits)):
+            term = w * weighted_ce_ignore(lg.float(), labels)
+            metrics[f"loss_seg{i}"] = term.detach()
+            loss = loss + term
+        loss.backward()
+        grad_norm, lr = state.apply_gradients()
+        metrics.update(loss=loss.detach(), grad_norm=grad_norm, lr=lr)
         return metrics
 
     return train_step

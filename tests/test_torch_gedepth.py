@@ -198,7 +198,7 @@ REFERENCE_PRESETS = ("gedepth_adaptive_kitti",
                      "gedepth_vanilla_ddad", "gedepth_adaptive_ddad",
                      "gedepth_adaptive_ddad_tpu", "bts_kitti",
                      "densedepth_kitti", "dpt_kitti", "adabins_nyu",
-                     "binsformer_nyu")
+                     "binsformer_nyu", "ocrnet_hr18_kitti")
 
 
 def _assert_preset_matches_jax(name):

@@ -1112,6 +1112,50 @@ def test_two_ranks_on_one_card_equal_one_process(tmp_path):
                                        rtol=1e-5, atol=1e-7, err_msg=n)
 
 
+# ---- the seg preset: no kernel of the port on its path ---------------------
+
+def test_seg_train_step_on_the_card():
+    """One `make_seg_train_step` of the seg preset (HRNet-W18,
+    head_channels 8, batch 2 of synthetic ground scenes at 128x256) on the
+    card beside the same step on the CPU from the same weights and batch:
+    none of the port's kernels launched; loss and its two stage terms rtol
+    1e-4, grad_norm rtol 5e-3 (f32 keeps it to ~1e-3 on either side: the
+    stem's weight gradients, which dominate it, sum ~1e4 positions of a
+    train-mode BatchNorm's centred gradient times a non-negative input)."""
+    import dataclasses
+
+    from gedepth_tpu_torch.configs import get_config
+    from gedepth_tpu_torch.data.loader import TrainLoader
+    from gedepth_tpu_torch.data.synthetic import SyntheticGroundDataset
+    from gedepth_tpu_torch.data.transforms import build_train_pipeline
+    from gedepth_tpu_torch.train.steps import (
+        batch_to_device, create_train_state, make_seg_train_step)
+
+    cfg = get_config("ocrnet_hr18_kitti")
+    model_cfg = dataclasses.replace(cfg.model, head_channels=8)
+    data = dataclasses.replace(get_config("smoke_synthetic").data,
+                               crop_size=(128, 256))
+    batch = TrainLoader(SyntheticGroundDataset(size=2, height=128,
+                                               width=256),
+                        build_train_pipeline(data), 2, seed=0).make_batch(0)
+    counters = (wa.window_attention, msda_ops.msda, msda_ops.msda_backward,
+                pe_ops.pe_fusion)
+    metrics = {}
+    for device in ("cuda", "cpu"):
+        model = model_cfg.build(device=device,
+                                generator=torch.Generator().manual_seed(0))
+        state = create_train_state(model, cfg.optim, 10)
+        before = [c.launches for c in counters]
+        metrics[device] = make_seg_train_step(cfg.model.depth_scale)(
+            state, batch_to_device(batch, device))
+        assert [c.launches for c in counters] == before
+    for key in ("loss", "loss_seg0", "loss_seg1", "grad_norm"):
+        got, want = metrics["cuda"][key].item(), metrics["cpu"][key].item()
+        assert np.isfinite(got), key
+        np.testing.assert_allclose(got, want, err_msg=key,
+                                   rtol=5e-3 if key == "grad_norm" else 1e-4)
+
+
 if __name__ == "__main__":
     # one rank of test_two_ranks_on_one_card_equal_one_process
     import sys

@@ -273,10 +273,15 @@ def test_zoo_reads_rgb_only():
     assert torch.equal(a, b) and torch.equal(a, c)
 
 
-@pytest.mark.parametrize("arch", ["seg"])
+@pytest.mark.parametrize("arch", ["segformer"])
 def test_unported_archs_raise(arch):
+    """Every arch of the JAX zoo is ported ('seg' since the seg model
+    came); an arch that neither package knows raises."""
+    from gedepth_tpu_torch.models.zoo import ZOO_ROADMAP
+
+    assert not ZOO_ROADMAP
     _, tcfg = _model_configs("bts_kitti")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="unknown arch"):
         dataclasses.replace(tcfg, arch=arch).build()
 
 
