@@ -187,8 +187,9 @@ with its host-clock seconds); any failure raises and exits non-zero:
      thread keeps up with a step, KITTI and DDAD.
  27. loader workers: `TrainLoader` over the KITTI and DDAD trees at 0, 2
      and 4 workers (global batch 2, the presets' chains): the first 3
-     batches bit-identical for every count, and the samples a second
-     against the rate the f32 batch-2 step of phases 7 and 26 takes;
+     batches bit-identical for every count, and with 2 and 4 workers the
+     samples a second against the rate the f32 batch-2 step of phases 7
+     and 26 takes (one thread's rate is phase 23's host ms a sample);
  28. two ranks on one card: two processes in one gloo group (gloo takes
      CUDA tensors, NCCL refuses two ranks on one card), each at batch 1 of
      the main preset at full width (352x704, f32, one step), beside one
@@ -313,9 +314,36 @@ with its host-clock seconds); any failure raises and exits non-zero:
      search at 352x1216), its metrics within 1e-3 of the loop's; the train
      step timed as phase 36 times the zoo's (`tools.benchmark
      --train-step`: CUDA events, busy, idle share, peak, the autotuned
-     first step).
+     first step). The same step in float64 on the card and on the CPU:
+     losses and grad_norm rtol 2e-6 (the step takes its losses on f32
+     casts of the logits, as the JAX step does); the f32 steps' grad_norm
+     distances from float64, card and CPU, printed beside the JAX
+     package's at the weights phase 38 starts from (4.65e-4,
+     tests/seg_f64_distance.py).
+ 39. the toolbox's extra datasets and heads: every committed JPEG fixture
+     (gedepth_tpu_torch/testdata/jpeg) through the port's decoder, its
+     pixels' SHA-256 that of PIL's (fixtures.json) or the refusal it
+     names, decode ms a frame at 900x1600 and 530x730 beside the PNG
+     reader's on the same pixels; Cityscapes (1024x2048), nuScenes
+     (900x1600) and SUN RGB-D (530x730) trees and a custom folder by
+     `tools.make_tree`, the host ms a sample of each dataset's read and
+     whole train chain; `tools.train depthformer_baseline_kitti
+     --max-iters 2 --eval-max-images 1` on the Cityscapes tree in this
+     process (crop 352x704, batch 2, cuDNN's choices of phase 7 warm; the
+     evaluation of one 1024x2048 frame, flip-TTA): finite losses and
+     metrics, exactly 144 A, B at 20,570 and 61,952 queries twice and at
+     174,080 and 524,288 twice, C at 20,570 and 61,952 twice, no E; the
+     step by CUDA events, its peak; `tools.test --format-only` on the
+     custom folder's PNG and JPEG: uint16 PNGs at their frames' sizes;
+     `ASNDepthHeadV2` at NYU width (features (2, 60, 80, 128), x8 to
+     480x640, 40 triangle samples, NYU's intrinsics) with its loss dict,
+     and `ASNDepthHead` on densedepth_kitti's ResNet-50 pyramid of a
+     352x1216 frame, forward and backward on the card beside the CPU
+     (outputs and losses rtol 1e-4, the adaptive normals within 2e-2 and
+     1e-5 on average, gradients within 2e-2 in L2: BatchNorm-fed).
 The phases run in the order 1, 2, 23, 3, 6, 13, 9, 24, 37, 4, 5, 31, 32, 7,
-8, 34, 20, 21, 33, 22, 35, 25, 26, 27, 10, 11, 12, 14-19, 28-30, 36, 38:
+8, 34, 20, 21, 33, 22, 35, 25, 26, 27, 10, 11, 12, 14-19, 28-30, 36, 38,
+39:
 every kernel check
 comes before the first model, because `torch.profiler` loses device
 activities as a process ages, and all of them once it has trained.
@@ -338,13 +366,16 @@ evaluation (train shapes; E both). The rows of phase 37 carry the launches
 of phase 36's `binsformer_nyu`: its f32 requests (serving shapes) and its
 f32 step (train shapes), and for A's bf16 instance its bf16 request and
 bf16_compute step. The first four rows also carry the
-launches inside phase 31's loaded program (`launches_exported`). Last the
-device as one JSON line.
+launches inside phase 31's loaded program (`launches_exported`) and those
+of phase 39's Cityscapes training and evaluation (`launches_cityscapes`).
+Last the device as one JSON line.
 To make room for phases 13-19, phase 9 times its plain versions once
 instead of twice and the nearest rule by events alone; to make room for
 phase 37 and BinsFormer, phases 3 and 6 trace the plain versions of B and
 C only for the shapes their rows keep (cross-attention); every check of
-phases 1-12 stayed.
+phases 1-12 stayed. To make room for phase 39, phase 27 no longer times
+the loader without workers (phase 23's host ms a sample is that rate);
+its batches are still held bit for bit.
 Imports nothing of JAX. Exits non-zero without a CUDA device.
 """
 from __future__ import annotations
@@ -2982,14 +3013,22 @@ LOADER_WORKERS = (0, 2, 4)
 LOADER_KEEP = 3           # batches held bit for bit across worker counts
 
 
+def first_batches(loader, n):
+    """The first n batches of `loader`, its workers stopped after."""
+    with contextlib.closing(iter(loader)) as batches:
+        return [next(batches) for _ in range(n)]
+
+
 def phase_loader_workers(trees, step_ms):
     """Phase 27: `TrainLoader` over the KITTI and DDAD trees of phase 23 at
     0, 2 and 4 workers, global batch 2, the presets' chains: the first
-    LOADER_KEEP batches bit-identical for every worker count; samples a
-    second over `bench_loader.window_batches` (four times the batches in
-    flight, at least 16), timed after those in flight when the first came
-    (`bench_loader.warm_batches`), against what this run's f32 batch-2 step
-    (phases 7, 26) takes. Returns {(dataset, workers): samples a second}."""
+    LOADER_KEEP batches bit-identical for every worker count; with workers,
+    samples a second over `bench_loader.window_batches` (four times the
+    batches in flight, at least 16), timed after those in flight when the
+    first came (`bench_loader.warm_batches`), against what this run's f32
+    batch-2 step (phases 7, 26) takes. One thread is not timed again: phase
+    23's host ms a sample of the whole chain is its rate. Returns
+    {(dataset, workers): samples a second}."""
     from gedepth_tpu_torch.configs import get_config
     from gedepth_tpu_torch.data import TrainLoader, build_train_pipeline
     from gedepth_tpu_torch.tools.bench_loader import loader_rate
@@ -3003,10 +3042,12 @@ def phase_loader_workers(trees, step_ms):
         need = 2 / (step_ms[name] / 1e3)
         first = None
         for w in LOADER_WORKERS:
-            rate, kept = loader_rate(
-                TrainLoader(dataset, chain, 2, seed=SEED, num_workers=w,
-                            sampling=cfg.train.sampling),
-                keep=LOADER_KEEP)
+            loader = TrainLoader(dataset, chain, 2, seed=SEED, num_workers=w,
+                                 sampling=cfg.train.sampling)
+            if w == 0:
+                kept = first_batches(loader, LOADER_KEEP)
+            else:
+                rate, kept = loader_rate(loader, keep=LOADER_KEEP)
             kept = [{k: np.asarray(v) for k, v in b.items()} for b in kept]
             if first is None:
                 first = kept
@@ -3016,6 +3057,8 @@ def phase_loader_workers(trees, step_ms):
                     for a, b in zip(first, kept)):
                 fail(f"[loader] {name}: {w} workers gave other batches than "
                      "one thread")
+            if w == 0:
+                continue
             sps = rate["samples_per_s"]
             rates[(name, w)] = sps
             print(f"[loader] {name} {w} workers: {sps:.2f} samples/s "
@@ -4037,17 +4080,19 @@ def seg_batch(cfg, device):
     return batch_to_device(loader.make_batch(0), device)
 
 
-def seg_step_on(weights, cfg, batch, device):
-    """One `make_seg_train_step` on `device` from `weights`: (metrics,
-    {name: gradient on the CPU})."""
+def seg_step_on(weights, cfg, batch, device, dtype=torch.float32):
+    """One `make_seg_train_step` on `device` from `weights`, in `dtype`:
+    (metrics, {name: gradient on the CPU})."""
     from gedepth_tpu_torch.train.steps import (
         create_train_state, make_seg_train_step)
 
     model = cfg.model.build(device=device)
     model.load_state_dict(weights, strict=True)
+    model.to(dtype)
     state = create_train_state(model, cfg.optim, 10)
     metrics = make_seg_train_step(cfg.model.depth_scale)(
-        state, {k: v.to(device) for k, v in batch.items()})
+        state, {k: v.to(device, dtype) if v.is_floating_point()
+                else v.to(device) for k, v in batch.items()})
     return ({k: float(v) for k, v in metrics.items()},
             {n: p.grad.detach().cpu() for n, p in model.named_parameters()})
 
@@ -4060,7 +4105,8 @@ def seg_against_cpu(tag, state, cfg):
     CPU's norm is above that), and one eval forward of a KB-cropped
     352x1216 test
     frame (both stages' logits rtol 1e-3, atol 1e-3 of their largest
-    magnitude), TF32 off."""
+    magnitude), TF32 off. Between the two, the float64 steps of
+    `seg_float64_anchor`, whose summary it returns."""
     from gedepth_tpu_torch.data.transforms import build_test_pipeline
     from gedepth_tpu_torch.train.loop import build_eval_dataset
 
@@ -4109,6 +4155,8 @@ def seg_against_cpu(tag, state, cfg):
         fail(f"{tag} grad_norm on the card {card['grad_norm']} against the "
              f"CPU {cpu['grad_norm']}")
     step_s = time.perf_counter() - t0
+    anchored = seg_float64_anchor(tag, weights, cfg, batch, card, g_card,
+                                  cpu)
     data = build_eval_dataset(cfg)
     img = torch.from_numpy(np.ascontiguousarray(build_test_pipeline(
         cfg.data)(data[0])["img"], np.float32))[None]
@@ -4133,6 +4181,62 @@ def seg_against_cpu(tag, state, cfg):
           f"gradient distance {worst[1]:.3e} of its norm ({worst[0]}), "
           f"all gradients {total:.3e}, {len(small)} below 1e-5 of the "
           f"largest norm ({small[:5]}); {step_s:.1f} s", flush=True)
+    return anchored
+
+
+# the JAX package's f32 seg step's grad_norm, relative to its float64
+# step, at phase 38's starting weights and batch on the CPU
+# (tests/seg_f64_distance.py phase38)
+SEG_JAX_F32_DISTANCE = 4.65e-4
+# a float64 seg step on the card against the CPU's: the step takes its
+# losses on f32 casts of the logits (as the JAX step does), so its losses
+# and their gradients carry f32 rounding, ~1e-6 relative in grad_norm
+SEG_F64_RTOL = 2e-6
+
+
+def seg_float64_anchor(tag, weights, cfg, batch, card, g_card, cpu):
+    """The same step in float64 on the card and on the CPU (losses and
+    grad_norm rtol SEG_F64_RTOL); then the card's f32 step against the
+    card's float64 one: the grad_norm's relative distance, beside the CPU
+    f32 step's and the JAX package's (SEG_JAX_F32_DISTANCE), and the
+    tensor whose gradient lies farthest from float64 in L2. Returns the
+    summary."""
+    t0 = time.perf_counter()
+    card64, g_card64 = seg_step_on(weights, cfg, batch, "cuda",
+                                   torch.float64)
+    cpu64, _ = seg_step_on(weights, cfg, batch, "cpu", torch.float64)
+    # the step takes its losses on f32 casts of the logits (as the JAX
+    # step does), so a float64 step's losses carry f32 rounding
+    for key in ("loss", "loss_seg0", "loss_seg1", "grad_norm"):
+        rtol = SEG_F64_RTOL
+        if not math.isclose(card64[key], cpu64[key], rel_tol=rtol):
+            fail(f"{tag} float64 {key} on the card {card64[key]!r} against "
+                 f"the CPU {cpu64[key]!r}")
+    ref = card64["grad_norm"]
+    # the tensor whose f32 gradient lies farthest from float64, among those
+    # above 1e-5 of the largest norm (a gradient that is 0 in exact
+    # arithmetic holds rounding noise)
+    top = max(float(g.norm()) for g in g_card64.values())
+    worst = max(((n, float((g.double() - g_card64[n]).norm()
+                           / g_card64[n].norm()))
+                 for n, g in g_card.items()
+                 if float(g_card64[n].norm()) >= 1e-5 * top),
+                key=lambda x: x[1])
+    summary = {"grad_norm_f64_card": ref,
+               "grad_norm_f64_cpu": cpu64["grad_norm"],
+               "f64_card_against_cpu": abs(ref - cpu64["grad_norm"])
+               / cpu64["grad_norm"],
+               "f32_card_distance": abs(card["grad_norm"] - ref) / ref,
+               "f32_cpu_distance": abs(cpu["grad_norm"]
+                                       - cpu64["grad_norm"])
+               / cpu64["grad_norm"],
+               "jax_f32_distance": SEG_JAX_F32_DISTANCE,
+               "worst_tensor_f32_card": worst[0],
+               "worst_tensor_f32_card_rel_l2": worst[1],
+               "seconds": time.perf_counter() - t0}
+    print(f"{tag} float64 on the card and the CPU, the f32 steps against "
+          f"them: {json.dumps(summary)}", flush=True)
+    return summary
 
 
 def phase_seg(trees):
@@ -4201,7 +4305,7 @@ def phase_seg(trees):
               f" s with init and evaluation; val {json.dumps(vals[0])}; "
               "best_miou.npz read back bit for bit", flush=True)
     t1 = time.perf_counter()
-    seg_against_cpu(tag, state, cfg)
+    anchored = seg_against_cpu(tag, state, cfg)
     t2 = time.perf_counter()
     state.model.eval()
     evaluator = SegEvaluator(state.model, build_eval_dataset(cfg), cfg.data)
@@ -4234,11 +4338,446 @@ def phase_seg(trees):
                                 for p in state.model.parameters()),
                    seconds=seconds, seconds_train=t1 - t0,
                    seconds_against_cpu=t2 - t1, seconds_eval=t3 - t2,
-                   seconds_timing=seconds - (t3 - t0))
+                   seconds_timing=seconds - (t3 - t0), float64=anchored)
     print(f"{tag} SegEvaluator {eval_ms:.3f} ms an image (352x1216, host "
           f"clock, {evaluator.images} images); kernel launches over the "
           f"phase {launches}; {seconds:.1f} s", flush=True)
     print(f"{tag} {json.dumps(summary)}", flush=True)
+
+
+# ---- phase 39: the toolbox's extra datasets and heads ----
+
+EXTRA_PRESET = "depthformer_baseline_kitti"
+EXTRA_STEPS = 2
+# the datasets' own frame sizes (tools.make_tree's defaults)
+EXTRA_SIZES = {"cityscapes": (1024, 2048), "nuscenes": (900, 1600),
+               "sunrgbd": (530, 730)}
+# depthformer_baseline_kitti's HAHI on the exact rule: the self-attention's
+# queries (the four Swin levels) and the cross-attention's (the stem grid)
+# a sample at the 352x704 crop and at Cityscapes' 1024x2048 frame
+EXTRA_TRAIN_QUERIES = (20570, 61952)
+EXTRA_EVAL_QUERIES = (174080, 524288)
+# NYU Depth v2's color intrinsics at 480x640 (the ASN head's scale)
+NYU_K = ((518.8579, 0.0, 325.5824), (0.0, 519.4696, 253.7362),
+         (0.0, 0.0, 1.0))
+
+
+def jpeg_fixtures(tag):
+    """Every committed JPEG fixture through the port's decoder: the pixels'
+    SHA-256 against fixtures.json, or the refusal it names; decode ms a
+    frame (median of 5) at 900x1600 and 530x730 beside the PNG reader's
+    on the same pixels. Returns {name: ms}."""
+    import hashlib
+    import os.path as osp
+
+    from gedepth_tpu_torch.tools.make_jpeg_fixtures import DEFAULT_DIR
+    from gedepth_tpu_torch.utils import jpeg
+    from gedepth_tpu_torch.utils.png import encode_png, read_rgb
+
+    t0 = time.perf_counter()
+    jpeg.load_library()
+    built = time.perf_counter() - t0
+    with open(osp.join(DEFAULT_DIR, "fixtures.json")) as f:
+        index = json.load(f)
+    decoded = refused = 0
+    for name, entry in sorted(index.items()):
+        path = osp.join(DEFAULT_DIR, name)
+        if entry["refused"]:
+            try:
+                jpeg.decode_jpeg(path)
+            except jpeg.JpegRefused as err:
+                if err.kind != entry["refused"]:
+                    fail(f"{tag} {name} refused as {err.kind!r}, not "
+                         f"{entry['refused']!r}")
+                refused += 1
+                continue
+            fail(f"{tag} {name} decoded; the port refuses "
+                 f"{entry['refused']} JPEGs")
+        px = jpeg.decode_jpeg(path)
+        if (list(px.shape) != entry["shape"] or hashlib.sha256(
+                px.tobytes()).hexdigest() != entry["sha256"]):
+            fail(f"{tag} {name}: the port's pixels are not PIL's "
+                 f"({px.shape}, SHA-256 differs)")
+        decoded += 1
+    times = {}
+    for name in ("nuscenes_0.jpg", "sunrgbd_0.jpg"):
+        data = open(osp.join(DEFAULT_DIR, name), "rb").read()
+        png = encode_png(jpeg.decode_bytes(data))
+        h, w = index[name]["shape"][:2]
+        times[f"jpeg_decode_ms_{h}x{w}"] = median_ms(
+            lambda i: jpeg.decode_bytes(data), 5)
+        times[f"read_rgb_jpeg_ms_{h}x{w}"] = median_ms(
+            lambda i: read_rgb(data), 5)
+        times[f"read_rgb_png_ms_{h}x{w}"] = median_ms(
+            lambda i: read_rgb(png), 5)
+    print(f"{tag} JPEG fixtures: {decoded} decoded bit for bit to PIL's "
+          f"pixels (SHA-256), {refused} refused by kind; decoder built in "
+          f"{built:.2f} s; host ms a frame (median of 5): "
+          + " ".join(f"{k}={v:.2f}" for k, v in times.items()), flush=True)
+    return times
+
+
+def extra_trees(work, tag):
+    """The four trees at the datasets' own sizes by `tools.make_tree`, and
+    the host ms a sample (median) of each dataset's read and of the read
+    and the whole train chain. Returns ({name: tree}, {name: ms})."""
+    import dataclasses
+    import os.path as osp
+
+    from gedepth_tpu_torch.configs import get_config
+    from gedepth_tpu_torch.data import build_train_pipeline
+    from gedepth_tpu_torch.tools import make_tree
+    from gedepth_tpu_torch.train.loop import build_train_dataset
+
+    trees, host = {}, {}
+    t0 = time.perf_counter()
+    for name in ("cityscapes", "nuscenes", "sunrgbd", "custom"):
+        root = osp.join(work, name)
+        size = {"size": EXTRA_SIZES[name]} if name in EXTRA_SIZES else {}
+        trees[name] = dict(make_tree.WRITERS[name](root, seed=SEED, **size),
+                           root=root)
+    made = time.perf_counter() - t0
+    base = get_config(EXTRA_PRESET)
+    for name in ("cityscapes", "nuscenes", "sunrgbd"):
+        cfg = base.replace(data=dataclasses.replace(
+            base.data, dataset=name, data_root=trees[name]["root"],
+            train_split=trees[name]["train"], test_split=trees[name]["test"],
+            crop_size=(352, 704) if name != "sunrgbd" else (416, 544)))
+        train = build_train_dataset(cfg)
+        chain = build_train_pipeline(cfg.data, cfg.model.depth_scale)
+        sample = chain(train[0], np.random.default_rng(0))
+        if (sample["img"].shape != (*cfg.data.crop_size, 3)
+                or not np.isfinite(sample["depth_gt"]).all()
+                or not (sample["depth_gt"] > 0).any()):
+            fail(f"{tag} {name} train chain: {sample['img'].shape}")
+        host[f"{name}_load"] = median_ms(lambda i: train[i % len(train)], 4)
+        host[f"{name}_load_and_chain"] = median_ms(
+            lambda i: chain(train[i % len(train)],
+                            np.random.default_rng(i)), 4)
+    print(f"{tag} Cityscapes {EXTRA_SIZES['cityscapes']}, nuScenes "
+          f"{EXTRA_SIZES['nuscenes']} and SUN RGB-D {EXTRA_SIZES['sunrgbd']}"
+          f" trees and the custom folder written in {made:.1f} s; host ms "
+          "a sample (median): "
+          + " ".join(f"{k}={v:.1f}" for k, v in host.items()), flush=True)
+    return trees, host
+
+
+def extra_training(trees, work, tag):
+    """`tools.train depthformer_baseline_kitti --max-iters 2
+    --eval-max-images 1` on the Cityscapes tree (crop 352x704, batch 2;
+    the evaluation at 1024x2048, flip-TTA), in this process so that
+    cuDNN's choices of phase 7's shapes serve: A, B and C launched as the
+    steps and the evaluation need, the step by CUDA events, the peak.
+    Returns the summary."""
+    import contextlib as cl
+    import io
+    import os.path as osp
+
+    from gedepth_tpu_torch.tools import train as train_cli
+    from gedepth_tpu_torch.train import loop
+
+    tree = trees["cityscapes"]
+    counters = _kernel_counters()
+    event_ms = []
+    real_step_for = loop.train_step_for
+
+    def timed_step_for(cfg):
+        step = real_step_for(cfg)
+
+        def run(state, batch):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            out = step(state, batch)
+            b.record()
+            b.synchronize()
+            event_ms.append(a.elapsed_time(b))
+            return out
+        return run
+
+    run_dir = osp.join(work, "run")
+    reset_counts(counters)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with mock.patch.object(loop, "train_step_for", timed_step_for), \
+            cl.redirect_stdout(out):
+        train_cli.main([EXTRA_PRESET, "--max-iters", str(EXTRA_STEPS),
+                        "--eval-max-images", "1", "--work-dir", run_dir,
+                        "--options", "data.dataset=cityscapes",
+                        f"data.data_root={tree['root']}",
+                        f"data.train_split={tree['train']}",
+                        f"data.test_split={tree['test']}",
+                        "train.global_batch=2", "train.log_interval=1"])
+    seconds = time.perf_counter() - t0
+    launches, by_queries = read_counts(counters)
+    with open(osp.join(run_dir, "train.log.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    steps = [r for r in records if r["mode"] == "train"]
+    vals = [r for r in records if r["mode"] == "val"]
+    best = json.loads(out.getvalue().strip().splitlines()[-1])
+    if (len(steps) != EXTRA_STEPS or len(vals) != 1 or vals[0]["images"] != 1
+            or not all(np.isfinite(r[k]) for r in steps
+                       for k in ("loss", "loss_depth", "grad_norm"))
+            or not all(np.isfinite(vals[0][k]) for k in ("abs_rel", "rmse"))
+            or best["iter"] != EXTRA_STEPS):
+        fail(f"{tag} tools.train on Cityscapes: {steps} {vals} {best}")
+    # flip-TTA: two forwards of the one evaluated frame
+    forwards = 2
+    want = {"window_attention": A_STEP * EXTRA_STEPS + A_FORWARD * forwards,
+            "msda": 2 * EXTRA_STEPS + 2 * forwards,
+            "msda_backward": 2 * EXTRA_STEPS, "pe_fusion": 0}
+    want_q = {"msda": {**{q: EXTRA_STEPS for q in EXTRA_TRAIN_QUERIES},
+                       **{q: forwards for q in EXTRA_EVAL_QUERIES}},
+              "msda_backward": {q: EXTRA_STEPS for q in EXTRA_TRAIN_QUERIES}}
+    if launches != want or by_queries != want_q:
+        fail(f"{tag} launches {launches} by queries {by_queries}, expected "
+             f"{want} and {want_q}")
+    summary = {"step_event_ms": event_ms[1:], "first_step_event_ms":
+               event_ms[0], "step_peak_mib": steps[-1]["peak_mem_mib"],
+               "first_step_peak_mib": steps[0]["peak_mem_mib"],
+               "eval_s": vals[0]["time"], "seconds": seconds,
+               "launches": launches, "launches_by_queries": by_queries}
+    print(f"{tag} tools.train {EXTRA_PRESET} on the Cityscapes tree (crop "
+          f"352x704, batch 2, {EXTRA_STEPS} steps, evaluation of one "
+          f"1024x2048 frame, flip-TTA): {seconds:.1f} s; losses "
+          f"{[round(r['loss'], 6) for r in steps]}; val abs_rel "
+          f"{vals[0]['abs_rel']:.4f}; {json.dumps(summary)}", flush=True)
+    return summary
+
+
+def extra_custom(trees, work, tag):
+    """`tools.test depthformer_baseline_kitti --format-only` on the custom
+    folder, its first two frames (a PNG, a JPEG): one uint16 PNG each at
+    the frame's own size."""
+    import contextlib as cl
+    import io
+    import os
+    import os.path as osp
+
+    from gedepth_tpu_torch.tools import test as test_cli
+    from gedepth_tpu_torch.utils.png import read_png
+
+    out_dir = osp.join(work, "format")
+    t0 = time.perf_counter()
+    with cl.redirect_stdout(io.StringIO()):
+        test_cli.main([EXTRA_PRESET, "--max-images", "2", "--format-only",
+                       "--format-dir", out_dir, "--options",
+                       "data.dataset=custom",
+                       f"data.data_root={trees['custom']['root']}"])
+    seconds = time.perf_counter() - t0
+    written = sorted(os.listdir(out_dir))
+    shapes = {n: read_png(osp.join(out_dir, n)).shape for n in written}
+    if shapes != {"frame_a.png": (375, 1242), "frame_b.png": (530, 730)}:
+        fail(f"{tag} tools.test --format-only on the custom folder wrote "
+             f"{shapes}")
+    print(f"{tag} tools.test --format-only on the custom folder (a PNG, a "
+          f"JPEG): {shapes} as uint16 PNGs in {seconds:.1f} s", flush=True)
+    return seconds
+
+
+def _asn_run(head, inputs, loss_fn, device, dtype=torch.float32):
+    """One forward and backward of `head` (a copy on `device` in `dtype`,
+    train mode): (outputs and losses on the CPU, gradients on the CPU,
+    host ms)."""
+    import copy
+
+    model = copy.deepcopy(head).to(device, dtype).train()
+    args = [([x.to(device, dtype) for x in a] if isinstance(a, list)
+             else a.to(device, dtype)) for a in inputs]
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, losses = loss_fn(model, *args)
+    sum(losses.values()).backward()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    got = {k: v.detach().cpu() for k, v in {**out, **losses}.items()}
+    return got, {n: p.grad.detach().cpu()
+                 for n, p in model.named_parameters()}, ms
+
+
+# float64 on both sides: the card computes the CPU's function to rounding
+ASN_F64_RTOL = 1e-9
+
+
+def _hold_asn(tag, name, card, cpu, normals, f64=False):
+    """The card's forward and backward against the CPU's. f32: outputs and
+    losses rtol 1e-4, atol 1e-5 of each map's largest magnitude; each key
+    of `normals` to its (inside, 1-pixel border) bounds in absolute
+    error, and 1e-5 on average: an adaptive normal is the normalised
+    softmax mix of its window's triangle normals, which nearly cancel
+    where the depth is rough (as the seeded heads' depth is) and most at
+    the border, whose zero-padded taps make near-degenerate triangles (the
+    JAX package's oracle test holds 1e-5 inside, 2e-2 at the border); a
+    difference normal divides a difference of nearly equal depths by the
+    depth; gradients within 5e-3 of the CPU's in L2 plus 1e-6 of the
+    largest: the heads' convolutions feed train-mode BatchNorms, whose
+    backward sums ~1e4 positions of a centred gradient. f64: everything,
+    normals too, within `ASN_F64_RTOL` (atol a tenth of it at the largest
+    magnitude), gradients within it plus 1e-12 of the largest. Returns the
+    largest
+    relative gradient distance."""
+    (out_g, grad_g, _), (out_c, grad_c, _) = card, cpu
+    rtol = ASN_F64_RTOL if f64 else 1e-4
+    kind = "float64" if f64 else "f32"
+    for key, want in out_c.items():
+        got = out_g[key]
+        scale = max(want.abs().max().item(), 1.0)
+        if key in normals and not f64:
+            inside, border = normals[key]
+            err = (got - want).abs()
+            err_in = err[:, 1:-1, 1:-1].max().item()
+            print(f"  {tag} {name} {key}, card against CPU ({kind}): "
+                  f"max_abs_err inside={err_in:.3e} (atol {inside:g}) "
+                  f"everywhere={err.max().item():.3e} (atol {border:g}) "
+                  f"mean_abs_err={err.mean().item():.3e} (1e-5)", flush=True)
+            if not (err_in <= inside and err.max().item() <= border
+                    and err.mean().item() <= 1e-5):
+                fail(f"{tag} {name} {key} on the card disagrees with the "
+                     "CPU's")
+        else:
+            compare(f"{tag} {name} {key}, card against CPU ({kind})", got,
+                    want, rtol=rtol, atol=rtol * 0.1 * scale)
+    top = max(g.norm().item() for g in grad_c.values())
+    grad_rtol, floor = (ASN_F64_RTOL, 1e-12) if f64 else (5e-3, 1e-6)
+    worst = 0.0
+    for n, want in grad_c.items():
+        err = (grad_g[n] - want).norm().item()
+        if not torch.isfinite(grad_g[n]).all() or err > (
+                grad_rtol * want.norm().item() + floor * top):
+            fail(f"{tag} {name} {kind} gradient of {n}: {err:.3e} from the "
+                 f"CPU's (norm {want.norm().item():.3e}, rtol "
+                 f"{grad_rtol:g})")
+        worst = max(worst, err / max(want.norm().item(), 1e-30))
+    print(f"  {tag} {name} gradients, card against CPU ({kind}): largest "
+          f"relative L2 distance {worst:.3e} (rtol {grad_rtol:g})",
+          flush=True)
+    return worst
+
+
+def extra_asn_heads(tag):
+    """ASNDepthHeadV2 at NYU width (features (2, 60, 80, 128), x8 to
+    480x640, k = 3, 40 triangle samples, NYU's intrinsics) with
+    asn_losses' supervised, smoothness and normal terms, and ASNDepthHead
+    on densedepth_kitti's ResNet-50 pyramid of a 352x1216 frame with
+    SigLoss: forward and backward on the card beside the CPU from weights
+    seeded here, in f32, and in float64 at a cut size (the first sample of
+    the V2 batch; the pyramid of a 176x608 frame), which keeps the CPU's
+    float64 halves to ~6 s (21 s at the f32 shapes) (`_hold_asn`'s
+    tolerances). Returns the summary."""
+    from gedepth_tpu_torch.configs import get_config
+    from gedepth_tpu_torch.models.asn import ASNDepthHeadV2, asn_losses
+    from gedepth_tpu_torch.models.experiment_heads import ASNDepthHead
+    from gedepth_tpu_torch.models.layers import init_weights
+    from gedepth_tpu_torch.models.losses import sigloss
+
+    def both(name, model, inputs, inputs64, loss_fn, normals):
+        """f32 runs on `inputs` and float64 runs on `inputs64`, on the card
+        and the CPU, held pairwise: (runs by (device, dtype), their
+        summary)."""
+        runs = {(dev, dt): _asn_run(model, x, loss_fn, dev, dt)
+                for dt, x in ((torch.float32, inputs),
+                              (torch.float64, inputs64))
+                for dev in ("cuda", "cpu")}
+        worst = {kind: _hold_asn(tag, name, runs["cuda", dt],
+                                 runs["cpu", dt], normals,
+                                 f64=dt == torch.float64)
+                 for kind, dt in (("f32", torch.float32),
+                                  ("f64", torch.float64))}
+        return runs, {
+            "card_ms": runs["cuda", torch.float32][2],
+            "cpu_ms": runs["cpu", torch.float32][2],
+            "card_ms_f64": runs["cuda", torch.float64][2],
+            "cpu_ms_f64": runs["cpu", torch.float64][2],
+            "worst_grad_rel": worst["f32"],
+            "worst_grad_rel_f64": worst["f64"]}
+
+    g = torch.Generator().manual_seed(SEED)
+    summary = {}
+    # ASNDepthHeadV2 at NYU width
+    v2 = ASNDepthHeadV2(input_features_dim=128)
+    init_weights(v2, g)
+    feats = torch.randn(2, 60, 80, 128, generator=g)
+    K = torch.tensor(NYU_K).expand(2, 3, 3).contiguous()
+    gt = torch.rand(2, 480, 640, generator=g) * 9.5 + 0.5
+    gt[:, :40] = 0.0                               # rows without depth
+    rgb = torch.randn(2, 480, 640, 3, generator=g)
+    sn = torch.nn.functional.normalize(torch.randn(2, 480, 640, 3,
+                                                   generator=g), dim=-1)
+
+    def v2_loss(model, f, k, d, r, n):
+        out = model(f, k)
+        return out, asn_losses(out, d, r, n)
+
+    # normals: 1e-3 inside (9e-5 measured), 2e-2 at the border
+    inputs = [feats, K, gt, rgb, sn]
+    runs, summary["v2"] = both("ASNDepthHeadV2", v2, inputs,
+                               [x[:1] for x in inputs], v2_loss,
+                               {"normals": (1e-3, 2e-2)})
+    out = runs["cuda", torch.float32][0]
+    if sorted(out) != ["depth", "disp", "guidance", "normals", "smooth_loss",
+                       "supvised_loss", "surface_norm_loss"]:
+        fail(f"{tag} ASNDepthHeadV2 gave {sorted(out)}")
+    if out["normals"].shape != (2, 480, 640, 3):
+        fail(f"{tag} normals {out['normals'].shape}")
+    summary["v2"].update(triangles=len(v2.triplets), losses={
+        k: out[k].item() for k in ("supvised_loss", "smooth_loss",
+                                   "surface_norm_loss")})
+    # ASNDepthHead on densedepth_kitti's pyramid at 352x1216
+    zoo = get_config("densedepth_kitti").model.build(
+        device="cuda", generator=torch.Generator().manual_seed(SEED)).eval()
+    img = torch.randn(1, 3, 352, 1216, generator=g)
+    with torch.no_grad():
+        pyramid, pyramid64 = ([x.permute(0, 2, 3, 1).cpu()
+                               for x in zoo.backbone(frame.cuda())]
+                              for frame in (img, img[..., :176, :608]))
+    del zoo
+    widths = tuple(x.shape[-1] for x in pyramid)
+    head = ASNDepthHead(widths, focal=721.5, max_depth=80.0)
+    init_weights(head, g)
+    gt1 = torch.rand(1, *pyramid[0].shape[1:3], generator=g) * 79 + 1
+
+    def head_loss(model, feats, d):
+        depth, normals = model(feats)
+        return ({"depth": depth, "normals": normals},
+                {"sigloss": sigloss(depth[..., 0], d)})
+
+    # difference normals: 1e-2 (3.8e-3 measured)
+    runs, summary["head"] = both("ASNDepthHead", head, [pyramid, gt1],
+                                 [pyramid64, gt1[:, :88, :304]], head_loss,
+                                 {"normals": (1e-2, 1e-2)})
+    depth = runs["cuda", torch.float32][0]["depth"]
+    if depth.shape != (1, 176, 608, 1):
+        fail(f"{tag} ASNDepthHead depth {depth.shape}")
+    summary["head"]["pyramid"] = [list(x.shape) for x in pyramid]
+    print(f"{tag} ASN heads, card against CPU (forward and backward, f32 "
+          "and float64): "
+          f"{json.dumps(summary)}", flush=True)
+    return summary
+
+
+def phase_extra(work):
+    """Phase 39: the JPEG fixtures through the port's decoder, the four
+    extra trees at their datasets' sizes, `depthformer_baseline_kitti`
+    trained and evaluated on Cityscapes by `tools.train` (A, B and C
+    launched), `tools.test --format-only` on a custom folder, and the ASN
+    heads on the card against the CPU."""
+    tag = "[extra]"
+    t0 = time.perf_counter()
+    times = {"jpeg": jpeg_fixtures(tag)}
+    t1 = time.perf_counter()
+    trees, times["host_ms"] = extra_trees(work, tag)
+    t2 = time.perf_counter()
+    times["train"] = extra_training(trees, work, tag)
+    t3 = time.perf_counter()
+    extra_custom(trees, work, tag)
+    t4 = time.perf_counter()
+    times["asn"] = extra_asn_heads(tag)
+    t5 = time.perf_counter()
+    times["seconds"] = {"jpeg": t1 - t0, "trees": t2 - t1, "train": t3 - t2,
+                        "custom": t4 - t3, "asn": t5 - t4, "all": t5 - t0}
+    print(f"{tag} {json.dumps(times)}", flush=True)
+    return times["train"]["launches"]
 
 
 # ---- phases 31-33: serving export, a bf16 export, the serving tools ----
@@ -4769,6 +5308,9 @@ def run(stack):
         "binsformer_nyu (phase 36)")
     phase_seg(trees)
     lap("the seg preset ocrnet_hr18_kitti: training, evaluation (phase 38)")
+    with tempfile.TemporaryDirectory() as work:
+        extra_launches = phase_extra(work)
+    lap("the extra datasets, JPEG, the ASN heads (phase 39)")
 
     sources = {
         "window_attention": ("gedepth_tpu_torch/csrc/window_attention.cu",
@@ -4807,6 +5349,7 @@ def run(stack):
                             "pe_fusion")]
     for k in kernels:           # inside the loaded program of phase 31
         k["launches_exported"] = export_launches.get(k["name"], 0)
+        k["launches_cityscapes"] = extra_launches.get(k["name"], 0)
     # the shapes of the exact and compat presets: the launches that their
     # paths made at this shape's query count
     for name, t in rule_results.items():

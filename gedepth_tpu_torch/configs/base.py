@@ -120,7 +120,8 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class DataConfig:
-    # 'kitti' | 'ddad' | 'nyu' | 'synthetic'
+    # 'kitti' | 'ddad' | 'nyu' | 'sunrgbd' | 'cityscapes' | 'nuscenes' |
+    # 'custom' | 'synthetic'
     dataset: str = "kitti"
     data_root: str = "data/kitti"
     train_split: str = "splits/kitti_eigen_train.txt"
@@ -213,14 +214,15 @@ class ExperimentConfig:
 
 
 # datasets whose samples carry RGB alone (no plane embedding)
-RGB_DATASETS = ("nyu",)
+RGB_DATASETS = ("nyu", "sunrgbd", "cityscapes", "nuscenes", "custom")
 
 
 def image_channels(cfg) -> int:
     """Channels of the model input a preset's data gives: 5 (RGB, clipped
     and raw PE) for a model with a PE variant on KITTI, DDAD or synthetic
-    frames, 3 without a PE variant or on an RGB-only dataset (NYU: the
-    zoo model reads the RGB channels alone)."""
+    frames, 3 without a PE variant or on an RGB-only dataset (NYU, SUN
+    RGB-D, Cityscapes, nuScenes, a custom folder: the model reads the RGB
+    channels alone)."""
     if cfg.model.pe_variant == "none" or cfg.data.dataset in RGB_DATASETS:
         return 3
     return 5

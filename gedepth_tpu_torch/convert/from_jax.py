@@ -66,6 +66,17 @@ tree (one with `backbone/spp`) maps to the reference's ddrnet.py names;
 going back, `backbone_kind` tells HRNet and DDRNet keys apart as the JAX
 converter does.
 
+The experiment heads of `models.experiment_heads` (`GuidanceHead`,
+`PacConv`, `ASNDepthHead`) and `models.asn` (`ASNSegHead`,
+`ASNDepthHeadV2`) are trees of their own, whose top modules (`conv0`,
+`up{i}`, `guide`, `pac`, `conv_depth`; `fuse{i}`, `bn{i}`, `cls_{key}`;
+`depth_head`, `guidance_head`; a `PacConv`'s bare `kernel` and `bias`) no
+model has at its top. A tree whose every top name is one of these
+(`is_head_tree`, checked once for the whole tree) takes the head rule
+alone: its port keys are the flax module paths with a ConvModule's
+`Conv_0` as `conv` (`_head_torch_name`, `_head_flax_module`). A model's
+key that no other rule maps still raises KeyError.
+
 `flax_variables_from_state_dict` goes the other way, in the per-block Swin
 layout (the JAX package's `load_params_only` adapts it to either
 `swin_scan`); `train.checkpoint.save_params_only` writes it as the JAX
@@ -654,6 +665,37 @@ def _seg_flax_module(p, backbone=None):
     return None
 
 
+# the top modules of the experiment heads (`models.experiment_heads`,
+# `models.asn`), whose port names are their flax module paths
+_HEAD_TOP = re.compile(r"conv0|up\d+|guide|pac|conv_depth|depth_head|"
+                       r"guidance_head|fuse\d+|bn\d+|cls_\w+")
+_CONV_BN = {"Conv_0": "conv", "BatchNorm_0": "bn"}
+_CONV_BN_INV = {v: k for k, v in _CONV_BN.items()}
+
+
+def is_head_tree(tops) -> bool:
+    """Whether the top names of a flax tree or of port keys (their first
+    dotted part) are all an experiment head's: its top modules, or the
+    leaves of a bare `PacConv`."""
+    tops = set(tops)
+    return bool(tops) and all(
+        _HEAD_TOP.fullmatch(t) or t in ("kernel", "weight", "bias")
+        for t in tops)
+
+
+def _head_torch_name(names):
+    """Port key of an experiment head's leaf path: the flax module path, a
+    ConvModule's `Conv_0` as `conv`."""
+    return ".".join([_CONV_BN.get(n, n) for n in names[:-1]]
+                    + [_WB.get(names[-1], names[-1])])
+
+
+def _head_flax_module(key):
+    """Flax module path of an experiment head's port key without its leaf
+    (the inverse of `_head_torch_name`)."""
+    return tuple(_CONV_BN_INV.get(n, n) for n in key.split(".")[:-1])
+
+
 def _torch_name(names, dpt=False, ddr=False):
     """Reference key of one flax leaf path (module names, then leaf). dpt:
     the leaf is a DPT model's (its `decode_head/conv_depth` is the head's
@@ -790,28 +832,33 @@ def _flax_module(key, zoo=False, backbone=None):
     raise KeyError(f"no flax path for {key}")
 
 
-def flax_path(key: str, ndim: int, zoo: bool = False, backbone=None):
+def flax_path(key: str, ndim: int, zoo: bool = False, backbone=None,
+              head: bool = False):
     """(collection, flax path) of one port state_dict entry of `ndim`
     dimensions, the inverse of `_torch_name`; None for
     `num_batches_tracked`, which flax does not keep. A `weight` is a
     `kernel` when it has two dimensions or more, else a norm's `scale`.
-    zoo, backbone: see `_flax_module`."""
-    leaf = key.rsplit(".", 1)[1]
+    zoo, backbone: see `_flax_module`; head: the key is an experiment
+    head's (`is_head_tree`)."""
+    leaf = key.rsplit(".", 1)[-1]
     if leaf == "num_batches_tracked":
         return None
-    if key == "neck.level_embed":
+    if head:
+        module = _head_flax_module(key)
+    elif key == "neck.level_embed":
         return "params", ("neck", "level_embed")
-    if key in _BINS_TABLES_INV:
+    elif key in _BINS_TABLES_INV:
         return "params", ("decode_head", _BINS_TABLES_INV[key])
-    if leaf == "relative_position_bias_table":
+    elif leaf == "relative_position_bias_table":
         return "params", _flax_module(key) + (leaf,)
+    else:
+        module = _flax_module(key, zoo, backbone)
     stats = {"running_mean": "mean", "running_var": "var"}
     if leaf in stats:
-        return "batch_stats", _flax_module(key, zoo, backbone) + (
-            stats[leaf],)
+        return "batch_stats", module + (stats[leaf],)
     if leaf == "weight":
         leaf = "kernel" if ndim >= 2 else "scale"
-    return "params", _flax_module(key, zoo, backbone) + (leaf,)
+    return "params", module + (leaf,)
 
 
 # backbone keys only a zoo model has: ResNet, ViT, EfficientNet, timm's
@@ -856,6 +903,7 @@ def flax_variables_from_state_dict(state_dict: Mapping):
     trees = {"params": {}, "batch_stats": {}}
     zoo = is_zoo_state_dict(state_dict)
     kind = backbone_kind(state_dict)
+    head = is_head_tree(k.split(".", 1)[0] for k in state_dict)
     for key, t in state_dict.items():
         arr = t.detach().float().cpu().numpy()
         split = _split_torch(key, arr)
@@ -863,7 +911,7 @@ def flax_variables_from_state_dict(state_dict: Mapping):
             for names, part in split:
                 _put(trees["params"], names, part)
             continue
-        where = flax_path(key, t.dim(), zoo, kind)
+        where = flax_path(key, t.dim(), zoo, kind, head)
         if where is None:
             continue
         collection, names = where
@@ -881,13 +929,15 @@ def state_dict_from_flax(params: Mapping, batch_stats: Mapping = None):
     dpt = "reassemble0" in params.get("decode_head", {})
     ddr = any("spp" in tree.get("backbone", {})
               for tree in (params, batch_stats or {}))
+    head = is_head_tree(list(params) + list(batch_stats or {}))
     fused, leaves = _fuse_flax(list(_flatten(params)))
     sd = {k: torch.from_numpy(np.array(v, np.float32, order="C"))
           for k, v in fused.items()}
     if batch_stats:
         leaves += list(_flatten(batch_stats))
     for names, arr in leaves:
-        key = _torch_name(names, dpt, ddr)
+        key = _head_torch_name(names) if head else _torch_name(names, dpt,
+                                                               ddr)
         if names[-1] == "kernel":
             arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
         sd[key] = torch.from_numpy(np.array(arr, np.float32, order="C"))

@@ -387,6 +387,14 @@ def binsformer_release_remap(sd: Dict[str, torch.Tensor]):
             for k, v in sd.items()}
 
 
+def simipu_backbone_extract(sd: Dict[str, torch.Tensor]):
+    """A SimIPU pretraining checkpoint's backbone: the keys that hold
+    `img_backbone`, without their first 4 characters (`img_backbone.X` ->
+    `backbone.X`), as the reference's tools/model_converters/SimIPU.py
+    keeps them; every other key is dropped."""
+    return {k[4:]: v for k, v in sd.items() if "img_backbone" in k}
+
+
 def convert_state_dict(sd: Dict[str, torch.Tensor]):
     """(kept entries, unmapped keys) of a reference state dict, by
     `reference_key_rule` (an HRNet's or DDRNet's backbone by its rule)."""
@@ -397,7 +405,7 @@ def convert_state_dict(sd: Dict[str, torch.Tensor]):
 
 
 def convert_checkpoint_file(pth_path: str, model, official_swin=False,
-                            binsformer_release=False):
+                            binsformer_release=False, simipu=False):
     """Load a reference `.pth` into `model` (the port's `GEDepth`, on any
     device); returns (model, report).
 
@@ -415,10 +423,14 @@ def convert_checkpoint_file(pth_path: str, model, official_swin=False,
     `backbone.bn1`, `backbone.patch_embed.projection`; none for BinsFormer,
     whose Swin takes them, or for a file of an HRNet or DDRNet, whose
     rules keep them). binsformer_release: apply
-    `binsformer_release_remap` first."""
+    `binsformer_release_remap` first; simipu: then keep the backbone of a
+    SimIPU pretraining file (`simipu_backbone_extract`), before
+    official_swin renames it."""
     sd = load_torch_checkpoint(pth_path)
     if binsformer_release:
         sd = binsformer_release_remap(sd)
+    if simipu:
+        sd = simipu_backbone_extract(sd)
     if official_swin:
         sd = {f"backbone.{k}": v
               for k, v in swin_official_to_gedepth(sd).items()}

@@ -178,9 +178,10 @@ class TrainLoader:
         if self.num_workers == 0:
             return _prefetched(_as_tensors(self.make_batch(step))
                                for step in itertools.count())
-        from gedepth_tpu_torch.utils.png import load_library
+        from gedepth_tpu_torch.utils import jpeg, png
 
-        load_library()      # built here once, not by each worker at once
+        png.load_library()  # built here once, not by each worker at once
+        jpeg.load_library()
         context = multiprocessing.get_context("forkserver")
         # what every worker imports, imported once by the server it forks
         # from (when this call starts the server)

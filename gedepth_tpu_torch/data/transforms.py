@@ -284,8 +284,10 @@ class DDADResize:
 
 def build_train_pipeline(data_cfg, depth_scale=200.0):
     """The training chain of a DataConfig (`gedepth_tpu.train.loop`'s
-    chains for 'kitti', 'ddad', 'nyu' and 'synthetic'); Normalize divides
-    the PE channel by the model's depth_scale."""
+    chains for 'kitti', 'ddad', 'nyu', 'synthetic' and the extra datasets
+    'sunrgbd', 'cityscapes', 'nuscenes' and 'custom': rotate, flip, crop,
+    colour, normalise); Normalize divides the PE channel by the model's
+    depth_scale."""
     d = data_cfg
     tail = [RandomFlip(d.flip_prob), RandomCrop(d.crop_size), ColorAug(0.5),
             Normalize(depth_scale=depth_scale)]
@@ -302,16 +304,19 @@ def build_train_pipeline(data_cfg, depth_scale=200.0):
     if d.dataset == "nyu":
         return Compose([NYUCrop(), RandomRotate(0.5, d.rotate_degree),
                         *tail])
+    if d.dataset in ("sunrgbd", "cityscapes", "nuscenes", "custom"):
+        # the toolbox's extra datasets: no dataset-specific crop
+        return Compose([RandomRotate(0.5, d.rotate_degree), *tail])
     if d.dataset == "synthetic":
         return Compose(tail)
-    raise NotImplementedError(f"dataset {d.dataset!r} is not ported")
+    raise ValueError(f"unknown dataset {d.dataset!r}")
 
 
 def build_test_pipeline(data_cfg):
     """Deterministic test-time pipeline of a DataConfig
-    (`gedepth_tpu.eval.evaluator.build_test_pipeline`). NYU has no branch
-    there and takes its fall-through: normalisation at the frame's own
-    size, no crop."""
+    (`gedepth_tpu.eval.evaluator.build_test_pipeline`). NYU and the extra
+    datasets have no branch there and take its fall-through:
+    normalisation at the frame's own size, no crop."""
     if data_cfg.dataset == "ddad":
         return Compose([DDADResize(data_cfg.ddad_resize or (384, 640),
                                    resize_gt=False),
@@ -319,7 +324,7 @@ def build_test_pipeline(data_cfg):
     if data_cfg.dataset == "kitti":
         return Compose([KBCrop(*data_cfg.eval_size, crop_gt=False),
                         Normalize(depth_scale=200.0)])
-    if data_cfg.dataset in ("synthetic", "nyu"):
+    if data_cfg.dataset in ("synthetic", "nyu", "sunrgbd", "cityscapes",
+                            "nuscenes", "custom"):
         return Compose([Normalize(depth_scale=200.0)])
-    raise NotImplementedError(
-        f"dataset {data_cfg.dataset!r} is not ported")
+    raise ValueError(f"unknown dataset {data_cfg.dataset!r}")

@@ -5,7 +5,7 @@ read (the counterpart of tools/convert_torch_checkpoint.py).
 
     python -m gedepth_tpu_torch.tools.convert_torch_checkpoint \
         <ckpt.pth> <preset> <out.npz> [--official-swin]
-        [--binsformer-release] [--options key=value ...]
+        [--binsformer-release] [--simipu] [--options key=value ...]
 
 The preset's model (its fields overridden by --options) is built from its
 seeded initialisation and the file is loaded into it
@@ -13,7 +13,10 @@ seeded initialisation and the file is loaded into it
 keeps that initialisation and is listed. --official-swin: the file holds an
 official Swin backbone only. --binsformer-release: the file is a released
 BinsFormer checkpoint, whose pixel-decoder keys are nested one level deeper
-(`convert.from_pth.binsformer_release_remap`). Runs on the CPU.
+(`convert.from_pth.binsformer_release_remap`). --simipu: the file is a
+SimIPU pretraining checkpoint, whose `img_backbone.*` keys become the
+backbone's (`convert.from_pth.simipu_backbone_extract`); the rest of the
+model keeps its initialisation. Runs on the CPU.
 """
 from __future__ import annotations
 
@@ -36,6 +39,10 @@ def parse_args(argv=None):
                         help="apply the released-BinsFormer key fix "
                         "(decode_head.transformer_decoder.decoder.X -> "
                         "decode_head.transformer_decoder.X)")
+    parser.add_argument("--simipu", action="store_true",
+                        help="keep the img_backbone of a SimIPU pretraining "
+                        "checkpoint, as backbone.* (applied after "
+                        "--binsformer-release, before --official-swin)")
     parser.add_argument("--options", nargs="*", default=None,
                         help="dotted config overrides key=value")
     return parser.parse_args(argv)
@@ -57,7 +64,7 @@ def main(argv=None):
     model = cfg.model.build(generator=torch.Generator().manual_seed(0))
     _, report = convert_checkpoint_file(
         args.checkpoint, model, official_swin=args.official_swin,
-        binsformer_release=args.binsformer_release)
+        binsformer_release=args.binsformer_release, simipu=args.simipu)
     for name, what in (("unmapped_torch_keys", "torch keys had no mapping"),
                        ("unused_torch_keys", "torch keys map to modules "
                         "this model lacks"),

@@ -1,12 +1,11 @@
-"""Seeded KITTI, DDAD and NYU trees on disk, in the datasets' layouts, for
-tests and for driving the data path where no real frames are at hand.
+"""Seeded KITTI, DDAD, NYU, Cityscapes, nuScenes, SUN RGB-D and custom
+trees on disk, in the datasets' layouts, for tests and for driving the data
+path where no real frames are at hand.
 
-    python -m gedepth_tpu_torch.tools.make_tree kitti ROOT [--seed S]
+    python -m gedepth_tpu_torch.tools.make_tree DATASET ROOT [--seed S]
         [--frames N] [--size H,W]
-    python -m gedepth_tpu_torch.tools.make_tree ddad ROOT [--seed S]
-        [--frames N] [--size H,W]
-    python -m gedepth_tpu_torch.tools.make_tree nyu ROOT [--seed S]
-        [--frames N] [--size H,W]
+
+DATASET is kitti, ddad, nyu, cityscapes, nuscenes, sunrgbd or custom.
 
 KITTI: two dates of different frame sizes (the second 5 rows and 18
 columns smaller, as KITTI's 2011_09_26 against 2011_09_28), each with
@@ -29,25 +28,51 @@ of `frames` frames each, 480x640 by default: `rgb_<i>.png` and the 16-bit
 GT `sync_depth_<i>.png` (millimetres), and splits `splits/nyu_train.txt`
 and `splits/nyu_test.txt` (`rgb depth focal`, relative to ROOT, where the
 NYU presets look for them); the test split takes each scene's last frame,
-the train split the others and a `None` pair, which the dataset drops. The
-RGB is PNG: the toolbox's NYU frames are JPEG, which the port reads
-through PIL only.
+the train split the others and a `None` pair, which the dataset drops.
 
-The KITTI and DDAD GT is the ground plane's depth, tilted by a slope that
-differs per frame, with boxes of constant depth, on every other row
-(lidar-sparse); the NYU GT is a room (a floor and a back wall, boxes)
-within 0.5-9.5 m, dense but for a few holes, as a Kinect leaves them; the
-RGB shades it. Frames are pure functions of the seed.
+Cityscapes (1024x2048): cities `aachen` and `bochum`, `frames` frames
+each, as `leftImg8bit/<split>/<city>/<city>_000000_<i>_leftImg8bit.png`,
+the 16-bit disparity `disparity/.../..._disparity.png` (p = 256·d + 1, 0
+where invalid: the sky, the top tenth; facades of 15-70 m behind the
+ground) and `camera/.../..._camera.json` (baseline, fx);
+splits `splits/cityscapes_{train,test}.txt`, every other line without the
+third column (the camera path then follows from the disparity path).
+
+nuScenes (900x1600) and SUN RGB-D (530x730): JPEG frames copied from the
+committed fixtures of `gedepth_tpu_torch/testdata/jpeg` (so that no JPEG
+encoder is needed; `tools.make_jpeg_fixtures` wrote them with PIL), which
+also come at 45x80 and 53x73; `--size` takes those sizes only. nuScenes:
+`samples/CAM_FRONT/<token>.jpg` and the lidar-sparse GT
+`depth/CAM_FRONT/<token>.png` (depth x 256); SUN RGB-D:
+`kv2/kinect2data/<scene>/image/<i>.jpg` and `.../depth_bfx/<i>.png`
+(depth x 10000, so at most 6.5 m); splits
+`splits/{nuscenes,sunrgbd}_{train,test}.txt`.
+
+custom: a folder of frames for qualitative inference: `frame_a.png` at
+`size` (375x1242 by default), `frame_b.jpg` (the 530x730 SUN RGB-D
+fixture), `frame_c.JPG` (a 61x83 4:2:2 fixture) and a `notes.txt` the
+dataset skips.
+
+The KITTI, DDAD and nuScenes GT is the ground plane's depth, tilted by a
+slope that differs per frame, with boxes of constant depth, on every other
+row (lidar-sparse), Cityscapes' the same, dense; the NYU and SUN RGB-D GT
+is a room (a floor and a back wall, boxes), dense but for a few holes, as
+a Kinect leaves them; the RGB of the PNG frames shades it. Frames are pure
+functions of the seed.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import os.path as osp
+import shutil
 
 import numpy as np
 
 from gedepth_tpu_torch.geometry.plane import plane_embedding_from_projection
+from gedepth_tpu_torch.tools.make_jpeg_fixtures import (
+    DEFAULT_DIR as JPEG_FIXTURES)
 from gedepth_tpu_torch.utils.png import write_png
 
 KITTI_DATES = ("2011_09_26", "2011_09_28")
@@ -62,9 +87,9 @@ def _kitti_intrinsics(h, w, date_idx):
     return f, w / 2 - 3.0 * date_idx, 0.46 * h
 
 
-def _scene(rng, pe, h_cam, max_depth):
+def _scene(rng, pe, h_cam, max_depth, sparse=True):
     """(rgb uint8, gt float32): the tilted ground of the prior, three
-    boxes, every other row kept."""
+    boxes, every other row kept (all with sparse=False)."""
     H, W = pe.shape
     tan_k = np.tan(np.deg2rad(rng.uniform(-3, 3)))
     with np.errstate(divide="ignore", invalid="ignore"):
@@ -75,7 +100,8 @@ def _scene(rng, pe, h_cam, max_depth):
         bw = int(rng.integers(W // 12, W // 4))
         y0, x0 = int(rng.integers(0, H - bh)), int(rng.integers(0, W - bw))
         gt[y0:y0 + bh, x0:x0 + bw] = rng.uniform(3.0, 0.6 * max_depth)
-    gt[1::2] = 0.0
+    if sparse:
+        gt[1::2] = 0.0
     shade = np.where(gt > 0, gt / max_depth, 0.5)
     rows = np.linspace(0, 1, H)[:, None]
     cols = np.linspace(0, 1, W)[None, :]
@@ -253,10 +279,171 @@ def make_nyu_tree(root, size=(480, 640), frames=4, seed=0):
     return splits
 
 
+CITYSCAPES_CITIES = ("aachen", "bochum")
+# a Cityscapes camera JSON's baseline (m) and focal length (px) at 1024x2048
+CITYSCAPES_BASELINE, CITYSCAPES_FX = 0.209313, 2262.52
+# the JPEG frames of each dataset, by frame size
+JPEG_FRAMES = {
+    "nuscenes": {(900, 1600): ("nuscenes_0.jpg", "nuscenes_1.jpg"),
+                 (45, 80): ("nuscenes_small_0.jpg", "nuscenes_small_1.jpg")},
+    "sunrgbd": {(530, 730): ("sunrgbd_0.jpg", "sunrgbd_1.jpg"),
+                (53, 73): ("sunrgbd_small_0.jpg", "sunrgbd_small_1.jpg")},
+}
+
+
+def _forward_camera(h, w, f, h_cam):
+    """(K, ground-plane depth) of a level forward camera at h_cam over flat
+    ground."""
+    K = np.array([[f, 0, w / 2], [0, f, 0.48 * h], [0, 0, 1.0]])
+    with np.errstate(divide="ignore"):          # the horizon's row
+        pe = plane_embedding_from_projection(
+            K @ np.concatenate([_CAM_AXES, np.zeros((3, 1))], axis=1), h, w,
+            h_cam)
+    return K, pe
+
+
+def _jpeg_frames(dataset, size):
+    frames = JPEG_FRAMES[dataset]
+    if tuple(size) not in frames:
+        raise ValueError(f"{dataset} frames are copies of the committed "
+                         f"JPEG fixtures, of sizes {sorted(frames)}; "
+                         f"not {tuple(size)}")
+    return [osp.join(JPEG_FIXTURES, name) for name in frames[tuple(size)]]
+
+
+def make_cityscapes_tree(root, size=(1024, 2048), frames=2, seed=0):
+    """Write the Cityscapes tree; returns {'train': split, 'test': split}.
+    Each city holds `frames` frames; the test split takes each city's last
+    frame, the train split the others."""
+    rng = np.random.default_rng(seed)
+    h, w = size
+    fx = CITYSCAPES_FX * w / 2048
+    _, pe = _forward_camera(h, w, fx, 1.22)
+    train, test = [], []
+    for city in CITYSCAPES_CITIES:
+        for i in range(frames):
+            part = "test" if i == frames - 1 else "train"
+            stem = f"{part}/{city}/{city}_000000_{19 + i:06d}"
+            paths = {kind: f"{kind}/{stem}_{kind}.{ext}" for kind, ext in (
+                ("leftImg8bit", "png"), ("disparity", "png"),
+                ("camera", "json"))}
+            for rel in paths.values():
+                os.makedirs(osp.dirname(osp.join(root, rel)), exist_ok=True)
+            rgb, depth = _scene(rng, pe, 1.22, 80.0, sparse=False)
+            # facades of 15-70 m behind the ground, the top tenth sky
+            facade = np.repeat(rng.uniform(15.0, 70.0, 16), -(-w // 16))[:w]
+            rows = np.arange(h)[:, None] >= h // 10
+            depth = np.where((depth > 0) | ~rows, depth,
+                             facade[None, :]).astype(np.float32)
+            disparity = np.where(
+                depth > 0, CITYSCAPES_BASELINE * fx / np.maximum(depth, 1e-6)
+                * 256 + 1, 0)
+            write_png(osp.join(root, paths["leftImg8bit"]), rgb)
+            write_png(osp.join(root, paths["disparity"]),
+                      np.round(np.minimum(disparity, 65535)).astype(
+                          np.uint16))
+            with open(osp.join(root, paths["camera"]), "w") as f:
+                json.dump({"extrinsic": {"baseline": CITYSCAPES_BASELINE,
+                                         "pitch": 0.0, "roll": 0.0,
+                                         "yaw": 0.0, "x": 1.7, "y": 0.1,
+                                         "z": 1.22},
+                           "intrinsic": {"fx": fx, "fy": fx, "u0": w / 2,
+                                         "v0": 0.48 * h}}, f)
+            line = f"{paths['leftImg8bit']} {paths['disparity']}"
+            if i % 2 == 0:
+                line += f" {paths['camera']}"
+            (test if part == "test" else train).append(line)
+    splits = {"train": osp.join(root, "splits", "cityscapes_train.txt"),
+              "test": osp.join(root, "splits", "cityscapes_test.txt")}
+    _write_split(splits["train"], train)
+    _write_split(splits["test"], test)
+    return splits
+
+
+def make_nuscenes_tree(root, size=(900, 1600), frames=3, seed=0):
+    """Write the nuScenes tree; returns {'train': split, 'test': split}:
+    `frames` front-camera samples, the last one the test split's."""
+    rng = np.random.default_rng(seed)
+    h, w = size
+    jpegs = _jpeg_frames("nuscenes", size)
+    _, pe = _forward_camera(h, w, 1266.4 * w / 1600, 1.51)
+    os.makedirs(osp.join(root, "samples", "CAM_FRONT"), exist_ok=True)
+    os.makedirs(osp.join(root, "depth", "CAM_FRONT"), exist_ok=True)
+    train, test = [], []
+    for i in range(frames):
+        token = f"n008-2018-08-01-15-16-36-0400__CAM_FRONT__{1533151603512404 + 50000 * i}"
+        img, depth = (f"samples/CAM_FRONT/{token}.jpg",
+                      f"depth/CAM_FRONT/{token}.png")
+        shutil.copyfile(jpegs[i % len(jpegs)], osp.join(root, img))
+        _, gt = _scene(rng, pe, 1.51, 80.0)
+        write_png(osp.join(root, depth), np.round(gt * 256).astype(np.uint16))
+        (test if i == frames - 1 else train).append(f"{img} {depth}")
+    splits = {"train": osp.join(root, "splits", "nuscenes_train.txt"),
+              "test": osp.join(root, "splits", "nuscenes_test.txt")}
+    _write_split(splits["train"], train)
+    _write_split(splits["test"], test)
+    return splits
+
+
+SUNRGBD_SCENES = ("000002_2014-05-26_14-23-37_260595134347_rgbf000103",
+                  "000014_2014-05-26_14-32-05_260595134347_rgbf000034")
+
+
+def make_sunrgbd_tree(root, size=(530, 730), frames=2, seed=0):
+    """Write the SUN RGB-D tree; returns {'train': split, 'test': split}:
+    two Kinect v2 scenes of `frames` frames, each scene's last frame the
+    test split's."""
+    rng = np.random.default_rng(seed)
+    jpegs = _jpeg_frames("sunrgbd", size)
+    train, test = [], []
+    for s, scene in enumerate(SUNRGBD_SCENES):
+        base = osp.join("kv2", "kinect2data", scene)
+        os.makedirs(osp.join(root, base, "image"), exist_ok=True)
+        os.makedirs(osp.join(root, base, "depth_bfx"), exist_ok=True)
+        for i in range(frames):
+            img, depth = (f"{base}/image/{i:07d}.jpg",
+                          f"{base}/depth_bfx/{i:07d}.png")
+            shutil.copyfile(jpegs[(s + i) % len(jpegs)], osp.join(root, img))
+            _, gt = _room(rng, *size)
+            write_png(osp.join(root, depth),
+                      np.round(np.minimum(gt, 6.5) * 10000).astype(np.uint16))
+            (test if i == frames - 1 else train).append(f"{img} {depth}")
+    splits = {"train": osp.join(root, "splits", "sunrgbd_train.txt"),
+              "test": osp.join(root, "splits", "sunrgbd_test.txt")}
+    _write_split(splits["train"], train)
+    _write_split(splits["test"], test)
+    return splits
+
+
+def make_custom_tree(root, size=(375, 1242), frames=None, seed=0):
+    """Write the custom folder; returns {'root': root, 'frames': [names]}
+    in the order the dataset lists them. `frames` is ignored (the folder
+    holds one frame of each kind)."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(root, exist_ok=True)
+    _, pe = _forward_camera(*size, 0.58 * size[1], 1.65)
+    rgb, _ = _scene(rng, pe, 1.65, 80.0)
+    write_png(osp.join(root, "frame_a.png"), rgb)
+    shutil.copyfile(osp.join(JPEG_FIXTURES, "sunrgbd_0.jpg"),
+                    osp.join(root, "frame_b.jpg"))
+    shutil.copyfile(osp.join(JPEG_FIXTURES, "q50_422.jpg"),
+                    osp.join(root, "frame_c.JPG"))
+    with open(osp.join(root, "notes.txt"), "w") as f:
+        f.write("not a frame\n")
+    return {"root": root,
+            "frames": ["frame_a.png", "frame_b.jpg", "frame_c.JPG"]}
+
+
+WRITERS = {"kitti": make_kitti_tree, "ddad": make_ddad_tree,
+           "nyu": make_nyu_tree, "cityscapes": make_cityscapes_tree,
+           "nuscenes": make_nuscenes_tree, "sunrgbd": make_sunrgbd_tree,
+           "custom": make_custom_tree}
+
+
 def main(argv=None):
-    parser = argparse.ArgumentParser(description="Write a seeded KITTI, "
-                                     "DDAD or NYU tree")
-    parser.add_argument("dataset", choices=("kitti", "ddad", "nyu"))
+    parser = argparse.ArgumentParser(description="Write a seeded dataset "
+                                     "tree")
+    parser.add_argument("dataset", choices=tuple(WRITERS))
     parser.add_argument("root")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--frames", type=int, default=None)
@@ -267,9 +454,7 @@ def main(argv=None):
         kw["frames"] = args.frames
     if args.size:
         kw["size"] = tuple(int(v) for v in args.size.split(","))
-    make = {"kitti": make_kitti_tree, "ddad": make_ddad_tree,
-            "nyu": make_nyu_tree}[args.dataset]
-    for name, path in make(args.root, **kw).items():
+    for name, path in WRITERS[args.dataset](args.root, **kw).items():
         print(f"{name}: {path}")
 
 

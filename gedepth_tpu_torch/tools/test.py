@@ -12,9 +12,12 @@
         -m gedepth_tpu_torch.tools.test <preset> ... --multihost
 
 Runs the `Evaluator` over the preset's test split
-(`train.loop.build_eval_dataset`: KITTI or DDAD under data.data_root, or
-synthetic frames) and prints the aggregate of the 9 metrics as one JSON
-line. --options overrides dotted config fields (`configs.apply_options`),
+(`train.loop.build_eval_dataset`: KITTI, DDAD, NYU, SUN RGB-D, Cityscapes
+or nuScenes under data.data_root, a custom folder of frames, or synthetic
+frames) and prints the aggregate of the 9 metrics as one JSON line. A
+custom folder (`data.dataset=custom`) has no GT: evaluate it with
+--format-only (asking for metrics raises KeyError 'depth_gt', as in the
+JAX package). --options overrides dotted config fields (`configs.apply_options`),
 e.g. `data.data_root=/data/kitti data.test_split=/data/kitti/test.txt`.
 The weights come
 from `checkpoint`, a params-only `.npz` of either package (the train loop's

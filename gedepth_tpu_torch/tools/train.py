@@ -19,7 +19,9 @@ last, on the first --eval-max-images images of the test split when given,
 prints a line every log_interval steps and at each evaluation, and ends
 with the best evaluation as one JSON line. --options overrides dotted
 config fields (`configs.apply_options`), e.g. `data.data_root=/data/kitti
-data.train_split=/data/kitti/splits/train.txt`; --list prints the presets.
+data.train_split=/data/kitti/splits/train.txt`, or `data.dataset=` one of
+kitti, ddad, nyu, sunrgbd, cityscapes, nuscenes, custom or synthetic
+(`train.loop`); --list prints the presets.
 --load-backbone-from overlays the backbone of a stage-1 ground-mask model
 (`tools.pretrain_pe_mask`'s `pe_mask_backbone.npz`, either package) before
 the first step. --multihost joins the process group that `torchrun`

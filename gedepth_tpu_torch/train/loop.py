@@ -7,8 +7,11 @@ rows of the global batch.
 A KITTI, DDAD or NYU preset reads its splits under cfg.data.data_root (the
 KITTI and DDAD trees that `tools.preprocess_data_kitti` and
 `tools.preprocess_data_ddad` finish) and augments them by the dataset's
-chain (`data.transforms`); a synthetic data config generates its frames at
-crop_size, as the JAX package does.
+chain (`data.transforms`); data.dataset may also name SUN RGB-D
+('sunrgbd'), Cityscapes ('cityscapes'), nuScenes ('nuscenes') or a folder
+of frames without GT ('custom', its train and test split alike); a
+synthetic data config generates its frames at crop_size, as the JAX
+package does.
 """
 from __future__ import annotations
 
@@ -21,7 +24,10 @@ from typing import Optional
 import torch
 
 from gedepth_tpu_torch import parallel
+from gedepth_tpu_torch.configs.base import RGB_DATASETS
 from gedepth_tpu_torch.data.ddad import DDADDataset
+from gedepth_tpu_torch.data.extra_datasets import (
+    CityscapesDataset, CustomDepthDataset, NuScenesDataset, SUNRGBDDataset)
 from gedepth_tpu_torch.data.kitti import KittiDataset
 from gedepth_tpu_torch.data.loader import TrainLoader
 from gedepth_tpu_torch.data.nyu import NYUDataset
@@ -70,15 +76,23 @@ def _dataset(cfg, train: bool):
                                       max_depth=m.max_depth, use_pe=use_pe,
                                       seed=0 if train else 1)
     split = d.train_split if train else d.test_split
-    if d.dataset == "nyu":
+    if d.dataset in RGB_DATASETS:
         # RGB frames, the split relative to data_root or absolute
-        _require(d.data_root, "nyu data root")
-        return NYUDataset(d.data_root, split, depth_scale=d.gt_depth_scale,
-                          test_mode=not train, min_depth=m.min_depth,
-                          max_depth=m.max_depth,
-                          scene_classes=train and d.scene_classes)
+        _require(d.data_root, f"{d.dataset} data root")
+        kw = dict(min_depth=m.min_depth, max_depth=m.max_depth,
+                  test_mode=not train)
+        if d.dataset == "custom":
+            # a folder of frames for qualitative inference, both splits
+            return CustomDepthDataset(d.data_root)
+        if d.dataset == "cityscapes":
+            return CityscapesDataset(d.data_root, split, **kw)
+        if d.dataset == "nyu":
+            kw["scene_classes"] = train and d.scene_classes
+        cls = {"nyu": NYUDataset, "sunrgbd": SUNRGBDDataset,
+               "nuscenes": NuScenesDataset}[d.dataset]
+        return cls(d.data_root, split, depth_scale=d.gt_depth_scale, **kw)
     if d.dataset not in ("kitti", "ddad"):
-        raise NotImplementedError(f"dataset {d.dataset!r} is not ported")
+        raise ValueError(f"unknown dataset {d.dataset!r}")
     _require(d.data_root, f"{d.dataset} data root")
     _require(split, f"{d.dataset} {'train' if train else 'test'} split")
     kw = dict(use_pe=use_pe, pe_clip=m.depth_scale, min_depth=m.min_depth,
@@ -93,7 +107,8 @@ def _dataset(cfg, train: bool):
 
 def build_train_dataset(cfg):
     """The train split (`gedepth_tpu.train.loop.build_datasets`): KITTI,
-    DDAD or NYU from cfg.data.data_root and cfg.data.train_split, or
+    DDAD, NYU, SUN RGB-D, Cityscapes or nuScenes from cfg.data.data_root
+    and cfg.data.train_split, the custom folder's frames, or
     synthetic frames at crop_size; wrapped in `RepeatDataset` when
     cfg.data.repeat_times > 1. A missing root or split raises
     FileNotFoundError."""
@@ -104,8 +119,9 @@ def build_train_dataset(cfg):
 
 
 def build_eval_dataset(cfg):
-    """The test split: KITTI, DDAD or NYU from cfg.data.test_split in test
-    mode (the evaluator reloads the GT at full resolution), or a quarter as
+    """The test split: KITTI, DDAD, NYU, SUN RGB-D, Cityscapes or nuScenes
+    from cfg.data.test_split in test mode (the evaluator reloads the GT at
+    full resolution), the custom folder's frames, or a quarter as
     many synthetic frames as the train split (at least 2) at eval_size,
     from other scenes (seed 1)."""
     return _dataset(cfg, False)

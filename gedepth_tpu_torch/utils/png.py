@@ -1,8 +1,8 @@
 """PNG without PIL: the reader of the port's data path and a plain writer.
 
   read_png(path_or_bytes)          -> uint8 (H, W) | (H, W, 3), uint16 (H, W)
-  read_rgb(path_or_bytes)          -> float32 (H, W, 3), 0..255 (PNG, or
-                                      JPEG through PIL)
+  read_rgb(path_or_bytes)          -> float32 (H, W, 3), 0..255 (PNG or
+                                      JPEG)
   load_depth_png(path, scale)      -> float32 (H, W) metres
   png_size(path)                   -> (height, width) from the header
   write_png(path, array)           -> 8-bit gray or RGB, 16-bit gray
@@ -15,35 +15,34 @@ Adam7-interlaced files and other bit depths raise `ValueError` naming the
 file. `read_rgb` is
 `np.asarray(Image.open(p).convert("RGB"), np.float32)` of the JAX package's
 datasets: gray is replicated into three channels. It tells the format by
-its magic bytes: a JPEG (NYU's RGB frames) goes to PIL, imported only then;
-without PIL it raises ImportError naming the file (the port has no JPEG
-decoder of its own yet: ROADMAP.md Queue 1).
+its magic bytes: a JPEG goes to the port's decoder (`utils.jpeg`, equal
+to PIL's pixels), and one of a kind that decoder does not read to PIL,
+imported only then; without PIL that raises ImportError naming the file
+and the kind.
 
 The inflate is the standard library's zlib. Unfiltering is sequential along a
 row (the Sub, Average and Paeth filters read the byte one pixel to the
 left), so it runs in a small host C++ source (`csrc/png_unfilter.cpp`),
 built on first use with the host compiler into `_build/` under a name that
 carries a hash of the source, and bound through ctypes
-(`load_library`). A failed build raises. `unfilter_plain` is the numpy
-version, row by row, that the tests hold the C++ one against.
+(`utils.host_build`; `load_library`). A failed build raises.
+`unfilter_plain` is the numpy version, row by row, that the tests hold the
+C++ one against.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import struct
-import subprocess
-import tempfile
 import zlib
 from pathlib import Path
 
 import numpy as np
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "png_unfilter.cpp"
-BUILD_DIR = _PKG / "_build"
-CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
+from gedepth_tpu_torch.utils.host_build import (
+    PKG_DIR, build_host_library, host_library_path, read_bytes)
+
+SOURCE = PKG_DIR / "csrc" / "png_unfilter.cpp"
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 JPEG_SIGNATURE = b"\xff\xd8\xff"
 # colour type -> channels in the file
@@ -53,9 +52,7 @@ _lib = None
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    h.update(SOURCE.read_bytes())
-    return BUILD_DIR / f"libpng_unfilter_{h.hexdigest()[:16]}.so"
+    return host_library_path(SOURCE, "png_unfilter")
 
 
 def load_library():
@@ -65,19 +62,7 @@ def load_library():
     global _lib
     if _lib is not None:
         return _lib
-    path = library_path()
-    if not path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        cxx = os.environ.get("CXX", "c++")
-        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-            out = os.path.join(tmp, "lib.so")
-            proc = subprocess.run([cxx, *CXX_FLAGS, "-o", out, str(SOURCE)],
-                                  capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"{cxx} failed to build {SOURCE.name} "
-                                   f"({proc.returncode}):\n{proc.stderr}")
-            os.replace(out, path)
-    lib = ctypes.CDLL(str(path))
+    lib = build_host_library(SOURCE, "png_unfilter")
     lib.png_unfilter.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                  ctypes.c_int64, ctypes.c_int64, ctypes.c_int]
     lib.png_unfilter.restype = ctypes.c_int
@@ -135,13 +120,6 @@ def unfilter_plain(data: bytes, height: int, stride: int,
     return out
 
 
-def _read_bytes(src):
-    if isinstance(src, (bytes, bytearray, memoryview)):
-        return bytes(src), "<bytes>"
-    with open(src, "rb") as f:
-        return f.read(), os.fspath(src)
-
-
 def _chunks(data, name):
     if data[:8] != SIGNATURE:
         raise ValueError(f"{name}: not a PNG file")
@@ -179,7 +157,7 @@ def png_size(src) -> tuple:
 
 def read_png(src) -> np.ndarray:
     """Decode a PNG file (path) or its bytes; see the module docstring."""
-    return _decode_png(*_read_bytes(src))
+    return _decode_png(*read_bytes(src))
 
 
 def _decode_png(data: bytes, name: str) -> np.ndarray:
@@ -222,7 +200,7 @@ def _decode_png(data: bytes, name: str) -> np.ndarray:
 def read_rgb(src) -> np.ndarray:
     """(H, W, 3) float32 RGB in 0..255, gray replicated (PIL's
     `convert("RGB")`), from a PNG or a JPEG."""
-    data, name = _read_bytes(src)
+    data, name = read_bytes(src)
     if data[:3] == JPEG_SIGNATURE:
         return _read_jpeg(data, name)
     px = _decode_png(data, name)
@@ -234,15 +212,21 @@ def read_rgb(src) -> np.ndarray:
 
 
 def _read_jpeg(data: bytes, name: str) -> np.ndarray:
-    try:
-        import io
+    """The port's decoder (`utils.jpeg`); a file of a kind it refuses goes
+    to PIL where PIL imports, else raises naming the file and the kind. A
+    file it cannot read raises its ValueError on every machine."""
+    from gedepth_tpu_torch.utils.jpeg import JpegRefused, decode_bytes
 
-        from PIL import Image
-    except ImportError as err:
-        raise ImportError(
-            f"{name}: a JPEG needs PIL, which does not import here, or a "
-            "JPEG decoder of the port's own (not written yet: ROADMAP.md "
-            "Queue 1)") from err
+    try:
+        return decode_bytes(data, name).astype(np.float32)
+    except JpegRefused as err:
+        try:
+            import io
+
+            from PIL import Image
+        except ImportError:
+            raise ImportError(f"{err}; PIL, which would, does not import "
+                              "here") from err
     with Image.open(io.BytesIO(data)) as im:
         return np.asarray(im.convert("RGB"), dtype=np.float32)
 

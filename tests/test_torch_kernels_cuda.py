@@ -23,6 +23,7 @@ image border and whose offsets may be ±1e9. The bf16 instances of A, B and
 C are held to float64 evaluations of their bf16 inputs (see the section at
 the end of the file).
 """
+import itertools
 import json
 
 import numpy as np
@@ -1114,14 +1115,26 @@ def test_two_ranks_on_one_card_equal_one_process(tmp_path):
 
 # ---- the seg preset: no kernel of the port on its path ---------------------
 
+# the JAX package's f32 seg step's grad_norm, relative to its float64 step,
+# at this test's weights and batch on the CPU (tests/seg_f64_distance.py
+# card_test)
+SEG_JAX_F32_DISTANCE = 2.40e-4
+
+
 def test_seg_train_step_on_the_card():
     """One `make_seg_train_step` of the seg preset (HRNet-W18,
     head_channels 8, batch 2 of synthetic ground scenes at 128x256) on the
-    card beside the same step on the CPU from the same weights and batch:
-    none of the port's kernels launched; loss and its two stage terms rtol
-    1e-4, grad_norm rtol 5e-3 (f32 keeps it to ~1e-3 on either side: the
-    stem's weight gradients, which dominate it, sum ~1e4 positions of a
-    train-mode BatchNorm's centred gradient times a non-negative input)."""
+    card beside the same step on the CPU from the same weights and batch,
+    in f32 and in float64: none of the port's kernels launched; loss and
+    its two stage terms rtol 1e-4 in f32, 2e-6 in float64 (the step takes
+    its losses on f32 casts of the logits, as the JAX step does, so the
+    float64 step carries f32 rounding: ~1e-6 in grad_norm); grad_norm in
+    float64 rtol 2e-6, card against CPU; in f32 rtol 5e-3 (f32 keeps it to
+    ~1e-3 on either side: the stem's weight gradients, which dominate it,
+    sum ~1e4 positions of a train-mode BatchNorm's centred gradient times
+    a non-negative input). The card's f32 grad_norm's distance from its
+    own float64 one is printed beside the JAX package's f32 distance at
+    the same weights and batch (SEG_JAX_F32_DISTANCE)."""
     import dataclasses
 
     from gedepth_tpu_torch.configs import get_config
@@ -1141,19 +1154,34 @@ def test_seg_train_step_on_the_card():
     counters = (wa.window_attention, msda_ops.msda, msda_ops.msda_backward,
                 pe_ops.pe_fusion)
     metrics = {}
-    for device in ("cuda", "cpu"):
-        model = model_cfg.build(device=device,
-                                generator=torch.Generator().manual_seed(0))
-        state = create_train_state(model, cfg.optim, 10)
-        before = [c.launches for c in counters]
-        metrics[device] = make_seg_train_step(cfg.model.depth_scale)(
-            state, batch_to_device(batch, device))
-        assert [c.launches for c in counters] == before
+    for dtype in (torch.float32, torch.float64):
+        for device in ("cuda", "cpu"):
+            model = model_cfg.build(
+                generator=torch.Generator().manual_seed(0)).to(device, dtype)
+            state = create_train_state(model, cfg.optim, 10)
+            before = [c.launches for c in counters]
+            b = {k: v.to(dtype) if v.is_floating_point() else v
+                 for k, v in batch_to_device(batch, device).items()}
+            metrics[device, dtype] = {
+                k: float(v) for k, v in make_seg_train_step(
+                    cfg.model.depth_scale)(state, b).items()}
+            assert [c.launches for c in counters] == before
     for key in ("loss", "loss_seg0", "loss_seg1", "grad_norm"):
-        got, want = metrics["cuda"][key].item(), metrics["cpu"][key].item()
-        assert np.isfinite(got), key
-        np.testing.assert_allclose(got, want, err_msg=key,
-                                   rtol=5e-3 if key == "grad_norm" else 1e-4)
+        for dtype, rtol in ((torch.float32, 5e-3 if key == "grad_norm"
+                             else 1e-4),
+                            (torch.float64, 2e-6)):
+            got = metrics["cuda", dtype][key]
+            want = metrics["cpu", dtype][key]
+            assert np.isfinite(got), key
+            np.testing.assert_allclose(got, want, rtol=rtol,
+                                       err_msg=f"{key} {dtype}")
+    norm = {k: m["grad_norm"] for k, m in metrics.items()}
+    dist = {dev: abs(norm[dev, torch.float32] - norm[dev, torch.float64])
+            / norm[dev, torch.float64] for dev in ("cuda", "cpu")}
+    print(f"[seg f64] grad_norm f32 against float64: card {dist['cuda']:.3e}"
+          f", CPU {dist['cpu']:.3e}, the JAX package's "
+          f"{SEG_JAX_F32_DISTANCE:.3e} (CPU); float64 card against CPU "
+          f"{abs(norm['cuda', torch.float64] - norm['cpu', torch.float64]) / norm['cpu', torch.float64]:.3e}")
 
 
 if __name__ == "__main__":
@@ -1421,3 +1449,117 @@ def test_binsformer_textbook_on_the_card(tmp_path):
         T.close(g["depth"].cpu(), d, f"layer {i} depth")
         T.close(g["bin_edges"].cpu(), e, f"layer {i} edges")
         T.close(g["class_logits"].cpu(), c, f"layer {i} class logits")
+
+
+# ---- the JPEG decoder on the card's machine, the ASN heads ----------------
+
+def test_jpeg_fixtures_decode_to_their_hashes():
+    """Every committed JPEG fixture through the port's decoder on the
+    card's machine (which has no PIL): the SHA-256 of PIL's pixels in
+    fixtures.json, or the refusal it names; a baseline file read through
+    `read_rgb` never asks for PIL."""
+    import hashlib
+    import os.path as osp
+    import sys
+
+    from gedepth_tpu_torch.tools.make_jpeg_fixtures import DEFAULT_DIR
+    from gedepth_tpu_torch.utils import jpeg
+    from gedepth_tpu_torch.utils.png import read_rgb
+
+    with open(osp.join(DEFAULT_DIR, "fixtures.json")) as f:
+        index = json.load(f)
+    for name, entry in index.items():
+        path = osp.join(DEFAULT_DIR, name)
+        if entry["refused"]:
+            with pytest.raises(jpeg.JpegRefused) as err:
+                jpeg.decode_jpeg(path)
+            assert err.value.kind == entry["refused"]
+            continue
+        px = jpeg.decode_jpeg(path)
+        assert list(px.shape) == entry["shape"]
+        assert hashlib.sha256(px.tobytes()).hexdigest() == entry["sha256"]
+        saved = sys.modules.get("PIL")
+        sys.modules["PIL"] = None
+        try:
+            np.testing.assert_array_equal(read_rgb(path), px)
+        finally:
+            if saved is None:
+                del sys.modules["PIL"]
+            else:
+                sys.modules["PIL"] = saved
+
+
+def test_asn_heads_on_the_card():
+    """ASNDepthHeadV2 (features (2, 12, 16, 32), x8 to 96x128, 40 triangle
+    samples, intrinsics) and its loss dict, and ASNDepthHead on a
+    3-level pyramid, forward and backward in train mode on the card
+    beside the CPU from the same seeded weights. f32: outputs and losses
+    rtol 1e-4, atol 1e-5 of their largest magnitude; the adaptive normals
+    within 1e-3 inside the 1-pixel border, 2e-2 on it, and 1e-5 on
+    average (where a window's triangle normals nearly cancel, most at the
+    zero-padded border, normalising their mix amplifies f32 rounding);
+    every gradient within 1e-3 of the CPU's in L2 plus 1e-6 of the
+    largest. float64 on both sides: everything, normals and gradients
+    too, within rtol 1e-9."""
+    import copy
+
+    from gedepth_tpu_torch.models.asn import ASNDepthHeadV2, asn_losses
+    from gedepth_tpu_torch.models.experiment_heads import ASNDepthHead
+    from gedepth_tpu_torch.models.layers import init_weights
+    from gedepth_tpu_torch.models.losses import sigloss
+
+    g = torch.Generator().manual_seed(0)
+    v2 = ASNDepthHeadV2(input_features_dim=32)
+    head = ASNDepthHead((8, 16, 32), channels=8, focal=60.0)
+    for m in (v2, head):
+        init_weights(m, g)
+    feats = torch.randn(2, 12, 16, 32, generator=g)
+    K = torch.tensor([[60.0, 0, 64.0], [0, 60.0, 48.0], [0, 0, 1.0]]
+                     ).expand(2, 3, 3).contiguous()
+    gt = torch.rand(2, 96, 128, generator=g) * 9 + 0.5
+    rgb = torch.randn(2, 96, 128, 3, generator=g)
+    sn = torch.nn.functional.normalize(torch.randn(2, 96, 128, 3,
+                                                   generator=g), dim=-1)
+    pyramid = [torch.randn(2, 32 >> i, 48 >> i, c, generator=g)
+               for i, c in enumerate((8, 16, 32))]
+    gt1 = torch.rand(2, 32, 48, generator=g) * 9 + 0.5
+
+    def run(model, device, dtype):
+        m = copy.deepcopy(model).to(device, dtype).train()
+        if isinstance(m, ASNDepthHeadV2):
+            out = m(feats.to(device, dtype), K.to(device, dtype))
+            losses = asn_losses(out, gt.to(device, dtype),
+                                rgb.to(device, dtype), sn.to(device, dtype))
+        else:
+            depth, normals = m([x.to(device, dtype) for x in pyramid])
+            out = {"depth": depth, "normals": normals}
+            losses = {"sigloss": sigloss(depth[..., 0],
+                                         gt1.to(device, dtype))}
+        sum(losses.values()).backward()
+        return ({k: v.detach().cpu() for k, v in {**out, **losses}.items()},
+                {n: p.grad.cpu() for n, p in m.named_parameters()})
+
+    for model, dtype in itertools.product((v2, head),
+                                          (torch.float32, torch.float64)):
+        f64 = dtype == torch.float64
+        rtol, grad_rtol, floor = ((1e-9, 1e-9, 1e-12) if f64
+                                  else (1e-4, 1e-3, 1e-6))
+        (out_g, grad_g), (out_c, grad_c) = (run(model, "cuda", dtype),
+                                            run(model, "cpu", dtype))
+        assert sorted(out_g) == sorted(out_c)
+        for key, want in out_c.items():
+            got = out_g[key]
+            scale = max(want.abs().max().item(), 1.0)
+            if (key == "normals" and isinstance(model, ASNDepthHeadV2)
+                    and not f64):
+                err = (got - want).abs()
+                assert err[:, 1:-1, 1:-1].max() <= 1e-3, key
+                assert err.max() <= 2e-2 and err.mean() <= 1e-5, key
+            else:
+                torch.testing.assert_close(got, want, rtol=rtol,
+                                           atol=rtol * 0.1 * scale, msg=key)
+        top = max(v.norm().item() for v in grad_c.values())
+        for n, want in grad_c.items():
+            err = (grad_g[n] - want).norm().item()
+            assert err <= grad_rtol * want.norm().item() + floor * top, (
+                n, dtype)

@@ -223,15 +223,21 @@ def test_jpeg_frames_through_pil(tree, tmp_path):
 
 
 def test_jpeg_without_pil_names_the_file(tree, tmp_path, monkeypatch):
-    """Where PIL does not import, a JPEG raises ImportError naming the file
-    and the missing decoder; a PNG still reads."""
+    """Where PIL does not import, a JPEG of a kind the port's decoder does
+    not read (progressive) raises ImportError naming the file, the kind
+    and PIL; a baseline JPEG and a PNG still read."""
+    from gedepth_tpu_torch.tools.make_jpeg_fixtures import DEFAULT_DIR
     from gedepth_tpu_torch.utils.png import read_rgb
 
     path = tmp_path / "frame.png"          # a JPEG under a PNG's name
-    path.write_bytes(b"\xff\xd8\xff\xe0" + bytes(64))
+    with open(osp.join(DEFAULT_DIR, "progressive.jpg"), "rb") as f:
+        path.write_bytes(f.read())
     monkeypatch.setitem(sys.modules, "PIL", None)
-    with pytest.raises(ImportError, match="frame.png.*PIL.*ROADMAP"):
+    with pytest.raises(ImportError,
+                       match="frame.png: a progressive JPEG.*PIL"):
         read_rgb(str(path))
+    assert read_rgb(osp.join(DEFAULT_DIR, "sunrgbd_0.jpg")).shape == (
+        530, 730, 3)
     png = osp.join(tree["root"], "bedroom_0004", "rgb_00000.png")
     assert read_rgb(png).shape == (480, 640, 3)
 

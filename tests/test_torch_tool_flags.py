@@ -100,6 +100,8 @@ def test_compat_check_takes_the_jax_tools_arguments(argv, monkeypatch):
 
 CONVERT_ARGVS = (
     ["ref.pth", "binsformer_nyu", "out.npz", "--binsformer-release"],
+    ["ref.pth", "gedepth_adaptive_kitti", "out.npz", "--simipu",
+     "--official-swin"],
     ["ref.pth", "gedepth_adaptive_kitti", "out.npz", "--official-swin",
      "--options", "model.embed_dims=32"],
 )
@@ -107,14 +109,14 @@ CONVERT_ARGVS = (
 
 @pytest.mark.parametrize("argv", CONVERT_ARGVS)
 def test_convert_takes_the_jax_tools_arguments(argv, monkeypatch):
-    """tools/convert_torch_checkpoint.py's arguments: every option the port
-    has comes out equal, `--binsformer-release` among them; only the JAX
-    tool's `--simipu` (SimIPU's backbone extraction) is not ported."""
+    """tools/convert_torch_checkpoint.py's arguments: every option comes
+    out equal, `--binsformer-release` and `--simipu` among them; no JAX
+    flag is missing."""
     import tools.convert_torch_checkpoint as jax_convert
 
     want = _jax_namespace(jax_convert, argv, monkeypatch)
     got = vars(port_convert.parse_args(argv))
-    assert set(want) - set(got) == {"simipu"}
+    assert set(want) - set(got) == set()
     assert set(got) <= set(want)
     assert got == {k: v for k, v in want.items() if k in got}
 
