@@ -70,11 +70,19 @@ with its host-clock seconds); any failure raises and exits non-zero:
      cross-attention, 107,008) and the train crop's (2 x 20,570 and
      2 x 61,952), with the tolerances of phases 3 and 6; the bound from
      the samples that touch their level, what the compat plan stages per
-     (query grid, level), and B's exact self-attention with a window hint
-     of 4 and 8 pixels; exact and compat timed as phases 3 and 6 with one
-     repetition of the plain version, `device_ms` by the profiler and
+     (query grid, level); exact and compat timed as phases 3 and 6 with
+     one repetition of the plain version, `device_ms` by the profiler and
      `event_ms` beside it; nearest, which no preset samples, checked and
-     timed by events only;
+     timed by events only. The exact rule's launches run over the plan the
+     card makes of their positions: for each, the planning kernel held to
+     `plan_plain` integer for integer and the share of samples its plan
+     stages per level printed, B's output and C's d_pos and d_w held to
+     the unplanned rows bit for bit, and the unplanned launch timed beside
+     it (`unplanned_device_ms`, `unplanned_event_ms`); the planning kernel
+     timed alone at the train cross shape (its `kernels` row); and a
+     stress row at the train cross shape with offsets of 12 level pixels,
+     where the planned B and C must cost at most 1.1x the unplanned ones
+     by events;
  10. presets: `init_depther` + `inference_depther` for
      `gedepth_adaptive_kitti` (exact) and `gedepth_adaptive_kitti_compat`
      (2 flip-TTA requests each) and one request each for
@@ -354,7 +362,9 @@ carry their kernel's launches over the whole of phase 7, its steps and the
 evaluation at its end (`launches`, `launches_train`) and of phase 4 (`launches_serving`). The rows of phase
 9's shapes carry the launches that the wrapper counted at that row's query
 count on its own path: the requests of phase 10 for the serving shapes, the
-3 steps of phase 11 for the train crop's. `bound_ms` is the larger of the
+3 steps of phase 11 for the train crop's; the planning kernel's row
+(`msda_plan[exact train_cross]`, no TPU counterpart) the plans of those
+steps' B and C launches at that count. `bound_ms` is the larger of the
 call's bytes over 3.35 TB/s and its f32 operations over 67 TFLOP/s, the
 H100 SXM's published peaks (for the bf16 instance of A its products over
 989 TFLOP/s, the tensor cores' bf16 rate). The rows of phase 13 carry the
@@ -375,7 +385,9 @@ phase 37 and BinsFormer, phases 3 and 6 trace the plain versions of B and
 C only for the shapes their rows keep (cross-attention); every check of
 phases 1-12 stayed. To make room for phase 39, phase 27 no longer times
 the loader without workers (phase 23's host ms a sample is that rate);
-its batches are still held bit for bit.
+its batches are still held bit for bit. To make room for the plan's
+checks, phase 9 no longer times B's exact self-attention with window
+hints of 4 and 8 pixels (they did not pay; PERF.md keeps the readings).
 Imports nothing of JAX. Exits non-zero without a CUDA device.
 """
 from __future__ import annotations
@@ -534,8 +546,8 @@ def n_bytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def timed(kernel, plain, *, reps=10, plain_reps=3, library=None, extra=None,
-          trace_plain=True):
+def timed(kernel, plain, *, reps=10, plain_reps=3, plain_warmup=1,
+          library=None, extra=None, trace_plain=True):
     """Times of a kernel call and its plain version (and of a library call,
     where one computes the function): CUDA-event medians of single calls
     (`ms`, `plain_ms`, `library_ms`: they hold the wrapper's host time), the
@@ -548,10 +560,14 @@ def timed(kernel, plain, *, reps=10, plain_reps=3, library=None, extra=None,
     a reading the profiler lost activities of: it is printed and dropped.
     trace_plain=False leaves the plain version out of the trace (its
     thousands of small launches cost the trace most): `plain_device_ms`
-    None, `plain_ms` by events as always."""
+    None, `plain_ms` by events as always. plain_warmup=0 where the caller
+    has just run the plain version; plain=None where no row keeps its
+    time: `plain_ms` None."""
     extra = extra or {}
+    trace_plain = trace_plain and plain is not None
     t = {"ms": cuda_ms(kernel, reps=reps),
-         "plain_ms": cuda_ms(plain, reps=plain_reps, warmup=1),
+         "plain_ms": None if plain is None else cuda_ms(
+             plain, reps=plain_reps, warmup=plain_warmup),
          "event_ms": burst_ms(kernel), "library_ms": None}
     calls = [(kernel, reps)] + ([(plain, plain_reps)] if trace_plain else [])
     calls += [(fn, reps) for fn in extra.values()]
@@ -1197,6 +1213,7 @@ def phase_train(data, preset=PRESET, steps=5, nonzero=TRAIN_GRADS,
     (launches, launches by queries, launches by dtype, the later steps'
     peak memory in MiB)."""
     from gedepth_tpu_torch.configs import get_config
+    from gedepth_tpu_torch.ops import msda as msda_ops
     from gedepth_tpu_torch.train.loop import train
 
     import dataclasses
@@ -1206,6 +1223,8 @@ def phase_train(data, preset=PRESET, steps=5, nonzero=TRAIN_GRADS,
     cfg = cfg.replace(data=data, train=dataclasses.replace(
         cfg.train, global_batch=2, bf16_compute=bf16))
     counters = _kernel_counters()
+    # B and C plan their unhinted launches on the card: once each
+    counters["msda_plan"] = msda_ops.msda_plan
     reset_counts(counters)
     t0 = time.perf_counter()
     state, history, best = train(cfg, max_iters=steps,
@@ -1272,9 +1291,17 @@ def phase_train(data, preset=PRESET, steps=5, nonzero=TRAIN_GRADS,
             fail(f"zero gradient for {name}")
     print(f"{tag} all {len(grads)} parameters have finite gradients after "
           "the last step", flush=True)
+    plans = launches.pop("msda_plan")
     for name, n in launches.items():
         if n <= 0:
             fail(f"kernel {name} was not launched on the train path")
+    unhinted = cfg.model.neck_sampling in ("bilinear", "nearest")
+    if plans != (launches["msda"] + launches["msda_backward"]
+                 if unhinted else 0):
+        fail(f"{preset}: the planning kernel launched {plans} times with "
+             f"B {launches['msda']} and C {launches['msda_backward']} "
+             f"({cfg.model.neck_sampling} sampling)")
+    launches["msda_plan"] = plans
     once_a_step = {q: steps for q in queries}
     if eval_queries is None:
         evals = {q: n for q, n in by_queries["msda"].items()
@@ -1975,7 +2002,7 @@ COMPAT = "gedepth_adaptive_kitti_compat"
 
 
 def rule_positions(rule, randn, g, B, levels, grids, learned,
-                   radius=None):
+                   radius=None, spread=3.0):
     """(positions, weights, window hint) of one sampling rule at seeded
     offsets of a few level pixels. learned: one set of reference points for
     the whole batch, sigmoid(Linear(query_pos)) at the layer's seeded
@@ -1983,12 +2010,13 @@ def rule_positions(rule, randn, g, B, levels, grids, learned,
     cross-attention); else the grid centres (the self-attention).
     A twentieth of the exact and nearest samples is thrown tens of pixels
     or a million away, out of every level. `radius`: the compat rule's
-    (default COMPAT_RADIUS)."""
+    (default COMPAT_RADIUS). `spread`: the offsets' standard deviation in
+    level pixels."""
     from gedepth_tpu_torch.models.layers import sine_positional_encoding
     from gedepth_tpu_torch.ops import msda as msda_ops
 
     Nq, L = sum(a * b for a, b in grids), len(levels)
-    off = 3.0 * randn(B, Nq, 8, L, 8, 2)
+    off = spread * randn(B, Nq, 8, L, 8, 2)
     w = randn(B, Nq, 8, L * 8).softmax(-1).view(B, Nq, 8, L, 8)
     if learned:
         # as HAHINeck forms them: sigmoid(Linear(512 -> 2)(sine encoding)),
@@ -2037,6 +2065,57 @@ def staged_by_plan(grids, levels, radius, itemsize=4):
         for l in range(len(levels))] for gi in range(len(grids))}
 
 
+def plan_staged_share(pos, levels, plan):
+    """Per level, the share of the samples touching it whose four corners
+    lie in their tile's staged rectangle under `plan` (`PlanTensors`)."""
+    from gedepth_tpu_torch.ops import msda as msda_ops
+
+    B, Nq, L = pos.shape[0], pos.shape[1], len(levels)
+    T = -(-Nq // msda_ops.MAX_TILE_QUERIES)
+    rank = torch.empty(B, Nq, dtype=torch.long, device=pos.device)
+    rank.scatter_(1, plan.perm.long(),
+                  torch.arange(Nq, device=pos.device).expand(B, Nq))
+    tile = (torch.arange(B, device=pos.device)[:, None] * T
+            + rank // msda_ops.MAX_TILE_QUERIES)
+    rects = plan.rows[:, msda_ops.TILE_HEADER:].view(-1, L, 4).long()[tile]
+    shares = []
+    for l, (Hl, Wl) in enumerate(levels):
+        x0 = pos[:, :, :, l, :, 0].floor()
+        y0 = pos[:, :, :, l, :, 1].floor()
+        touch = (x0 >= -1) & (x0 < Wl) & (y0 >= -1) & (y0 < Hl)
+        x0 = torch.where(touch, x0, 0).long()
+        y0 = torch.where(touch, y0, 0).long()
+        ry, rx, rh, rw = (rects[:, :, l, i][:, :, None, None]
+                          for i in range(4))
+        inside = (touch & (x0.clamp_min(0) >= rx)
+                  & ((x0 + 1).clamp_max(Wl - 1) < rx + rw)
+                  & (y0.clamp_min(0) >= ry)
+                  & ((y0 + 1).clamp_max(Hl - 1) < ry + rh))
+        shares.append(round(inside.sum().item()
+                            / max(touch.sum().item(), 1), 3))
+    return shares
+
+
+def check_plan(label, pos, levels, itemsize=4):
+    """The planning kernel against `plan_plain`, integer for integer; prints
+    the share of samples its plan stages per level. Returns the plan (B's
+    and C's: the same for one value)."""
+    from gedepth_tpu_torch.ops import msda as msda_ops
+
+    budget = msda_ops.stage_budget(
+        64, msda_ops.channel_lanes(64, itemsize=itemsize)[1])
+    got = msda_ops.msda_plan(pos, levels, 64, budget, itemsize)
+    want = msda_ops.plan_plain(pos, levels, 64, budget, itemsize)
+    for name in ("keys", "perm", "rows"):
+        if not torch.equal(getattr(got, name), getattr(want, name)):
+            fail(f"[rules] {label}: the planning kernel's {name} differ "
+                 "from plan_plain's")
+    print(f"  plan {label} (B's and C's) equals plan_plain; samples "
+          f"staged, levels 0..3: {plan_staged_share(pos, levels, got)}",
+          flush=True)
+    return got
+
+
 def phase_rule_kernels():
     from gedepth_tpu_torch.ops import msda as msda_ops
 
@@ -2046,7 +2125,9 @@ def phase_rule_kernels():
         return torch.randn(*shape, generator=g, device="cuda")
 
     print("[rules] kernels B and C at exact, nearest and compat (R = 6) "
-          "positions (B: rtol 2e-4, atol 2e-5; C as phase 6)")
+          "positions (B: rtol 2e-4, atol 2e-5; C as phase 6); the exact "
+          "rule's launches over the plan the card makes from the positions, "
+          "held to the unplanned rows bit for bit (B, C's d_pos and d_w)")
     for name, grids, levels in (
             ("serving self", SERVE_LEVELS, SERVE_LEVELS),
             ("serving cross", ((176, 608),), SERVE_LEVELS),
@@ -2055,46 +2136,82 @@ def phase_rule_kernels():
         print(f"[rules] compat plan, {name}: share of tiles staging levels "
               f"0..3 per query grid {staged_by_plan(grids, levels, 6)}")
     results = {}
-    for shape, B, levels, grids, learned, backward in (
-            ("serving_self", 1, SERVE_LEVELS, SERVE_LEVELS, False, False),
-            ("serving_cross", 1, SERVE_LEVELS, ((176, 608),), True, False),
-            ("train_self", 2, TRAIN_LEVELS, TRAIN_LEVELS, False, True),
-            ("train_cross", 2, TRAIN_LEVELS, ((176, 352),), True, True)):
+    for shape, B, levels, grids, learned, backward, spread in (
+            ("serving_self", 1, SERVE_LEVELS, SERVE_LEVELS, False, False, 3.0),
+            ("serving_cross", 1, SERVE_LEVELS, ((176, 608),), True, False,
+             3.0),
+            ("train_self", 2, TRAIN_LEVELS, TRAIN_LEVELS, False, True, 3.0),
+            ("train_cross", 2, TRAIN_LEVELS, ((176, 352),), True, True, 3.0),
+            # offsets four times as wide: windows hold a quarter of the
+            # samples or less; the plan must cost no more than 1.1x
+            ("stress_cross", 2, TRAIN_LEVELS, ((176, 352),), True, True,
+             12.0)):
         value = randn(B, sum(a * b for a, b in levels), 8, 64)
-        for rule in ("exact", "nearest", "compat"):
+        stress = shape.startswith("stress")
+        for rule in ("exact",) if stress else ("exact", "nearest", "compat"):
             pos, w, hint = rule_positions(rule, randn, g, B, levels, grids,
-                                          learned)
+                                          learned, spread=spread)
             Nq, label = pos.shape[1], f"{rule} {shape}"
             n_touch = touching(pos, levels)
             want = msda_ops.msda_plain(value, levels, pos, w)
-            err = compare(f"B {label} {B}x{Nq} queries",
-                          msda_ops.msda(value, levels, pos, w, *hint), want,
-                          2e-4, 2e-5)
+            got = msda_ops.msda(value, levels, pos, w, *hint)
+            err = compare(f"B {label} {B}x{Nq} queries", got, want, 2e-4,
+                          2e-5)
             kernel_b = functools.partial(msda_ops.msda, value, levels, pos, w,
                                          *hint)
+            extra = {}
+            if rule == "exact":
+                plan = check_plan(label, pos, levels)
+                if not torch.equal(got, msda_ops.msda_unplanned(
+                        value, levels, pos, w)):
+                    fail(f"[rules] B {label}: planned and unplanned "
+                         "outputs differ")
+                print("  B planned equals B unplanned bit for bit",
+                      flush=True)
+                extra["unplanned"] = functools.partial(
+                    msda_ops.msda_unplanned, value, levels, pos, w)
+                if shape == "train_cross":
+                    # the finest level's positions (keys), every
+                    # PLAN_SHARE_STRIDE-th query's (shares), perm and rows
+                    plan_bytes = (n_bytes(pos) // len(levels)
+                                  + n_bytes(pos) // msda_ops.PLAN_SHARE_STRIDE
+                                  + n_bytes(plan.perm, plan.rows))
+                    tp = timed(functools.partial(
+                        msda_ops.msda_plan, pos, levels, 64,
+                        msda_ops.stage_budget(64, 16), 4),
+                        lambda: msda_ops.plan_plain(
+                            pos, levels, 64, msda_ops.stage_budget(64, 16),
+                            4),
+                        plain_reps=1, trace_plain=False)
+                    tp["bound_ms"], tp["bound_by"] = bound(plan_bytes, 0)
+                    show(tp)
+                    results[f"msda_plan {label}"] = dict(
+                        tp, max_abs_err=0.0, queries=Nq)
+                del plan
+            if rule == "compat":
+                extra["without_hint"] = functools.partial(
+                    msda_ops.msda, value, levels, pos, w)
             if rule == "nearest":
                 # no preset samples nearest: checked above, timed by events
                 # only, and no row in the `kernels` line
                 print(f"    event_ms={burst_ms(kernel_b):.4f} (CUDA events) "
                       f"touching={n_touch / w.numel():.3f}", flush=True)
             else:
-                extra = {}
-                if rule == "exact" and not learned:
-                    for r in (4, 8):    # a hint the positions do not keep to
-                        extra[f"hint_r{r}"] = functools.partial(
-                            msda_ops.msda, value, levels, pos, w, grids, r)
-                if rule == "compat":
-                    extra["without_hint"] = functools.partial(
-                        msda_ops.msda, value, levels, pos, w)
-                t = timed(kernel_b,
+                # the plain version ran just above (`want`); the stress
+                # row keeps no plain time
+                t = timed(kernel_b, None if stress else
                           lambda: msda_ops.msda_plain(value, levels, pos, w),
-                          plain_reps=1, trace_plain=False, extra=extra)
+                          plain_reps=1, plain_warmup=0, trace_plain=False,
+                          extra=extra)
                 t["bound_ms"], t["bound_by"] = bound(
                     n_bytes(value, pos, w, want), 9 * n_touch * 64)
                 show(t, touching=f"{n_touch / w.numel():.3f}")
-                results[f"msda {label}"] = dict(t, max_abs_err=err,
-                                                queries=Nq)
-            del want
+                if stress:
+                    hold_stress(f"B {label}", t)
+                else:
+                    results[f"msda {label}"] = dict(t, max_abs_err=err,
+                                                    queries=Nq)
+            del want, got
             if not backward:
                 continue
             gout = randn(B, Nq, 512)
@@ -2109,28 +2226,56 @@ def phase_rule_kernels():
                       compare(f"C {label} d_weights", got[2], want[2], 2e-4,
                               2e-5))
             n_out = n_bytes(*want)
+            extra = {}
+            if rule == "exact":
+                ref = msda_ops.msda_backward_unplanned(*args)
+                if not (torch.equal(got[1], ref[1])
+                        and torch.equal(got[2], ref[2])):
+                    fail(f"[rules] C {label}: planned and unplanned d_pos or "
+                         "d_weights differ")
+                print("  C planned equals C unplanned bit for bit in d_pos "
+                      "and d_weights", flush=True)
+                del ref
+                extra["unplanned"] = functools.partial(
+                    msda_ops.msda_backward_unplanned, *args)
             del got, want
             kernel_c = functools.partial(msda_ops.msda_backward, *args, *hint)
             if rule == "nearest":
                 print(f"    event_ms={burst_ms(kernel_c):.4f} (CUDA events)",
                       flush=True)
             else:
-                extra = {}
                 if rule == "compat":
                     extra["without_hint"] = functools.partial(
                         msda_ops.msda_backward, *args)
-                t = timed(kernel_c,
+                t = timed(kernel_c, None if stress else
                           lambda: msda_ops.msda_backward_plain(*args),
-                          plain_reps=1, trace_plain=False, extra=extra)
+                          plain_reps=1, plain_warmup=0, trace_plain=False,
+                          extra=extra)
                 t["bound_ms"], t["bound_by"] = bound(
                     n_bytes(value, pos, w, gout) + n_out, 17 * n_touch * 64)
                 show(t)
-                results[f"msda_backward {label}"] = dict(
-                    t, max_abs_err=err, queries=Nq)
+                if stress:
+                    hold_stress(f"C {label}", t)
+                else:
+                    results[f"msda_backward {label}"] = dict(
+                        t, max_abs_err=err, queries=Nq)
             del gout, args
         del value, pos, w
         torch.cuda.empty_cache()
     return results
+
+
+def hold_stress(label, t):
+    """The planned launch, its plan included, against the unplanned one at
+    the stress positions, by CUDA events over back-to-back calls: at most
+    1.1x."""
+    ratio = t["event_ms"] / t["extra_ms"]["unplanned"][1]
+    print(f"  {label}: planned {t['event_ms']:.4f} ms against unplanned "
+          f"{t['extra_ms']['unplanned'][1]:.4f} ms (events): {ratio:.3f}x "
+          "(limit 1.1x)", flush=True)
+    if ratio > 1.1:
+        fail(f"[rules] {label}: the plan costs {ratio:.3f}x the unplanned "
+             "launch at the stress positions")
 
 
 def phase_presets(requests):
@@ -5330,6 +5475,12 @@ def run(stack):
         sources["window_attention"][1])
     sources["msda_bf16"] = sources["msda"]
     sources["msda_backward_bf16"] = sources["msda_backward"]
+    # the planning kernel of B's and C's unhinted launches has no TPU
+    # counterpart: the TPU kernels it plans for
+    sources["msda_plan"] = (
+        "gedepth_tpu_torch/csrc/msda_plan.cu",
+        "none (plans the tiles of msda_windowed.py:112 and :898 from the "
+        "positions)")
 
     def row(name, kernel, t, n_train, n_serving):
         source, replaces = sources[kernel]
@@ -5360,8 +5511,13 @@ def run(stack):
         counted = exact_train if train_shape else preset_launches[
             EXACT if rule == "exact" else COMPAT]
         n = counted[kernel].get(t["queries"], 0)
-        kernels.append(row(f"{kernel}[{rule} {shape}]", kernel, t,
-                           n if train_shape else 0, 0 if train_shape else n))
+        r = row(f"{kernel}[{rule} {shape}]", kernel, t,
+                n if train_shape else 0, 0 if train_shape else n)
+        if "unplanned" in t["extra_ms"]:
+            # the same launch over the unplanned rows
+            r["unplanned_device_ms"], r["unplanned_event_ms"] = t[
+                "extra_ms"]["unplanned"]
+        kernels.append(r)
     # the bf16 instances, held against float64 (`max_abs_err` is that
     # error), each with its f32 instance's time at the same shape; launches
     # from the bf16 paths: A from the parity preset's requests and the

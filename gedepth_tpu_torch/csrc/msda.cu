@@ -100,8 +100,18 @@ __device__ __forceinline__ void blend_add(float (&acc)[K * V], const T* p,
 //     instruction cache), and 64 registers a thread let two blocks of 16
 //     warps share an SM, one sampling while the other stages;
 //   - a level whose window does not fit (a coarse query grid over a fine
-//     level), a call without a radius, and any sample that leaves its
-//     window read device memory in the same loop.
+//     level) and any sample that leaves its window read device memory in
+//     the same loop.
+// A call without a radius (the exact rule, which six presets sample) takes
+// its tiles from the plan the card makes of its positions
+// (csrc/msda_plan.cu): 128 queries in the order of their samples' centres,
+// read through `perm`, each row written at its query's own index. Before
+// that plan every corner of such a call came from device memory, in query
+// order, and learned reference points sent neighbouring lane groups all
+// over the level: 2.87 ms at the serving cross-attention, 13x its bound.
+// The plan (~5% of the call) buys back locality and the staged windows;
+// what is left is the forward's design as above, and at the self-attention,
+// whose grid-centre anchors were already local, only the plan's cost.
 // Fetching a query's samples one iteration ahead made it 5% slower: the 32
 // warps of an SM already hide that latency. Deterministic: no atomics; per
 // channel the samples are summed over l, p ascending with the first
@@ -111,6 +121,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 msda_fwd_kernel(const T* __restrict__ value,
                 const int* __restrict__ levels,
                 const int* __restrict__ tiles,
+                const int* __restrict__ perm,
                 const float* __restrict__ pos,
                 const float* __restrict__ weight,
                 T* __restrict__ out,
@@ -124,7 +135,7 @@ msda_fwd_kernel(const T* __restrict__ value,
   const int head = blockIdx.x % h;
   const int bt = blockIdx.x / h;
   const int b = bt / n_tiles;
-  const Tile tile(tiles, bt - b * n_tiles, L);
+  const Tile tile(tiles, perm, bt, b, n_tiles, L);
   const int n_q = tile.th * tile.tw;
   const int n_iter = (n_q + kGroups - 1) / kGroups;
   const int group = threadIdx.x / G, lane_g = threadIdx.x % G;
@@ -215,9 +226,9 @@ msda_fwd_kernel(const T* __restrict__ value,
 
 template <typename T, int V, int G, int K>
 int launch(const T* value, const int* levels, const int* tiles,
-           const float* pos, const float* weight, T* out, int B, int S,
-           int Nq, int h, int d, int L, int P, int n_tiles, int stage_elems,
-           cudaStream_t stream) {
+           const int* perm, const float* pos, const float* weight, T* out,
+           int B, int S, int Nq, int h, int d, int L, int P, int n_tiles,
+           int stage_elems, cudaStream_t stream) {
   // the staged window, the tile's running sums, the groups' records
   const int smem =
       stage_elems * (int)sizeof(T) +
@@ -235,7 +246,7 @@ int launch(const T* value, const int* levels, const int* tiles,
   }
   const long long blocks = (long long)B * n_tiles * h;
   msda_fwd_kernel<T, V, G, K><<<(unsigned)blocks, kThreads, smem, stream>>>(
-      value, levels, tiles, pos, weight, out, S, Nq, h, d, L, P, n_tiles,
+      value, levels, tiles, perm, pos, weight, out, S, Nq, h, d, L, P, n_tiles,
       stage_elems);
   return (int)cudaGetLastError();
 }
@@ -243,26 +254,31 @@ int launch(const T* value, const int* levels, const int* tiles,
 }  // namespace
 
 // value (B, S, h, d) of MSDA_T (float for `msda_fwd`, __nv_bfloat16 for
-// `msda_fwd_bf16`); levels (L, 3) int32 rows (H, W, start); tiles
-// (n_tiles, 6 + 4·L) int32, the plan of ops/msda.py `tile_plan` for lane
-// groups of `lanes`; pos (B, Nq, h, L, P, 2) f32, 8-byte aligned; weight
-// (B, Nq, h, L, P) f32; out (B, Nq, h·d) of MSDA_T; all contiguous, d <= 128,
+// `msda_fwd_bf16`); levels (L, 3) int32 rows (H, W, start); tiles and
+// perm, the plan for lane groups of `lanes`: perm null and tiles
+// (n_tiles, 6 + 4·L) int32 from ops/msda.py `tile_plan`, the same rows for
+// every batch entry, or perm (B, Nq) and tiles (B·n_tiles, 6 + 4·L) int32
+// from `msda_plan` (csrc/msda_plan.cu), n_tiles rows an entry; pos (B, Nq,
+// h, L, P, 2) f32, 8-byte aligned; weight (B, Nq, h, L, P) f32; out (B, Nq,
+// h·d) of MSDA_T; all contiguous, d <= 128,
 // a level below 2^31 elements. `vec` = 4 (d a multiple of 4 floats or 8
 // bf16 and value, out 16-byte aligned; lanes = 4, 8, 16 or 32 with
 // 4·lanes >= d) or 1 (lanes = 32). `stage_elems`: the plan's largest staged
 // window in elements, whole 16-byte units. Returns the CUDA error of the
 // launch, or cudaErrorInvalidValue for another instance.
 extern "C" int MSDA_FWD_ENTRY(const MSDA_T* value, const int* levels,
-                              const int* tiles, const float* pos,
-                              const float* weight, MSDA_T* out, int B, int S,
+                              const int* tiles, const int* perm,
+                              const float* pos, const float* weight,
+                              MSDA_T* out, int B, int S,
                               int Nq, int h, int d, int L, int P, int n_tiles,
                               int stage_elems, int vec, int lanes,
                               void* stream) {
   if ((long long)B * n_tiles * h == 0 || d == 0) return (int)cudaGetLastError();
   cudaStream_t st = (cudaStream_t)stream;
-#define MSDA_FWD(V, G, K)                                                  \
-  return launch<MSDA_T, V, G, K>(value, levels, tiles, pos, weight, out, B, \
-                                 S, Nq, h, d, L, P, n_tiles, stage_elems, st)
+#define MSDA_FWD(V, G, K)                                                   \
+  return launch<MSDA_T, V, G, K>(value, levels, tiles, perm, pos, weight,   \
+                                 out, B, S, Nq, h, d, L, P, n_tiles,        \
+                                 stage_elems, st)
   if (vec == 4 && lanes == 4) MSDA_FWD(4, 4, 1);
   if (vec == 4 && lanes == 8) MSDA_FWD(4, 8, 1);
   if (vec == 4 && lanes == 16) MSDA_FWD(4, 16, 1);

@@ -113,6 +113,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 msda_bwd_pos_kernel(const T* __restrict__ value,
                     const int* __restrict__ levels,
                     const int* __restrict__ tiles,
+                    const int* __restrict__ perm,
                     const float* __restrict__ pos,
                     const float* __restrict__ weight,
                     const T* __restrict__ grad_out,
@@ -128,7 +129,7 @@ msda_bwd_pos_kernel(const T* __restrict__ value,
   const int head = blockIdx.x % h;
   const int bt = blockIdx.x / h;
   const int b = bt / n_tiles;
-  const Tile tile(tiles, bt - b * n_tiles, L);
+  const Tile tile(tiles, perm, bt, b, n_tiles, L);
   const int n_q = tile.th * tile.tw;
   const int n_iter = (n_q + kGroups - 1) / kGroups;
   const int group = threadIdx.x / G, lane_g = threadIdx.x % G;
@@ -262,7 +263,12 @@ struct Corners {
 //      reduction per lane: one add per (tile, level, window pixel) that was
 //      hit instead of one per corner.
 // Samples that leave the window, and levels without one, add their corners
-// to device memory directly (`direct_pass`). The order of a bin, and of the
+// to device memory directly (`direct_pass`). A call without a radius (the
+// exact rule) bins over the windows of the plan the card makes of its
+// positions (csrc/msda_plan.cu); before it, every corner of such a call was
+// a device-memory atomic (13.2 ms at the train crop's cross-attention, 27x
+// its bound), which the plan's order and windows turn into the bins' one
+// add per hit pixel and tile. The order of a bin, and of the
 // adds to device memory, changes from run to run, and d_value's low bits
 // with it.
 template <int V, int G, int K>
@@ -324,6 +330,7 @@ template <typename T, int V, int G, int K>
 __global__ void __launch_bounds__(kThreads, 2)
 msda_bwd_value_kernel(const int* __restrict__ levels,
                       const int* __restrict__ tiles,
+                      const int* __restrict__ perm,
                       const float* __restrict__ pos,
                       const float* __restrict__ weight,
                       const T* __restrict__ grad_out,
@@ -338,7 +345,7 @@ msda_bwd_value_kernel(const int* __restrict__ levels,
   const int head = blockIdx.x % h;
   const int bt = blockIdx.x / h;
   const int b = bt / n_tiles;
-  const Tile tile(tiles, bt - b * n_tiles, L);
+  const Tile tile(tiles, perm, bt, b, n_tiles, L);
   const int n_q = tile.th * tile.tw;
   const int group = threadIdx.x / G, lane_g = threadIdx.x % G;
   const int hd = h * d;
@@ -504,24 +511,24 @@ cudaError_t allow_shared(Kernel kernel, int smem) {
 
 template <typename T, int V, int G, int K>
 int launch(const T* value, const int* levels, const int* tiles,
-           const float* pos, const float* weight, const T* grad_out,
-           float* d_value, float* d_pos, float* d_weight, int B, int S, int Nq,
-           int h, int d, int L, int P, int n_tiles, int stage_elems,
-           cudaStream_t stream) {
+           const int* perm, const float* pos, const float* weight,
+           const T* grad_out, float* d_value, float* d_pos, float* d_weight,
+           int B, int S, int Nq, int h, int d, int L, int P, int n_tiles,
+           int stage_elems, cudaStream_t stream) {
   const unsigned blocks = (unsigned)((long long)B * n_tiles * h);
   int smem = shared_bytes_pos(stage_elems, G, (int)sizeof(T));
   cudaError_t e = allow_shared(msda_bwd_pos_kernel<T, V, G, K>, smem);
   if (e != cudaSuccess) return (int)e;
   msda_bwd_pos_kernel<T, V, G, K><<<blocks, kThreads, smem, stream>>>(
-      value, levels, tiles, pos, weight, grad_out, d_pos, d_weight, S, Nq, h,
-      d, L, P, n_tiles, stage_elems);
+      value, levels, tiles, perm, pos, weight, grad_out, d_pos, d_weight, S,
+      Nq, h, d, L, P, n_tiles, stage_elems);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   smem = shared_bytes_value(stage_elems, G, d, P);
   e = allow_shared(msda_bwd_value_kernel<T, V, G, K>, smem);
   if (e != cudaSuccess) return (int)e;
   msda_bwd_value_kernel<T, V, G, K><<<blocks, kThreads, smem, stream>>>(
-      levels, tiles, pos, weight, grad_out, d_value, S, Nq, h, d, L, P,
+      levels, tiles, perm, pos, weight, grad_out, d_value, S, Nq, h, d, L, P,
       n_tiles, stage_elems);
   return (int)cudaGetLastError();
 }
@@ -537,12 +544,12 @@ inline int finish(const float* acc, bf16* d_value, long long n,
 }
 
 template <typename T, int V, int G, int K>
-int run(const T* value, const int* levels, const int* tiles, const float* pos,
-        const float* weight, const T* grad_out, float* d_value_acc,
-        T* d_value, float* d_pos, float* d_weight, int B, int S, int Nq, int h,
-        int d, int L, int P, int n_tiles, int stage_elems,
-        cudaStream_t stream) {
-  const int err = launch<T, V, G, K>(value, levels, tiles, pos, weight,
+int run(const T* value, const int* levels, const int* tiles, const int* perm,
+        const float* pos, const float* weight, const T* grad_out,
+        float* d_value_acc, T* d_value, float* d_pos, float* d_weight, int B,
+        int S, int Nq, int h, int d, int L, int P, int n_tiles,
+        int stage_elems, cudaStream_t stream) {
+  const int err = launch<T, V, G, K>(value, levels, tiles, perm, pos, weight,
                                      grad_out, d_value_acc, d_pos, d_weight, B,
                                      S, Nq, h, d, L, P, n_tiles, stage_elems,
                                      stream);
@@ -553,8 +560,8 @@ int run(const T* value, const int* levels, const int* tiles, const float* pos,
 }  // namespace
 
 // value (B, S, h, d) and grad_out (B, Nq, h·d) of MSDA_T (float for
-// `msda_bwd`, __nv_bfloat16 for `msda_bwd_bf16`); levels, tiles, pos, weight,
-// vec, lanes and stage_elems as `msda_fwd` takes them (csrc/msda.cu);
+// `msda_bwd`, __nv_bfloat16 for `msda_bwd_bf16`); levels, tiles, perm, pos,
+// weight, vec, lanes and stage_elems as `msda_fwd` takes them (csrc/msda.cu);
 // outputs d_value (B, S, h, d) of MSDA_T, d_pos and d_weight f32 in the
 // shapes of pos and weight; d_value_acc: f32, the value's shape, zeroed here
 // and summed into (for `msda_bwd` it is d_value itself; for `msda_bwd_bf16`
@@ -564,8 +571,9 @@ int run(const T* value, const int* levels, const int* tiles, const float* pos,
 // and, for bf16, the rounding; returns the CUDA error, or
 // cudaErrorInvalidValue for another instance.
 extern "C" int MSDA_BWD_ENTRY(const MSDA_T* value, const int* levels,
-                              const int* tiles, const float* pos,
-                              const float* weight, const MSDA_T* grad_out,
+                              const int* tiles, const int* perm,
+                              const float* pos, const float* weight,
+                              const MSDA_T* grad_out,
                               float* d_value_acc, MSDA_T* d_value,
                               float* d_pos, float* d_weight, int B, int S,
                               int Nq, int h, int d, int L, int P, int n_tiles,
@@ -577,10 +585,11 @@ extern "C" int MSDA_BWD_ENTRY(const MSDA_T* value, const int* levels,
   if (err != cudaSuccess) return (int)err;
   if ((long long)B * n_tiles * h == 0 || d == 0)
     return finish(d_value_acc, d_value, (long long)B * S * h * d, st);
-#define MSDA_BWD(V, G, K)                                                     \
-  return run<MSDA_T, V, G, K>(value, levels, tiles, pos, weight, grad_out,    \
-                              d_value_acc, d_value, d_pos, d_weight, B, S,    \
-                              Nq, h, d, L, P, n_tiles, stage_elems, st)
+#define MSDA_BWD(V, G, K)                                                   \
+  return run<MSDA_T, V, G, K>(value, levels, tiles, perm, pos, weight,      \
+                              grad_out, d_value_acc, d_value, d_pos,        \
+                              d_weight, B, S, Nq, h, d, L, P, n_tiles,      \
+                              stage_elems, st)
   if (vec == 4 && lanes == 4) MSDA_BWD(4, 4, 1);
   if (vec == 4 && lanes == 8) MSDA_BWD(4, 8, 1);
   if (vec == 4 && lanes == 16) MSDA_BWD(4, 16, 1);

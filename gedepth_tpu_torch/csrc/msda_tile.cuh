@@ -3,14 +3,17 @@
 // one lane does for its lane group, and the staging of a value window in
 // shared memory.
 //
-// A block owns one tile of one query grid, one head and one batch entry.
-// The host plan (gedepth_tpu_torch/ops/msda.py `tile_plan`) gives, for each
-// tile and level, the rectangle of the level that the tile's queries can
-// reach when their offsets are bounded; the block copies that rectangle's
-// head slice into shared memory, pixel-major with d floats a pixel. A
-// rectangle of height 0 means the level is gathered from device memory. The
-// plan is a hint: every sample tests whether its corners lie inside the
-// staged rectangle and goes to device memory when they do not.
+// A block owns one tile of queries, one head and one batch entry. The plan
+// gives, for each tile and level, a rectangle of the level; the block copies
+// that rectangle's head slice into shared memory, pixel-major with d floats
+// a pixel. A rectangle of height 0 means the level is gathered from device
+// memory. The plan is a hint: every sample tests whether its corners lie
+// inside the staged rectangle and goes to device memory when they do not.
+// With a window hint the host plans (gedepth_tpu_torch/ops/msda.py
+// `tile_plan`): a tile is a rectangle of one query grid, its rectangles what
+// its queries can reach when their offsets are bounded. Without one the
+// card plans from the positions (csrc/msda_plan.cu): a tile is a run of 128
+// queries in the order of their keys, its rectangles around those keys.
 //
 // The value's element type T is float or __nv_bfloat16: a bf16 value is
 // staged as bf16 (half the bytes a pixel, so twice the pixels fit a window)
@@ -235,12 +238,21 @@ __device__ __forceinline__ void stage_window(T* stage, const T* vl,
   if constexpr (V == 4) cp_async_wait_all();
 }
 
-// one tile's row of the plan
+// One tile's row of the plan. A host plan (no `perm`) has the same rows for
+// every batch entry: a rectangle (y0, x0, th, tw) of the query grid that
+// starts at q_start and is Wq wide. A plan made on the card
+// (csrc/msda_plan.cu) has rows for each entry: the tile's queries are
+// perm[q_start .. q_start + tw), th = 1.
 struct Tile {
   int q_start, Wq, y0, x0, th, tw;
   const int* rects;
-  __device__ __forceinline__ Tile(const int* tiles, int tile, int L) {
-    const int* row = tiles + tile * (kTileHeader + 4 * L);
+  const int* perm;
+  // the row of block tile `bt` (batch entry b, its tile bt - b·n_tiles)
+  __device__ __forceinline__ Tile(const int* tiles, const int* perm_, int bt,
+                                  int b, int n_tiles, int L) {
+    perm = perm_;
+    const int* row = tiles + (long long)(perm ? bt : bt - b * n_tiles) *
+                                 (kTileHeader + 4 * L);
     q_start = row[0], Wq = row[1], y0 = row[2], x0 = row[3];
     th = row[4], tw = row[5];
     rects = row + kTileHeader;
@@ -249,8 +261,9 @@ struct Tile {
     return Rect{rects[4 * l], rects[4 * l + 1], rects[4 * l + 2],
                 rects[4 * l + 3]};
   }
-  // query index of the tile's i-th query (row-major within the tile)
+  // query index of the tile's i-th query (row-major within a grid tile)
   __device__ __forceinline__ int query(int i) const {
+    if (perm) return perm[q_start + i];
     const int iy = i / tw;
     return q_start + (y0 + iy) * Wq + x0 + (i - iy * tw);
   }

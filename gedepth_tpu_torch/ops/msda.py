@@ -27,14 +27,19 @@ takes grad_out in bf16 and returns d_value in bf16 (summed in f32, rounded
 once), d_pos and d_weights in f32. A bf16 window takes half the shared
 memory, so the tile plan of a bf16 value stages more.
 
-Both kernels walk a tile plan (`tile_plan`): a block owns a rectangle of
-one query grid and one head and, level by level, stages in shared memory
-the value window its queries can reach. The plan needs the query grids
-and the radius that bounds the offsets (`query_shapes`, `window_radius`);
-without them every level is gathered from device memory. The plan only
-makes the kernels fast: a sample that leaves its staged window is read
-from (and, in C, added to) device memory, so any positions are sampled
-correctly.
+Both kernels walk a tile plan: a block owns a tile of queries and one
+head and, level by level, stages in shared memory a value window around
+where the tile's samples fall. With the query grids and the radius that
+bounds the offsets (`query_shapes`, `window_radius`) the host plans
+(`tile_plan`): a tile is a rectangle of one grid. Without them the card
+plans from the positions of the call (`msda_plan`, csrc/msda_plan.cu): it
+orders each entry's queries by a robust centre of their samples, cuts the
+order into tiles of 128, and stages around each tile's centres the levels
+where enough of its samples land; `plan_plain` is its plain version. The
+plan only makes the kernels fast: a sample that leaves its staged window is
+read from (and, in C, added to) device memory, so any positions are
+sampled correctly, and B's output, C's d_pos and d_weights are the same to
+the bit with any plan.
 
 The sampling modes of `gedepth_tpu.ops.msda` differ only in how positions
 are formed; the rules are plain functions on tensors, differentiated by
@@ -118,6 +123,20 @@ def stage_budget(head_dim: int, lanes: int) -> int:
 TILE_CANDIDATES = ((8, 16), (8, 8), (4, 8))
 # ints of a tile's row before its per-level rectangles
 TILE_HEADER = 6
+
+# The plan made on the card (csrc/msda_plan.cu, `plan_plain`): queries of a
+# histogram chunk, the most cell ids (and the one of no cell), the queries a
+# cell of the finest level should hold at most (its side is a power of 2),
+# every how many queries of a tile count, the most levels, the margins
+# counted one by one (and the rest in one bin), and the percent of the
+# counted samples a margin should hold (kCoverPct there)
+PLAN_CHUNK = 1024
+PLAN_MAX_IDS = 8193
+PLAN_CELL_QUERIES = 16
+PLAN_SHARE_STRIDE = 16
+PLAN_MAX_LEVELS = 8
+PLAN_MARGIN_BINS = 64
+PLAN_COVER_PCT = 97
 
 
 def axis_anchor_residual(nq: int, nv: int):
@@ -372,6 +391,275 @@ def _tile_table(query_shapes, spatial_shapes, radius, head_dim, stage_bytes,
         return torch.as_tensor(plan.rows, device=device), plan
 
 
+@dataclasses.dataclass(frozen=True)
+class DevicePlan:
+    """Sizes of a plan made from the positions: the finest level (the keys'
+    level), log2 of a cell's side in its pixels, blocks of 8x8 cells in a
+    row, cell ids (64 a block) plus the one of no cell, histogram chunks
+    and tiles an entry, the most pixels of a staged rectangle and the
+    elements the kernels reserve for it (whole 16-byte units)."""
+    level0: int
+    shift: int
+    n_tx: int
+    n_ids: int
+    n_chunks: int
+    n_tiles: int
+    max_pixels: int
+    stage_elems: int
+
+
+@functools.lru_cache(maxsize=64)
+def device_plan_shape(spatial_shapes, n_queries, head_dim, stage_bytes,
+                      itemsize=4):
+    """The `DevicePlan` of a launch: cells of the finest level as large as
+    hold about PLAN_CELL_QUERIES queries (the queries spread evenly), larger
+    where the ids would pass PLAN_MAX_IDS."""
+    sizes = [H_ * W_ for (H_, W_) in spatial_shapes]
+    level0 = sizes.index(max(sizes))
+    H0, W0 = spatial_shapes[level0]
+    density = n_queries / (H0 * W0)
+
+    def ids(shift):
+        Hc, Wc = ((H0 - 1) >> shift) + 1, ((W0 - 1) >> shift) + 1
+        n_tx = -(-Wc // 8)
+        return -(-Hc // 8) * n_tx * 64 + 1, n_tx
+
+    shift = 0
+    while (4 ** (shift + 1) * density <= PLAN_CELL_QUERIES
+           and 2 ** (shift + 1) <= max(H0, W0)):
+        shift += 1
+    while ids(shift)[0] > PLAN_MAX_IDS:
+        shift += 1
+    n_ids, n_tx = ids(shift)
+    max_pixels = stage_bytes // (itemsize * head_dim)
+    unit = 16 // itemsize
+    return DevicePlan(level0, shift, n_tx, n_ids,
+                      -(-n_queries // PLAN_CHUNK),
+                      -(-n_queries // MAX_TILE_QUERIES), max_pixels,
+                      -(-max_pixels * head_dim // unit) * unit)
+
+
+def _morton3(y, x):
+    m = torch.zeros_like(x)
+    for i in range(3):
+        m |= ((x >> i) & 1) << (2 * i) | ((y >> i) & 1) << (2 * i + 1)
+    return m
+
+
+def _cells_of(ids, n_tx):
+    """(cy, cx) of cell ids: blocks of 8x8 cells in raster order, Morton
+    order inside a block."""
+    t, m = ids >> 6, ids & 63
+    x = sum(((m >> (2 * i)) & 1) << i for i in range(3))
+    y = sum(((m >> (2 * i + 1)) & 1) << i for i in range(3))
+    return (t // n_tx) * 8 + y, (t % n_tx) * 8 + x
+
+
+def plan_keys_plain(pos, spatial_shapes, plan):
+    """(B, Nq) int64 cell id of each query: the per-axis lower median of
+    the cells of its samples on the finest level (32 spread evenly over its
+    h·P where there are more) that have a corner inside it; plan.n_ids − 1
+    for a query with none."""
+    B, Nq, h, L, P, _ = pos.shape
+    H0, W0 = spatial_shapes[plan.level0]
+    xy = pos[:, :, :, plan.level0].float().reshape(B, Nq, h * P, 2)
+    if h * P > 32:          # 32 spread evenly over them
+        xy = xy[:, :, torch.arange(32, device=pos.device) * (h * P) // 32]
+    x, y = xy[..., 0], xy[..., 1]
+    ok = (x > -1) & (x < W0) & (y > -1) & (y < H0)
+    big = 1 << 30
+
+    def median(v, n_):
+        c = torch.where(ok, v, 0).floor().long().clamp(0, n_ - 1)
+        c = torch.where(ok, c >> plan.shift, big).sort(-1).values
+        k = (ok.sum(-1) - 1).clamp_min(0) // 2
+        return c.gather(-1, k[..., None])[..., 0]
+
+    mx, my = median(x, W0), median(y, H0)
+    ids = ((my >> 3) * plan.n_tx + (mx >> 3)) * 64 + _morton3(my & 7, mx & 7)
+    return torch.where(ok.any(-1), ids, plan.n_ids - 1)
+
+
+def _floor_div(a, b):
+    return torch.div(a, b, rounding_mode="floor")
+
+
+def _map_range(a, b, n0, nl):
+    """Level pixels [lo, hi] that the finest level's pixels [a, b] map to
+    (csrc/msda_plan.cu `map_range`)."""
+    lo = _floor_div((2 * a + 1) * nl - n0, 2 * n0).clamp_min(0)
+    hi = _floor_div((2 * b + 3) * nl - n0, 2 * n0).clamp_max(nl - 1)
+    return lo, hi
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanTensors:
+    """A plan made from the positions: `keys` and `perm` (B, Nq), `rows`
+    (B·n_tiles, TILE_HEADER + 4·L) int32, a tile's first int an offset into
+    the flattened perm; `touched` and `staged` (B·n_tiles, L): how many
+    samples of every PLAN_SHARE_STRIDE-th query of the tile touch the level,
+    and how many of them the chosen margin holds (a margin past the
+    counted ones counts as the last; zeros where not even the box fits).
+    The last two only from `plan_plain`."""
+    keys: torch.Tensor
+    perm: torch.Tensor
+    rows: torch.Tensor
+    touched: torch.Tensor | None = None
+    staged: torch.Tensor | None = None
+
+
+def plan_plain(pos, spatial_shapes, head_dim, stage_bytes, itemsize=4):
+    """Plain version of the planning kernel (csrc/msda_plan.cu), integer for
+    integer, on any device: the queries of each entry ordered by their
+    keys, ties by index (a stable sort); a tile of each 128 of that order;
+    for each tile and level the box of the tile's keys mapped to the level,
+    grown by the least margin that holds the four corners of
+    PLAN_COVER_PCT percent of the counted samples touching the level (the
+    largest margin that keeps it within the pixels `stage_bytes` holds,
+    where that holds fewer) and clipped, staged wherever the box fits and a
+    counted sample touches the level."""
+    spatial_shapes = tuple((int(H_), int(W_)) for (H_, W_) in spatial_shapes)
+    B, Nq, h, L, P, _ = pos.shape
+    plan = device_plan_shape(spatial_shapes, Nq, head_dim, stage_bytes,
+                             itemsize)
+    keys = plan_keys_plain(pos, spatial_shapes, plan)
+    perm = torch.sort(keys, dim=1, stable=True).indices
+    T, Q = plan.n_tiles, MAX_TILE_QUERIES
+    pad = T * Q - Nq
+    none = plan.n_ids - 1
+    sorted_ids = torch.nn.functional.pad(keys.gather(1, perm), (0, pad),
+                                         value=none).view(B, T, Q)
+    valid = sorted_ids != none
+    cy, cx = _cells_of(sorted_ids, plan.n_tx)
+    big = 1 << 30
+    box = [torch.where(valid, c, big).amin(-1) for c in (cy, cx)]
+    box_hi = [torch.where(valid, c, -big).amax(-1) for c in (cy, cx)]
+    has = valid.any(-1)
+    H0, W0 = spatial_shapes[plan.level0]
+    # every PLAN_SHARE_STRIDE-th query of each tile (-1: past the last)
+    sub = torch.arange(0, Q, PLAN_SHARE_STRIDE, device=pos.device)
+    counted = torch.nn.functional.pad(perm, (0, pad), value=-1).view(
+        B, T, Q)[:, :, sub]
+    live = counted >= 0
+    flat = pos.reshape(B, Nq, h, L, P, 2)
+    picked = flat[torch.arange(B, device=pos.device)[:, None, None],
+                  counted.clamp_min(0)]                # (B, T, n, h, L, P, 2)
+    cnt = torch.clamp(Nq - torch.arange(T, device=pos.device) * Q, max=Q)
+    rows = torch.zeros(B, T, TILE_HEADER + 4 * L, dtype=torch.int64,
+                       device=pos.device)
+    rows[:, :, 0] = (torch.arange(B, device=pos.device)[:, None] * Nq
+                     + torch.arange(T, device=pos.device)[None] * Q)
+    rows[:, :, 1] = -1
+    rows[:, :, 4] = 1
+    rows[:, :, 5] = cnt
+    touched = torch.zeros(B, T, L, dtype=torch.int64, device=pos.device)
+    staged = torch.zeros_like(touched)
+    for l, (Hl, Wl) in enumerate(spatial_shapes):
+        ylo, yhi = _map_range(box[0] << plan.shift,
+                              torch.clamp(((box_hi[0] + 1) << plan.shift) - 1,
+                                          max=H0 - 1), H0, Hl)
+        xlo, xhi = _map_range(box[1] << plan.shift,
+                              torch.clamp(((box_hi[1] + 1) << plan.shift) - 1,
+                                          max=W0 - 1), W0, Wl)
+
+        def area(m):
+            return ((torch.clamp(yhi + m, max=Hl - 1)
+                     - torch.clamp(ylo - m, min=0) + 1)
+                    * (torch.clamp(xhi + m, max=Wl - 1)
+                       - torch.clamp(xlo - m, min=0) + 1))
+
+        # the largest margin that fits the budget (-1: not even the box)
+        lo = torch.zeros_like(ylo)
+        hi = torch.full_like(ylo, max(Hl, Wl))
+        while bool((lo < hi).any()):
+            active = lo < hi
+            mid = (lo + hi + 1) >> 1
+            ok = area(mid) <= plan.max_pixels
+            lo = torch.where(active & ok, mid, lo)
+            hi = torch.where(active & ~ok, mid - 1, hi)
+        fits = torch.where(has & (area(0) <= plan.max_pixels), lo, -1)
+        # the margin each counted sample needs, cornered as kernels B and C
+        # clamp them
+        x0f = picked[..., l, :, 0].floor()      # (B, T, n, h, P)
+        y0f = picked[..., l, :, 1].floor()
+        touch = ((fits >= 0)[:, :, None, None, None] & live[..., None, None]
+                 & (x0f >= -1) & (x0f < Wl) & (y0f >= -1) & (y0f < Hl))
+        x0 = torch.where(touch, x0f, 0).long()
+        y0 = torch.where(touch, y0f, 0).long()
+        at = (slice(None), slice(None), None, None, None)
+        m = torch.stack([ylo[at] - y0.clamp_min(0),
+                         (y0 + 1).clamp_max(Hl - 1) - yhi[at],
+                         xlo[at] - x0.clamp_min(0),
+                         (x0 + 1).clamp_max(Wl - 1) - xhi[at]]).amax(0)
+        bins = m.clamp(0, PLAN_MARGIN_BINS - 1)
+        hist = torch.zeros(B, T, PLAN_MARGIN_BINS, dtype=torch.int64,
+                           device=pos.device).scatter_add_(
+            2, bins.view(B, T, -1), touch.view(B, T, -1).long())
+        n = touch.sum((2, 3, 4))
+        held_at = hist.cumsum(-1)
+        last = torch.clamp(fits, max=PLAN_MARGIN_BINS - 2)
+        reach = ((100 * held_at >= PLAN_COVER_PCT * n[..., None])
+                 & (torch.arange(PLAN_MARGIN_BINS, device=pos.device)
+                    <= last[..., None]))
+        covered = reach.any(-1)
+        first = reach.long().argmax(-1)
+        margin = torch.where(covered, first, fits)
+        held = held_at.gather(-1, torch.where(covered, first, last)
+                              .clamp_min(0)[..., None])[..., 0]
+        on = (fits >= 0) & (n > 0)     # staged
+        ry, rx = torch.clamp(ylo - margin, min=0), torch.clamp(xlo - margin,
+                                                               min=0)
+        rh = torch.clamp(yhi + margin, max=Hl - 1) - ry + 1
+        rw = torch.clamp(xhi + margin, max=Wl - 1) - rx + 1
+        rect = torch.stack([ry, rx, rh, rw], -1)
+        rows[:, :, TILE_HEADER + 4 * l:TILE_HEADER + 4 * l + 4] = torch.where(
+            on[..., None], rect, 0)
+        touched[:, :, l], staged[:, :, l] = n, held
+    return PlanTensors(keys.to(torch.int32), perm.to(torch.int32),
+                       rows.view(B * T, -1).to(torch.int32),
+                       touched.view(B * T, L), staged.view(B * T, L))
+
+
+def msda_plan(pos, spatial_shapes, head_dim, stage_bytes, itemsize=4):
+    """The tile plan of an unhinted launch of B or C, made from the
+    positions (`plan_plain` describes it): the planning kernel of
+    csrc/msda_plan.cu on a CUDA tensor, which waits for nothing on the host
+    (the sizes follow from the shapes; every buffer is allocated here),
+    `plan_plain` on a CPU tensor. Returns `PlanTensors` (keys, perm, rows)
+    on pos's device. pos: (B, Nq, h, L, P, 2) f32, contiguous, L <=
+    PLAN_MAX_LEVELS."""
+    spatial_shapes = tuple((int(H_), int(W_)) for (H_, W_) in spatial_shapes)
+    if pos.device.type == "cpu":
+        got = plan_plain(pos, spatial_shapes, head_dim, stage_bytes,
+                         itemsize)
+        return PlanTensors(got.keys, got.perm, got.rows)
+    if pos.device.type != "cuda":
+        raise ValueError(f"msda_plan: no kernel for {pos.device}")
+    B, Nq, h, L, P, _ = pos.shape
+    if pos.dtype != torch.float32 or not pos.is_contiguous() \
+            or pos.data_ptr() % 8:
+        raise ValueError("msda_plan takes contiguous, 8-byte aligned f32 "
+                         "positions")
+    if L > PLAN_MAX_LEVELS:
+        raise ValueError(f"msda_plan: {UNPLANNED_LEVELS} ({L} levels)")
+    plan = device_plan_shape(spatial_shapes, Nq, head_dim, stage_bytes,
+                             itemsize)
+    width = TILE_HEADER + 4 * L
+    sizes = (B * Nq, B * (plan.n_chunks + 1) * plan.n_ids, B * Nq,
+             B * plan.n_tiles * width)
+    keys, hist, perm, rows = torch.empty(
+        sum(sizes), dtype=torch.int32, device=pos.device).split(sizes)
+    levels = _level_table(spatial_shapes, pos.device)
+    _lib.call("msda_plan", pos.data_ptr(), levels.data_ptr(),
+              keys.data_ptr(), hist.data_ptr(), perm.data_ptr(),
+              rows.data_ptr(), B, Nq, h, L, P, plan.level0, plan.shift,
+              plan.n_tx, plan.n_ids, plan.max_pixels)
+    msda_plan.launches += 1
+    msda_plan.launches_by_queries[Nq] += 1
+    return PlanTensors(keys.view(B, Nq), perm.view(B, Nq),
+                       rows.view(B * plan.n_tiles, width))
+
+
 def msda_plain(value, spatial_shapes, pos, weights):
     """Plain PyTorch version: four corner gathers per level, chunked over
     queries. A bf16 value is lifted to f32 and the result rounded to bf16
@@ -493,42 +781,111 @@ def _check_kernel_inputs(value, spatial_shapes, pos, weights, grad_out=None):
                          "pos must be 8-byte aligned")
 
 
-def _plan_args(value, spatial_shapes, window, *tensors):
-    """The kernel instance and plan of a launch: (levels, tile table, tile
-    count, stage elements, elements per lane, lanes per query)."""
-    d, itemsize = value.shape[3], value.element_size()
+# The unhinted launches that walk the unplanned rows (`tile_plan` without a
+# radius: 128 queries a tile in index order, nothing staged); the wrapper
+# counts them by reason (`msda.unplanned`, `msda_backward.unplanned`). More
+# levels than a plan holds, and a corner list that outgrows an SM, are
+# inputs the plan cannot take. Narrow corners are not: at them the plan
+# does not yet pay for itself (its five dependent launches and its host
+# time cost more than staging saves), and they stay on the unplanned rows
+# until it does.
+UNPLANNED_LEVELS = "more levels than a plan holds"
+UNPLANNED_CORNER = "narrow corners: the plan costs more than it saves yet"
+# The least bytes of a corner with which a launch plans, measured on the
+# H100 by tests/msda_plan_rules.py: B reads d elements of the value a corner
+# (f32 at d = 64 gains by the plan, bf16 at d = 64 and f32 at d = 8 lose
+# by it); C adds d f32 sums a corner (d = 64 gains in f32 and bf16, d = 8
+# loses)
+PLAN_MIN_CORNER_BYTES_FORWARD = 256
+PLAN_MIN_CORNER_BYTES_BACKWARD = 128
+UNPLANNED_CORNERS = "a tile's corner list outgrows an SM"
+
+
+@dataclasses.dataclass(frozen=True)
+class _Launch:
+    """What a launch of B or C takes besides its tensors."""
+    levels: int
+    tiles: int
+    perm: int              # 0: the rows are a host plan's
+    n_tiles: int
+    stage_elems: int
+    vec: int
+    lanes: int
+    keep: tuple = ()       # the device plan's tensors, alive until launch
+
+
+def _lanes(value, *tensors):
     aligned = all(t.data_ptr() % 16 == 0 for t in (value, *tensors))
-    vec, lanes = channel_lanes(d, aligned, itemsize)
-    query_shapes, radius = window
-    table, plan = _tile_table(query_shapes, spatial_shapes, radius, d,
-                              stage_budget(d, lanes), itemsize, value.device)
+    return channel_lanes(value.shape[3], aligned, value.element_size())
+
+
+def _plan_args(value, spatial_shapes, window, pos, unplanned, *tensors):
+    """The kernel instance and plan of a launch. With a window hint the host
+    plan (`tile_plan`); without one the plan made on the card from `pos`
+    (`msda_plan`), unless `unplanned` names why the launch cannot take it
+    (or is True: the caller asks for the unplanned rows)."""
+    d, itemsize = value.shape[3], value.element_size()
+    vec, lanes = _lanes(value, *tensors)
     levels = _level_table(spatial_shapes, value.device)
-    return (levels.data_ptr(), table.data_ptr(), len(plan.rows),
-            plan.stage_elems, vec, lanes)
+    query_shapes, radius = window
+    stage_bytes = stage_budget(d, lanes)
+    if radius is None and not unplanned:
+        got = msda_plan(pos, spatial_shapes, d, stage_bytes, itemsize)
+        plan = device_plan_shape(spatial_shapes, pos.shape[1], d, stage_bytes,
+                                 itemsize)
+        return _Launch(levels.data_ptr(), got.rows.data_ptr(),
+                       got.perm.data_ptr(), plan.n_tiles, plan.stage_elems,
+                       vec, lanes, (got.perm, got.rows))
+    table, plan = _tile_table(query_shapes, spatial_shapes, radius, d,
+                              stage_bytes, itemsize, value.device)
+    return _Launch(levels.data_ptr(), table.data_ptr(), 0, len(plan.rows),
+                   plan.stage_elems, vec, lanes)
 
 
 def _entry(name, value):
     return name + "_bf16" if value.dtype == torch.bfloat16 else name
 
 
-def _launch_forward(value, spatial_shapes, pos, weights, window):
-    """Kernel B on CUDA tensors already checked."""
+def _plan_reason(value, pos, forward):
+    """Why a launch of B (`forward`) or C takes the unplanned rows, or
+    None."""
+    if pos.shape[3] > PLAN_MAX_LEVELS:
+        return UNPLANNED_LEVELS
+    d = value.shape[3]
+    if (d * value.element_size() < PLAN_MIN_CORNER_BYTES_FORWARD if forward
+            else 4 * d < PLAN_MIN_CORNER_BYTES_BACKWARD):
+        return UNPLANNED_CORNER
+    return None
+
+
+def _launch_forward(value, spatial_shapes, pos, weights, window,
+                    planned=True):
+    """Kernel B on CUDA tensors already checked. planned=False: the
+    unplanned rows, whatever the window (what a plan is held against)."""
     B, S, h, d = value.shape
     Nq, L, P = pos.shape[1], pos.shape[3], pos.shape[4]
     out = value.new_empty(B, Nq, h * d)
-    levels, tiles, n_tiles, stage_elems, vec, lanes = _plan_args(
-        value, spatial_shapes, window, out)
-    _lib.call(_entry("msda_fwd", value), value.data_ptr(), levels, tiles,
-              pos.data_ptr(), weights.data_ptr(), out.data_ptr(), B, S, Nq, h,
-              d, L, P, n_tiles, stage_elems, vec, lanes)
+    unplanned = None
+    if planned and window[1] is None:
+        unplanned = _plan_reason(value, pos, True)
+        if unplanned:
+            msda.unplanned[unplanned] += 1
+    elif not planned:
+        window, unplanned = (((1, Nq),), None), True
+    a = _plan_args(value, spatial_shapes, window, pos, unplanned, out)
+    _lib.call(_entry("msda_fwd", value), value.data_ptr(), a.levels, a.tiles,
+              a.perm, pos.data_ptr(), weights.data_ptr(), out.data_ptr(), B,
+              S, Nq, h, d, L, P, a.n_tiles, a.stage_elems, a.vec, a.lanes)
     msda.launches += 1
     msda.launches_by_queries[Nq] += 1
     msda.launches_by_dtype[value.dtype] += 1
     return out
 
 
-def _launch_backward(value, spatial_shapes, pos, weights, grad_out, window):
-    """Kernel C on CUDA tensors already checked."""
+def _launch_backward(value, spatial_shapes, pos, weights, grad_out, window,
+                     planned=True):
+    """Kernel C on CUDA tensors already checked; `planned` as in
+    `_launch_forward`."""
     B, S, h, d = value.shape
     Nq, L, P = pos.shape[1], pos.shape[3], pos.shape[4]
     d_value = torch.empty_like(value)
@@ -537,17 +894,34 @@ def _launch_backward(value, spatial_shapes, pos, weights, grad_out, window):
            else torch.empty_like(value, dtype=torch.float32))
     d_pos = torch.empty_like(pos)
     d_weights = torch.empty_like(weights)
-    plan = _plan_args(value, spatial_shapes, window, grad_out, d_value, acc)
-    if shared_bytes_backward(plan[3], d, plan[5], P) > SM_SHARED_BYTES - 1024:
-        # so many points that a tile's corner list outgrows an SM: no bins
-        plan = _plan_args(value, spatial_shapes, (((1, Nq),), None),
-                          grad_out, d_value, acc)
-    levels, tiles, n_tiles, stage_elems, vec, lanes = plan
-    _lib.call(_entry("msda_bwd", value), value.data_ptr(), levels, tiles,
-              pos.data_ptr(), weights.data_ptr(), grad_out.data_ptr(),
+    tensors = (grad_out, d_value, acc)
+    unplanned = None
+    if not planned:
+        window, unplanned = (((1, Nq),), None), True
+    else:
+        lanes, itemsize = _lanes(value, *tensors)[1], value.element_size()
+        budget = stage_budget(d, lanes)
+        if window[1] is None:
+            unplanned = _plan_reason(value, pos, False)
+            stage_elems = device_plan_shape(spatial_shapes, Nq, d, budget,
+                                            itemsize).stage_elems
+        else:
+            stage_elems = tile_plan(window[0], spatial_shapes, window[1], d,
+                                    budget, itemsize).stage_elems
+        if shared_bytes_backward(stage_elems, d, lanes, P) \
+                > SM_SHARED_BYTES - 1024:
+            # so many points that a tile's corner list outgrows an SM: no
+            # bins
+            unplanned = UNPLANNED_CORNERS
+            window = (((1, Nq),), None)
+        if unplanned:
+            msda_backward.unplanned[unplanned] += 1
+    a = _plan_args(value, spatial_shapes, window, pos, unplanned, *tensors)
+    _lib.call(_entry("msda_bwd", value), value.data_ptr(), a.levels, a.tiles,
+              a.perm, pos.data_ptr(), weights.data_ptr(), grad_out.data_ptr(),
               acc.data_ptr(), d_value.data_ptr(), d_pos.data_ptr(),
-              d_weights.data_ptr(), B, S, Nq, h, d, L, P, n_tiles,
-              stage_elems, vec, lanes)
+              d_weights.data_ptr(), B, S, Nq, h, d, L, P, a.n_tiles,
+              a.stage_elems, a.vec, a.lanes)
     msda_backward.launches += 1
     msda_backward.launches_by_queries[Nq] += 1
     msda_backward.launches_by_dtype[value.dtype] += 1
@@ -746,9 +1120,10 @@ def msda(value, spatial_shapes, pos, weights, query_shapes=None,
     `query_shapes` (the row-major query grids, concatenated) and
     `window_radius` tell the kernels that every sample lies within the
     radius, in level pixels, of its query's anchor, as
-    `windowed_positions` forms them: the kernels then stage value windows
-    in shared memory. They change no result: positions that leave the
-    window, or a call without them, are sampled from device memory."""
+    `windowed_positions` forms them: the host then plans the value windows
+    the kernels stage in shared memory. Without them the card plans them
+    from the positions (`msda_plan`). Neither changes a result: positions
+    that leave their window are sampled from device memory."""
     shapes, grids, radius = _op_args(value, spatial_shapes, pos, weights,
                                      query_shapes, window_radius)
     return msda_op(value, shapes, pos, weights, grids, radius)
@@ -774,6 +1149,26 @@ def msda_backward(value, spatial_shapes, pos, weights, grad_out,
                             radius)
 
 
+def msda_unplanned(value, spatial_shapes, pos, weights):
+    """Kernel B over the unplanned rows (128 queries a tile in index order,
+    nothing staged), on CUDA tensors: what the card's plan is held against.
+    The main path never calls it."""
+    spatial_shapes = tuple((int(H_), int(W_)) for (H_, W_) in spatial_shapes)
+    _check(value, spatial_shapes, pos, weights)
+    _check_kernel_inputs(value, spatial_shapes, pos, weights)
+    return _launch_forward(value, spatial_shapes, pos, weights, None,
+                           planned=False)
+
+
+def msda_backward_unplanned(value, spatial_shapes, pos, weights, grad_out):
+    """Kernel C over the unplanned rows, as `msda_unplanned`."""
+    spatial_shapes = tuple((int(H_), int(W_)) for (H_, W_) in spatial_shapes)
+    _check(value, spatial_shapes, pos, weights)
+    _check_kernel_inputs(value, spatial_shapes, pos, weights, grad_out)
+    return _launch_backward(value, spatial_shapes, pos, weights, grad_out,
+                            None, planned=False)
+
+
 msda.launches = 0
 msda_backward.launches = 0
 # the same launches by queries per sample, which tells a model's
@@ -783,3 +1178,8 @@ msda_backward.launches_by_queries = collections.Counter()
 # and by the value's dtype: which instance ran
 msda.launches_by_dtype = collections.Counter()
 msda_backward.launches_by_dtype = collections.Counter()
+# the launches that walked the unplanned rows by design, by reason
+msda.unplanned = collections.Counter()
+msda_backward.unplanned = collections.Counter()
+msda_plan.launches = 0
+msda_plan.launches_by_queries = collections.Counter()

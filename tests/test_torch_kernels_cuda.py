@@ -419,6 +419,124 @@ def test_msda_kernels_over_tile_plan(case, where):
         assert torch.equal(grads[2], again[2])
 
 
+# --- the plan made on the card from the positions (csrc/msda_plan.cu)
+
+def _exact_case(g, levels, B, Nq, h, P, spread=3.0, dtype=torch.float32,
+                d=64):
+    """Exact positions around reference points drawn anywhere on the level
+    (as learned ones put neighbouring queries), each entry its own, a
+    twentieth of the samples thrown tens of pixels or 1e6 away."""
+    L = len(levels)
+    S = sum(a * b for a, b in levels)
+    ref = torch.rand(B, Nq, L, 2, generator=g, device="cuda")
+    ref = ref[:, :, :1].expand(B, Nq, L, 2)
+    off = spread * _randn(g, B, Nq, h, L, P, 2)
+    pos = msda_ops.exact_positions(ref, off, levels)
+    hit = torch.rand(pos.shape[:-1], generator=g, device="cuda") < 0.05
+    very = torch.rand(pos.shape[:-1], generator=g, device="cuda") < 0.1
+    kick = _randn(g, *pos.shape) * torch.where(very, 1e6, 60.0)[..., None]
+    pos = (pos + kick * hit[..., None]).contiguous()
+    w = _randn(g, B, Nq, h, L * P).softmax(-1).view(B, Nq, h, L, P)
+    value = _randn(g, B, S, h, d).to(dtype)
+    gout = _randn(g, B, Nq, h * d).to(dtype)
+    return value, pos, w, gout
+
+
+PLAN_CASES = {
+    # levels, B, Nq, h, P, d
+    "hahi_like": (((44, 76), (22, 38), (11, 19), (6, 10)), 2, 3000, 8, 8,
+                  64),
+    "binsformer_like": (((30, 40), (15, 20), (8, 10)), 2, 1500, 8, 4, 8),
+    "ragged": (((13, 29), (7, 15)), 2, 333, 3, 5, 24),
+}
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("case", sorted(PLAN_CASES))
+def test_msda_plan_kernel_equals_plain(case, itemsize):
+    """The planning kernel against `plan_plain`, integer for integer, and a
+    second run against the first."""
+    levels, B, Nq, h, P, d = PLAN_CASES[case]
+    g = torch.Generator(device="cuda").manual_seed(21)
+    _, pos, _, _ = _exact_case(g, levels, B, Nq, h, P, d=d)
+    _, lanes = msda_ops.channel_lanes(d, itemsize=itemsize)
+    budget = msda_ops.stage_budget(d, lanes)
+    before = msda_ops.msda_plan.launches
+    got = msda_ops.msda_plan(pos, levels, d, budget, itemsize)
+    again = msda_ops.msda_plan(pos, levels, d, budget, itemsize)
+    torch.cuda.synchronize()
+    assert msda_ops.msda_plan.launches == before + 2
+    want = msda_ops.plan_plain(pos.cpu(), levels, d, budget, itemsize)
+    for name in ("keys", "perm", "rows"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), \
+            name
+        assert torch.equal(getattr(got, name), getattr(again, name))
+    assert (want.rows[:, msda_ops.TILE_HEADER + 2::4] > 0).any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(PLAN_CASES))
+def test_planned_kernels_equal_unplanned(case, dtype, monkeypatch):
+    """B over the card's plan equals B over the unplanned rows bit for bit,
+    C's d_pos and d_weights likewise; d_value within today's tolerance of
+    the plain version (f32) or of the unplanned kernel (bf16: one rounding
+    of f32 sums that differ in their last bits). Batch 2, each entry its
+    own offsets; levels are staged. B and C are planned here whatever their
+    corners' bytes (the main path plans them from PLAN_MIN_CORNER_BYTES_*
+    on)."""
+    monkeypatch.setattr(msda_ops, "PLAN_MIN_CORNER_BYTES_FORWARD", 0)
+    monkeypatch.setattr(msda_ops, "PLAN_MIN_CORNER_BYTES_BACKWARD", 0)
+    levels, B, Nq, h, P, d = PLAN_CASES[case]
+    g = torch.Generator(device="cuda").manual_seed(22)
+    value, pos, w, gout = _exact_case(g, levels, B, Nq, h, P, dtype=dtype,
+                                      d=d)
+    plan = msda_ops.msda_plan(pos, levels, d, msda_ops.stage_budget(
+        d, msda_ops.channel_lanes(d, itemsize=value.element_size())[1]),
+        value.element_size())
+    assert (plan.rows[:, msda_ops.TILE_HEADER + 2::4] > 0).any()
+    plans = msda_ops.msda_plan.launches
+    got = msda_ops.msda(value, levels, pos, w)
+    want = msda_ops.msda_unplanned(value, levels, pos, w)
+    assert torch.equal(got, want)
+    grads = msda_ops.msda_backward(value, levels, pos, w, gout)
+    assert msda_ops.msda_plan.launches == plans + 2
+    ref = msda_ops.msda_backward_unplanned(value, levels, pos, w, gout)
+    torch.cuda.synchronize()
+    assert torch.equal(grads[1], ref[1]) and torch.equal(grads[2], ref[2])
+    if dtype == torch.float32:
+        _assert_msda_grads(grads, msda_ops.msda_backward_plain(
+            value, levels, pos, w, gout))
+    else:
+        torch.testing.assert_close(
+            grads[0].float(), ref[0].float(), rtol=8e-3,
+            atol=8e-3 * ref[0].float().abs().max().item())
+
+
+@pytest.mark.parametrize("case,dtype", [("binsformer_like", torch.float32),
+                                        ("hahi_like", torch.bfloat16)])
+def test_unplanned_launches_are_counted_by_reason(case, dtype):
+    """Corners below PLAN_MIN_CORNER_BYTES_*: B of bf16 at d = 64 and B and
+    C at d = 8 take the unplanned rows and count under their reason; C of
+    bf16 at d = 64 plans."""
+    g = torch.Generator(device="cuda").manual_seed(23)
+    levels, B, Nq, h, P, d = PLAN_CASES[case]
+    value, pos, w, gout = _exact_case(g, levels, B, Nq, h, P, d=d,
+                                      dtype=dtype)
+    reason = msda_ops.UNPLANNED_CORNER
+    before = (msda_ops.msda.unplanned[reason],
+              msda_ops.msda_backward.unplanned[reason],
+              msda_ops.msda_plan.launches)
+    got = msda_ops.msda(value, levels, pos, w)
+    msda_ops.msda_backward(value, levels, pos, w, gout)
+    torch.cuda.synchronize()
+    c_plans = dtype == torch.bfloat16
+    assert (msda_ops.msda.unplanned[reason],
+            msda_ops.msda_backward.unplanned[reason],
+            msda_ops.msda_plan.launches) == (
+        before[0] + 1, before[1] + (not c_plans), before[2] + c_plans)
+    assert torch.equal(got, msda_ops.msda_unplanned(value, levels, pos, w))
+
+
 def test_msda_kernels_unaligned_value_take_the_scalar_instance():
     """A value that is not 16-byte aligned is read float by float."""
     g = torch.Generator(device="cuda").manual_seed(12)
