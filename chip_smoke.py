@@ -9,10 +9,12 @@ GPU.
 process, which the script starts itself.)
 
 Phases, each printing its lines (and, per group of phases, a `[time]` line
-with its host-clock seconds); any failure raises and exits non-zero:
+with its host-clock seconds; at the end one more with the run's total and
+its five costliest laps); any failure raises and exits non-zero:
   1. device: the card's name and power limit (nvidia-smi), CUDA version and
      capability; TF32 off for matmuls and convolutions;
-  2. build: the CUDA kernels of gedepth_tpu_torch/csrc with nvcc;
+  2. build: the CUDA kernels of gedepth_tpu_torch/csrc with nvcc, in a
+     thread while phase 23 writes its trees (its timings wait for it);
   3. kernels: each kernel against its plain PyTorch version at the
      full-width shapes of the serving slice, with the stated tolerance, the
      median CUDA-event time of both (which holds the wrapper's host time
@@ -104,7 +106,8 @@ with its host-clock seconds); any failure raises and exits non-zero:
  13. kernels, bf16: the bf16 instances of A (stage 1 shifted, serving and
      train crop, packed qkv, bf16 bias, f32 mask), B (serving shapes under
      the windowed, compat R = 5 and exact rules) and C (the train crop's
-     windowed self- and cross-attention and the exact self-attention), each
+     windowed self- and cross-attention and the exact self- and
+     cross-attention, these over the plan the card makes), each
      against a float64 evaluation of the same bf16 inputs: its largest
      error at most max(2 x the plain bf16 version's, one bf16 ulp of the
      output's largest magnitude; for C's f32 outputs 1e-5 of theirs). A
@@ -214,7 +217,9 @@ with its host-clock seconds); any failure raises and exits non-zero:
      `python -m torch.distributed.run --nproc_per_node 1 -m
      gedepth_tpu_torch.tools.train <main preset> --multihost` for 2 steps
      from the KITTI tree, then `tools.test --multihost` on its
-     best_abs_rel.npz; world 1, backend nccl, finite metrics;
+     best_abs_rel.npz; world 1, backend nccl, finite metrics; both at a
+     cut depth (Swin-L's stages of 2 blocks, its full widths: phase 7
+     holds the full depth);
  30. stage-1 pretraining: `tools.pretrain_pe_mask gedepth_adaptive_kitti`
      from the KITTI tree, 3 steps at batch 2 (HAHI on the exact rule: B and
      C at 20,570 and 61,952 queries a sample), the ground-mask IoU of 4
@@ -258,8 +263,12 @@ with its host-clock seconds); any failure raises and exits non-zero:
      (ResNet-50 + DenseDepth) and `dpt_kitti` (ViT-B + DPT) from the KITTI
      tree, and `adabins_nyu` (EfficientNet-b0 + AdaBins) and
      `binsformer_nyu` (Swin-T + BinsFormer) from an NYU tree of
-     `tools.make_tree` (3 scenes of 4 frames at 480x640), f32 with cuDNN's
-     autotuner, each with the port's kernel counts set to 0 before its
+     `tools.make_tree` (3 scenes of 4 frames at 480x640), f32 on cuDNN's
+     heuristic (the autotuner patched off in `train()`, the serving and
+     the timed steps: its searches took 51 s of the phase; the steps then
+     time the heuristic's algorithms, dpt's ~27% slower than autotuned,
+     PERF.md §5), each with the port's kernel
+     counts set to 0 before its
      requests and before its training and read after (the first four run
      none of them, as in JAX, where no Pallas kernel lies on the zoo's
      path; BinsFormer as said below): `init_depther` with a seeded
@@ -272,13 +281,13 @@ with its host-clock seconds); any failure raises and exits non-zero:
      decoder's last conv), the request latency, the eval step's CUDA-event
      time and peak memory; `train()` for 3 steps at 352x704 (NYU: 416x544),
      batch 2, from its tree with a work dir: finite losses, the step's time
-     and peak memory, the autotuner's seconds on the first step (its time
-     less a later step's), the evaluation at the last step; the `tb/`
+     and peak memory, the first step's time less a later step's, the
+     evaluation at the last step; the `tb/`
      events read back against the JSONL where the `tensorboard` package
      imports (printed either way); `tools.test` on the tree with the run's
      best `.npz`; then the train step timed as `tools.benchmark
-     --train-step` times it (10 steps by CUDA events after the autotuned
-     first and 3 more; peak memory); for `adabins_nyu` also one step with
+     --train-step` times it (5 steps by CUDA events after the first and 1
+     more; peak memory); for `adabins_nyu` also one step with
      chamfer_weight 0.1 (`[zoo adabins_nyu] chamfer`: its loss terms and
      peak). `binsformer_nyu` (Swin-T + BinsFormer, from the NYU tree) runs
      the port's kernels: exactly 24 A and 12 B (at the encoder's 6,300
@@ -388,6 +397,15 @@ the loader without workers (phase 23's host ms a sample is that rate);
 its batches are still held bit for bit. To make room for the plan's
 checks, phase 9 no longer times B's exact self-attention with window
 hints of 4 and 8 pixels (they did not pay; PERF.md keeps the readings).
+The processes of a run share one bytecode cache (`PYTHONPYCACHEPREFIX`, a
+temporary directory, written even where `PYTHONDONTWRITEBYTECODE` is set,
+as on the card's machine, whose installed packages ship no `.pyc`): each
+process the run starts (the `torchrun` tools, the ranks, the serving
+process, the conversion, the loaders' forkserver) compiled every module
+it imported again, seconds of torch and sympy a process there. To bring the
+run back under its time limit with that, phase 36 runs the zoo on cuDNN's
+heuristic and times 5 steps after 2 (10 after 4 before), and phase 29's
+processes run at a cut depth.
 Imports nothing of JAX. Exits non-zero without a CUDA device.
 """
 from __future__ import annotations
@@ -397,6 +415,8 @@ import contextlib
 import functools
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -404,8 +424,19 @@ import tempfile
 import time
 from unittest import mock
 
-import numpy as np
-import torch
+# the run's bytecode cache, set before the heavy imports: this process
+# writes what it compiles there, and the processes it starts inherit it
+PYCACHE = None
+if __name__ == "__main__" and "PYTHONPYCACHEPREFIX" not in os.environ:
+    PYCACHE = tempfile.mkdtemp(prefix="chip_smoke_pycache_")
+    os.environ["PYTHONPYCACHEPREFIX"] = sys.pycache_prefix = PYCACHE
+    # the card's machine sets PYTHONDONTWRITEBYTECODE, which would keep
+    # every process from writing it: the run writes to its own cache alone
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    sys.dont_write_bytecode = False
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 SEED = 0
 PRESET = "gedepth_adaptive_kitti_tpu"
@@ -661,10 +692,31 @@ def phase_device():
 
 
 def phase_build():
+    """Phase 2 in a thread of its own, so that phase 23 writes its trees
+    while nvcc's processes run; returns the call that waits for it (and
+    raises what the build raised)."""
+    import threading
+
     from gedepth_tpu_torch.ops import _lib
-    _lib.load()
-    print(f"[build] {_lib.library_path().name} in "
-          f"{_lib.build_seconds:.2f} s", flush=True)
+
+    failed = []
+
+    def build():
+        try:
+            _lib.load()
+        except BaseException as e:          # re-raised by the caller
+            failed.append(e)
+
+    thread = threading.Thread(target=build, daemon=True)
+    thread.start()
+
+    def wait():
+        thread.join()
+        if failed:
+            raise failed[0]
+        print(f"[build] {_lib.library_path().name} in "
+              f"{_lib.build_seconds:.2f} s", flush=True)
+    return wait
 
 
 def phase_kernels():
@@ -877,7 +929,8 @@ def phase_kernels_bf16():
         ("exact serving_cross", 1, SERVE_LEVELS, ((176, 608),), True),
         ("windowed train_self", 2, TRAIN_LEVELS, TRAIN_LEVELS[1:], False),
         ("exact train_self", 2, TRAIN_LEVELS, TRAIN_LEVELS, False),
-        ("windowed train_cross", 2, TRAIN_LEVELS, ((176, 352),), False))
+        ("windowed train_cross", 2, TRAIN_LEVELS, ((176, 352),), False),
+        ("exact train_cross", 2, TRAIN_LEVELS, ((176, 352),), True))
     for label, B, levels, grids, learned in cases:
         rule, shape = label.split()
         value = randn(B, sum(a * b for a, b in levels), 8, 64)
@@ -2660,13 +2713,14 @@ def median_ms(fn, n):
     return statistics.median(times)
 
 
-def phase_trees(work):
+def phase_trees(work, before_timing=lambda: None):
     """Phase 23: a KITTI tree (two dates, 375x1242 and 370x1224, a `None`
     pair) and a DDAD tree (CAMERA_01 and CAMERA_05 at 1216x1936, a line of
     a filtered camera) written from seeded data by `tools.make_tree` with
     `utils.png.write_png`, finished by the port's two preprocessing tools;
-    the host ms a sample of the PNG decode and of each whole train chain.
-    Returns {'kitti': tree, 'ddad': tree, 'host_ms': {...}, 'work': work}."""
+    the host ms a sample of the PNG decode and of each whole train chain,
+    after `before_timing()` (which waits for phase 2's build). Returns
+    {'kitti': tree, 'ddad': tree, 'host_ms': {...}, 'work': work}."""
     import os.path as osp
 
     from gedepth_tpu_torch.data import build_train_pipeline
@@ -2693,6 +2747,7 @@ def phase_trees(work):
     print(f"[trees] KITTI and DDAD trees written in {made:.1f} s, "
           f"preprocessed in {time.perf_counter() - t0 - made:.1f} s",
           flush=True)
+    before_timing()        # nothing else takes the host's cores now
     host = {}
     for name, preset, tree in (("kitti", PRESET, kitti),
                                ("ddad", DDAD, ddad)):
@@ -3565,19 +3620,27 @@ def _json_tail(text):
                        if line.startswith("{")][-1])
 
 
+# Swin-L's blocks a stage in phase 29's processes (the preset's: 2, 2, 18, 2)
+NCCL_DEPTHS = (2, 2, 2, 2)
+
+
 def phase_nccl_world_one(tree):
     """Phase 29: `python -m torch.distributed.run --nproc_per_node 1 -m
     gedepth_tpu_torch.tools.train PRESET --multihost` for 2 steps from the
     KITTI tree at global batch 2, crop 176x352, no loader workers (NCCL, a
     world of one), then
     `tools.test --multihost` on its best_abs_rel.npz: both report world 1
-    over NCCL and finite metrics."""
+    over NCCL and finite metrics. Both at a cut depth, Swin-L's stages of
+    2 blocks each at its full widths: phase 7 trains and evaluates the
+    preset at full depth, and what this phase shows is the process
+    group."""
     import os.path as osp
 
     here = osp.dirname(osp.abspath(__file__))
     opts = ["--options", f"data.data_root={tree['root']}",
             f"data.train_split={tree['train']}",
-            f"data.test_split={tree['test']}", "train.global_batch=2"]
+            f"data.test_split={tree['test']}", "train.global_batch=2",
+            f"model.depths={NCCL_DEPTHS}"]
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as work:
         lines = {}
@@ -3864,7 +3927,7 @@ def zoo_serving(preset, requests, counters):
             f"(max |x| {scale:.3g})", head_out, want_head, rtol=1e-3,
             atol=1e-3 * scale)
     print(f"{tag} {n_params} parameters; first request {first_s:.2f} s "
-          f"(init, cuDNN's search); request latency ms "
+          f"(init, first calls); request latency ms "
           f"{[round(x, 3) for x in latencies]}; flip-TTA eval step "
           f"{step_ms:.3f} ms (CUDA events, {h}x{w}); peak {peak:.1f} MiB; "
           f"against the CPU ({cpu_s:.1f} s): max abs {err.max():.3e} m, "
@@ -3906,14 +3969,14 @@ def zoo_training(preset, tree, tb_ok):
                   f"step_peak_mem_mib={r['peak_mem_mib']:.1f}", flush=True)
         check_val(tag, vals, steps, best)
         step_ms = statistics.median(r["time"] for r in history[1:]) * 1e3
-        autotune_s = history[0]["time"] - step_ms / 1e3
+        first_s = history[0]["time"] - step_ms / 1e3
         peak = max(r["peak_mem_mib"] for r in history[1:])
         print(f"{tag} train({preset!r}, max_iters={steps}), global batch 2, "
               f"crop {cfg.data.crop_size}, the {cfg.data.dataset} tree: "
               f"{wall:.1f} s with "
               f"init and evaluation; step {step_ms:.3f} ms, peak "
-              f"{peak:.1f} MiB; cuDNN's autotuner ~{autotune_s:.1f} s on "
-              "the first step", flush=True)
+              f"{peak:.1f} MiB; the first step {first_s:.1f} s longer "
+              "(cuDNN's heuristic)", flush=True)
         if tb_ok:
             check_tb(tag, work)
         elif osp.exists(osp.join(work, "tb")):
@@ -3931,20 +3994,21 @@ def zoo_training(preset, tree, tb_ok):
         print(f"{tag} tools.test with the run's best_abs_rel.npz: "
               f"{json.dumps(line)}", flush=True)
     return {"loop_step_ms": step_ms, "loop_peak_mib": peak,
-            "autotune_s": autotune_s}
+            "first_step_extra_s": first_s}
 
 
-def zoo_step_timing(preset, tag=None, train_hw=None):
+def zoo_step_timing(preset, tag=None, train_hw=None, autotuner=True):
     """The f32 train step at the preset's crop, batch 2, timed as
-    `tools.benchmark --train-step` does (the autotuned first step apart, 3
-    warm-up steps, 10 timed by CUDA events; the profiler's busy time and
-    the idle share)."""
+    `tools.benchmark --train-step` does (the first step apart, with
+    cuDNN's search where its autotuner is on, 1 warm-up step, 5 timed by
+    CUDA events; the profiler's busy time and the idle share)."""
     from gedepth_tpu_torch.tools.benchmark import run_benchmark
 
     tag = tag or f"[zoo {preset}]"
     h, w = train_hw or ZOO_SPECS[preset]["train_hw"]
-    r = run_benchmark(preset, iters=10, warmup=3, batch=2, height=h,
-                      width=w, train_step=True, device="cuda", seed=SEED)
+    r = run_benchmark(preset, iters=5, warmup=1, batch=2, height=h,
+                      width=w, train_step=True, device="cuda", seed=SEED,
+                      autotuner=autotuner)
     print(f"{tag} tools.benchmark --train-step: {json.dumps(r)}",
           flush=True)
     if not r["device_ms_median"] > 0:
@@ -4152,6 +4216,7 @@ def phase_zoo(trees, requests):
     each preset's run but BinsFormer's, which launches A, B and C exactly
     `BINS_PER_REQUEST` times a request and `BINS_PER_STEP` times a step.
     Returns BinsFormer's launches for its `kernels` rows."""
+    import gedepth_tpu_torch.train.loop as train_loop
     from gedepth_tpu_torch.tools.make_tree import make_nyu_tree
 
     try:
@@ -4167,7 +4232,20 @@ def phase_zoo(trees, requests):
                                  root=nyu_root))
     by_tree = {"kitti": requests, "nyu": nyu_requests(trees["nyu"])}
     counters = _kernel_counters()
-    summary, bins = {}, {}
+    summary = {}
+    # cuDNN's heuristic in place of its autotuner, in `train()` and in the
+    # serving and the timed steps of this phase alone
+    with mock.patch.object(train_loop, "cudnn_autotuner",
+                           contextlib.nullcontext):
+        bins = _zoo_presets(trees, by_tree, counters, tb_ok, summary)
+    print(f"[zoo] {json.dumps(summary)}", flush=True)
+    return bins
+
+
+def _zoo_presets(trees, by_tree, counters, tb_ok, summary):
+    """Phase 36's presets, one after the other, into `summary`; returns
+    BinsFormer's launches."""
+    bins = {}
     for preset in ZOO_PRESETS:
         t0 = time.perf_counter()
         tree = trees[ZOO_SPECS[preset]["tree"]]
@@ -4175,7 +4253,7 @@ def phase_zoo(trees, requests):
         served, requested = zoo_serving(
             preset, by_tree[ZOO_SPECS[preset]["tree"]], counters)
         summary[preset] = dict(served, **zoo_training(preset, tree, tb_ok),
-                               **zoo_step_timing(preset))
+                               **zoo_step_timing(preset, autotuner=False))
         if preset == "adabins_nyu":
             summary[preset].update(zoo_chamfer_step(tree))
         torch.cuda.empty_cache()
@@ -4200,7 +4278,6 @@ def phase_zoo(trees, requests):
         print(f"[zoo {preset}] kernel launches: {n} flip-TTA requests "
               f"{requested[0]}, the whole run (serving, training, "
               f"evaluation, tools.test) {launches}; {summary[preset]['seconds']:.1f} s", flush=True)
-    print(f"[zoo] {json.dumps(summary)}", flush=True)
     return bins
 
 
@@ -5334,6 +5411,7 @@ def main():
 
 def run(stack):
     started = last = time.perf_counter()
+    laps = []
 
     def lap(name):
         # host-clock seconds of the phases since the last lap
@@ -5342,13 +5420,15 @@ def run(stack):
         now = time.perf_counter()
         print(f"[time] {name}: {now - last:.1f} s ({now - started:.1f} s "
               "since the start)", flush=True)
+        laps.append((now - last, name))
         last = now
 
     smi = phase_device()
-    phase_build()
-    lap("device, build")
-    trees = phase_trees(stack.enter_context(tempfile.TemporaryDirectory()))
-    lap("KITTI and DDAD trees (phase 23)")
+    built = phase_build()
+    trees = phase_trees(stack.enter_context(tempfile.TemporaryDirectory()),
+                        before_timing=built)
+    lap("device, the build beside the KITTI and DDAD trees (phases 1, 2, "
+        "23)")
     # every kernel against its plain version first, while the process is
     # young: `torch.profiler` loses device activities later on
     results = phase_kernels()
@@ -5467,14 +5547,15 @@ def run(stack):
         "pe_fusion": ("gedepth_tpu_torch/csrc/pe_fusion.cu",
                       "gedepth_tpu/ops/pallas/pe_fusion.py:57"),
     }
-    # the bf16 instances: A is a source of its own; B and C are msda.cu and
-    # msda_bwd.cu compiled for __nv_bfloat16 (units msda_bf16.cu,
-    # msda_bwd_bf16.cu)
+    # the bf16 instances: A and C are sources of their own; B is msda.cu
+    # compiled for __nv_bfloat16 (unit msda_bf16.cu)
     sources["window_attention_bf16"] = (
         "gedepth_tpu_torch/csrc/window_attention_bf16.cu",
         sources["window_attention"][1])
     sources["msda_bf16"] = sources["msda"]
-    sources["msda_backward_bf16"] = sources["msda_backward"]
+    sources["msda_backward_bf16"] = (
+        "gedepth_tpu_torch/csrc/msda_bwd_bf16.cu",
+        sources["msda_backward"][1])
     # the planning kernel of B's and C's unhinted launches has no TPU
     # counterpart: the TPU kernels it plans for
     sources["msda_plan"] = (
@@ -5533,7 +5614,9 @@ def run(stack):
         elif kernel == "msda_bf16":
             n = b_bf16.get((rule, t["queries"]), 0)
         else:
-            n = bf16_by_queries["msda_backward"].get(t["queries"], 0)
+            # the bf16-compute steps of phase 18 train the windowed preset
+            n = (bf16_by_queries["msda_backward"].get(t["queries"], 0)
+                 if rule == "windowed" else 0)
         if n == 0:
             print(f"[kernels bf16] {name}: checked above; no bf16 path of "
                   "this run launches it, so it gets no row")
@@ -5552,6 +5635,10 @@ def run(stack):
     for k in kernels:
         if k["launches"] <= 0:
             fail(f"kernel row {k['name']} was launched on no main path")
+    costliest = "; ".join(f"{name} {sec:.1f} s"
+                          for sec, name in sorted(laps, reverse=True)[:5])
+    print(f"[time] total {time.perf_counter() - started:.1f} s; the five "
+          f"costliest laps: {costliest}", flush=True)
     print("[processes] started by this run and still running, now stopped: "
           f"{stop_processes() or 'none'}", flush=True)
     print(f"[power] {smi}")
@@ -5563,4 +5650,9 @@ def run(stack):
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        if PYCACHE:
+            shutil.rmtree(PYCACHE, ignore_errors=True)
+    sys.exit(code)

@@ -1,6 +1,5 @@
-// Multi-level deformable sampling, backward (kernel C): the f32 instance,
-// and through csrc/msda_bwd_bf16.cu, which includes this file with MSDA_T
-// set, the bf16 instance.
+// Multi-level deformable sampling, backward (kernel C): the f32 instance.
+// The bf16 instance is a kernel of its own, csrc/msda_bwd_bf16.cu.
 //
 // Replaces the Pallas TPU kernel `_kernel_bwd` of
 // gedepth_tpu/ops/pallas/msda_windowed.py:898, launched by
@@ -31,22 +30,10 @@
 // 61,952 queries per sample (stem grid 176x352) with positions
 // (2, 61952, 8, 4, 8, 2) f32 = 254 MB and grad_out (2, 61952, 512) = 254 MB.
 //
-//
-// The bf16 instance (`msda_bwd_bf16`) takes value and grad_out in bf16 and
-// positions and weights in f32; d_pos and d_weight come out in f32. d_value
-// is summed in an f32 buffer of the value's shape that the caller lends
-// (`d_value_acc`), by the same binning, and rounded to bf16 once at the end
-// by `round_kernel`: atomics on bf16 would round at every add.
-//
 // What bounds it on the H100, and the design: see the notes above the two
 // kernels, `msda_bwd_pos_kernel` (d_pos, d_w) and `msda_bwd_value_kernel`
 // (d_value).
 #include "msda_tile.cuh"
-
-#ifndef MSDA_T
-#define MSDA_T float
-#define MSDA_BWD_ENTRY msda_bwd
-#endif
 
 namespace {
 
@@ -474,15 +461,6 @@ msda_bwd_value_kernel(const int* __restrict__ levels,
   }
 }
 
-// d_value of the bf16 instance: the f32 sums rounded to nearest even, once
-__global__ void round_kernel(const float* __restrict__ src,
-                             bf16* __restrict__ dst, long long n) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride)
-    dst[i] = __float2bfloat16_rn(src[i]);
-}
-
 __host__ __device__ constexpr int shared_bytes_pos(int stage_elems, int G,
                                                    int elem_bytes) {
   return stage_elems * elem_bytes +
@@ -533,63 +511,32 @@ int launch(const T* value, const int* levels, const int* tiles,
   return (int)cudaGetLastError();
 }
 
-// the f32 instance sums into d_value itself
-inline int finish(const float*, float*, long long, cudaStream_t) {
-  return (int)cudaSuccess;
-}
-inline int finish(const float* acc, bf16* d_value, long long n,
-                  cudaStream_t stream) {
-  round_kernel<<<1024, 256, 0, stream>>>(acc, d_value, n);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int V, int G, int K>
-int run(const T* value, const int* levels, const int* tiles, const int* perm,
-        const float* pos, const float* weight, const T* grad_out,
-        float* d_value_acc, T* d_value, float* d_pos, float* d_weight, int B,
-        int S, int Nq, int h, int d, int L, int P, int n_tiles,
-        int stage_elems, cudaStream_t stream) {
-  const int err = launch<T, V, G, K>(value, levels, tiles, perm, pos, weight,
-                                     grad_out, d_value_acc, d_pos, d_weight, B,
-                                     S, Nq, h, d, L, P, n_tiles, stage_elems,
-                                     stream);
-  if (err != 0) return err;
-  return finish(d_value_acc, d_value, (long long)B * S * h * d, stream);
-}
-
 }  // namespace
 
-// value (B, S, h, d) and grad_out (B, Nq, h·d) of MSDA_T (float for
-// `msda_bwd`, __nv_bfloat16 for `msda_bwd_bf16`); levels, tiles, perm, pos,
-// weight, vec, lanes and stage_elems as `msda_fwd` takes them (csrc/msda.cu);
-// outputs d_value (B, S, h, d) of MSDA_T, d_pos and d_weight f32 in the
-// shapes of pos and weight; d_value_acc: f32, the value's shape, zeroed here
-// and summed into (for `msda_bwd` it is d_value itself; for `msda_bwd_bf16`
-// a buffer the caller lends, rounded into d_value at the end); all
-// contiguous; vec = 4 also needs grad_out, d_value and d_value_acc 16-byte
-// aligned. Launches on `stream` the memset of d_value_acc, the two kernels
-// and, for bf16, the rounding; returns the CUDA error, or
-// cudaErrorInvalidValue for another instance.
-extern "C" int MSDA_BWD_ENTRY(const MSDA_T* value, const int* levels,
-                              const int* tiles, const int* perm,
-                              const float* pos, const float* weight,
-                              const MSDA_T* grad_out,
-                              float* d_value_acc, MSDA_T* d_value,
-                              float* d_pos, float* d_weight, int B, int S,
-                              int Nq, int h, int d, int L, int P, int n_tiles,
-                              int stage_elems, int vec, int lanes,
-                              void* stream) {
+// value (B, S, h, d) and grad_out (B, Nq, h·d) f32; levels, tiles, perm,
+// pos, weight, vec, lanes and stage_elems as `msda_fwd` takes them
+// (csrc/msda.cu); outputs d_value (B, S, h, d), d_pos and d_weight f32 in
+// the shapes of value, pos and weight; d_value_acc is d_value itself (the
+// bf16 instance's entry takes the same arguments), zeroed here and summed
+// into; all contiguous; vec = 4 also needs grad_out and d_value 16-byte
+// aligned. Launches on `stream` the memset of d_value and the two kernels;
+// returns the CUDA error, or cudaErrorInvalidValue for another instance.
+extern "C" int msda_bwd(const float* value, const int* levels,
+                        const int* tiles, const int* perm, const float* pos,
+                        const float* weight, const float* grad_out,
+                        float* d_value_acc, float* d_value, float* d_pos,
+                        float* d_weight, int B, int S, int Nq, int h, int d,
+                        int L, int P, int n_tiles, int stage_elems, int vec,
+                        int lanes, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const size_t acc_bytes = (size_t)B * S * h * d * sizeof(float);
   cudaError_t err = cudaMemsetAsync(d_value_acc, 0, acc_bytes, st);
   if (err != cudaSuccess) return (int)err;
-  if ((long long)B * n_tiles * h == 0 || d == 0)
-    return finish(d_value_acc, d_value, (long long)B * S * h * d, st);
+  if ((long long)B * n_tiles * h == 0 || d == 0) return (int)cudaSuccess;
 #define MSDA_BWD(V, G, K)                                                   \
-  return run<MSDA_T, V, G, K>(value, levels, tiles, perm, pos, weight,      \
-                              grad_out, d_value_acc, d_value, d_pos,        \
-                              d_weight, B, S, Nq, h, d, L, P, n_tiles,      \
-                              stage_elems, st)
+  return launch<float, V, G, K>(value, levels, tiles, perm, pos, weight,    \
+                                grad_out, d_value_acc, d_pos, d_weight, B,  \
+                                S, Nq, h, d, L, P, n_tiles, stage_elems, st)
   if (vec == 4 && lanes == 4) MSDA_BWD(4, 4, 1);
   if (vec == 4 && lanes == 8) MSDA_BWD(4, 8, 1);
   if (vec == 4 && lanes == 16) MSDA_BWD(4, 16, 1);

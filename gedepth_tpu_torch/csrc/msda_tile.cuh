@@ -1,7 +1,7 @@
 // Shared device code of the deformable-sampling kernels (msda.cu forward,
-// msda_bwd.cu backward): the tile plan's rows, the per-sample set-up that
-// one lane does for its lane group, and the staging of a value window in
-// shared memory.
+// msda_bwd.cu backward, msda_bwd_bf16.cu the backward's bf16 instance): the
+// tile plan's rows, the per-sample set-up that one lane does for its lane
+// group, and the staging of a value window in shared memory.
 //
 // A block owns one tile of queries, one head and one batch entry. The plan
 // gives, for each tile and level, a rectangle of the level; the block copies
@@ -22,7 +22,8 @@
 //
 // A query's d channels lie over a group of G lanes, V elements a lane (V = 4:
 // one 16-byte slice of floats or one 8-byte slice of bf16 each; V = 1:
-// single elements, K rounds of G). Lane j of a
+// single elements, K rounds of G; msda_bwd_bf16.cu reads 16-byte slices of
+// 8 bf16 and stages through V = 4's 16-byte copies). Lane j of a
 // group sets up sample j of the level once (floor, bounds, corner
 // coefficients and offset) and leaves it as a 32-byte record in shared
 // memory; the group reads it back with two broadcast loads. The set-up is

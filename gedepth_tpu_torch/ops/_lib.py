@@ -47,7 +47,7 @@ _SIGNATURES = {
     "window_attention_fwd_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                   _I, _I, _I, _L, _L, _L, _L, _L, _L, _P],
     "msda_fwd": _MSDA_FWD, "msda_fwd_bf16": _MSDA_FWD,
-    "msda_bwd": _MSDA_BWD, "msda_bwd_bf16": _MSDA_BWD,
+    "msda_bwd": _MSDA_BWD, "msda_bwd_bf16": [_P] * 11 + [_I] * 12 + [_P],
     "msda_plan": [_P] * 6 + [_I] * 10 + [_P],
     "pe_fusion_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P],
 }

@@ -83,6 +83,10 @@ MAX_TILE_QUERIES = 128
 SM_SHARED_BYTES = 232448
 BLOCK_SHARED_BYTES = SM_SHARED_BYTES // 2 - 1024
 RECORD_BYTES = 32
+# pixels of a window whose corners kernel C's bf16 instance sums in shared
+# memory (bins) while reading the window from device memory, where it
+# outgrows the stage
+BIN_PIXELS_BACKWARD = 1024
 
 
 def _round_up4(n: int) -> int:
@@ -101,22 +105,86 @@ def shared_bytes(stage_elems: int, head_dim: int, lanes: int,
 
 
 def shared_bytes_backward(stage_elems: int, head_dim: int, lanes: int,
-                          points: int) -> int:
-    """Dynamic shared memory of the larger block of kernel C, the d_value
-    kernel: the tile's grad_out rows, the groups' records, the list of
-    (query, coefficient) pairs of every corner of the tile's samples on one
-    level, and a count and a bin start per pixel of the staged window. (Its
-    d_pos kernel takes the staged window plus records and dots: less than
-    kernel B.)"""
-    records = TILE_THREADS // lanes * min(lanes, 8) * RECORD_BYTES
+                          points: int, itemsize: int = 4,
+                          bin_pixels: int = 0) -> int:
+    """Dynamic shared memory of the larger block of kernel C.
+
+    f32 (csrc/msda_bwd.cu), its d_value kernel: the tile's grad_out rows,
+    the groups' records, the list of (query, coefficient) pairs of every
+    corner of the tile's samples on one level, and a count and a bin start
+    per pixel of the staged window. (Its d_pos kernel takes the staged
+    window plus records and dots: less than kernel B.)
+
+    bf16 (csrc/msda_bwd_bf16.cu, one pass): a region that holds the
+    staged bf16 window and then the corners sorted by pixel (the larger of
+    the two), the tile's bf16 grad_out rows, a record (which then takes its
+    four dots) for each of the 8 (or `lanes`, if fewer) samples a lane
+    group sets up at a time and, where corners are binned (`bin_pixels`,
+    the most pixels of a bin window), an 8-byte slot for each corner of the
+    tile's samples on one level, a count per pixel of the bin window and
+    the count of the filed corners."""
+    records = TILE_THREADS // lanes * min(lanes, 8)
+    if itemsize == 2:
+        corners = MAX_TILE_QUERIES * points * 4 * 8 if bin_pixels else 0
+        rows = 2 * (-(-MAX_TILE_QUERIES * head_dim // 8) * 8)
+        binned = corners + 4 * (bin_pixels + 1) if bin_pixels else 0
+        return (max(2 * stage_elems, corners) + rows + records * RECORD_BYTES
+                + binned)
     corners = MAX_TILE_QUERIES * points * 4 * 8 if stage_elems else 0
-    return (4 * _round_up4(MAX_TILE_QUERIES * head_dim) + records + corners
+    return (4 * _round_up4(MAX_TILE_QUERIES * head_dim)
+            + records * RECORD_BYTES + corners
             + 4 * (2 * (stage_elems // head_dim) + 1))
 
 
 def stage_budget(head_dim: int, lanes: int) -> int:
     """Bytes a staged window may take so that two blocks share an SM."""
     return max(BLOCK_SHARED_BYTES - shared_bytes(0, head_dim, lanes), 0)
+
+
+def backward_lanes(head_dim: int, aligned: bool = True, itemsize: int = 4):
+    """(elements per lane, lanes per query) of the instance of kernel C
+    that serves a head width. f32 as `channel_lanes`. bf16: 16-byte slices
+    of 8 over the smallest of 4, 8 or 16 lanes that holds the head, when the
+    head is whole 16-byte units and the tensors are 16-byte aligned; else
+    single elements over 32 lanes, four rounds at most."""
+    if itemsize != 2:
+        return channel_lanes(head_dim, aligned, itemsize)
+    if head_dim % 8 == 0 and aligned:
+        return 8, next(g for g in (4, 8, 16) if 8 * g >= head_dim)
+    return 1, 32
+
+
+def stage_budget_backward(head_dim: int, lanes: int, points: int,
+                          itemsize: int = 4) -> int:
+    """Bytes of staged window that kernel C's plan may give a block so that
+    two blocks share an SM. f32: B's budget (`stage_budget`; C's d_value
+    kernel fits beside it, else the launch takes the unplanned rows). bf16:
+    what the one-pass block leaves beside its rows, records, filed corners
+    and the counts of a bin window of BIN_PIXELS_BACKWARD pixels (or, for a
+    window larger than that, of the window; the sorted corners take the
+    window's region), less 32 bytes for the window's rounding to 16-byte
+    units; 0 where the filed corners alone would crowd the block."""
+    if itemsize != 2:
+        return stage_budget(head_dim, lanes)
+    corners = MAX_TILE_QUERIES * points * 4 * 8
+    spare = (BLOCK_SHARED_BYTES - 32 - 4 - corners
+             - shared_bytes_backward(0, head_dim, lanes, points, 2))
+    fixed = spare - 4 * BIN_PIXELS_BACKWARD
+    if fixed < corners:
+        return 0
+    pixels = fixed // (2 * head_dim)
+    if pixels > BIN_PIXELS_BACKWARD:      # the counts grow with the window
+        pixels = spare // (2 * head_dim + 4)
+    return pixels * 2 * head_dim
+
+
+def backward_bins(head_dim: int, stage_bytes: int, itemsize: int = 4) -> int:
+    """The most pixels of a window whose corners kernel C bins without
+    staging it (bf16: BIN_PIXELS_BACKWARD, or the staged window's pixels if
+    more); 0 for the f32 instance, which bins only what it stages."""
+    if itemsize != 2 or stage_bytes <= 0:
+        return 0
+    return max(stage_bytes // (itemsize * head_dim), BIN_PIXELS_BACKWARD)
 
 
 # query-tile shapes tried per query grid, largest first
@@ -309,15 +377,20 @@ class TilePlan:
     int32: the tile's grid (first query, grid width), its rectangle of that
     grid (y0, x0, height, width), then for each level the staged value
     rectangle (y_lo, x_lo, height, width), height 0 where the level is
-    gathered from device memory."""
+    gathered from device memory, and −height where the rectangle is only
+    binned (its corners' d_value summed in shared memory, the value read
+    from device memory: kernel C's bf16 instance)."""
     rows: np.ndarray
     stage_elems: int         # elements of the largest staged rectangle
+    bin_pixels: int = 0      # pixels of the largest rectangle, staged or not
 
 
-def _grid_rows(q_start, grid, tile, spatial_shapes, margin, max_pixels):
+def _grid_rows(q_start, grid, tile, spatial_shapes, margin, max_pixels,
+               bin_pixels=0):
     """Rows of one query grid cut into `tile`s, and how many (query, level)
     pairs they stage. A level's rectangle covers the anchors of the tile's
-    queries ± margin, clipped to the level."""
+    queries ± margin, clipped to the level; one larger than `max_pixels`
+    but within `bin_pixels` is binned alone (height negated)."""
     (Hq, Wq), (th, tw) = grid, tile
     rows, staged = [], 0
     anchors = [(axis_anchor_residual(Hq, Hl)[0],
@@ -338,6 +411,8 @@ def _grid_rows(q_start, grid, tile, spatial_shapes, margin, max_pixels):
                     if 0 < rh * rw <= max_pixels:
                         rect = (y_lo, x_lo, rh, rw)
                         staged += h_ * w_
+                    elif 0 < rh * rw <= bin_pixels:
+                        rect = (y_lo, x_lo, -rh, rw)
                 row.extend(rect)
             rows.append(row)
     return rows, staged
@@ -345,14 +420,15 @@ def _grid_rows(q_start, grid, tile, spatial_shapes, margin, max_pixels):
 
 @functools.lru_cache(maxsize=64)
 def tile_plan(query_shapes, spatial_shapes, radius, head_dim, stage_bytes,
-              itemsize=4):
+              itemsize=4, bin_pixels=0):
     """The tile plan of a launch: `query_shapes` row-major query grids,
     concatenated, sampling `spatial_shapes` with offsets bounded by
     `radius` level pixels around each query's anchor (None: unbounded,
     nothing is staged and the queries are one row). Per grid, the tile
     shape that stages the most (query, level) pairs within `stage_bytes`,
-    the larger shape on a tie. `itemsize`: bytes of a value element (4 for
-    f32, 2 for bf16)."""
+    the larger shape on a tie; a rectangle past the stage but within
+    `bin_pixels` is binned alone. `itemsize`: bytes of a value element (4
+    for f32, 2 for bf16)."""
     max_pixels = stage_bytes // (itemsize * head_dim)
     if radius is None:
         margin, candidates = None, ((1, MAX_TILE_QUERIES),)
@@ -366,7 +442,7 @@ def tile_plan(query_shapes, spatial_shapes, radius, head_dim, stage_bytes,
         best = None
         for tile in candidates:
             got, staged = _grid_rows(q_start, grid, tile, spatial_shapes,
-                                     margin, max_pixels)
+                                     margin, max_pixels, bin_pixels)
             if best is None or staged > best[1]:
                 best = (got, staged)
         rows.extend(best[0])
@@ -375,17 +451,18 @@ def tile_plan(query_shapes, spatial_shapes, radius, head_dim, stage_bytes,
         -1, TILE_HEADER + 4 * len(spatial_shapes))
     rects = rows[:, TILE_HEADER:].reshape(len(rows), -1, 4)
     stage_pixels = int((rects[:, :, 2] * rects[:, :, 3]).max(initial=0))
+    bin_px = int((np.abs(rects[:, :, 2]) * rects[:, :, 3]).max(initial=0))
     # whole 16-byte units: the kernels lay their records after the stage
     unit = 16 // itemsize
     stage_elems = -(-stage_pixels * head_dim // unit) * unit
-    return TilePlan(rows, stage_elems)
+    return TilePlan(rows, stage_elems, bin_px)
 
 
 @functools.lru_cache(maxsize=64)
 def _tile_table(query_shapes, spatial_shapes, radius, head_dim, stage_bytes,
-                itemsize, device):
+                itemsize, bin_pixels, device):
     plan = tile_plan(query_shapes, spatial_shapes, radius, head_dim,
-                     stage_bytes, itemsize)
+                     stage_bytes, itemsize, bin_pixels)
     # a normal tensor even under inference_mode (see `_level_table`)
     with torch.inference_mode(False):
         return torch.as_tensor(plan.rows, device=device), plan
@@ -811,35 +888,51 @@ class _Launch:
     stage_elems: int
     vec: int
     lanes: int
+    bin_pixels: int        # pixels of the largest binned rectangle (bf16 C)
     keep: tuple = ()       # the device plan's tensors, alive until launch
 
 
-def _lanes(value, *tensors):
-    aligned = all(t.data_ptr() % 16 == 0 for t in (value, *tensors))
-    return channel_lanes(value.shape[3], aligned, value.element_size())
+def _aligned(*tensors):
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
-def _plan_args(value, spatial_shapes, window, pos, unplanned, *tensors):
-    """The kernel instance and plan of a launch. With a window hint the host
-    plan (`tile_plan`); without one the plan made on the card from `pos`
+def _forward_geometry(value, out):
+    """(vec, lanes, stage bytes, bin pixels) of a launch of B."""
+    d = value.shape[3]
+    vec, lanes = channel_lanes(d, _aligned(value, out), value.element_size())
+    return vec, lanes, stage_budget(d, lanes), 0
+
+
+def _backward_geometry(value, points, *tensors):
+    """(vec, lanes, stage bytes, bin pixels) of a launch of C."""
+    d, itemsize = value.shape[3], value.element_size()
+    vec, lanes = backward_lanes(d, _aligned(value, *tensors), itemsize)
+    budget = stage_budget_backward(d, lanes, points, itemsize)
+    return vec, lanes, budget, backward_bins(d, budget, itemsize)
+
+
+def _plan_args(value, spatial_shapes, window, pos, unplanned, geometry):
+    """The kernel instance and plan of a launch of `geometry` (vec, lanes,
+    stage bytes, bin pixels). With a window hint the host plan
+    (`tile_plan`); without one the plan made on the card from `pos`
     (`msda_plan`), unless `unplanned` names why the launch cannot take it
     (or is True: the caller asks for the unplanned rows)."""
     d, itemsize = value.shape[3], value.element_size()
-    vec, lanes = _lanes(value, *tensors)
+    vec, lanes, stage_bytes, bins = geometry
     levels = _level_table(spatial_shapes, value.device)
     query_shapes, radius = window
-    stage_bytes = stage_budget(d, lanes)
     if radius is None and not unplanned:
         got = msda_plan(pos, spatial_shapes, d, stage_bytes, itemsize)
         plan = device_plan_shape(spatial_shapes, pos.shape[1], d, stage_bytes,
                                  itemsize)
         return _Launch(levels.data_ptr(), got.rows.data_ptr(),
                        got.perm.data_ptr(), plan.n_tiles, plan.stage_elems,
-                       vec, lanes, (got.perm, got.rows))
+                       vec, lanes, plan.max_pixels if plan.stage_elems else 0,
+                       (got.perm, got.rows))
     table, plan = _tile_table(query_shapes, spatial_shapes, radius, d,
-                              stage_bytes, itemsize, value.device)
+                              stage_bytes, itemsize, bins, value.device)
     return _Launch(levels.data_ptr(), table.data_ptr(), 0, len(plan.rows),
-                   plan.stage_elems, vec, lanes)
+                   plan.stage_elems, vec, lanes, plan.bin_pixels)
 
 
 def _entry(name, value):
@@ -872,7 +965,8 @@ def _launch_forward(value, spatial_shapes, pos, weights, window,
             msda.unplanned[unplanned] += 1
     elif not planned:
         window, unplanned = (((1, Nq),), None), True
-    a = _plan_args(value, spatial_shapes, window, pos, unplanned, out)
+    a = _plan_args(value, spatial_shapes, window, pos, unplanned,
+                   _forward_geometry(value, out))
     _lib.call(_entry("msda_fwd", value), value.data_ptr(), a.levels, a.tiles,
               a.perm, pos.data_ptr(), weights.data_ptr(), out.data_ptr(), B,
               S, Nq, h, d, L, P, a.n_tiles, a.stage_elems, a.vec, a.lanes)
@@ -894,37 +988,42 @@ def _launch_backward(value, spatial_shapes, pos, weights, grad_out, window,
            else torch.empty_like(value, dtype=torch.float32))
     d_pos = torch.empty_like(pos)
     d_weights = torch.empty_like(weights)
-    tensors = (grad_out, d_value, acc)
+    geometry = _backward_geometry(value, P, grad_out, d_value, acc)
     unplanned = None
     if not planned:
         window, unplanned = (((1, Nq),), None), True
     else:
-        lanes, itemsize = _lanes(value, *tensors)[1], value.element_size()
-        budget = stage_budget(d, lanes)
+        _, lanes, budget, bins = geometry
+        itemsize = value.element_size()
         if window[1] is None:
             unplanned = _plan_reason(value, pos, False)
-            stage_elems = device_plan_shape(spatial_shapes, Nq, d, budget,
-                                            itemsize).stage_elems
+            plan = device_plan_shape(spatial_shapes, Nq, d, budget, itemsize)
+            stage_elems = plan.stage_elems
+            bin_px = plan.max_pixels if stage_elems else 0
         else:
-            stage_elems = tile_plan(window[0], spatial_shapes, window[1], d,
-                                    budget, itemsize).stage_elems
-        if shared_bytes_backward(stage_elems, d, lanes, P) \
-                > SM_SHARED_BYTES - 1024:
+            plan = tile_plan(window[0], spatial_shapes, window[1], d, budget,
+                             itemsize, bins)
+            stage_elems, bin_px = plan.stage_elems, plan.bin_pixels
+        if shared_bytes_backward(stage_elems, d, lanes, P, itemsize,
+                                 bin_px) > SM_SHARED_BYTES - 1024:
             # so many points that a tile's corner list outgrows an SM: no
             # bins
             unplanned = UNPLANNED_CORNERS
             window = (((1, Nq),), None)
         if unplanned:
             msda_backward.unplanned[unplanned] += 1
-    a = _plan_args(value, spatial_shapes, window, pos, unplanned, *tensors)
+    a = _plan_args(value, spatial_shapes, window, pos, unplanned, geometry)
+    # the bf16 instance also takes the pixels of its largest bin window
+    bins = (a.bin_pixels,) if value.dtype == torch.bfloat16 else ()
     _lib.call(_entry("msda_bwd", value), value.data_ptr(), a.levels, a.tiles,
               a.perm, pos.data_ptr(), weights.data_ptr(), grad_out.data_ptr(),
               acc.data_ptr(), d_value.data_ptr(), d_pos.data_ptr(),
               d_weights.data_ptr(), B, S, Nq, h, d, L, P, a.n_tiles,
-              a.stage_elems, a.vec, a.lanes)
+              a.stage_elems, *bins, a.vec, a.lanes)
     msda_backward.launches += 1
     msda_backward.launches_by_queries[Nq] += 1
     msda_backward.launches_by_dtype[value.dtype] += 1
+    msda_backward.launches_by_instance[(value.dtype, a.vec, a.lanes)] += 1
     return d_value, d_pos, d_weights
 
 
@@ -1178,6 +1277,9 @@ msda_backward.launches_by_queries = collections.Counter()
 # and by the value's dtype: which instance ran
 msda.launches_by_dtype = collections.Counter()
 msda_backward.launches_by_dtype = collections.Counter()
+# kernel C's launches by (dtype, elements a lane, lanes a query): which
+# instance and lane geometry ran
+msda_backward.launches_by_instance = collections.Counter()
 # the launches that walked the unplanned rows by design, by reason
 msda.unplanned = collections.Counter()
 msda_backward.unplanned = collections.Counter()

@@ -1023,6 +1023,104 @@ def test_msda_bf16_unaligned_value_takes_the_scalar_instance():
                        msda_ops.msda(value, levels, pos, w, grids, 4))
 
 
+def test_msda_bf16_backward_unaligned_takes_the_scalar_instance():
+    """Kernel C's bf16 instance reads a grad_out that is not 16-byte
+    aligned, or a head that is not whole 16-byte units, element by element
+    (the scalar instance), with the hint and without, held to float64 as
+    the 16-byte instance is."""
+    g = torch.Generator(device="cuda").manual_seed(29)
+    levels, grids = ((8, 12), (4, 6)), ((4, 6),)
+    for d in (64, 12):
+        value, pos, w, gout = _bf16_msda_case(g, grids, levels, 1, 2, d, 4,
+                                              2.0, True)
+        shifted = torch.empty(gout.numel() + 1, device="cuda",
+                              dtype=BF16)[1:].view(gout.shape).copy_(gout)
+        assert shifted.data_ptr() % 16 == 2
+        ref = msda_ops.msda_backward_plain(value.double(), levels,
+                                           pos.double(), w.double(),
+                                           gout.double())
+        plain = msda_ops.msda_backward_plain(value, levels, pos, w, gout)
+        for hint in ((grids, 4), ()):
+            before = msda_ops.msda_backward.launches_by_instance[(BF16, 1,
+                                                                  32)]
+            got = msda_ops.msda_backward(value, levels, pos, w, shifted,
+                                         *hint)
+            torch.cuda.synchronize()
+            assert msda_ops.msda_backward.launches_by_instance[
+                (BF16, 1, 32)] == before + 1
+            _assert_close_to_f64(got[0], plain[0], ref[0])
+            for i in (1, 2):
+                _assert_close_to_f64(got[i], plain[i], ref[i],
+                                     floor=1e-5 * ref[i].abs().max().item())
+
+
+def test_msda_bf16_backward_at_hahi_exact_train_cross():
+    """Kernel C's bf16 instance at HAHI's exact train cross-attention (2 x
+    61,952 queries over the train crop's four levels, 8 heads of 64, P = 8,
+    reference points anywhere, a twentieth of the samples thrown out) over
+    the plan the card makes from the positions, against float64 of the same
+    bf16 inputs; d_pos and d_w equal to the unplanned rows' bit for bit."""
+    g = torch.Generator(device="cuda").manual_seed(28)
+    levels = ((88, 176), (44, 88), (22, 44), (11, 22))
+    value, pos, w, gout = _exact_case(g, levels, 2, 176 * 352, 8, 8,
+                                      dtype=BF16)
+    plans = msda_ops.msda_plan.launches
+    got = msda_ops.msda_backward(value, levels, pos, w, gout)
+    torch.cuda.synchronize()
+    assert msda_ops.msda_plan.launches == plans + 1
+    unplanned = msda_ops.msda_backward_unplanned(value, levels, pos, w, gout)
+    assert torch.equal(got[1], unplanned[1])
+    assert torch.equal(got[2], unplanned[2])
+    del unplanned
+    plain = msda_ops.msda_backward_plain(value, levels, pos, w, gout)
+    ref = msda_ops.msda_backward_plain(value.double(), levels, pos.double(),
+                                       w.double(), gout.double())
+    _assert_close_to_f64(got[0], plain[0], ref[0])
+    for i in (1, 2):
+        _assert_close_to_f64(got[i], plain[i], ref[i],
+                             floor=1e-5 * ref[i].abs().max().item())
+
+
+@pytest.mark.parametrize("hinted", [True, False])
+def test_msda_bf16_backward_d_pos_and_d_w_are_deterministic(hinted):
+    """Two launches of kernel C's bf16 instance give d_pos and d_w equal bit
+    for bit (their sums run in a fixed order); d_value, whose adds meet in
+    any order, within one bf16 ulp of its largest magnitude."""
+    g = torch.Generator(device="cuda").manual_seed(30)
+    grids = ((44, 88), (22, 44), (11, 22))
+    levels = ((88, 176), (44, 88), (22, 44), (11, 22))
+    value, pos, w, gout = _bf16_msda_case(g, grids, levels, 2, 8, 64, 8, 2.0,
+                                          True)
+    hint = (grids, 4) if hinted else ()
+    first = msda_ops.msda_backward(value, levels, pos, w, gout, *hint)
+    second = msda_ops.msda_backward(value, levels, pos, w, gout, *hint)
+    torch.cuda.synchronize()
+    assert torch.equal(first[1], second[1])
+    assert torch.equal(first[2], second[2])
+    assert (first[0].float() - second[0].float()).abs().max().item() <= \
+        _bf16_ulp(first[0].float().abs().max().item())
+
+
+def test_msda_bf16_backward_counts_the_16_byte_instance():
+    """A bf16 launch of C at d = 64 counts once under the bf16 dtype and
+    once under its instance: 16-byte slices of 8 over 8 lanes a query."""
+    g = torch.Generator(device="cuda").manual_seed(31)
+    levels, grids = ((12, 20), (6, 10)), ((6, 10),)
+    value, pos, w, gout = _bf16_msda_case(g, grids, levels, 2, 8, 64, 4, 2.0,
+                                          False)
+    counted = msda_ops.msda_backward
+    before = (counted.launches_by_dtype[BF16],
+              counted.launches_by_instance[(BF16, 8, 8)],
+              counted.launches_by_instance[(BF16, 1, 32)])
+    for hint in ((grids, 4), ()):
+        msda_ops.msda_backward(value, levels, pos, w, gout, *hint)
+    torch.cuda.synchronize()
+    assert (counted.launches_by_dtype[BF16],
+            counted.launches_by_instance[(BF16, 8, 8)],
+            counted.launches_by_instance[(BF16, 1, 32)]) == (
+        before[0] + 2, before[1] + 2, before[2])
+
+
 @pytest.mark.parametrize("case", ["pos_bf16", "weights_bf16", "gout_f32",
                                   "value_f16"])
 def test_msda_bf16_kernels_refuse(case):
