@@ -105,7 +105,9 @@ its five costliest laps); any failure raises and exits non-zero:
      352x704 tile; the time per image of each.
  13. kernels, bf16: the bf16 instances of A (stage 1 shifted, serving and
      train crop, packed qkv, bf16 bias, f32 mask), B (serving shapes under
-     the windowed, compat R = 5 and exact rules) and C (the train crop's
+     the windowed, compat R = 5 and exact rules, and the train crop's
+     windowed self- and cross-attention and exact cross-attention) and C
+     (the train crop's
      windowed self- and cross-attention and the exact self- and
      cross-attention, these over the plan the card makes), each
      against a float64 evaluation of the same bf16 inputs: its largest
@@ -115,7 +117,6 @@ its five costliest laps); any failure raises and exits non-zero:
      bit for bit, so the f32 phases' bounds do not apply. Timed as phase 3,
      with the f32 instance at the same shape (`f32_device_ms`,
      `f32_event_ms`), and for A one bf16 `scaled_dot_product_attention`;
-     what the compat plan stages for a bf16 value at R = 5 and 6;
  14. parity preset: `init_depther("gedepth_adaptive_kitti_parity")` (compat
      R = 5, Swin and decode head bf16, the rest f32), 3 flip-TTA requests;
      depth as phase 4; per forward exactly 24 A (bf16 instance), 1 + 1 B
@@ -142,7 +143,7 @@ its five costliest laps); any failure raises and exits non-zero:
      `tools.test --bf16` once;
  18. bf16 training: `train()` with `bf16_compute` for 3 steps at 352x704,
      batch 2, checked as phase 7; the bf16 instances of A, B and C and E
-     launched; parameters, gradients, AdamW moments and BatchNorm
+     launched, B's and C's the 16-byte instance on 8 lanes; parameters, gradients, AdamW moments and BatchNorm
      statistics f32 and finite; peak memory beside phase 7's;
  19. f32 beside bf16 in one process, through `tools.benchmark`'s functions,
      the configurations taking turns: serving (exact f32, parity, windowed
@@ -379,12 +380,13 @@ H100 SXM's published peaks (for the bf16 instance of A its products over
 989 TFLOP/s, the tensor cores' bf16 rate). The rows of phase 13 carry the
 error against float64 as `max_abs_err` and the launches of the bf16 paths:
 A from phase 14's requests and phase 18's steps, B from the forwards of
-phases 15 and 16, C from phase 18. The rows of phase 24 carry the launches
+phases 15 and 16 (serving shapes) and phase 18's steps (train shapes), C
+from phase 18. The rows of phase 24 carry the launches
 of phase 25's requests (serving shapes) and of phase 26's steps and
 evaluation (train shapes; E both). The rows of phase 37 carry the launches
 of phase 36's `binsformer_nyu`: its f32 requests (serving shapes) and its
-f32 step (train shapes), and for A's bf16 instance its bf16 request and
-bf16_compute step. The first four rows also carry the
+f32 step (train shapes), and for the bf16 instances of A and B its bf16
+request and bf16_compute step. The first four rows also carry the
 launches inside phase 31's loaded program (`launches_exported`) and those
 of phase 39's Cityscapes training and evaluation (`launches_cityscapes`).
 Last the device as one JSON line.
@@ -916,8 +918,10 @@ def phase_kernels_bf16():
         del qkv, q, k, v, ref, got, plain, attn_mask, q32, k32, v32
 
     # B-bf16 at the serving shapes under the windowed (R = 4), compat
-    # (R = 5) and exact rules; C-bf16 at the train crop's. 9 (B) and 17 (C)
-    # f32 operations per touching sample and channel, on CUDA cores.
+    # (R = 5) and exact rules, and at the train crop's (windowed self and
+    # cross, exact cross: every `bf16_compute` step launches B-bf16 twice);
+    # C-bf16 at the train crop's. 9 (B) and 17 (C) f32 operations per
+    # touching sample and channel, on CUDA cores.
     print("[kernels bf16] B deformable sampling, bf16 value (against "
           "float64; limit max(2 x plain's error, 1 bf16 ulp))")
     cases = (
@@ -931,6 +935,8 @@ def phase_kernels_bf16():
         ("exact train_self", 2, TRAIN_LEVELS, TRAIN_LEVELS, False),
         ("windowed train_cross", 2, TRAIN_LEVELS, ((176, 352),), False),
         ("exact train_cross", 2, TRAIN_LEVELS, ((176, 352),), True))
+    b_at_train = ("windowed train_self", "windowed train_cross",
+                  "exact train_cross")
     for label, B, levels, grids, learned in cases:
         rule, shape = label.split()
         value = randn(B, sum(a * b for a, b in levels), 8, 64)
@@ -943,25 +949,30 @@ def phase_kernels_bf16():
                 levels, grids, learned, radius=PARITY_RADIUS)
         vb = value.to(bf)
         Nq, n_touch = pos.shape[1], touching(pos, levels)
-        if shape.startswith("serving"):
+        if shape.startswith("serving") or label in b_at_train:
             ref = msda_ops.msda_plain(vb.double(), levels, pos.double(),
                                       w.double())
             got = msda_ops.msda(vb, levels, pos, w, *hint)
             plain = msda_ops.msda_plain(vb, levels, pos, w)
             err = compare64(f"B bf16 {label} {B}x{Nq} queries", got, plain,
                             ref)
+            # the plain version ran just above (`plain`)
             t = timed(lambda: msda_ops.msda(vb, levels, pos, w, *hint),
                       lambda: msda_ops.msda_plain(vb, levels, pos, w),
-                      plain_reps=1, trace_plain=False,
+                      plain_reps=1, plain_warmup=0, trace_plain=False,
                       extra={"f32": lambda: msda_ops.msda(value, levels, pos,
                                                           w, *hint)})
             t["bound_ms"], t["bound_by"] = bound(
                 n_bytes(vb, pos, w, got), 9 * n_touch * 64)
-            show(t, touching=f"{n_touch / w.numel():.3f}")
+            f32_device = t["extra_ms"]["f32"][0]
+            show(t, touching=f"{n_touch / w.numel():.3f}",
+                 against_f32=("not measured" if not (t["device_ms"]
+                                                     and f32_device)
+                              else f"{t['device_ms'] / f32_device:.3f}x"))
             results[f"msda[bf16 {label}]"] = dict(
                 t, max_abs_err=err, kernel="msda_bf16", queries=Nq)
             del ref, got, plain
-        else:
+        if shape.startswith("train"):
             gout = randn(B, Nq, 512)
             gb = gout.to(bf)
             ref = msda_ops.msda_backward_plain(
@@ -988,7 +999,7 @@ def phase_kernels_bf16():
                                                      *hint),
                       lambda: msda_ops.msda_backward_plain(vb, levels, pos, w,
                                                            gb),
-                      plain_reps=1, trace_plain=False,
+                      plain_reps=1, plain_warmup=0, trace_plain=False,
                       extra={"f32": lambda: msda_ops.msda_backward(*args32,
                                                                    *hint)})
             t["bound_ms"], t["bound_by"] = bound(
@@ -999,14 +1010,6 @@ def phase_kernels_bf16():
             del gout, gb, args32
         del value, vb, pos, w
         torch.cuda.empty_cache()
-    # what the compat plan stages with the window at half the bytes
-    for R in (PARITY_RADIUS, COMPAT_RADIUS):
-        for name, grids in (("serving self", SERVE_LEVELS),
-                            ("serving cross", ((176, 608),))):
-            print(f"[kernels bf16] compat plan R = {R}, {name}: share of "
-                  f"tiles staging levels 0..3 per query grid, f32 "
-                  f"{staged_by_plan(grids, SERVE_LEVELS, R)}, bf16 "
-                  f"{staged_by_plan(grids, SERVE_LEVELS, R, itemsize=2)}")
     return results
 
 
@@ -1200,7 +1203,8 @@ def _kernel_counters():
 def reset_counts(counters):
     for c in counters.values():
         c.launches = 0
-        for by in ("launches_by_queries", "launches_by_dtype"):
+        for by in ("launches_by_queries", "launches_by_dtype",
+                   "launches_by_instance"):
             if hasattr(c, by):
                 getattr(c, by).clear()
 
@@ -1319,6 +1323,17 @@ def phase_train(data, preset=PRESET, steps=5, nonzero=TRAIN_GRADS,
     if by_dtype != want_dtype:
         fail(f"{preset}: instances launched {by_dtype}, expected "
              f"{want_dtype}")
+    if bf16:
+        # B's and C's bf16 instances at HAHI's d = 64: 16-byte slices of 8
+        # bf16 over 8 lanes a query
+        for name in ("msda", "msda_backward"):
+            got = {k[1:]: n for k, n in
+                   counters[name].launches_by_instance.items()
+                   if k[0] == torch.bfloat16}
+            if got != {(8, 8): 2 * steps}:
+                fail(f"{preset}: {name}'s bf16 launches by (elements a "
+                     f"lane, lanes a query) {got}, expected "
+                     f"{{(8, 8): {2 * steps}}}")
     if launches["pe_fusion"] != steps + eval_forwards:
         fail(f"{preset}: E launched {launches['pe_fusion']} times, expected "
              f"{steps + eval_forwards}")
@@ -2102,14 +2117,13 @@ def touching(pos, levels):
     return n
 
 
-def staged_by_plan(grids, levels, radius, itemsize=4):
-    """Share of the tiles of each query grid that stage each level, for a
-    value of `itemsize` bytes an element."""
+def staged_by_plan(grids, levels, radius):
+    """Share of the tiles of each query grid that stage each level in the
+    plan of B's f32 instance (C's has the same windows)."""
     from gedepth_tpu_torch.ops import msda as msda_ops
 
-    _, lanes = msda_ops.channel_lanes(64, itemsize=itemsize)
     plan = msda_ops.tile_plan(tuple(grids), tuple(levels), float(radius), 64,
-                              msda_ops.stage_budget(64, lanes), itemsize)
+                              msda_ops.stage_budget(64, 16), 4)
     starts = np.cumsum([0] + [a * b for a, b in grids])
     rects = plan.rows[:, msda_ops.TILE_HEADER:].reshape(len(plan.rows), -1, 4)
     grid_of = np.searchsorted(starts, plan.rows[:, 0], side="right") - 1
@@ -2149,16 +2163,15 @@ def plan_staged_share(pos, levels, plan):
     return shares
 
 
-def check_plan(label, pos, levels, itemsize=4):
-    """The planning kernel against `plan_plain`, integer for integer; prints
-    the share of samples its plan stages per level. Returns the plan (B's
-    and C's: the same for one value)."""
+def check_plan(label, pos, levels):
+    """The planning kernel against `plan_plain`, integer for integer, at the
+    budget of the f32 instances of B and C (the same for both); prints the
+    share of samples its plan stages per level. Returns the plan."""
     from gedepth_tpu_torch.ops import msda as msda_ops
 
-    budget = msda_ops.stage_budget(
-        64, msda_ops.channel_lanes(64, itemsize=itemsize)[1])
-    got = msda_ops.msda_plan(pos, levels, 64, budget, itemsize)
-    want = msda_ops.plan_plain(pos, levels, 64, budget, itemsize)
+    budget = msda_ops.stage_budget(64, 16)
+    got = msda_ops.msda_plan(pos, levels, 64, budget, 4)
+    want = msda_ops.plan_plain(pos, levels, 64, budget, 4)
     for name in ("keys", "perm", "rows"):
         if not torch.equal(getattr(got, name), getattr(want, name)):
             fail(f"[rules] {label}: the planning kernel's {name} differ "
@@ -3026,14 +3039,17 @@ BINS_PER_STEP = {"window_attention": 24, "msda": 6, "msda_backward": 6,
 
 
 def phase_kernels_binsformer():
-    """Phase 37: kernels A (f32 and bf16), B and C at BinsFormer's shapes
-    against their plain versions, timed as phase 3 (the plain versions in
-    the trace too): A at Swin-T's stage 1, served and at the train crop
-    (3 heads of 32), beside one `F.scaled_dot_product_attention` call; B
-    under the exact rule at the encoder's 6,300 serving queries and 2 x
-    4,641 train queries (3 levels, 8 heads of 8 channels, 8 points; the
-    self-attention's grid-centre reference points, a twentieth of the
-    samples thrown far); C at the train shape."""
+    """Phase 37: kernels A (f32 and bf16), B (f32 and bf16) and C at
+    BinsFormer's shapes against their plain versions, timed as phase 3
+    (the plain versions in the trace too, but B-bf16's): A at Swin-T's
+    stage 1, served and at the train crop (3 heads of 32), beside one
+    `F.scaled_dot_product_attention` call; B under the exact rule at the
+    encoder's 6,300 serving queries and 2 x 4,641 train queries (3 levels,
+    8 heads of 8 channels, 8 points; the self-attention's grid-centre
+    reference points, a twentieth of the samples thrown far), its bf16
+    instance (16-byte slices over groups of 4 lanes) on the same value
+    cast to bf16, against float64 as phase 13 holds it and beside the f32
+    instance; C at the train shape."""
     import torch.nn.functional as F
 
     from gedepth_tpu_torch.models.swin import shifted_window_mask
@@ -3111,7 +3127,8 @@ def phase_kernels_binsformer():
         del qkv, q, k, v, want, attn_mask, qkv_b, qb, kb, vb, ref, got, attn_b
 
     print("[kernels binsformer] B and C under the exact rule, 3 levels, 8 "
-          "heads of 8 channels (B: rtol 2e-4, atol 2e-5; C as phase 6)")
+          "heads of 8 channels (B: rtol 2e-4, atol 2e-5; B-bf16 against "
+          "float64, limit max(2 x plain's error, 1 bf16 ulp); C as phase 6)")
     for label, B, levels in (("exact serving_self", 1, BINS_SERVE_LEVELS),
                              ("exact train_self", 2, BINS_TRAIN_LEVELS)):
         value = randn(B, sum(a * b for a, b in levels), 8, 8)
@@ -3121,14 +3138,34 @@ def phase_kernels_binsformer():
         want = msda_ops.msda_plain(value, levels, pos, w)
         err = compare(f"B binsformer {label} {B}x{Nq} queries",
                       msda_ops.msda(value, levels, pos, w), want, 2e-4, 2e-5)
+        # the plain version ran just above (`want`)
         t = timed(lambda: msda_ops.msda(value, levels, pos, w),
                   lambda: msda_ops.msda_plain(value, levels, pos, w),
-                  plain_reps=1)
+                  plain_reps=1, plain_warmup=0)
         t["bound_ms"], t["bound_by"] = bound(n_bytes(value, pos, w, want),
                                              9 * n_touch * 8)
         show(t, touching=f"{n_touch / w.numel():.3f}")
         results[f"msda {label}"] = dict(t, max_abs_err=err, queries=Nq)
         del want
+        vb = value.to(bf)
+        ref = msda_ops.msda_plain(vb.double(), levels, pos.double(),
+                                  w.double())
+        got = msda_ops.msda(vb, levels, pos, w)
+        err = compare64(f"B bf16 binsformer {label} {B}x{Nq} queries", got,
+                        msda_ops.msda_plain(vb, levels, pos, w), ref)
+        t = timed(lambda: msda_ops.msda(vb, levels, pos, w),
+                  lambda: msda_ops.msda_plain(vb, levels, pos, w),
+                  plain_reps=1, plain_warmup=0, trace_plain=False,
+                  extra={"f32": lambda: msda_ops.msda(value, levels, pos,
+                                                      w)})
+        t["bound_ms"], t["bound_by"] = bound(n_bytes(vb, pos, w, got),
+                                             9 * n_touch * 8)
+        f32_device = t["extra_ms"]["f32"][0]
+        show(t, against_f32=("not measured" if not (t["device_ms"]
+                                                    and f32_device)
+                             else f"{t['device_ms'] / f32_device:.3f}x"))
+        results[f"msda_bf16 {label}"] = dict(t, max_abs_err=err, queries=Nq)
+        del vb, ref, got
         if B == 2:
             gout = randn(B, Nq, 64)
             args = (value, levels, pos, w, gout)
@@ -3161,15 +3198,17 @@ def binsformer_rows(row, results, counted):
     """The `kernels` rows of phase 37's shapes, each with the launches that
     phase 36's `binsformer_nyu` run made there: A f32 and B from its f32
     flip-TTA requests (serving shapes) and its f32 train step (train
-    shapes); A bf16 from its bf16 request and its bf16_compute step; C
-    from the f32 step."""
+    shapes); A bf16 and B bf16 from its bf16 request and its bf16_compute
+    step; C from the f32 step."""
+    bf16_kernels = {"window_attention_bf16": "window_attention",
+                    "msda_bf16": "msda"}
     rows = []
     for name, t in results.items():
         kernel, label = name.split(" ", 1)
         train = "train" in label
-        if kernel == "window_attention_bf16":
+        if kernel in bf16_kernels:
             n = counted["bf16_step" if train else "bf16_request"].get(
-                "window_attention", 0)
+                bf16_kernels[kernel], 0)
         elif kernel == "window_attention":
             n = counted["step" if train else "requests"][0][kernel]
         else:
@@ -3177,7 +3216,7 @@ def binsformer_rows(row, results, counted):
                 t["queries"], 0)
         r = row(f"{kernel}[binsformer {label}]", kernel, t,
                 n if train else 0, 0 if train else n)
-        if kernel == "window_attention_bf16":
+        if kernel in bf16_kernels:
             r["against"] = "float64"
             r["f32_device_ms"], r["f32_event_ms"] = t["extra_ms"]["f32"]
         rows.append(r)
@@ -5547,12 +5586,12 @@ def run(stack):
         "pe_fusion": ("gedepth_tpu_torch/csrc/pe_fusion.cu",
                       "gedepth_tpu/ops/pallas/pe_fusion.py:57"),
     }
-    # the bf16 instances: A and C are sources of their own; B is msda.cu
-    # compiled for __nv_bfloat16 (unit msda_bf16.cu)
+    # the bf16 instances: sources of their own
     sources["window_attention_bf16"] = (
         "gedepth_tpu_torch/csrc/window_attention_bf16.cu",
         sources["window_attention"][1])
-    sources["msda_bf16"] = sources["msda"]
+    sources["msda_bf16"] = ("gedepth_tpu_torch/csrc/msda_fwd_bf16.cu",
+                            sources["msda"][1])
     sources["msda_backward_bf16"] = (
         "gedepth_tpu_torch/csrc/msda_bwd_bf16.cu",
         sources["msda_backward"][1])
@@ -5603,7 +5642,8 @@ def run(stack):
     # error), each with its f32 instance's time at the same shape; launches
     # from the bf16 paths: A from the parity preset's requests and the
     # bf16-compute steps, B from the scope forwards and the accuracy
-    # forwards, C from the bf16-compute steps
+    # forwards (serving shapes) and the bf16-compute steps (train shapes),
+    # C from the bf16-compute steps
     for name, t in bf16_results.items():
         kernel = t["kernel"]
         rule, shape = name[name.index("[") + 1:-1].split()[-2:]
@@ -5611,6 +5651,10 @@ def run(stack):
         if kernel == "window_attention_bf16":
             n = (bf16_dtypes["window_attention"]["bf16"] if train_shape
                  else parity_a)
+        elif kernel == "msda_bf16" and train_shape:
+            # the bf16-compute steps of phase 18 train the windowed preset
+            n = (bf16_by_queries["msda"].get(t["queries"], 0)
+                 if rule == "windowed" else 0)
         elif kernel == "msda_bf16":
             n = b_bf16.get((rule, t["queries"]), 0)
         else:

@@ -1,6 +1,5 @@
-// Multi-level deformable sampling, forward (kernel B): the f32 instance, and
-// through csrc/msda_bf16.cu, which includes this file with MSDA_T set, the
-// bf16 instance.
+// Multi-level deformable sampling, forward (kernel B), the f32 instance. The
+// bf16 instance is a kernel of its own, csrc/msda_fwd_bf16.cu.
 //
 // Replaces the Pallas TPU kernel `_kernel` of
 // gedepth_tpu/ops/pallas/msda_windowed.py:112, launched by
@@ -28,21 +27,8 @@
 // (1, 35530, 8, 64) over levels 88x304, 44x152, 22x76, 11x38; L = 4, P = 8;
 // self-attention 8,778 queries, cross-attention 107,008 queries (176x608).
 //
-//
-// The bf16 instance (`msda_fwd_bf16`) takes the value and writes the output
-// in bf16; positions and attention weights stay f32 (a bf16 position on a
-// 304-pixel level has a quarter-pixel grid). It stages its windows in bf16,
-// so the same shared memory holds twice the pixels, reads a corner as 4
-// bf16 (8 bytes a lane: the lane groups stay those of the f32 instance),
-// sums in f32 in the order of `blend_add` and rounds once at the store.
-//
 // What bounds it on the H100, and the design: see the note above the kernel.
 #include "msda_tile.cuh"
-
-#ifndef MSDA_T
-#define MSDA_T float
-#define MSDA_FWD_ENTRY msda_fwd
-#endif
 
 namespace {
 
@@ -253,32 +239,29 @@ int launch(const T* value, const int* levels, const int* tiles,
 
 }  // namespace
 
-// value (B, S, h, d) of MSDA_T (float for `msda_fwd`, __nv_bfloat16 for
-// `msda_fwd_bf16`); levels (L, 3) int32 rows (H, W, start); tiles and
+// value (B, S, h, d) f32; levels (L, 3) int32 rows (H, W, start); tiles and
 // perm, the plan for lane groups of `lanes`: perm null and tiles
 // (n_tiles, 6 + 4·L) int32 from ops/msda.py `tile_plan`, the same rows for
 // every batch entry, or perm (B, Nq) and tiles (B·n_tiles, 6 + 4·L) int32
 // from `msda_plan` (csrc/msda_plan.cu), n_tiles rows an entry; pos (B, Nq,
 // h, L, P, 2) f32, 8-byte aligned; weight (B, Nq, h, L, P) f32; out (B, Nq,
-// h·d) of MSDA_T; all contiguous, d <= 128,
-// a level below 2^31 elements. `vec` = 4 (d a multiple of 4 floats or 8
-// bf16 and value, out 16-byte aligned; lanes = 4, 8, 16 or 32 with
+// h·d) f32; all contiguous, d <= 128,
+// a level below 2^31 elements. `vec` = 4 (d a multiple of 4 and value,
+// out 16-byte aligned; lanes = 4, 8, 16 or 32 with
 // 4·lanes >= d) or 1 (lanes = 32). `stage_elems`: the plan's largest staged
 // window in elements, whole 16-byte units. Returns the CUDA error of the
 // launch, or cudaErrorInvalidValue for another instance.
-extern "C" int MSDA_FWD_ENTRY(const MSDA_T* value, const int* levels,
-                              const int* tiles, const int* perm,
-                              const float* pos, const float* weight,
-                              MSDA_T* out, int B, int S,
-                              int Nq, int h, int d, int L, int P, int n_tiles,
-                              int stage_elems, int vec, int lanes,
-                              void* stream) {
+extern "C" int msda_fwd(const float* value, const int* levels,
+                        const int* tiles, const int* perm, const float* pos,
+                        const float* weight, float* out, int B, int S, int Nq,
+                        int h, int d, int L, int P, int n_tiles,
+                        int stage_elems, int vec, int lanes, void* stream) {
   if ((long long)B * n_tiles * h == 0 || d == 0) return (int)cudaGetLastError();
   cudaStream_t st = (cudaStream_t)stream;
 #define MSDA_FWD(V, G, K)                                                   \
-  return launch<MSDA_T, V, G, K>(value, levels, tiles, perm, pos, weight,   \
-                                 out, B, S, Nq, h, d, L, P, n_tiles,        \
-                                 stage_elems, st)
+  return launch<float, V, G, K>(value, levels, tiles, perm, pos, weight,    \
+                                out, B, S, Nq, h, d, L, P, n_tiles,         \
+                                stage_elems, st)
   if (vec == 4 && lanes == 4) MSDA_FWD(4, 4, 1);
   if (vec == 4 && lanes == 8) MSDA_FWD(4, 8, 1);
   if (vec == 4 && lanes == 16) MSDA_FWD(4, 16, 1);

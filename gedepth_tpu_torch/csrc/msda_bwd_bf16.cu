@@ -92,31 +92,6 @@ __host__ __device__ constexpr int region_bytes(int stage_elems, int n_slots) {
   return stage_elems * 2 > n_slots * 8 ? stage_elems * 2 : n_slots * 8;
 }
 
-// V bf16 from p as floats: one 16-byte load for V = 8
-template <int V, bool kGlobal>
-__device__ __forceinline__ void load_slice(float (&dst)[V], const bf16* p) {
-  if constexpr (V == 8) {
-    uint4 t;
-    if constexpr (kGlobal) {
-      t = __ldg(reinterpret_cast<const uint4*>(p));
-    } else {
-      t = *reinterpret_cast<const uint4*>(p);
-    }
-    const unsigned u[4] = {t.x, t.y, t.z, t.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      dst[2 * i] = __uint_as_float(u[i] << 16);
-      dst[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
-    }
-  } else {
-    const unsigned short* s = reinterpret_cast<const unsigned short*>(p);
-#pragma unroll
-    for (int v = 0; v < V; ++v)
-      dst[v] = __uint_as_float((unsigned)(kGlobal ? __ldg(s + v) : s[v])
-                               << 16);
-  }
-}
-
 // p[0..V) += t[0..V) in device memory: 16 bytes an instruction (sm_90's
 // vector reduction) for V = 8
 template <int V>

@@ -1,7 +1,8 @@
 // Shared device code of the deformable-sampling kernels (msda.cu forward,
-// msda_bwd.cu backward, msda_bwd_bf16.cu the backward's bf16 instance): the
-// tile plan's rows, the per-sample set-up that one lane does for its lane
-// group, and the staging of a value window in shared memory.
+// msda_fwd_bf16.cu its bf16 instance, msda_bwd.cu backward, msda_bwd_bf16.cu
+// the backward's bf16 instance): the tile plan's rows, the per-sample set-up
+// that one lane does for its lane group, and the staging of a value window
+// in shared memory.
 //
 // A block owns one tile of queries, one head and one batch entry. The plan
 // gives, for each tile and level, a rectangle of the level; the block copies
@@ -16,14 +17,16 @@
 // queries in the order of their keys, its rectangles around those keys.
 //
 // The value's element type T is float or __nv_bfloat16: a bf16 value is
-// staged as bf16 (half the bytes a pixel, so twice the pixels fit a window)
-// and lifted to float where a corner is read; positions, weights, the
-// records and every sum are f32 for both.
+// staged (by msda_bwd_bf16.cu) as bf16, half the bytes a pixel, and lifted
+// to float where a corner is read; positions, weights, the records and
+// every sum are f32 for both.
 //
-// A query's d channels lie over a group of G lanes, V elements a lane (V = 4:
-// one 16-byte slice of floats or one 8-byte slice of bf16 each; V = 1:
-// single elements, K rounds of G; msda_bwd_bf16.cu reads 16-byte slices of
-// 8 bf16 and stages through V = 4's 16-byte copies). Lane j of a
+// A query's d channels lie over a group of G lanes, V elements a lane (the
+// f32 kernels: V = 4, one 16-byte slice of floats each; the bf16 kernels
+// msda_fwd_bf16.cu and msda_bwd_bf16.cu: V = 8, one 16-byte slice of 8
+// bf16, `load_slice`, which msda_bwd_bf16.cu stages through V = 4's
+// 16-byte copies and msda_fwd_bf16.cu does not stage; V = 1: single
+// elements, K rounds of G). Lane j of a
 // group sets up sample j of the level once (floor, bounds, corner
 // coefficients and offset) and leaves it as a 32-byte record in shared
 // memory; the group reads it back with two broadcast loads. The set-up is
@@ -144,26 +147,47 @@ __device__ __forceinline__ void load_vec(float (&dst)[V], const float* p) {
   }
 }
 
-// V bf16 values from p as floats (a bf16 is the upper half of its float):
-// one 8-byte load for V = 4.
+// V bf16 from p as floats: one 16-byte load for V = 8
 template <int V, bool kGlobal>
-__device__ __forceinline__ void load_vec(float (&dst)[V], const bf16* p) {
-  if constexpr (V == 4) {
-    uint2 t;
+__device__ __forceinline__ void load_slice(float (&dst)[V], const bf16* p) {
+  if constexpr (V == 8) {
+    uint4 t;
     if constexpr (kGlobal) {
-      t = __ldg(reinterpret_cast<const uint2*>(p));
+      t = __ldg(reinterpret_cast<const uint4*>(p));
     } else {
-      t = *reinterpret_cast<const uint2*>(p);
+      t = *reinterpret_cast<const uint4*>(p);
     }
-    dst[0] = __uint_as_float(t.x << 16);
-    dst[1] = __uint_as_float(t.x & 0xffff0000u);
-    dst[2] = __uint_as_float(t.y << 16);
-    dst[3] = __uint_as_float(t.y & 0xffff0000u);
+    const unsigned u[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      dst[2 * i] = __uint_as_float(u[i] << 16);
+      dst[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+    }
   } else {
-    const unsigned short* u = reinterpret_cast<const unsigned short*>(p);
+    const unsigned short* s = reinterpret_cast<const unsigned short*>(p);
 #pragma unroll
     for (int v = 0; v < V; ++v)
-      dst[v] = __uint_as_float((unsigned)(kGlobal ? __ldg(u + v) : u[v]) << 16);
+      dst[v] = __uint_as_float((unsigned)(kGlobal ? __ldg(s + v) : s[v])
+                               << 16);
+  }
+}
+
+// V floats to p as bf16, each rounded to nearest even once: one 16-byte
+// store for V = 8
+template <int V>
+__device__ __forceinline__ void store_slice(bf16* p, const float (&src)[V]) {
+  if constexpr (V == 8) {
+    unsigned u[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 t =
+          __floats2bfloat162_rn(src[2 * i], src[2 * i + 1]);
+      u[i] = *reinterpret_cast<const unsigned*>(&t);
+    }
+    *reinterpret_cast<uint4*>(p) = make_uint4(u[0], u[1], u[2], u[3]);
+  } else {
+#pragma unroll
+    for (int v = 0; v < V; ++v) p[v] = __float2bfloat16_rn(src[v]);
   }
 }
 
@@ -177,22 +201,6 @@ __device__ __forceinline__ void store_vec(float* p, const float (&src)[V]) {
   }
 }
 
-// rounded to nearest even, once
-template <int V>
-__device__ __forceinline__ void store_vec(bf16* p, const float (&src)[V]) {
-  if constexpr (V == 4) {
-    const __nv_bfloat162 lo = __floats2bfloat162_rn(src[0], src[1]);
-    const __nv_bfloat162 hi = __floats2bfloat162_rn(src[2], src[3]);
-    uint2 t;
-    t.x = *reinterpret_cast<const unsigned*>(&lo);
-    t.y = *reinterpret_cast<const unsigned*>(&hi);
-    *reinterpret_cast<uint2*>(p) = t;
-  } else {
-#pragma unroll
-    for (int v = 0; v < V; ++v) p[v] = __float2bfloat16_rn(src[v]);
-  }
-}
-
 // one element through the read-only path
 __device__ __forceinline__ float ldg_elem(const float* p) { return __ldg(p); }
 __device__ __forceinline__ bf16 ldg_elem(const bf16* p) {
@@ -200,9 +208,6 @@ __device__ __forceinline__ bf16 ldg_elem(const bf16* p) {
       __ldg(reinterpret_cast<const unsigned short*>(p)));
 }
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(bf16 x) {
-  return __bfloat162float(x);
-}
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));

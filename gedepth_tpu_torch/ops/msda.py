@@ -17,7 +17,9 @@ d_value, d_pos and d_weights; on a CPU tensor the plain per-level gather
 (`msda_plain`) and its backward written out (`msda_backward_plain`, kernel
 C's plain twin, equal to autograd through `msda_plain` to the bit).
 
-The value is f32 or bf16, and each kernel has an instance for either. pos
+The value is f32 or bf16, and each kernel has an instance for either (the
+bf16 ones are kernels of their own, `csrc/msda_fwd_bf16.cu` and
+`csrc/msda_bwd_bf16.cu`: 16-byte slices of 8 bf16 a lane). pos
 and weights are f32 at the kernels' boundary whatever the value: a bf16
 position on a 304-pixel level has a quarter-pixel grid, so a bf16 model
 forms them in f32 from its bf16 projections (as the JAX package's kernel
@@ -25,7 +27,7 @@ path lifts them). With a bf16 value the output is bf16: the sums are f32
 and rounded once, in the kernels and in the plain version alike; kernel C
 takes grad_out in bf16 and returns d_value in bf16 (summed in f32, rounded
 once), d_pos and d_weights in f32. A bf16 window takes half the shared
-memory, so the tile plan of a bf16 value stages more.
+memory, so C's plan of a bf16 value stages more.
 
 Both kernels walk a tile plan: a block owns a tile of queries and one
 head and, level by level, stages in shared memory a value window around
@@ -35,7 +37,9 @@ bounds the offsets (`query_shapes`, `window_radius`) the host plans
 plans from the positions of the call (`msda_plan`, csrc/msda_plan.cu): it
 orders each entry's queries by a robust centre of their samples, cuts the
 order into tiles of 128, and stages around each tile's centres the levels
-where enough of its samples land; `plan_plain` is its plain version. The
+where enough of its samples land; `plan_plain` is its plain version. B's
+bf16 instance stages no window (its corner reads hit L1) and takes from
+either plan only the order of its queries. The
 plan only makes the kernels fast: a sample that leaves its staged window is
 read from (and, in C, added to) device memory, so any positions are
 sampled correctly, and B's output, C's d_pos and d_weights are the same to
@@ -95,13 +99,17 @@ def _round_up4(n: int) -> int:
 
 def shared_bytes(stage_elems: int, head_dim: int, lanes: int,
                  itemsize: int = 4) -> int:
-    """Dynamic shared memory of a block of kernel B: the staged value
-    window (`stage_elems` elements of `itemsize` bytes), the tile's running
-    sums (d floats a query), and a 32-byte record for each of the 8 (or
-    `lanes`, if fewer) samples a lane group sets up at a time."""
+    """Dynamic shared memory of a block of kernel B. f32 (csrc/msda.cu):
+    the staged value window (`stage_elems` floats), the tile's running sums
+    (d floats a query), and a 32-byte record for each of the 8 (or `lanes`,
+    if fewer) samples a lane group sets up at a time. bf16
+    (csrc/msda_fwd_bf16.cu, the sums in registers): the staged bf16 window
+    in whole 16-byte units, then the records."""
     records = TILE_THREADS // lanes * min(lanes, 8) * RECORD_BYTES
-    return (itemsize * stage_elems
-            + 4 * _round_up4(MAX_TILE_QUERIES * head_dim) + records)
+    if itemsize == 2:
+        return -(-2 * stage_elems // 16) * 16 + records
+    return (4 * stage_elems + 4 * _round_up4(MAX_TILE_QUERIES * head_dim)
+            + records)
 
 
 def shared_bytes_backward(stage_elems: int, head_dim: int, lanes: int,
@@ -136,19 +144,33 @@ def shared_bytes_backward(stage_elems: int, head_dim: int, lanes: int,
             + 4 * (2 * (stage_elems // head_dim) + 1))
 
 
-def stage_budget(head_dim: int, lanes: int) -> int:
-    """Bytes a staged window may take so that two blocks share an SM."""
-    return max(BLOCK_SHARED_BYTES - shared_bytes(0, head_dim, lanes), 0)
+# share of the room beside its records that kernel B's bf16 instance gives
+# a staged window: 0, since reading every corner through L1 was faster at
+# every windowed, compat and exact shape of HAHI measured
+# (tests/msda_plan_rules.py --budget, which sets it)
+STAGE_SHARE_FORWARD_BF16 = 0.0
 
 
-def backward_lanes(head_dim: int, aligned: bool = True, itemsize: int = 4):
-    """(elements per lane, lanes per query) of the instance of kernel C
-    that serves a head width. f32 as `channel_lanes`. bf16: 16-byte slices
-    of 8 over the smallest of 4, 8 or 16 lanes that holds the head, when the
-    head is whole 16-byte units and the tensors are 16-byte aligned; else
-    single elements over 32 lanes, four rounds at most."""
+def stage_budget(head_dim: int, lanes: int, itemsize: int = 4) -> int:
+    """Bytes a staged window of kernel B may take so that two blocks share
+    an SM; for the bf16 instance, STAGE_SHARE_FORWARD_BF16 of that room, in
+    whole 16-byte units."""
+    room = max(BLOCK_SHARED_BYTES - shared_bytes(0, head_dim, lanes,
+                                                 itemsize), 0)
+    if itemsize == 2:
+        return int(STAGE_SHARE_FORWARD_BF16 * room) // 16 * 16
+    return room
+
+
+def lanes_of(head_dim: int, aligned: bool = True, itemsize: int = 4):
+    """(elements per lane, lanes per query) of the instance of kernels B
+    and C that serves a head width. f32 as `channel_lanes`. bf16
+    (csrc/msda_fwd_bf16.cu, csrc/msda_bwd_bf16.cu): 16-byte slices of 8 over
+    the smallest of 4, 8 or 16 lanes that holds the head, when the head is
+    whole 16-byte units and the tensors are 16-byte aligned; else single
+    elements over 32 lanes, four rounds at most."""
     if itemsize != 2:
-        return channel_lanes(head_dim, aligned, itemsize)
+        return channel_lanes(head_dim, aligned)
     if head_dim % 8 == 0 and aligned:
         return 8, next(g for g in (4, 8, 16) if 8 * g >= head_dim)
     return 1, 32
@@ -359,14 +381,14 @@ def compat_clamp_mass(delta, weights, radius):
     return (weights * clamped).sum() / (B * Nq * h)
 
 
-def channel_lanes(head_dim: int, aligned: bool = True, itemsize: int = 4):
-    """(elements per lane, lanes per query) of the kernel instance that
-    serves a head width: slices of 4 elements over the smallest of 4, 8, 16
-    or 32 lanes that holds the head, when the head is whole 16-byte units
-    (a multiple of 4 floats or 8 bf16: a window is staged in 16-byte
-    copies); else (or when the tensors are not 16-byte aligned) single
-    elements over 32 lanes, four rounds at most."""
-    if head_dim % (16 // itemsize) == 0 and aligned:
+def channel_lanes(head_dim: int, aligned: bool = True):
+    """(elements per lane, lanes per query) of the f32 kernel instances
+    that serve a head width: slices of 4 floats over the smallest of 4, 8,
+    16 or 32 lanes that holds the head, when the head is whole 16-byte units
+    (a window is staged in 16-byte copies); else (or when the tensors are
+    not 16-byte aligned) single elements over 32 lanes, four rounds at
+    most."""
+    if head_dim % 4 == 0 and aligned:
         return 4, next(g for g in (4, 8, 16, 32) if 4 * g >= head_dim)
     return 1, 32
 
@@ -870,9 +892,10 @@ UNPLANNED_LEVELS = "more levels than a plan holds"
 UNPLANNED_CORNER = "narrow corners: the plan costs more than it saves yet"
 # The least bytes of a corner with which a launch plans, measured on the
 # H100 by tests/msda_plan_rules.py: B reads d elements of the value a corner
-# (f32 at d = 64 gains by the plan, bf16 at d = 64 and f32 at d = 8 lose
-# by it); C adds d f32 sums a corner (d = 64 gains in f32 and bf16, d = 8
-# loses)
+# (f32 at d = 64 gains by the plan; bf16 at d = 64, whose kernel reads
+# through L1 and gains ~8% by the plan's order, loses that to the plan's
+# launches and host time; d = 8 loses by it in either dtype); C adds d f32
+# sums a corner (d = 64 gains in f32 and bf16, d = 8 loses)
 PLAN_MIN_CORNER_BYTES_FORWARD = 256
 PLAN_MIN_CORNER_BYTES_BACKWARD = 128
 UNPLANNED_CORNERS = "a tile's corner list outgrows an SM"
@@ -898,15 +921,15 @@ def _aligned(*tensors):
 
 def _forward_geometry(value, out):
     """(vec, lanes, stage bytes, bin pixels) of a launch of B."""
-    d = value.shape[3]
-    vec, lanes = channel_lanes(d, _aligned(value, out), value.element_size())
-    return vec, lanes, stage_budget(d, lanes), 0
+    d, itemsize = value.shape[3], value.element_size()
+    vec, lanes = lanes_of(d, _aligned(value, out), itemsize)
+    return vec, lanes, stage_budget(d, lanes, itemsize), 0
 
 
 def _backward_geometry(value, points, *tensors):
     """(vec, lanes, stage bytes, bin pixels) of a launch of C."""
     d, itemsize = value.shape[3], value.element_size()
-    vec, lanes = backward_lanes(d, _aligned(value, *tensors), itemsize)
+    vec, lanes = lanes_of(d, _aligned(value, *tensors), itemsize)
     budget = stage_budget_backward(d, lanes, points, itemsize)
     return vec, lanes, budget, backward_bins(d, budget, itemsize)
 
@@ -973,6 +996,7 @@ def _launch_forward(value, spatial_shapes, pos, weights, window,
     msda.launches += 1
     msda.launches_by_queries[Nq] += 1
     msda.launches_by_dtype[value.dtype] += 1
+    msda.launches_by_instance[(value.dtype, a.vec, a.lanes)] += 1
     return out
 
 
@@ -1277,8 +1301,9 @@ msda_backward.launches_by_queries = collections.Counter()
 # and by the value's dtype: which instance ran
 msda.launches_by_dtype = collections.Counter()
 msda_backward.launches_by_dtype = collections.Counter()
-# kernel C's launches by (dtype, elements a lane, lanes a query): which
+# the launches of B and C by (dtype, elements a lane, lanes a query): which
 # instance and lane geometry ran
+msda.launches_by_instance = collections.Counter()
 msda_backward.launches_by_instance = collections.Counter()
 # the launches that walked the unplanned rows by design, by reason
 msda.unplanned = collections.Counter()

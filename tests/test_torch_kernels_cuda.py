@@ -455,12 +455,21 @@ PLAN_CASES = {
 @pytest.mark.parametrize("case", sorted(PLAN_CASES))
 def test_msda_plan_kernel_equals_plain(case, itemsize):
     """The planning kernel against `plan_plain`, integer for integer, and a
-    second run against the first."""
+    second run against the first, at the stage budget of kernel C's
+    instance for the item size (B's f32 instance has the same); B's bf16
+    instance, which stages nothing, plans at a budget of 0."""
     levels, B, Nq, h, P, d = PLAN_CASES[case]
     g = torch.Generator(device="cuda").manual_seed(21)
     _, pos, _, _ = _exact_case(g, levels, B, Nq, h, P, d=d)
-    _, lanes = msda_ops.channel_lanes(d, itemsize=itemsize)
-    budget = msda_ops.stage_budget(d, lanes)
+    _, lanes = msda_ops.lanes_of(d, itemsize=itemsize)
+    budget = msda_ops.stage_budget_backward(d, lanes, P, itemsize)
+    if itemsize == 2:
+        assert msda_ops.stage_budget(d, lanes, itemsize) == 0
+        got = msda_ops.msda_plan(pos, levels, d, 0, itemsize)
+        want = msda_ops.plan_plain(pos.cpu(), levels, d, 0, itemsize)
+        for name in ("keys", "perm", "rows"):
+            assert torch.equal(getattr(got, name).cpu(), getattr(want, name))
+        assert not want.rows[:, msda_ops.TILE_HEADER:].any()
     before = msda_ops.msda_plan.launches
     got = msda_ops.msda_plan(pos, levels, d, budget, itemsize)
     again = msda_ops.msda_plan(pos, levels, d, budget, itemsize)
@@ -481,7 +490,8 @@ def test_planned_kernels_equal_unplanned(case, dtype, monkeypatch):
     C's d_pos and d_weights likewise; d_value within today's tolerance of
     the plain version (f32) or of the unplanned kernel (bf16: one rounding
     of f32 sums that differ in their last bits). Batch 2, each entry its
-    own offsets; levels are staged. B and C are planned here whatever their
+    own offsets; levels are staged (but by B's bf16 instance, which takes
+    only the plan's order). B and C are planned here whatever their
     corners' bytes (the main path plans them from PLAN_MIN_CORNER_BYTES_*
     on)."""
     monkeypatch.setattr(msda_ops, "PLAN_MIN_CORNER_BYTES_FORWARD", 0)
@@ -490,9 +500,10 @@ def test_planned_kernels_equal_unplanned(case, dtype, monkeypatch):
     g = torch.Generator(device="cuda").manual_seed(22)
     value, pos, w, gout = _exact_case(g, levels, B, Nq, h, P, dtype=dtype,
                                       d=d)
-    plan = msda_ops.msda_plan(pos, levels, d, msda_ops.stage_budget(
-        d, msda_ops.channel_lanes(d, itemsize=value.element_size())[1]),
-        value.element_size())
+    item = value.element_size()
+    lanes = msda_ops.lanes_of(d, itemsize=item)[1]
+    plan = msda_ops.msda_plan(pos, levels, d, msda_ops.stage_budget_backward(
+        d, lanes, P, item), item)
     assert (plan.rows[:, msda_ops.TILE_HEADER + 2::4] > 0).any()
     plans = msda_ops.msda_plan.launches
     got = msda_ops.msda(value, levels, pos, w)
@@ -512,12 +523,14 @@ def test_planned_kernels_equal_unplanned(case, dtype, monkeypatch):
             atol=8e-3 * ref[0].float().abs().max().item())
 
 
-@pytest.mark.parametrize("case,dtype", [("binsformer_like", torch.float32),
-                                        ("hahi_like", torch.bfloat16)])
-def test_unplanned_launches_are_counted_by_reason(case, dtype):
+@pytest.mark.parametrize("case,dtype,c_plans", [
+    ("binsformer_like", torch.float32, False),
+    ("binsformer_like", torch.bfloat16, False),
+    ("hahi_like", torch.bfloat16, True)])
+def test_unplanned_launches_are_counted_by_reason(case, dtype, c_plans):
     """Corners below PLAN_MIN_CORNER_BYTES_*: B of bf16 at d = 64 and B and
-    C at d = 8 take the unplanned rows and count under their reason; C of
-    bf16 at d = 64 plans."""
+    C at d = 8, in f32 and in bf16, take the unplanned rows and count under
+    their reason; C of bf16 at d = 64 plans."""
     g = torch.Generator(device="cuda").manual_seed(23)
     levels, B, Nq, h, P, d = PLAN_CASES[case]
     value, pos, w, gout = _exact_case(g, levels, B, Nq, h, P, d=d,
@@ -529,7 +542,6 @@ def test_unplanned_launches_are_counted_by_reason(case, dtype):
     got = msda_ops.msda(value, levels, pos, w)
     msda_ops.msda_backward(value, levels, pos, w, gout)
     torch.cuda.synchronize()
-    c_plans = dtype == torch.bfloat16
     assert (msda_ops.msda.unplanned[reason],
             msda_ops.msda_backward.unplanned[reason],
             msda_ops.msda_plan.launches) == (
@@ -1021,6 +1033,162 @@ def test_msda_bf16_unaligned_value_takes_the_scalar_instance():
     assert shifted.data_ptr() % 16 == 2
     assert torch.equal(msda_ops.msda(shifted, levels, pos, w, grids, 4),
                        msda_ops.msda(value, levels, pos, w, grids, 4))
+
+
+# kernel B's bf16 instance (csrc/msda_fwd_bf16.cu): 16-byte slices of 8
+# bf16 over d / 8 lanes a query (at least 4), the tile's sums in registers;
+# the scalar instance (single elements over 32 lanes) for a head that is
+# not whole 16-byte units or a value that is not 16-byte aligned
+
+
+@pytest.mark.parametrize("far", [False, True])
+@pytest.mark.parametrize("d,lanes", [(8, 4), (16, 4), (24, 4), (64, 8),
+                                     (128, 16)])
+def test_msda_bf16_forward_kernel(d, lanes, far):
+    """B's bf16 instance at every head width of 16-byte slices, with the
+    hint and over the card's plan, against float64 of the same bf16
+    inputs; `far`: a tenth of the samples tens of pixels or 1e6 away, out
+    of their windows and mostly out of their levels. Each launch counts
+    under (bf16, 8, lanes)."""
+    g = torch.Generator(device="cuda").manual_seed(32)
+    grids = ((11, 19), (6, 10))
+    levels = ((22, 38), (11, 19), (6, 10))
+    value, pos, w, _ = _bf16_msda_case(g, grids, levels, 2, 3, d, 8, 2.0,
+                                       far)
+    ref = msda_ops.msda_plain(value.double(), levels, pos.double(),
+                              w.double())
+    plain = msda_ops.msda_plain(value, levels, pos, w)
+    for hint in ((grids, 4), ()):
+        before = msda_ops.msda.launches_by_instance[(BF16, 8, lanes)]
+        got = msda_ops.msda(value, levels, pos, w, *hint)
+        torch.cuda.synchronize()
+        assert msda_ops.msda.launches_by_instance[(BF16, 8, lanes)] == \
+            before + 1
+        assert got.dtype == BF16
+        _assert_close_to_f64(got, plain, ref)
+
+
+@pytest.mark.parametrize("case", ["unaligned", "d12"])
+def test_msda_bf16_forward_scalar_instance(case):
+    """A value that is not 16-byte aligned, or a head of 12 (not whole
+    16-byte units), takes the scalar instance of B-bf16, with the hint and
+    without, held to float64 as the 16-byte instance is; the unaligned
+    value gives the 16-byte instance's output bit for bit (the same sums in
+    the same order)."""
+    g = torch.Generator(device="cuda").manual_seed(33)
+    levels, grids = ((12, 20), (6, 10)), ((6, 10),)
+    d = 12 if case == "d12" else 64
+    value, pos, w, _ = _bf16_msda_case(g, grids, levels, 2, 2, d, 8, 2.0,
+                                       True)
+    taken = value
+    if case == "unaligned":
+        taken = torch.empty(value.numel() + 1, device="cuda",
+                            dtype=BF16)[1:].view(value.shape).copy_(value)
+        assert taken.data_ptr() % 16 == 2
+    ref = msda_ops.msda_plain(value.double(), levels, pos.double(),
+                              w.double())
+    plain = msda_ops.msda_plain(value, levels, pos, w)
+    for hint in ((grids, 4), ()):
+        before = msda_ops.msda.launches_by_instance[(BF16, 1, 32)]
+        got = msda_ops.msda(taken, levels, pos, w, *hint)
+        torch.cuda.synchronize()
+        assert msda_ops.msda.launches_by_instance[(BF16, 1, 32)] == \
+            before + 1
+        _assert_close_to_f64(got, plain, ref)
+        if case == "unaligned":
+            assert torch.equal(got, msda_ops.msda(value, levels, pos, w,
+                                                  *hint))
+
+
+def test_msda_bf16_forward_at_hahi_exact_serving_cross(monkeypatch):
+    """B's bf16 instance at HAHI's exact serving cross-attention (107,008
+    queries over the four serving levels, 8 heads of 64, P = 8, reference
+    points anywhere, a twentieth of the samples thrown out) over the plan
+    the card makes from the positions (which the corner rule leaves to
+    launches of wider corners), against float64 of the same bf16 inputs,
+    and equal bit for bit to the unplanned rows that the main path takes."""
+    g = torch.Generator(device="cuda").manual_seed(34)
+    levels = ((88, 304), (44, 152), (22, 76), (11, 38))
+    value, pos, w, _ = _exact_case(g, levels, 1, 176 * 608, 8, 8,
+                                   dtype=BF16)
+    main = msda_ops.msda(value, levels, pos, w)
+    monkeypatch.setattr(msda_ops, "PLAN_MIN_CORNER_BYTES_FORWARD", 0)
+    plans = msda_ops.msda_plan.launches
+    got = msda_ops.msda(value, levels, pos, w)
+    torch.cuda.synchronize()
+    assert msda_ops.msda_plan.launches == plans + 1
+    assert torch.equal(got, main)
+    ref = msda_ops.msda_plain(value.double(), levels, pos.double(),
+                              w.double())
+    _assert_close_to_f64(got, msda_ops.msda_plain(value, levels, pos, w), ref)
+
+
+@pytest.mark.parametrize("hinted", [True, False])
+def test_msda_bf16_forward_is_deterministic(hinted):
+    """Two launches of B's bf16 instance give the same output bit for bit
+    (no atomics; each channel's samples summed in one order)."""
+    g = torch.Generator(device="cuda").manual_seed(35)
+    grids = ((44, 88), (22, 44), (11, 22))
+    levels = ((88, 176), (44, 88), (22, 44), (11, 22))
+    value, pos, w, _ = _bf16_msda_case(g, grids, levels, 2, 8, 64, 8, 2.0,
+                                       True)
+    hint = (grids, 4) if hinted else ()
+    first = msda_ops.msda(value, levels, pos, w, *hint)
+    second = msda_ops.msda(value, levels, pos, w, *hint)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("share", [0.5, 1.0])
+@pytest.mark.parametrize("d", [8, 64, 12])
+def test_msda_bf16_forward_staged_equals_unstaged(d, share, monkeypatch):
+    """B's bf16 instance given a stage budget (STAGE_SHARE_FORWARD_BF16,
+    which only tests/msda_plan_rules.py --budget sets) stages its plan's
+    windows, with the hint and over the card's plan, and reads the corners
+    there: the same sums in the same order, so the output equals the
+    unstaged launch's bit for bit (a tenth of the samples thrown far, past
+    every window)."""
+    g = torch.Generator(device="cuda").manual_seed(37)
+    grids = ((11, 19), (6, 10))
+    levels = ((22, 38), (11, 19), (6, 10))
+    value, pos, w, _ = _bf16_msda_case(g, grids, levels, 2, 3, d, 8, 2.0,
+                                       True)
+    monkeypatch.setattr(msda_ops, "PLAN_MIN_CORNER_BYTES_FORWARD", 0)
+    want = [msda_ops.msda(value, levels, pos, w, *hint)
+            for hint in ((grids, 4), ())]
+    monkeypatch.setattr(msda_ops, "STAGE_SHARE_FORWARD_BF16", share)
+    vec, lanes = msda_ops.lanes_of(d, itemsize=2)
+    budget = msda_ops.stage_budget(d, lanes, 2)
+    assert budget > 0
+    plan = msda_ops.tile_plan(grids, levels, 4.0, d, budget, 2)
+    assert plan.stage_elems > 0
+    assert 2 * (msda_ops.shared_bytes(plan.stage_elems, d, lanes, 2)
+                + 1024) <= msda_ops.SM_SHARED_BYTES
+    for hint, before in zip(((grids, 4), ()), want):
+        got = msda_ops.msda(value, levels, pos, w, *hint)
+        torch.cuda.synchronize()
+        assert torch.equal(got, before)
+
+
+def test_msda_bf16_forward_counts_the_16_byte_instance():
+    """A bf16 launch of B at d = 64 counts once under the bf16 dtype and
+    once under its instance: 16-byte slices of 8 over 8 lanes a query; the
+    f32 instance keeps its slices of 4 over 16 lanes."""
+    g = torch.Generator(device="cuda").manual_seed(36)
+    levels, grids = ((12, 20), (6, 10)), ((6, 10),)
+    value, pos, w, _ = _bf16_msda_case(g, grids, levels, 2, 8, 64, 4, 2.0,
+                                       False)
+    counted = msda_ops.msda
+    keys = ((BF16, 8, 8), (BF16, 1, 32), (torch.float32, 4, 16))
+    before = [counted.launches_by_dtype[BF16]] + [
+        counted.launches_by_instance[k] for k in keys]
+    for hint in ((grids, 4), ()):
+        msda_ops.msda(value, levels, pos, w, *hint)
+    msda_ops.msda(value.float(), levels, pos, w, grids, 4)
+    torch.cuda.synchronize()
+    assert [counted.launches_by_dtype[BF16]] + [
+        counted.launches_by_instance[k] for k in keys] == [
+        before[0] + 2, before[1] + 2, before[2], before[3] + 1]
 
 
 def test_msda_bf16_backward_unaligned_takes_the_scalar_instance():

@@ -125,11 +125,9 @@ def test_backward_lanes_bf16(head_dim, want):
     """16-byte slices of 8 bf16 over the fewest of 4, 8, 16 lanes; the
     scalar instance for a head that is not whole 16-byte units or for
     tensors that are not 16-byte aligned; f32 keeps `channel_lanes`."""
-    assert msda_ops.backward_lanes(head_dim, itemsize=2) == want
-    assert msda_ops.backward_lanes(head_dim, aligned=False,
-                                   itemsize=2) == (1, 32)
-    assert msda_ops.backward_lanes(head_dim) == \
-        msda_ops.channel_lanes(head_dim)
+    assert msda_ops.lanes_of(head_dim, itemsize=2) == want
+    assert msda_ops.lanes_of(head_dim, aligned=False, itemsize=2) == (1, 32)
+    assert msda_ops.lanes_of(head_dim) == msda_ops.channel_lanes(head_dim)
     vec, lanes = want
     assert vec * lanes * (4 if vec == 1 else 1) >= head_dim
 
@@ -144,7 +142,7 @@ def test_bf16_backward_block_leaves_two_blocks_an_sm(head_dim, points):
     block that bins without staging. At 16 points a tile's corners alone
     would crowd the block: it stages and bins nothing and adds every corner
     to device memory."""
-    _, lanes = msda_ops.backward_lanes(head_dim, itemsize=2)
+    _, lanes = msda_ops.lanes_of(head_dim, itemsize=2)
     budget = msda_ops.stage_budget_backward(head_dim, lanes, points, 2)
     bins = msda_ops.backward_bins(head_dim, budget, 2)
     pixels = budget // (2 * head_dim)
@@ -163,8 +161,8 @@ def test_bf16_backward_shared_bytes_at_hahi_width():
     bytes, filed and sorted (the sorted ones in the window's region); a
     count for each pixel of a bin window; a window of at least the 18x18
     pixels that an 8x8 query tile reaches at R = 4 on its own level (the
-    f32 instance's budget holds 290, B's for bf16 580)."""
-    lanes = msda_ops.backward_lanes(64, itemsize=2)[1]
+    f32 instance's budget holds 290; B's bf16 instance stages nothing)."""
+    lanes = msda_ops.lanes_of(64, itemsize=2)[1]
     assert lanes == 8
     fixed = 128 * 64 * 2 + 64 * 8 * 32
     assert msda_ops.shared_bytes_backward(0, 64, lanes, 8, 2) == fixed
@@ -180,7 +178,6 @@ def test_bf16_backward_shared_bytes_at_hahi_width():
     assert msda_ops.stage_budget_backward(64, 16, 8) == \
         msda_ops.stage_budget(64, 16)
     assert msda_ops.backward_bins(64, msda_ops.stage_budget(64, 16)) == 0
-    assert msda_ops.channel_lanes(64, itemsize=2) == (4, 16)
 
 
 def test_bf16_backward_plan_bins_what_it_cannot_stage():
@@ -190,7 +187,7 @@ def test_bf16_backward_plan_bins_what_it_cannot_stage():
     pixels); B's plan of the same launch, and the f32 plans, bin nothing."""
     levels = ((88, 176), (44, 88), (22, 44), (11, 22))
     grids = levels[1:]
-    lanes = msda_ops.backward_lanes(64, itemsize=2)[1]
+    lanes = msda_ops.lanes_of(64, itemsize=2)[1]
     budget = msda_ops.stage_budget_backward(64, lanes, 8, 2)
     bins = msda_ops.backward_bins(64, budget, 2)
     plan = msda_ops.tile_plan(grids, levels, float(R), 64, budget, 2, bins)
@@ -217,7 +214,7 @@ def test_bf16_backward_plans_with_its_own_budget():
     B, Nq, h, P = 1, 300, 2, 8
     pos = torch.from_numpy(rng.uniform(-2, 40, (B, Nq, h, 2, P, 2))
                            .astype(np.float32))
-    lanes = msda_ops.backward_lanes(64, itemsize=2)[1]
+    lanes = msda_ops.lanes_of(64, itemsize=2)[1]
     budget = msda_ops.stage_budget_backward(64, lanes, P, 2)
     plan = msda_ops.plan_plain(pos, levels, 64, budget, 2)
     rects = plan.rows[:, msda_ops.TILE_HEADER:].reshape(-1, 2, 4)
