@@ -298,15 +298,21 @@ its five costliest laps); any failure raises and exits non-zero:
      alone; the same step again from the same seed, the loss and the
      DropPath generator's state equal to the bit and every gradient
      within phase 8's bound; a bf16_compute step and a whole-model bf16
-     request, their bf16 launches counted as many. The other four presets
-     launch none.
+     request, their bf16 launches counted as many. Every launch of B and C
+     in its run, its steps and its bf16 request went through their narrow
+     instance (`launches_by_instance`: (dtype, 'narrow', 8) alone). The
+     other four presets launch none.
  37. kernels at BinsFormer's shapes against their plain versions, timed
      as phase 3 with the plain versions in the trace: A at Swin-T's stage 1
      (3 heads of 32), served (414 windows) and at the train crop (2 x 300),
      f32 and bf16 (bf16 held to float64 as phase 13), each beside one
      `scaled_dot_product_attention` call; B under the exact rule at the
      deformable encoder's 6,300 serving queries and 2 x 4,641 train queries
-     (3 levels, 8 heads of 8 channels); C at the train shape.
+     (3 levels, 8 heads of 8 channels), f32 and bf16; C and C-bf16 at the
+     train shape (bf16 held to float64 as phase 13). B and C run on their
+     narrow instance (csrc/msda_narrow.cu): B equal to the wide instance
+     bit for bit, C's d_pos and d_w the same over two launches, each timed
+     beside the wide instance in the same process (`wide_device_ms`).
  38. the seg preset `ocrnet_hr18_kitti` (HRNet-W18 + the FCN/OCR cascade,
      OCR widths 512 and 256, the PE ground-mask task), f32 with cuDNN's
      autotuner, the port's kernel counts set to 0 before it and read after
@@ -385,8 +391,9 @@ from phase 18. The rows of phase 24 carry the launches
 of phase 25's requests (serving shapes) and of phase 26's steps and
 evaluation (train shapes; E both). The rows of phase 37 carry the launches
 of phase 36's `binsformer_nyu`: its f32 requests (serving shapes) and its
-f32 step (train shapes), and for the bf16 instances of A and B its bf16
-request and bf16_compute step. The first four rows also carry the
+f32 step (train shapes), and for the bf16 instances of A, B and C its bf16
+request and bf16_compute step; their B and C rows name the narrow
+instance's source. The first four rows also carry the
 launches inside phase 31's loaded program (`launches_exported`) and those
 of phase 39's Cityscapes training and evaluation (`launches_cityscapes`).
 Last the device as one JSON line.
@@ -1225,6 +1232,22 @@ def read_counts(counters):
             {name: dict(c.launches_by_queries)
              for name, c in counters.items()
              if hasattr(c, "launches_by_queries")})
+
+
+def read_instances(counters):
+    """B's and C's launches by instance (`launches_by_instance`)."""
+    return {name: dict(counters[name].launches_by_instance)
+            for name in ("msda", "msda_backward")}
+
+
+def narrow_launches(dtype, n_b, n_c):
+    """`read_instances` of n_b launches of B and n_c of C, all on the
+    narrow instance at d = 8 (BinsFormer's heads)."""
+    from gedepth_tpu_torch.ops.msda import NARROW
+
+    key = (dtype, NARROW, 8)
+    return {"msda": {key: n_b} if n_b else {},
+            "msda_backward": {key: n_c} if n_c else {}}
 
 
 def counts_since(before, after):
@@ -3036,6 +3059,8 @@ BINS_PER_REQUEST = {"window_attention": 24, "msda": 12, "msda_backward": 0,
                     "pe_fusion": 0}
 BINS_PER_STEP = {"window_attention": 24, "msda": 6, "msda_backward": 6,
                  "pe_fusion": 0}
+# B and C at BinsFormer's heads of 8: their narrow instance, f32 and bf16
+NARROW_SOURCE = "gedepth_tpu_torch/csrc/msda_narrow.cu"
 
 
 def phase_kernels_binsformer():
@@ -3047,9 +3072,11 @@ def phase_kernels_binsformer():
     encoder's 6,300 serving queries and 2 x 4,641 train queries (3 levels,
     8 heads of 8 channels, 8 points; the self-attention's grid-centre
     reference points, a twentieth of the samples thrown far), its bf16
-    instance (16-byte slices over groups of 4 lanes) on the same value
-    cast to bf16, against float64 as phase 13 holds it and beside the f32
-    instance; C at the train shape."""
+    instance on the same value cast to bf16, against float64 as phase 13
+    holds it and beside the f32 instance; C and C-bf16 at the train shape.
+    B and C run there on their narrow instance (csrc/msda_narrow.cu), each
+    held against and timed beside the wide instance (`msda_wide`,
+    `msda_backward_wide`) in the same process."""
     import torch.nn.functional as F
 
     from gedepth_tpu_torch.models.swin import shifted_window_mask
@@ -3127,50 +3154,64 @@ def phase_kernels_binsformer():
         del qkv, q, k, v, want, attn_mask, qkv_b, qb, kb, vb, ref, got, attn_b
 
     print("[kernels binsformer] B and C under the exact rule, 3 levels, 8 "
-          "heads of 8 channels (B: rtol 2e-4, atol 2e-5; B-bf16 against "
-          "float64, limit max(2 x plain's error, 1 bf16 ulp); C as phase 6)")
+          "heads of 8 channels, on their narrow instance (B: rtol 2e-4, "
+          "atol 2e-5, and the wide instance's output bit for bit; bf16 "
+          "against float64, limit max(2 x plain's error, 1 bf16 ulp); C as "
+          "phase 6, d_pos and d_w the same over two launches), each timed "
+          "beside the wide instance ('wide') and the bf16 ones beside f32")
     for label, B, levels in (("exact serving_self", 1, BINS_SERVE_LEVELS),
                              ("exact train_self", 2, BINS_TRAIN_LEVELS)):
         value = randn(B, sum(a * b for a, b in levels), 8, 8)
         pos, w, _ = rule_positions("exact", randn, g, B, levels, levels,
                                    False)
         Nq, n_touch = pos.shape[1], touching(pos, levels)
-        want = msda_ops.msda_plain(value, levels, pos, w)
-        err = compare(f"B binsformer {label} {B}x{Nq} queries",
-                      msda_ops.msda(value, levels, pos, w), want, 2e-4, 2e-5)
-        # the plain version ran just above (`want`)
-        t = timed(lambda: msda_ops.msda(value, levels, pos, w),
-                  lambda: msda_ops.msda_plain(value, levels, pos, w),
-                  plain_reps=1, plain_warmup=0)
-        t["bound_ms"], t["bound_by"] = bound(n_bytes(value, pos, w, want),
-                                             9 * n_touch * 8)
-        show(t, touching=f"{n_touch / w.numel():.3f}")
-        results[f"msda {label}"] = dict(t, max_abs_err=err, queries=Nq)
-        del want
         vb = value.to(bf)
-        ref = msda_ops.msda_plain(vb.double(), levels, pos.double(),
-                                  w.double())
-        got = msda_ops.msda(vb, levels, pos, w)
-        err = compare64(f"B bf16 binsformer {label} {B}x{Nq} queries", got,
-                        msda_ops.msda_plain(vb, levels, pos, w), ref)
-        t = timed(lambda: msda_ops.msda(vb, levels, pos, w),
-                  lambda: msda_ops.msda_plain(vb, levels, pos, w),
-                  plain_reps=1, plain_warmup=0, trace_plain=False,
-                  extra={"f32": lambda: msda_ops.msda(value, levels, pos,
-                                                      w)})
-        t["bound_ms"], t["bound_by"] = bound(n_bytes(vb, pos, w, got),
-                                             9 * n_touch * 8)
-        f32_device = t["extra_ms"]["f32"][0]
-        show(t, against_f32=("not measured" if not (t["device_ms"]
-                                                    and f32_device)
-                             else f"{t['device_ms'] / f32_device:.3f}x"))
-        results[f"msda_bf16 {label}"] = dict(t, max_abs_err=err, queries=Nq)
-        del vb, ref, got
+        for v in (value, vb):
+            name = "B" if v is value else "B bf16"
+            got = msda_ops.msda(v, levels, pos, w)
+            if not torch.equal(got, msda_ops.msda_wide(v, levels, pos, w)):
+                fail(f"{name} binsformer {label}: the narrow instance is not "
+                     "the wide one's output bit for bit")
+            if v is value:
+                want = msda_ops.msda_plain(value, levels, pos, w)
+                err = compare(f"B binsformer {label} {B}x{Nq} queries", got,
+                              want, 2e-4, 2e-5)
+                del want
+            else:
+                ref = msda_ops.msda_plain(vb.double(), levels, pos.double(),
+                                          w.double())
+                err = compare64(f"B bf16 binsformer {label} {B}x{Nq} "
+                                "queries", got,
+                                msda_ops.msda_plain(vb, levels, pos, w), ref)
+                del ref
+            extra = {"wide": lambda v=v: msda_ops.msda_wide(v, levels, pos,
+                                                            w)}
+            if v is vb:
+                extra["f32"] = lambda: msda_ops.msda(value, levels, pos, w)
+            # the plain version ran just above
+            t = timed(lambda v=v: msda_ops.msda(v, levels, pos, w),
+                      lambda v=v: msda_ops.msda_plain(v, levels, pos, w),
+                      plain_reps=1, plain_warmup=0, trace_plain=v is value,
+                      extra=extra)
+            t["bound_ms"], t["bound_by"] = bound(n_bytes(v, pos, w, got),
+                                                 9 * n_touch * 8)
+            show(t, touching=f"{n_touch / w.numel():.3f}",
+                 against_wide=against(t, "wide"))
+            results[f"{'msda' if v is value else 'msda_bf16'} {label}"] = \
+                dict(t, max_abs_err=err, queries=Nq)
+            del got
         if B == 2:
             gout = randn(B, Nq, 64)
-            args = (value, levels, pos, w, gout)
+            gb = gout.to(bf)
+            args, bargs = (value, levels, pos, w, gout), (vb, levels, pos, w,
+                                                          gb)
             got = msda_ops.msda_backward(*args)
+            again = msda_ops.msda_backward(*args)
             want = msda_ops.msda_backward_plain(*args)
+            if not (torch.equal(got[1], again[1])
+                    and torch.equal(got[2], again[2])):
+                fail(f"C binsformer {label}: d_pos or d_w differ between "
+                     "two launches")
             dv_atol = 1e-5 * want[0].abs().max().item()
             err = max(compare(f"C binsformer {label} d_value", got[0],
                               want[0], 2e-4, dv_atol),
@@ -3179,19 +3220,65 @@ def phase_kernels_binsformer():
                       compare(f"C binsformer {label} d_weights", got[2],
                               want[2], 2e-4, 2e-5))
             n_out = n_bytes(*want)
-            del got, want
+            del got, again, want
             t = timed(lambda: msda_ops.msda_backward(*args),
                       lambda: msda_ops.msda_backward_plain(*args),
-                      plain_reps=1)
+                      plain_reps=1,
+                      extra={"wide": lambda: msda_ops.msda_backward_wide(
+                          *args)})
             t["bound_ms"], t["bound_by"] = bound(
                 n_bytes(value, pos, w, gout) + n_out, 17 * n_touch * 8)
-            show(t)
+            show(t, against_wide=against(t, "wide"))
             results[f"msda_backward {label}"] = dict(t, max_abs_err=err,
                                                      queries=Nq)
-            del gout, args
-        del value, pos, w
+            # C-bf16 on the same inputs cast to bf16, as phase 13 holds it
+            ref = msda_ops.msda_backward_plain(
+                vb.double(), levels, pos.double(), w.double(), gb.double())
+            got = msda_ops.msda_backward(*bargs)
+            again = msda_ops.msda_backward(*bargs)
+            plain = msda_ops.msda_backward_plain(*bargs)
+            if [x.dtype for x in got] != [bf, torch.float32, torch.float32]:
+                fail(f"C bf16 binsformer {label}: gradient dtypes "
+                     f"{[x.dtype for x in got]}")
+            if not (torch.equal(got[1], again[1])
+                    and torch.equal(got[2], again[2])):
+                fail(f"C bf16 binsformer {label}: d_pos or d_w differ "
+                     "between two launches")
+            err = max(
+                compare64(f"C bf16 binsformer {label} {B}x{Nq} queries "
+                          "d_value", got[0], plain[0], ref[0]),
+                compare64(f"C bf16 binsformer {label} d_pos (f32 out)",
+                          got[1], plain[1], ref[1],
+                          floor=1e-5 * ref[1].abs().max().item()),
+                compare64(f"C bf16 binsformer {label} d_weights (f32 out)",
+                          got[2], plain[2], ref[2],
+                          floor=1e-5 * ref[2].abs().max().item()))
+            n_out = n_bytes(*got)
+            del ref, got, again, plain
+            t = timed(lambda: msda_ops.msda_backward(*bargs),
+                      lambda: msda_ops.msda_backward_plain(*bargs),
+                      plain_reps=1, plain_warmup=0, trace_plain=False,
+                      extra={"wide": lambda: msda_ops.msda_backward_wide(
+                          *bargs),
+                          "f32": lambda: msda_ops.msda_backward(*args)})
+            t["bound_ms"], t["bound_by"] = bound(
+                n_bytes(vb, pos, w, gb) + n_out, 17 * n_touch * 8)
+            show(t, against_wide=against(t, "wide"),
+                 against_f32=against(t, "f32"))
+            results[f"msda_backward_bf16 {label}"] = dict(
+                t, max_abs_err=err, queries=Nq)
+            del gout, gb, args, bargs
+        del value, vb, pos, w
         torch.cuda.empty_cache()
     return results
+
+
+def against(t, label):
+    """The kernel's device time over that of `t['extra_ms'][label]`."""
+    other = t["extra_ms"][label][0]
+    if not (t["device_ms"] and other):
+        return "not measured"
+    return f"{t['device_ms'] / other:.3f}x"
 
 
 def binsformer_rows(row, results, counted):
@@ -3199,9 +3286,12 @@ def binsformer_rows(row, results, counted):
     phase 36's `binsformer_nyu` run made there: A f32 and B from its f32
     flip-TTA requests (serving shapes) and its f32 train step (train
     shapes); A bf16 and B bf16 from its bf16 request and its bf16_compute
-    step; C from the f32 step."""
+    step; C from the f32 step, C bf16 from the bf16_compute step. B and C
+    ran on their narrow instance (csrc/msda_narrow.cu), each row with the
+    wide instance's time in the same process (`wide_device_ms`)."""
     bf16_kernels = {"window_attention_bf16": "window_attention",
-                    "msda_bf16": "msda"}
+                    "msda_bf16": "msda",
+                    "msda_backward_bf16": "msda_backward"}
     rows = []
     for name, t in results.items():
         kernel, label = name.split(" ", 1)
@@ -3219,6 +3309,9 @@ def binsformer_rows(row, results, counted):
         if kernel in bf16_kernels:
             r["against"] = "float64"
             r["f32_device_ms"], r["f32_event_ms"] = t["extra_ms"]["f32"]
+        if "wide" in t["extra_ms"]:
+            r["source"] = NARROW_SOURCE
+            r["wide_device_ms"], r["wide_event_ms"] = t["extra_ms"]["wide"]
         rows.append(r)
     return rows
 
@@ -4175,12 +4268,13 @@ def binsformer_steps(tree, requests, counters):
                 model.named_parameters()},
                state.generator.get_state(), read_counts(counters),
                read_dtypes(counters), ms,
-               torch.cuda.max_memory_allocated() / 2**20)
+               torch.cuda.max_memory_allocated() / 2**20,
+               read_instances(counters))
         del state, model
         torch.cuda.empty_cache()
         return out
 
-    metrics, grads, gen, counted, _, ms, peak = step(False)
+    metrics, grads, gen, counted, _, ms, peak, instances = step(False)
     if not all(np.isfinite(v) for v in metrics.values()) or set(metrics) != {
             "loss", "loss_depth", "loss_ce", "aux_loss_depth_2",
             "aux_loss_depth_5", "grad_norm", "lr"}:
@@ -4189,12 +4283,15 @@ def binsformer_steps(tree, requests, counters):
     if counted[0] != BINS_PER_STEP or counted[1] != want_by:
         fail(f"{tag} step launches {counted}; expected {BINS_PER_STEP}, "
              f"{want_by}")
+    if instances != narrow_launches(torch.float32, 6, 6):
+        fail(f"{tag} step: B's and C's launches by instance {instances}, "
+             f"expected {narrow_launches(torch.float32, 6, 6)}")
     print(f"{tag} f32 step, batch 2 at 416x544 with scene classes: "
           + " ".join(f"{k}={v:.6f}" for k, v in metrics.items())
           + f"; {ms:.3f} ms (host clock, synchronised, cuDNN's defaults), "
           f"peak {peak:.1f} MiB; launches {counted[0]}, by queries "
           f"{counted[1]}", flush=True)
-    again, grads2, gen2, _, _, _, _ = step(False)
+    again, grads2, gen2, _, _, _, _, _ = step(False)
     if again["loss"] != metrics["loss"] or not torch.equal(gen, gen2):
         fail(f"{tag} the same step from the same seed: loss "
              f"{metrics['loss']!r} then {again['loss']!r}, generator "
@@ -4215,16 +4312,23 @@ def binsformer_steps(tree, requests, counters):
           f"furthest relative (L2 of the difference, L2, name): "
           f"{apart[:3]}", flush=True)
     del grads, grads2
-    bf_metrics, _, _, bf_counted, bf_dtypes, bf_ms, bf_peak = step(True)
+    (bf_metrics, _, _, bf_counted, bf_dtypes, bf_ms, bf_peak,
+     bf_instances) = step(True)
     bf16_step = {k: v.get("bf16", 0) for k, v in bf_dtypes.items()}
     want = {k: v for k, v in BINS_PER_STEP.items() if k != "pe_fusion"}
     if bf16_step != want or not all(np.isfinite(v)
                                     for v in bf_metrics.values()):
         fail(f"{tag} bf16_compute step: bf16 launches {bf16_step} "
              f"(expected {want}), metrics {bf_metrics}")
+    if bf_instances != narrow_launches(torch.bfloat16, 6, 6):
+        fail(f"{tag} bf16_compute step: B's and C's launches by instance "
+             f"{bf_instances}, expected "
+             f"{narrow_launches(torch.bfloat16, 6, 6)}")
     print(f"{tag} bf16_compute step: loss={bf_metrics['loss']:.6f} "
           f"loss_ce={bf_metrics['loss_ce']:.6f}; {bf_ms:.3f} ms, peak "
-          f"{bf_peak:.1f} MiB; bf16 launches {bf16_step}", flush=True)
+          f"{bf_peak:.1f} MiB; bf16 launches {bf16_step}; B and C by "
+          f"instance, f32 step {instances}, bf16 step {bf_instances}",
+          flush=True)
 
     handle = init_depther(BINSFORMER, device="cuda", seed=SEED, bf16=True)
     inference_depther(handle, requests[0][0])             # warm-up
@@ -4232,13 +4336,16 @@ def binsformer_steps(tree, requests, counters):
     depth = inference_depther(handle, requests[0][0])
     bf16_request = {k: v.get("bf16", 0)
                     for k, v in read_dtypes(counters).items()}
+    request_instances = read_instances(counters)
     check_depth(f"{tag} bf16 request", depth, handle.cfg.model, (480, 640))
     want = {"window_attention": 24, "msda": 12, "msda_backward": 0}
-    if bf16_request != want:
+    if bf16_request != want \
+            or request_instances != narrow_launches(torch.bfloat16, 12, 0):
         fail(f"{tag} bf16 request: bf16 launches {bf16_request}, expected "
-             f"{want}")
+             f"{want}; B by instance {request_instances}")
     print(f"{tag} bf16 flip-TTA request (whole model cast): bf16 launches "
-          f"{bf16_request}", flush=True)
+          f"{bf16_request}; B and C by instance {request_instances}",
+          flush=True)
     del handle
     torch.cuda.empty_cache()
     return {"step": counted, "bf16_step": bf16_step,
@@ -4299,6 +4406,14 @@ def _zoo_presets(trees, by_tree, counters, tb_ok, summary):
         launches, _ = read_counts(counters)
         n = len(by_tree[ZOO_SPECS[preset]["tree"]])
         if preset == BINSFORMER:
+            # every launch of B and C of the run (serving, training,
+            # evaluation, tools.test) on the narrow instance, in f32
+            by_instance = read_instances(counters)
+            if by_instance != narrow_launches(
+                    torch.float32, launches["msda"],
+                    launches["msda_backward"]):
+                fail(f"[zoo {preset}] B and C by instance {by_instance}; "
+                     f"expected the narrow instance alone")
             want = {k: n * v for k, v in BINS_PER_REQUEST.items()}
             want_by = {"msda": {BINS_SERVE_Q: n * 12}, "msda_backward": {}}
             if requested != (want, want_by):

@@ -41,6 +41,8 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # long long
 _MSDA_FWD = [_P] * 7 + [_I] * 11 + [_P]
 _MSDA_BWD = [_P] * 11 + [_I] * 11 + [_P]
+_MSDA_NARROW_FWD = [_P] * 5 + [_I] * 8 + [_P]
+_MSDA_NARROW_BWD = [_P] * 9 + [_I] * 8 + [_P]
 _SIGNATURES = {
     "window_attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _L, _L, _L, _L, _L, _L, _P],
@@ -49,6 +51,10 @@ _SIGNATURES = {
     "msda_fwd": _MSDA_FWD, "msda_fwd_bf16": _MSDA_FWD,
     "msda_bwd": _MSDA_BWD, "msda_bwd_bf16": [_P] * 11 + [_I] * 12 + [_P],
     "msda_plan": [_P] * 6 + [_I] * 10 + [_P],
+    "msda_narrow_fwd": _MSDA_NARROW_FWD,
+    "msda_narrow_fwd_bf16": _MSDA_NARROW_FWD,
+    "msda_narrow_bwd": _MSDA_NARROW_BWD,
+    "msda_narrow_bwd_bf16": _MSDA_NARROW_BWD,
     "pe_fusion_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P],
 }
 

@@ -19,7 +19,11 @@ C's plain twin, equal to autograd through `msda_plain` to the bit).
 
 The value is f32 or bf16, and each kernel has an instance for either (the
 bf16 ones are kernels of their own, `csrc/msda_fwd_bf16.cu` and
-`csrc/msda_bwd_bf16.cu`: 16-byte slices of 8 bf16 a lane). pos
+`csrc/msda_bwd_bf16.cu`: 16-byte slices of 8 bf16 a lane). Heads of one
+or two 16-byte slices (f32 d = 4 or 8, bf16 d = 8 or 16; `narrow_slices`)
+take a narrow instance of both, in either dtype (`csrc/msda_narrow.cu`: a
+thread a query and head with every channel in its registers, no plan);
+the others, the wide instances below. pos
 and weights are f32 at the kernels' boundary whatever the value: a bf16
 position on a 304-pixel level has a quarter-pixel grid, so a bf16 model
 forms them in f32 from its bf16 projections (as the JAX package's kernel
@@ -29,7 +33,7 @@ takes grad_out in bf16 and returns d_value in bf16 (summed in f32, rounded
 once), d_pos and d_weights in f32. A bf16 window takes half the shared
 memory, so C's plan of a bf16 value stages more.
 
-Both kernels walk a tile plan: a block owns a tile of queries and one
+The wide instances walk a tile plan: a block owns a tile of queries and one
 head and, level by level, stages in shared memory a value window around
 where the tile's samples fall. With the query grids and the radius that
 bounds the offsets (`query_shapes`, `window_radius`) the host plans
@@ -174,6 +178,21 @@ def lanes_of(head_dim: int, aligned: bool = True, itemsize: int = 4):
     if head_dim % 8 == 0 and aligned:
         return 8, next(g for g in (4, 8, 16) if 8 * g >= head_dim)
     return 1, 32
+
+
+# the launches_by_instance key of the narrow instance: (dtype, NARROW, d)
+NARROW = "narrow"
+
+
+def narrow_slices(head_dim: int, itemsize: int = 4,
+                  aligned: bool = True) -> int:
+    """16-byte slices of a head that kernels B and C run on their narrow
+    instance (csrc/msda_narrow.cu: a thread a query and head, every channel
+    in its registers): 1 or 2 for a head of one or two whole slices (f32 d
+    = 4 or 8, bf16 d = 8 or 16) with 16-byte aligned tensors; 0 for every
+    other launch, which takes the wide instances (`lanes_of`)."""
+    slices, rest = divmod(head_dim * itemsize, 16)
+    return slices if aligned and rest == 0 and slices in (1, 2) else 0
 
 
 def stage_budget_backward(head_dim: int, lanes: int, points: int,
@@ -890,8 +909,9 @@ def _check_kernel_inputs(value, spatial_shapes, pos, weights, grad_out=None):
 # until it does.
 UNPLANNED_LEVELS = "more levels than a plan holds"
 UNPLANNED_CORNER = "narrow corners: the plan costs more than it saves yet"
-# The least bytes of a corner with which a launch plans, measured on the
-# H100 by tests/msda_plan_rules.py: B reads d elements of the value a corner
+# The least bytes of a corner with which a launch of the wide instances
+# plans (the narrow instance plans nothing), measured on the H100 by
+# tests/msda_plan_rules.py: B reads d elements of the value a corner
 # (f32 at d = 64 gains by the plan; bf16 at d = 64, whose kernel reads
 # through L1 and gains ~8% by the plan's order, loses that to the plan's
 # launches and host time; d = 8 loses by it in either dtype); C adds d f32
@@ -974,13 +994,54 @@ def _plan_reason(value, pos, forward):
     return None
 
 
+def _count(counted, value, Nq, instance, unplanned=None):
+    """One launch of B (`msda`) or C (`msda_backward`) in its counters."""
+    counted.launches += 1
+    counted.launches_by_queries[Nq] += 1
+    counted.launches_by_dtype[value.dtype] += 1
+    counted.launches_by_instance[instance] += 1
+    if unplanned:
+        counted.unplanned[unplanned] += 1
+
+
+def _takes_narrow(value, *tensors):
+    """Whether a launch takes the narrow instance (`narrow_slices`)."""
+    return narrow_slices(value.shape[3], value.element_size(),
+                         _aligned(value, *tensors)) > 0
+
+
+def _narrow_counts(value, window):
+    """The instance key of a narrow launch, and the reason under which an
+    unhinted one counts as unplanned: it takes no plan, hinted or not."""
+    return ((value.dtype, NARROW, value.shape[3]),
+            UNPLANNED_CORNER if window[1] is None else None)
+
+
+def _vector_rows(pos, *rows):
+    """1 where a narrow launch reads (and C writes) its rows of positions
+    and weights 16 bytes at a time: P a multiple of 4, every row tensor
+    16-byte aligned."""
+    return int(pos.shape[4] % 4 == 0 and _aligned(pos, *rows))
+
+
 def _launch_forward(value, spatial_shapes, pos, weights, window,
-                    planned=True):
-    """Kernel B on CUDA tensors already checked. planned=False: the
-    unplanned rows, whatever the window (what a plan is held against)."""
+                    planned=True, wide=False):
+    """Kernel B on CUDA tensors already checked: the narrow instance where
+    `narrow_slices` says so, else the wide ones over their plan.
+    planned=False: the wide instance over the unplanned rows, whatever the
+    window (what a plan is held against); wide=True: the wide instance as
+    it would run without the narrow one (what the narrow one is held
+    against)."""
     B, S, h, d = value.shape
     Nq, L, P = pos.shape[1], pos.shape[3], pos.shape[4]
     out = value.new_empty(B, Nq, h * d)
+    if planned and not wide and _takes_narrow(value, out):
+        _lib.call(_entry("msda_narrow_fwd", value), value.data_ptr(),
+                  _level_table(spatial_shapes, value.device).data_ptr(),
+                  pos.data_ptr(), weights.data_ptr(), out.data_ptr(), B, S,
+                  Nq, h, d, L, P, _vector_rows(pos, weights))
+        _count(msda, value, Nq, *_narrow_counts(value, window))
+        return out
     unplanned = None
     if planned and window[1] is None:
         unplanned = _plan_reason(value, pos, True)
@@ -993,16 +1054,13 @@ def _launch_forward(value, spatial_shapes, pos, weights, window,
     _lib.call(_entry("msda_fwd", value), value.data_ptr(), a.levels, a.tiles,
               a.perm, pos.data_ptr(), weights.data_ptr(), out.data_ptr(), B,
               S, Nq, h, d, L, P, a.n_tiles, a.stage_elems, a.vec, a.lanes)
-    msda.launches += 1
-    msda.launches_by_queries[Nq] += 1
-    msda.launches_by_dtype[value.dtype] += 1
-    msda.launches_by_instance[(value.dtype, a.vec, a.lanes)] += 1
+    _count(msda, value, Nq, (value.dtype, a.vec, a.lanes))
     return out
 
 
 def _launch_backward(value, spatial_shapes, pos, weights, grad_out, window,
-                     planned=True):
-    """Kernel C on CUDA tensors already checked; `planned` as in
+                     planned=True, wide=False):
+    """Kernel C on CUDA tensors already checked; `planned` and `wide` as in
     `_launch_forward`."""
     B, S, h, d = value.shape
     Nq, L, P = pos.shape[1], pos.shape[3], pos.shape[4]
@@ -1012,6 +1070,15 @@ def _launch_backward(value, spatial_shapes, pos, weights, grad_out, window,
            else torch.empty_like(value, dtype=torch.float32))
     d_pos = torch.empty_like(pos)
     d_weights = torch.empty_like(weights)
+    if planned and not wide and _takes_narrow(value, grad_out, d_value, acc):
+        _lib.call(_entry("msda_narrow_bwd", value), value.data_ptr(),
+                  _level_table(spatial_shapes, value.device).data_ptr(),
+                  pos.data_ptr(), weights.data_ptr(), grad_out.data_ptr(),
+                  acc.data_ptr(), d_value.data_ptr(), d_pos.data_ptr(),
+                  d_weights.data_ptr(), B, S, Nq, h, d, L, P,
+                  _vector_rows(pos, weights, d_pos, d_weights))
+        _count(msda_backward, value, Nq, *_narrow_counts(value, window))
+        return d_value, d_pos, d_weights
     geometry = _backward_geometry(value, P, grad_out, d_value, acc)
     unplanned = None
     if not planned:
@@ -1044,10 +1111,7 @@ def _launch_backward(value, spatial_shapes, pos, weights, grad_out, window,
               acc.data_ptr(), d_value.data_ptr(), d_pos.data_ptr(),
               d_weights.data_ptr(), B, S, Nq, h, d, L, P, a.n_tiles,
               a.stage_elems, *bins, a.vec, a.lanes)
-    msda_backward.launches += 1
-    msda_backward.launches_by_queries[Nq] += 1
-    msda_backward.launches_by_dtype[value.dtype] += 1
-    msda_backward.launches_by_instance[(value.dtype, a.vec, a.lanes)] += 1
+    _count(msda_backward, value, Nq, (value.dtype, a.vec, a.lanes))
     return d_value, d_pos, d_weights
 
 
@@ -1290,6 +1354,30 @@ def msda_backward_unplanned(value, spatial_shapes, pos, weights, grad_out):
     _check_kernel_inputs(value, spatial_shapes, pos, weights, grad_out)
     return _launch_backward(value, spatial_shapes, pos, weights, grad_out,
                             None, planned=False)
+
+
+def msda_wide(value, spatial_shapes, pos, weights, query_shapes=None,
+              window_radius=None):
+    """Kernel B as `msda` launches it, but on the wide instances also where
+    the narrow one serves (`narrow_slices`), on CUDA tensors: what the
+    narrow instance is held against. The main path never calls it."""
+    shapes, grids, radius = _op_args(value, spatial_shapes, pos, weights,
+                                     query_shapes, window_radius)
+    shapes = _pairs(shapes)
+    _check_kernel_inputs(value, shapes, pos, weights)
+    return _launch_forward(value, shapes, pos, weights,
+                           _window(grids, radius, pos.shape[1]), wide=True)
+
+
+def msda_backward_wide(value, spatial_shapes, pos, weights, grad_out,
+                       query_shapes=None, window_radius=None):
+    """Kernel C on the wide instances, as `msda_wide`."""
+    shapes, grids, radius = _op_args(value, spatial_shapes, pos, weights,
+                                     query_shapes, window_radius)
+    shapes = _pairs(shapes)
+    _check_kernel_inputs(value, shapes, pos, weights, grad_out)
+    return _launch_backward(value, shapes, pos, weights, grad_out,
+                            _window(grids, radius, pos.shape[1]), wide=True)
 
 
 msda.launches = 0

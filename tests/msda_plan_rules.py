@@ -11,8 +11,9 @@ For each shape (the exact rule at the KITTI serving and train shapes of
 `chip_smoke.py` phase 9, in f32 and bf16, and BinsFormer's encoder at
 d = 8, f32 and bf16; the first shape once more at the end) it prints one
 JSON line: B
-(and C at the train shapes) over the unplanned rows and over the card's
-plan whatever the corner bytes, in ms a call by CUDA events over 10
+(and C at the train shapes) on their wide instances (`msda_wide`: d = 8
+otherwise takes the narrow instance, which plans nothing) over the
+unplanned rows and over the card's plan whatever the corner bytes, in ms a call by CUDA events over 10
 back-to-back calls (the plan included), twice each in the order unplanned,
 planned, unplanned, planned, then once more of each after one call of the
 plain version (as `chip_smoke.py` runs it first); and the plan's kernels
@@ -41,9 +42,12 @@ staged in shared memory). One JSON line a shape, as above.
 
 times B at BinsFormer's encoder shapes (`chip_smoke.py` phase 37: the
 exact rule, 3 levels, 8 heads of 8; serving 6,300 queries, train 2 x
-4,641) in bf16 and f32 with each checkout ROOT's own kernels, in the order
-given, each in a process of its own: ms a call by CUDA events (10 calls,
-twice) and device ms by `torch.profiler`, one JSON line a shape and root.
+4,641), and C at the train shape, in bf16 and f32 with each checkout
+ROOT's own kernels (since the narrow instance, csrc/msda_narrow.cu, what
+`msda` and `msda_backward` launch there), in the order given, each in a
+process of its own: ms a call by CUDA events (10 calls, twice) and device
+ms by `torch.profiler` (B summed, C by kernel: `_C_device`), one JSON line
+a shape and root.
 Two trees compared on one card: give them as parent, change, change,
 parent.
 
@@ -168,6 +172,7 @@ for name, B, levels in (("serving", 1, cs.BINS_SERVE_LEVELS),
     value = randn(B, sum(a * b for a, b in levels), 8, 8)
     pos, w, _ = cs.rule_positions("exact", randn, g, B, levels, levels,
                                   False)
+    gout = randn(B, pos.shape[1], 64)
     row = {"root": ROOT, "shape": name, "queries": pos.shape[1]}
     for dtype in (torch.bfloat16, torch.float32):
         v = value.to(dtype)
@@ -186,6 +191,26 @@ for name, B, levels in (("serving", 1, cs.BINS_SERVE_LEVELS),
             torch.cuda.synchronize()
         row[key + "_device"] = round(sum(
             e.device_time_total for e in prof.key_averages()) / 5e3, 4)
+        if B == 2:
+            gv = gout.to(dtype)
+
+            def fc():
+                return m.msda_backward(v, levels, pos, w, gv)
+
+            row[key + "_C"] = [round(cs.burst_ms(fc, calls=10, warmup=2), 4)
+                               for _ in range(2)]
+            fc()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    fc()
+                torch.cuda.synchronize()
+            # device ms a call by kernel: which of C's kernels holds it
+            row[key + "_C_device"] = {
+                e.key.replace("(anonymous namespace)::", "").replace(
+                    "void ", "").split("<")[0].split("(")[0]:
+                    round(e.device_time_total / 5e3, 4)
+                for e in prof.key_averages() if e.device_time_total > 0}
     print(json.dumps(row), flush=True)
 """
 
@@ -319,14 +344,16 @@ def main():
         row = {"shape": name, "card": smi,
                "plan_device": {k.split("::")[-1].split("(")[0]: v
                                for k, v in plan.items()}}
+        # the wide instances, planned (d = 8 launches the narrow one,
+        # which takes no plan)
         both(row, "B", lambda: m.msda_unplanned(value, levels, pos, w),
-             lambda: m.msda(value, levels, pos, w),
+             lambda: m.msda_wide(value, levels, pos, w),
              lambda: m.msda_plain(value, levels, pos, w))
         if backward:
             gout = randn(B, pos.shape[1], 8 * d).to(dtype)
             args = (value, levels, pos, w, gout)
             both(row, "C", lambda: m.msda_backward_unplanned(*args),
-                 lambda: m.msda_backward(*args),
+                 lambda: m.msda_backward_wide(*args),
                  lambda: m.msda_backward_plain(*args))
             del gout, args
         print(json.dumps(row), flush=True)

@@ -493,7 +493,8 @@ def test_planned_kernels_equal_unplanned(case, dtype, monkeypatch):
     own offsets; levels are staged (but by B's bf16 instance, which takes
     only the plan's order). B and C are planned here whatever their
     corners' bytes (the main path plans them from PLAN_MIN_CORNER_BYTES_*
-    on)."""
+    on), on their wide instances (`msda_wide`: at d = 8 the main path
+    takes the narrow instance, which plans nothing)."""
     monkeypatch.setattr(msda_ops, "PLAN_MIN_CORNER_BYTES_FORWARD", 0)
     monkeypatch.setattr(msda_ops, "PLAN_MIN_CORNER_BYTES_BACKWARD", 0)
     levels, B, Nq, h, P, d = PLAN_CASES[case]
@@ -506,10 +507,11 @@ def test_planned_kernels_equal_unplanned(case, dtype, monkeypatch):
         d, lanes, P, item), item)
     assert (plan.rows[:, msda_ops.TILE_HEADER + 2::4] > 0).any()
     plans = msda_ops.msda_plan.launches
-    got = msda_ops.msda(value, levels, pos, w)
+    # the wide instances: at d = 8 `msda` takes the narrow one, unplanned
+    got = msda_ops.msda_wide(value, levels, pos, w)
     want = msda_ops.msda_unplanned(value, levels, pos, w)
     assert torch.equal(got, want)
-    grads = msda_ops.msda_backward(value, levels, pos, w, gout)
+    grads = msda_ops.msda_backward_wide(value, levels, pos, w, gout)
     assert msda_ops.msda_plan.launches == plans + 2
     ref = msda_ops.msda_backward_unplanned(value, levels, pos, w, gout)
     torch.cuda.synchronize()
@@ -1049,7 +1051,9 @@ def test_msda_bf16_forward_kernel(d, lanes, far):
     hint and over the card's plan, against float64 of the same bf16
     inputs; `far`: a tenth of the samples tens of pixels or 1e6 away, out
     of their windows and mostly out of their levels. Each launch counts
-    under (bf16, 8, lanes)."""
+    under (bf16, 8, lanes); at d = 8 and 16 (one or two 16-byte slices)
+    `msda` takes the narrow instance, counted under (bf16, 'narrow', d),
+    and the wide one is held alike through `msda_wide`."""
     g = torch.Generator(device="cuda").manual_seed(32)
     grids = ((11, 19), (6, 10))
     levels = ((22, 38), (11, 19), (6, 10))
@@ -1058,14 +1062,20 @@ def test_msda_bf16_forward_kernel(d, lanes, far):
     ref = msda_ops.msda_plain(value.double(), levels, pos.double(),
                               w.double())
     plain = msda_ops.msda_plain(value, levels, pos, w)
+    wide = (BF16, 8, lanes)
+    launches = [(msda_ops.msda_wide, wide)]
+    if msda_ops.narrow_slices(d, 2):
+        launches.append((msda_ops.msda, (BF16, msda_ops.NARROW, d)))
+    else:
+        launches.append((msda_ops.msda, wide))
     for hint in ((grids, 4), ()):
-        before = msda_ops.msda.launches_by_instance[(BF16, 8, lanes)]
-        got = msda_ops.msda(value, levels, pos, w, *hint)
-        torch.cuda.synchronize()
-        assert msda_ops.msda.launches_by_instance[(BF16, 8, lanes)] == \
-            before + 1
-        assert got.dtype == BF16
-        _assert_close_to_f64(got, plain, ref)
+        for launch, key in launches:
+            before = msda_ops.msda.launches_by_instance[key]
+            got = launch(value, levels, pos, w, *hint)
+            torch.cuda.synchronize()
+            assert msda_ops.msda.launches_by_instance[key] == before + 1
+            assert got.dtype == BF16
+            _assert_close_to_f64(got, plain, ref)
 
 
 @pytest.mark.parametrize("case", ["unaligned", "d12"])
@@ -1154,7 +1164,9 @@ def test_msda_bf16_forward_staged_equals_unstaged(d, share, monkeypatch):
     value, pos, w, _ = _bf16_msda_case(g, grids, levels, 2, 3, d, 8, 2.0,
                                        True)
     monkeypatch.setattr(msda_ops, "PLAN_MIN_CORNER_BYTES_FORWARD", 0)
-    want = [msda_ops.msda(value, levels, pos, w, *hint)
+    # the wide instance: at d = 8 `msda` takes the narrow one, which
+    # stages nothing
+    want = [msda_ops.msda_wide(value, levels, pos, w, *hint)
             for hint in ((grids, 4), ())]
     monkeypatch.setattr(msda_ops, "STAGE_SHARE_FORWARD_BF16", share)
     vec, lanes = msda_ops.lanes_of(d, itemsize=2)
@@ -1165,7 +1177,7 @@ def test_msda_bf16_forward_staged_equals_unstaged(d, share, monkeypatch):
     assert 2 * (msda_ops.shared_bytes(plan.stage_elems, d, lanes, 2)
                 + 1024) <= msda_ops.SM_SHARED_BYTES
     for hint, before in zip(((grids, 4), ()), want):
-        got = msda_ops.msda(value, levels, pos, w, *hint)
+        got = msda_ops.msda_wide(value, levels, pos, w, *hint)
         torch.cuda.synchronize()
         assert torch.equal(got, before)
 
@@ -1807,6 +1819,129 @@ def test_msda_kernels_at_binsformer_shapes(B, levels):
     _assert_msda_grads(
         msda_ops.msda_backward(value, levels, pos, w, gout),
         msda_ops.msda_backward_plain(value, levels, pos, w, gout))
+
+
+# ---- the narrow instance of B and C (csrc/msda_narrow.cu) -----------------
+#
+# Heads of one or two 16-byte slices (f32 d = 4 or 8, bf16 d = 8 or 16)
+# with 16-byte aligned tensors take it: a thread a query and head, no plan.
+# B equals the wide instance bit for bit (the same arithmetic per channel,
+# over l, p ascending); C's d_pos and d_w are deterministic.
+
+NARROW_WIDTHS = [(torch.float32, 4), (torch.float32, 8), (BF16, 8),
+                 (BF16, 16)]
+
+
+@pytest.mark.parametrize("spread", [3.0, 40.0])
+@pytest.mark.parametrize("P", [8, 3])
+@pytest.mark.parametrize("dtype,d", NARROW_WIDTHS)
+def test_msda_narrow_kernels(dtype, d, P, spread):
+    """B and C on their narrow instance at every narrow width, with P = 8
+    (positions and weights read 16 bytes at a time) and P = 3 (one by
+    one), offsets of a few level pixels or of tens (many samples off the
+    level; a twentieth thrown 60 pixels or 1e6 away in either case),
+    against the plain versions (f32: rtol 2e-4, atol 2e-5; d_value to
+    rtol 2e-4 plus 1e-5 of its largest) or float64 of the same bf16 inputs
+    (phase 13's contract); B equal to the wide instance bit for bit; C's
+    d_pos and d_w the same over two launches. Each launch counts under
+    (dtype, 'narrow', d) and, unhinted, as unplanned by the corner rule; a
+    hinted launch plans nothing either and gives the same output."""
+    g = torch.Generator(device="cuda").manual_seed(41)
+    levels = ((30, 40), (15, 20), (8, 10))
+    value, pos, w, gout = _exact_case(g, levels, 2, 700, 5, P,
+                                      spread=spread, dtype=dtype, d=d)
+    key, reason = (dtype, msda_ops.NARROW, d), msda_ops.UNPLANNED_CORNER
+    fwd, bwd = msda_ops.msda, msda_ops.msda_backward
+
+    def counts():
+        return (fwd.launches_by_instance[key], bwd.launches_by_instance[key],
+                fwd.unplanned[reason], bwd.unplanned[reason],
+                msda_ops.msda_plan.launches)
+
+    before = counts()
+    got = fwd(value, levels, pos, w)
+    grads = bwd(value, levels, pos, w, gout)
+    hinted = fwd(value, levels, pos, w, ((28, 25),), 4)
+    again = bwd(value, levels, pos, w, gout, ((28, 25),), 4)
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 2, before[1] + 2, before[2] + 1,
+                        before[3] + 1, before[4])
+    assert torch.equal(hinted, got)
+    assert torch.equal(got, msda_ops.msda_wide(value, levels, pos, w))
+    assert torch.equal(grads[1], again[1])
+    assert torch.equal(grads[2], again[2])
+    assert [t.dtype for t in grads] == [dtype, torch.float32, torch.float32]
+    if dtype == torch.float32:
+        torch.testing.assert_close(
+            got, msda_ops.msda_plain(value, levels, pos, w), rtol=2e-4,
+            atol=2e-5)
+        _assert_msda_grads(grads, msda_ops.msda_backward_plain(
+            value, levels, pos, w, gout))
+        return
+    args64 = (value.double(), levels, pos.double(), w.double())
+    _assert_close_to_f64(got, msda_ops.msda_plain(value, levels, pos, w),
+                         msda_ops.msda_plain(*args64))
+    ref = msda_ops.msda_backward_plain(*args64, gout.double())
+    plain = msda_ops.msda_backward_plain(value, levels, pos, w, gout)
+    _assert_close_to_f64(grads[0], plain[0], ref[0])
+    for i in (1, 2):
+        _assert_close_to_f64(grads[i], plain[i], ref[i],
+                             floor=1e-5 * ref[i].abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("B,levels", [
+    (1, ((60, 80), (30, 40), (15, 20))), (2, ((52, 68), (26, 34), (13, 17)))])
+def test_msda_narrow_equals_wide_at_binsformer_shapes(B, levels, dtype):
+    """At BinsFormer's encoder shapes (6,300 queries served, 2 x 4,641 a
+    train crop; 8 heads of 8, every token's grid centre as its reference,
+    offsets of 3 level pixels), the narrow B gives the wide instance's
+    output bit for bit in f32 and bf16; the narrow C's d_pos and d_w are
+    the same over two launches and agree with the wide instance's to
+    rounding (f32: rtol 2e-4, atol 2e-5, and d_value to rtol 2e-4 plus
+    1e-5 of its largest; bf16: d_value within one bf16 ulp of its largest
+    magnitude of the wide one's, whose f32 sums meet in another order)."""
+    g = torch.Generator(device="cuda").manual_seed(42)
+    Nq = sum(a * b for a, b in levels)
+    ref = msda_ops.center_reference_points(levels, "cuda")
+    pos = msda_ops.exact_positions(ref, 3.0 * _randn(g, B, Nq, 8, 3, 8, 2),
+                                   levels).contiguous()
+    value = _randn(g, B, Nq, 8, 8).to(dtype)
+    w = _randn(g, B, Nq, 8, 24).softmax(-1).view(B, Nq, 8, 3, 8)
+    gout = _randn(g, B, Nq, 64).to(dtype)
+    assert torch.equal(msda_ops.msda(value, levels, pos, w),
+                       msda_ops.msda_wide(value, levels, pos, w))
+    grads = msda_ops.msda_backward(value, levels, pos, w, gout)
+    again = msda_ops.msda_backward(value, levels, pos, w, gout)
+    wide = msda_ops.msda_backward_wide(value, levels, pos, w, gout)
+    torch.cuda.synchronize()
+    assert torch.equal(grads[1], again[1])
+    assert torch.equal(grads[2], again[2])
+    if dtype == torch.float32:
+        _assert_msda_grads(grads, wide)
+        return
+    for i in (1, 2):
+        torch.testing.assert_close(grads[i], wide[i], rtol=2e-4, atol=2e-5)
+    assert (grads[0].float() - wide[0].float()).abs().max().item() <= \
+        _bf16_ulp(wide[0].float().abs().max().item())
+
+
+def test_msda_narrow_launch_that_fails_raises():
+    """A narrow launch that the card refuses raises: its entry returns the
+    CUDA error and `_lib.call` raises it (a head width the narrow instance
+    does not hold, called on the entry directly); nothing falls back."""
+    from gedepth_tpu_torch.ops import _lib
+
+    value = torch.zeros(1, 6, 1, 12, device="cuda")
+    levels = msda_ops._level_table(((2, 3),), value.device)
+    pos = torch.zeros(1, 2, 1, 1, 4, 2, device="cuda")
+    w = torch.zeros(1, 2, 1, 1, 4, device="cuda")
+    out = torch.empty(1, 2, 12, device="cuda")
+    for entry in ("msda_narrow_fwd", "msda_narrow_fwd_bf16"):
+        with pytest.raises(RuntimeError, match=entry):
+            _lib.call(entry, value.data_ptr(), levels.data_ptr(),
+                      pos.data_ptr(), w.data_ptr(), out.data_ptr(), 1, 6, 2,
+                      1, 12, 1, 4, 1)
 
 
 def test_binsformer_textbook_on_the_card(tmp_path):
